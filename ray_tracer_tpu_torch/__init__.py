@@ -1,0 +1,16 @@
+"""ray_tracer_tpu_torch — the PyTorch/CUDA port of ray_tracer_tpu.
+
+A second package beside the JAX one: the same scenes, configuration and
+hit semantics, with plain PyTorch tensor code for the host-side stages and
+CUDA C++ kernels written for Hopper (sm_90a) for the traversals.  It
+imports torch and numpy only, never jax or ray_tracer_tpu.
+
+    from ray_tracer_tpu_torch.models.scenes import serial_scene_config
+    from ray_tracer_tpu_torch.render.renderer import prepare, render
+    img = render(prepare(serial_scene_config(1024, 1024)))   # on cuda
+
+Entry points take `device=` ("cuda" by default; "cpu" runs every kernel's
+plain PyTorch version, as the tests do).
+"""
+
+__version__ = "0.1.0"

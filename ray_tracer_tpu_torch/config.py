@@ -1,0 +1,189 @@
+"""Typed configuration for scenes, cameras, lights, materials and rendering.
+
+The port's own copy of `ray_tracer_tpu/config.py`: the same dataclasses,
+field names and defaults, so one configuration means one render in both
+packages.  Every field is kept; the renderer raises NotImplementedError
+for the options this package does not serve yet
+(`render/renderer.check_supported`) instead of ignoring them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Tuple
+
+Vec3 = Tuple[float, float, float]
+
+
+@dataclass(frozen=True)
+class CameraConfig:
+    """Pinhole look-at camera (reference: Serial/raytracer.cpp:124-138).
+    aperture > 0 (thin-lens depth of field) is not served by the port yet."""
+
+    position: Vec3 = (3.0, 5.0, 3.0)
+    target: Vec3 = (0.0, 0.0, 0.0)
+    up: Vec3 = (0.0, -1.0, 0.0)
+    fov_degrees: float = 45.0
+    width: int = 512
+    height: int = 512
+    aperture: float = 0.0
+    focus_distance: float = 0.0
+
+
+@dataclass(frozen=True)
+class LightConfig:
+    """Single point light (reference: Serial/raytracer.cpp:87-89)."""
+
+    position: Vec3 = (5.0, -5.0, 2.0)
+    intensity: float = 255.0
+
+
+@dataclass(frozen=True)
+class MaterialConfig:
+    """Blinn-Phong material (reference: Parallel/geometry.cuh:284-303).
+    transmissive/ior belong to the path tracer, which the port does not
+    serve yet."""
+
+    base_color: Vec3 = (255.0, 0.0, 0.0)
+    kd: float = 2.0
+    ks: float = 5.0e11
+    spec_alpha: float = 4.0
+    ka: float = 0.2
+    km: float = 0.0
+    reflective: bool = False
+    transmissive: bool = False
+    ior: float = 1.5
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """One OBJ mesh instance in a scene."""
+
+    path: str
+    material_index: int = 0
+    offset: Vec3 = (0.0, 0.0, 0.0)
+    scale: float = 1.0
+    has_vt: bool = True
+
+
+@dataclass(frozen=True)
+class GridConfig:
+    """Uniform-grid acceleration structure (reference: Serial/grid.h:94-101).
+
+    resolution_multiplier=3 and max_resolution=64 reproduce the reference
+    heuristic nVoxels = clamp(delta * 3*cbrt(N)/maxExtent + 1, 1, 64).
+    exact_overlap=True SAT-filters each (triangle, voxel) pair; `leap`
+    belongs to the packed layouts, which the port does not serve yet."""
+
+    resolution_multiplier: float = 3.0
+    max_resolution: int = 64
+    exact_overlap: bool = False
+    leap: str = "box"
+
+
+@dataclass(frozen=True)
+class RenderConfig:
+    """End-to-end render settings; see `ray_tracer_tpu.config.RenderConfig`
+    for what each knob does.  The port serves:
+
+      * shading "serial" | "parallel", faithful True | False;
+      * traversal "csr" (the CSR DDA, kernel B), "brute" (the plain
+        all-pairs sweep) and "brute_pallas" (the all-pairs kernel A; the
+        name is the JAX package's, kept so configs carry over);
+      * max_bounces, shadow_eps, shadow_scale, background, ray_tile,
+        det_dtype, grid.
+
+    Every other knob that changes the JAX package's image must keep its
+    default (the renderer raises); the knobs of the packed and persistent
+    paths (scheduler, wave, pump, ...) do not apply to these traversals,
+    in the JAX package either."""
+
+    shading: str = "serial"  # "serial" | "parallel"
+    faithful: bool = True
+    traversal: str = "csr"
+    packed_block_tris: int = 14
+    packed_unroll: int = 1
+    grid_layout: str = "auto"
+    scheduler: str = "tiled"
+    wave: int = 65536
+    pump: int = 1
+    queue_order: str = "fifo"
+    probe_chain: int = 1
+    refill_retries: "int | None" = None
+    camera_refill: str = "auto"
+    soft_visibility: float = 0.0
+    soft_primary: float = 0.0
+    spp: int = 1
+    texture: str = "none"
+    texture_scale: float = 8.0
+    normal_mode: str = "face"
+    shadow_samples: int = 1
+    light_radius: float = 0.0
+    shadow_sample_batch: int = 1
+    gi_samples: int = 0
+    gi_depth: int = 2
+    gi_sample_batch: int = 4
+    gi_fuse_nee: bool = True
+    gi_env_nee: bool = False
+    gi_specular: bool = True
+    gi_wave: str = "off"
+    whitted_wave: str = "off"
+    fused_shadow: bool = True
+    max_bounces: int = 0  # reflection bounces; parallel reference uses 3
+    shadow_eps: float = 1e-1  # Serial/geometry.h:2; parallel uses 1e-4
+    shadow_scale: float = 0.1
+    background: Vec3 = (0.0, 0.0, 0.0)
+    # rays per plain-path chunk on the CPU; the card traces a whole batch
+    # per kernel launch.  The image does not depend on it.
+    ray_tile: int = 16384
+    dtype: str = "float32"
+    det_dtype: str = "float32"  # "float64" matches the oracle bitwise
+    grid: GridConfig = field(default_factory=GridConfig)
+
+    # ---- derived hit/shadow policy (config.py:367-408 of the JAX package)
+
+    @property
+    def serial_shading(self) -> bool:
+        return self.shading == "serial"
+
+    def primary_gate(self):
+        """Hit-update gate for primary rays: None = accept ANY t (the
+        faithful serial reference counts behind-origin hits,
+        Serial/geometry.h:164-171); the CUDA variant gates t > eps
+        always; the fast serial path gates t > 0."""
+        if self.serial_shading and self.faithful:
+            return None
+        return 0.0 if self.serial_shading else self.shadow_eps
+
+    def bounce_gate(self) -> float:
+        """Hit-update gate for bounce (depth >= 1) rays: at least eps, so
+        a reflected ray cannot re-accept its own origin triangle."""
+        pg = self.primary_gate()
+        return self.shadow_eps if pg is None else max(pg, self.shadow_eps)
+
+    def shadow_mint(self) -> float:
+        """Shadow-ray mint: eps for the serial reference
+        (Serial/geometry.h:2); eps + 0.02 for the CUDA variant
+        (Parallel/raytracer.cu:502)."""
+        return self.shadow_eps if self.serial_shading else self.shadow_eps + 0.02
+
+    def shadow_dir_away_from_light(self) -> bool:
+        """The serial reference points the shadow ray AWAY from the light
+        (raytracer.cpp:106 — a quirk kept for bit-faithfulness)."""
+        return self.serial_shading
+
+    def accepted_hit(self, res):
+        """The faithful serial path counts any barycentric pass along the
+        walked voxels (any_pass, Serial/geometry.h:162-174); every other
+        mode uses the gated nearest hit."""
+        return res.any_pass if (self.serial_shading and self.faithful) else res.hit
+
+
+@dataclass(frozen=True)
+class SceneConfig:
+    meshes: Tuple[MeshConfig, ...] = ()
+    materials: Tuple[MaterialConfig, ...] = (MaterialConfig(),)
+    camera: CameraConfig = field(default_factory=CameraConfig)
+    light: LightConfig = field(default_factory=LightConfig)
+    extra_lights: Tuple[LightConfig, ...] = ()
+    render: RenderConfig = field(default_factory=RenderConfig)

@@ -1,0 +1,241 @@
+"""Scene representation and the reference scene definitions.
+
+Counterpart of `ray_tracer_tpu/models/scenes.py`.  A Scene is a
+NamedTuple of tensors on one device: indexed geometry (verts + faces), a
+per-face material index, the material table and the point light.
+Meshes are loaded and concatenated in numpy on the host, and
+`scene_from_numpy` takes the same arrays the JAX package's
+`scene_from_numpy` takes, so one set of arrays gives both packages the
+identical scene.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ray_tracer_tpu_torch.config import (
+    CameraConfig,
+    LightConfig,
+    MaterialConfig,
+    MeshConfig,
+    RenderConfig,
+    SceneConfig,
+)
+from ray_tracer_tpu_torch.device import resolve_device
+from ray_tracer_tpu_torch.io.obj import MeshArrays, load_obj
+from ray_tracer_tpu_torch.models import meshes as mesh_gen
+from ray_tracer_tpu_torch.models.materials import (
+    PARALLEL_REFERENCE_MATERIALS,
+    SERIAL_REFERENCE_MATERIAL,
+    MaterialTable,
+)
+
+ASSET_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(__file__))), "assets")
+
+
+def asset(name: str) -> str:
+    return os.path.join(ASSET_DIR, name)
+
+
+class Scene(NamedTuple):
+    """Scene tensors on one device: float geometry, integer topology,
+    materials and the light.  uvs/uv_faces carry the OBJ's `vt` data
+    (None when absent); the port's renderer does not sample them yet."""
+
+    verts: torch.Tensor  # (V,3) f32
+    faces: torch.Tensor  # (F,3) i64
+    face_material: torch.Tensor  # (F,) i64
+    materials: MaterialTable
+    light_pos: torch.Tensor  # (3,)
+    light_intensity: torch.Tensor  # ()
+    uvs: Optional[torch.Tensor] = None  # (VT,2) f32
+    uv_faces: Optional[torch.Tensor] = None  # (F,3) i64, -1 where absent
+
+    @property
+    def device(self) -> torch.device:
+        return self.verts.device
+
+    @property
+    def num_faces(self) -> int:
+        return self.faces.shape[0]
+
+    def triangle_soa(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Gathered per-triangle vertices (F,3) x3."""
+        return (
+            self.verts[self.faces[:, 0]],
+            self.verts[self.faces[:, 1]],
+            self.verts[self.faces[:, 2]],
+        )
+
+
+def concat_mesh_arrays(parts: Sequence[Tuple[MeshArrays, int]]):
+    """Host-side concat -> (verts (V,3) f32, faces (F,3) i32, fmat (F,) i32,
+    uvs (VT,2) f32, uv_faces (F,3) i32 with -1 for faces without vt)."""
+    if not parts:
+        raise ValueError(
+            "no meshes to concatenate: this SceneConfig is not "
+            "self-describing (procedural scenes like gradcheck carry their "
+            "geometry in the Scene object; pass scene= to prepare())"
+        )
+    all_verts = []
+    all_faces = []
+    all_fmat = []
+    all_uvs = []
+    all_uvf = []
+    voffset = 0
+    uvoffset = 0
+    for mesh, midx in parts:
+        nf = mesh.faces.shape[0]
+        all_verts.append(mesh.verts)
+        all_faces.append(mesh.faces + voffset)
+        all_fmat.append(np.full((nf,), midx, dtype=np.int32))
+        if mesh.uvs.size and mesh.uv_faces.size:
+            all_uvs.append(mesh.uvs)
+            # -1 rows mark faces without vt and keep their -1
+            all_uvf.append(
+                np.where(mesh.uv_faces >= 0, mesh.uv_faces + uvoffset, -1)
+            )
+            uvoffset += mesh.uvs.shape[0]
+        else:
+            all_uvf.append(np.full((nf, 3), -1, dtype=np.int32))
+        voffset += mesh.verts.shape[0]
+    uvs = (np.concatenate(all_uvs, axis=0).astype(np.float32)
+           if all_uvs else np.zeros((1, 2), np.float32))
+    return (
+        np.concatenate(all_verts, axis=0).astype(np.float32),
+        np.concatenate(all_faces, axis=0).astype(np.int32),
+        np.concatenate(all_fmat, axis=0),
+        uvs,
+        np.concatenate(all_uvf, axis=0).astype(np.int32),
+    )
+
+
+def scene_from_numpy(
+    verts: np.ndarray,
+    faces: np.ndarray,
+    fmat: np.ndarray,
+    materials: Sequence[MaterialConfig],
+    light: LightConfig,
+    uvs: Optional[np.ndarray] = None,
+    uv_faces: Optional[np.ndarray] = None,
+    dtype=torch.float32,
+    device=None,
+) -> Scene:
+    """The same arguments as the JAX package's `scene_from_numpy`, plus
+    the device (cuda unless "cpu" is asked for)."""
+    dev = resolve_device(device)
+
+    def idx(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
+
+    return Scene(
+        verts=torch.as_tensor(np.asarray(verts), device=dev).to(dtype),
+        faces=idx(faces),
+        face_material=idx(fmat),
+        materials=MaterialTable.from_configs(materials, dtype=dtype, device=dev),
+        light_pos=torch.tensor(light.position, dtype=dtype, device=dev),
+        light_intensity=torch.tensor(light.intensity, dtype=dtype, device=dev),
+        uvs=(torch.as_tensor(np.asarray(uvs), device=dev).to(dtype)
+             if uvs is not None else None),
+        uv_faces=idx(uv_faces) if uv_faces is not None else None,
+    )
+
+
+def scene_from_meshes(
+    parts: Sequence[Tuple[MeshArrays, int]],
+    materials: Sequence[MaterialConfig],
+    light: LightConfig,
+    dtype=torch.float32,
+    device=None,
+) -> Scene:
+    """Concatenate (mesh, material_index) parts into one Scene."""
+    verts, faces, fmat, uvs, uvf = concat_mesh_arrays(parts)
+    return scene_from_numpy(verts, faces, fmat, materials, light, uvs, uvf,
+                            dtype=dtype, device=device)
+
+
+def scene_numpy_arrays(cfg: SceneConfig):
+    """Load cfg.meshes and return host numpy arrays
+    (verts, faces, fmat, uvs, uv_faces)."""
+    parts = []
+    for m in cfg.meshes:
+        mesh = load_obj(m.path, offset=m.offset, scale=m.scale)
+        parts.append((mesh, m.material_index))
+    return concat_mesh_arrays(parts)
+
+
+def build_scene(cfg: SceneConfig, dtype=torch.float32, device=None) -> Scene:
+    verts, faces, fmat, uvs, uvf = scene_numpy_arrays(cfg)
+    return scene_from_numpy(verts, faces, fmat, cfg.materials, cfg.light,
+                            uvs, uvf, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Reference scenes
+# ---------------------------------------------------------------------------
+
+
+def serial_scene_config(width: int = 512, height: int = 512) -> SceneConfig:
+    """The serial reference's scene (Serial/raytracer.cpp:191-200):
+    spot + blub offset (1.5,0,0), red, camera (3,5,3) fov 45,
+    light (5,-5,2) intensity 255."""
+    return SceneConfig(
+        meshes=(
+            MeshConfig(path=asset("spot_triangulated.obj"), material_index=0),
+            MeshConfig(path=asset("blub_triangulated.obj"), material_index=0, offset=(1.5, 0.0, 0.0)),
+        ),
+        materials=(SERIAL_REFERENCE_MATERIAL,),
+        camera=CameraConfig(position=(3, 5, 3), target=(0, 0, 0), up=(0, -1, 0), fov_degrees=45.0, width=width, height=height),
+        light=LightConfig(position=(5, -5, 2), intensity=255.0),
+        render=RenderConfig(shading="serial", faithful=True, max_bounces=0, shadow_eps=1e-1, shadow_scale=0.1),
+    )
+
+
+def parallel_scene_config(width: int = 64, height: int = 64) -> SceneConfig:
+    """The parallel reference's scene (Parallel/raytracer.cu:769-786):
+    plane(mat0, +0.4y, x3) + blub(mat1, -2x, x5) + spot(mat1, x5) +
+    blub(mat3, +2x, x5); camera (18,18,19) fov 60; light (2,5,0)."""
+    return SceneConfig(
+        meshes=(
+            MeshConfig(path=asset("plane.obj"), material_index=0, offset=(0.0, 0.4, 0.0), scale=3.0),
+            MeshConfig(path=asset("blub_triangulated.obj"), material_index=1, offset=(-2.0, 0.0, 0.0), scale=5.0),
+            MeshConfig(path=asset("spot_triangulated.obj"), material_index=1, scale=5.0),
+            MeshConfig(path=asset("blub_triangulated.obj"), material_index=3, offset=(2.0, 0.0, 0.0), scale=5.0),
+        ),
+        materials=PARALLEL_REFERENCE_MATERIALS,
+        camera=CameraConfig(position=(18, 18, 19), target=(0, 0, 0), up=(0, -1, 0), fov_degrees=60.0, width=width, height=height),
+        light=LightConfig(position=(2, 5, 0), intensity=1.0),
+        render=RenderConfig(shading="parallel", faithful=False, max_bounces=3, shadow_eps=1e-4, shadow_scale=0.5),
+    )
+
+
+def gradcheck_mesh_parts():
+    """The gradcheck scene's (mesh, material_index) parts: plane + two
+    UV spheres."""
+    plane = mesh_gen.make_plane(extent=8.0, y=-1.0, density=2)
+    sphere_a = mesh_gen.make_uv_sphere(center=(0.0, 0.2, 0.0), radius=0.8, n_lat=12, n_lon=18)
+    sphere_b = mesh_gen.make_uv_sphere(center=(1.6, 0.0, 0.8), radius=0.5, n_lat=10, n_lon=14)
+    return [(plane, 0), (sphere_a, 1), (sphere_b, 1)]
+
+
+def gradcheck_scene(width: int = 64, height: int = 64, dtype=torch.float32,
+                    device=None):
+    """The flat plane + spheres scene with shadow rays -> (scene, cfg)."""
+    materials = (
+        MaterialConfig(base_color=(90.0, 90.0, 220.0), kd=2.0, ks=4.0, spec_alpha=4.0, ka=0.2),
+        MaterialConfig(base_color=(220.0, 60.0, 60.0), kd=2.0, ks=4.0, spec_alpha=4.0, ka=0.2),
+    )
+    light = LightConfig(position=(4.0, 6.0, 2.0), intensity=1.0)
+    scene = scene_from_meshes(gradcheck_mesh_parts(), materials, light,
+                              dtype=dtype, device=device)
+    cfg = SceneConfig(
+        materials=materials,
+        camera=CameraConfig(position=(3.0, 3.0, 4.0), target=(0, 0, 0), up=(0, 1, 0), fov_degrees=45.0, width=width, height=height),
+        light=light,
+        render=RenderConfig(shading="parallel", faithful=False, max_bounces=0, shadow_eps=1e-3, shadow_scale=0.5),
+    )
+    return scene, cfg

@@ -1,0 +1,113 @@
+"""The PyTorch port's package boundary: independence from JAX, device
+rules, unsupported options and the kernel build's failure mode."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_INDEPENDENCE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["ray_tracer_tpu"] = None
+import torch
+torch.set_num_threads(1)
+import ray_tracer_tpu_torch
+for m in pkgutil.walk_packages(ray_tracer_tpu_torch.__path__, "ray_tracer_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke  # the card check imports nothing of JAX either
+from ray_tracer_tpu_torch.models.scenes import serial_scene_config
+from ray_tracer_tpu_torch.render.renderer import prepare, render
+img = render(prepare(serial_scene_config(8, 8), device="cpu"))
+assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+loaded = [k for k, v in sys.modules.items()
+          if v is not None and (k.split(".")[0] in ("jax", "jaxlib", "ray_tracer_tpu"))]
+assert not loaded, loaded
+print("independent")
+"""
+
+
+def test_port_imports_nothing_of_jax():
+    """Every module of the port, and chip_smoke.py, imports and renders an
+    8x8 serial image with `jax` and `ray_tracer_tpu` made unimportable."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _INDEPENDENCE], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "independent" in out.stdout
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+    """Without a CUDA device, prepare/render/camera/scene entry points
+    raise instead of falling back to the CPU."""
+    from ray_tracer_tpu_torch.models.scenes import build_scene, serial_scene_config
+    from ray_tracer_tpu_torch.ops.camera import camera_rays
+    from ray_tracer_tpu_torch.render.renderer import prepare, render
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = serial_scene_config(8, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prepare(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        camera_rays(cfg.camera)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_scene(cfg)
+    prep = prepare(cfg, device="cpu")  # the explicit request works
+    assert render(prep).device.type == "cpu"
+
+
+@pytest.mark.parametrize("change", [
+    dict(traversal="packed", faithful=False),
+    dict(spp=2),
+    dict(texture="checker"),
+    dict(normal_mode="smooth", faithful=False),
+    dict(soft_visibility=0.1),
+    dict(shadow_samples=4, light_radius=0.5, faithful=False),
+    dict(gi_samples=1, faithful=False),
+    dict(whitted_wave="on"),
+])
+def test_unsupported_options_raise(change):
+    """Options outside the slice raise NotImplementedError; none is
+    silently ignored."""
+    from ray_tracer_tpu_torch.models.scenes import serial_scene_config
+    from ray_tracer_tpu_torch.render.renderer import prepare
+
+    cfg = serial_scene_config(8, 8)
+    cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, **change))
+    with pytest.raises(NotImplementedError):
+        prepare(cfg, device="cpu")
+
+
+def test_kernel_wrappers_take_cuda_tensors_only():
+    """The CUDA wrappers refuse CPU tensors; the dispatchers take the plain
+    version only because the tensors lie on the CPU."""
+    from ray_tracer_tpu_torch.ops import brute_intersect as bi
+
+    o = torch.zeros((4, 3))
+    d = torch.ones((4, 3))
+    tri9 = torch.zeros((9, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        bi.brute_intersect_cuda(o, d, tri9, 0.0)
+    before = bi.brute_intersect_cuda.launches
+    t, tid = bi.brute_intersect(o, d, tri9, 0.0)
+    assert bi.brute_intersect_cuda.launches == before
+    assert torch.isinf(t).all() and (tid == -1).all()
+
+
+def test_failed_kernel_build_raises(monkeypatch, tmp_path):
+    """A build that fails raises with the compiler's output; there is no
+    fallback to the plain versions."""
+    from ray_tracer_tpu_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setenv("NVCC", "false")  # a compiler that always fails
+    with pytest.raises(RuntimeError, match="nvcc failed for brute_intersect.cu"):
+        _build.build(["brute_intersect"])
+    assert not any(p.suffix == ".so" for p in tmp_path.iterdir())
