@@ -45,6 +45,8 @@ import time
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
+# The FP32 peak counts a fused multiply-add as two operations; the kernels
+# build with -fmad=false, so they issue at most half of it.
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 # FP32 operations per (ray, triangle) pair of kernel A, counted from
@@ -71,19 +73,35 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Median CUDA-event time of fn() over `reps` runs after one warm-up."""
+def cuda_ms(fn, n: int) -> float:
+    """CUDA-event time of n back-to-back fn() calls over n, after one
+    warm-up: the host's work in the wrapper overlaps the device's."""
     fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
         fn()
-        b.record()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def kernel_device_ms(fn, kernel: str, n: int):
+    """Mean device time of the CUDA kernels whose name holds `kernel` over
+    n calls of fn() under torch.profiler; None if the profiler saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return sorted(times)[len(times) // 2]
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type.name == "CUDA" and kernel in e.name]
+    return sum(us) / len(us) / 1e3 if us else None
 
 
 def once_ms(fn):
@@ -312,8 +330,14 @@ def main() -> int:
     rays = camera_rays(main_cfg.camera, device=dev)
     r = rays.count
 
-    a_ms = cuda_ms(lambda: kA.brute_intersect_cuda(rays.orig, rays.dirn, tri9_soa, 0.0))
-    a_out = kA.brute_intersect_cuda(rays.orig, rays.dirn, tri9_soa, 0.0)
+    # Inputs are made once; each kernel's time is n back-to-back launches
+    # over n, its device time the profiler's mean for the kernel alone.
+    def launch_a():
+        return kA.brute_intersect_cuda(rays.orig, rays.dirn, tri9_soa, 0.0)
+
+    a_ms = cuda_ms(launch_a, 5)
+    a_dev_ms = kernel_device_ms(launch_a, "brute_intersect_kernel", 3)
+    a_out = launch_a()
     a_plain_ms, a_plain = once_ms(
         lambda: kA.brute_intersect_plain(rays.orig, rays.dirn, tri9_soa, 0.0))
     err_a = max(err_a, compare("kernel A 1024 primary", a_out, a_plain))
@@ -323,8 +347,13 @@ def main() -> int:
 
     kw = dict(det_dtype=main_cfg.render.det_dtype, t_gate=main_cfg.render.primary_gate(),
               early_exit=not main_cfg.render.faithful)
+
+    def launch_b():
+        return kB.traverse_grid_cuda(rays, grid, meta, tri9_rows, **kw)
+
+    b_ms = cuda_ms(launch_b, 50)
+    b_dev_ms = kernel_device_ms(launch_b, "traverse_grid_kernel", 20)
     tested = torch.zeros((r,), dtype=torch.int32, device=dev)
-    b_ms = cuda_ms(lambda: kB.traverse_grid_cuda(rays, grid, meta, tri9_rows, **kw))
     b_out = kB.traverse_grid_cuda(rays, grid, meta, tri9_rows, tested_out=tested, **kw)
     b_plain_ms, b_plain = once_ms(
         lambda: kB.traverse_grid_plain(rays, grid, meta, tri9_rows, **kw))
@@ -332,21 +361,27 @@ def main() -> int:
     # the frame's second launch of each kernel: the shadow rays of its hits
     fast = dataclasses.replace(main_cfg, render=dataclasses.replace(main_cfg.render, faithful=False))
     sa = shadow_of(fast, rays, a_out[0], a_out[1] >= 0)
-    a_shadow_ms = cuda_ms(lambda: kA.brute_intersect_cuda(sa.orig, sa.dirn, tri9_soa, eps))
+    a_shadow_ms = cuda_ms(lambda: kA.brute_intersect_cuda(sa.orig, sa.dirn, tri9_soa, eps), 5)
     sb = shadow_of(main_cfg, rays, b_out.t, main_cfg.render.accepted_hit(b_out))
     b_shadow_ms = cuda_ms(lambda: kB.traverse_grid_cuda(
         sb, grid, meta, tri9_rows, det_dtype=kw["det_dtype"], t_gate=eps,
-        early_exit=kw["early_exit"], stop_on_first_hit=kw["early_exit"]))
+        early_exit=kw["early_exit"], stop_on_first_hit=kw["early_exit"]), 50)
     n_tests = int(tested.sum())
     n_steps = int(b_out.steps.sum())
-    b_bytes = r * (32 + 14) + n_steps * 8 + n_tests * (4 + 36)
+    # each input read once, each output written once: the rays (32 B) and
+    # five results (14 B), the CSR arrays and the vertex table; the walk's
+    # repeated gathers of them are not counted
+    b_bytes = (r * (32 + 14) + (grid.cell_start.numel() + grid.tri_ids.numel()) * 4
+               + tri9_rows.numel() * 4)
     b_ops = n_tests * OPS_PER_TEST_B
     b_bound = max(b_bytes / PEAK_BYTES, b_ops / PEAK_FP32_OPS) * 1e3
     emit({"phase": "kernel_times", "rays": r, "triangles": n_tris,
-          "A": {"ms": a_ms, "shadow_ms": a_shadow_ms, "plain_ms": a_plain_ms,
-                "ops": a_ops, "bytes": a_bytes},
-          "B": {"ms": b_ms, "shadow_ms": b_shadow_ms, "plain_ms": b_plain_ms, "steps": n_steps,
-                "tested_triangles": n_tests, "bytes": b_bytes, "ops": b_ops}})
+          "A": {"ms": a_ms, "device_ms": a_dev_ms, "shadow_ms": a_shadow_ms,
+                "plain_ms": a_plain_ms, "ops": a_ops, "bytes": a_bytes, "bound_ms": a_bound,
+                "bound_unfused_ms": a_ops / (PEAK_FP32_OPS / 2) * 1e3},
+          "B": {"ms": b_ms, "device_ms": b_dev_ms, "shadow_ms": b_shadow_ms,
+                "plain_ms": b_plain_ms, "steps": n_steps, "tested_triangles": n_tests,
+                "bytes": b_bytes, "ops": b_ops, "bound_ms": b_bound}})
 
     # ---- 6. card vs CPU --------------------------------------------------
     small = serial_scene_config(64, 64)

@@ -23,9 +23,13 @@
 // double for det_dtype="float64", the byte-exact path.  Everything else is
 // float32, as in the JAX code.
 //
-// Bound on the H100: device-memory bytes.  Each step reads two cell_start
-// words, then per tested triangle its tri_ids word and 36 bytes of
-// vertices, gathered without locality between neighbouring threads.  This
+// Bound on the H100: device-memory bytes, each counted once: the rays in
+// (32 bytes each) and the five results out (14 bytes each), plus the CSR
+// arrays and the vertex table (about 1 MB for the serial scene).  The walk
+// re-reads cell_start, tri_ids and the vertices at every step and tested
+// triangle, gathered without locality between neighbouring threads; those
+// gathers are mostly served from L2 and set the kernel's time, far above
+// that bound (chip_smoke.py reports both).  This
 // first version is simple and correct, not tuned: no shared-memory staging
 // of cell lists, no ray sorting for coherent gathers, no occupancy tuning;
 // the double-precision determinants of the exact path run at the H100's
