@@ -1,43 +1,56 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                    # every phase
+    python3 chip_smoke.py --phases build,C   # a subset, for a quick check
 
 Run from the repository root on a machine with a CUDA device.  Phases,
 each printing one JSON line:
 
   1. device: PyTorch/CUDA versions, the card's name and power limit;
   2. build: compile every kernel of csrc/ (one nvcc per source, in
-     parallel) and time it;
+     parallel) and time it; registers and spills of kernels C and D;
   3. kernel A (csrc/brute_intersect.cu) against its plain PyTorch version
      on the serial scene's 256x256 camera rays and their shadow rays:
      hit and tri_id equal, t bitwise equal;
   4. kernel B (csrc/traverse_grid.cu) against its plain version on the
      same rays, float32 and float64 determinants, faithful and production
      modes: all five TraceResult fields equal;
-  5. the main path at full size: prepare + render of the serial scene at
-     1024x1024 with the default config (the CSR DDA) and with
-     traversal="brute_pallas"; launch counts are zeroed before each render
-     and read after it, and each config must have launched its kernel;
-     median time of 5 renders after a warm-up and Mrays/s (primary +
-     shadow); the two images agree up to boundary pixels; the command
-     line renders the default config's PPM bytes; one timed render of
-     the 3-bounce parallel scene at 512x512;
-  6. the serial scene at 64x64 with float64 determinants on the card gives
-     the PPM bytes of the port's own CPU render (which the CPU tests pin
-     to the C++ oracle).
+  5. kernel C (csrc/packed_march.cu) against its plain version on the
+     turbo serial grid's 256x256 camera rays, one thread per ray and as a
+     persistent wave (with the compacted and the chord-ordered queue):
+     fused with and without the dead-shadow skip, nearest and any hit,
+     inline and blocks layouts (and a probe chain): every record field
+     bitwise equal, no ray capped;
+  6. the main path at full size, launch counts zeroed before each render
+     and read after it, each config required to launch its kernel:
+     prepare + render of the serial scene at 1024x1024 with the default
+     config (csr), traversal="brute_pallas" and the tuned production
+     config (config.apply_turbo: packed grid, persistent fused march);
+     median of 5 renders after a warm-up and Mrays/s (primary + shadow);
+     the images agree with the csr image up to boundary pixels; the
+     command line renders the csr and the --turbo PPM bytes; one timed
+     render of the 3-bounce parallel scene at 512x512, csr and turbo
+     (whitted_wave="off");
+  7. card vs CPU: the 64x64 float64 csr render gives the PPM bytes of the
+     port's own CPU render; the 64x64 turbo march gives the CPU's per-ray
+     records, and its image differs by more than 2 counts on under 1% of
+     pixels;
+  8. kernel D (csrc/gather_row_test.cu) against its plain version through
+     the port's gather tool, and the tool's step-loop time.
 
-Then the kernel times at the main path's shapes (1024x1024 camera rays:
-the primary launch, which the `kernels` line reports beside its plain
-version's time and its bound, and the shadow launch), a `kernels` line,
-the card line, and last {"ok": true, "device": {...}}.  Any failure raises and
-exits non-zero; without a CUDA device it exits non-zero before any phase.
+Then the kernel times at the main path's shapes, a `kernels` line, the
+card line, and last {"ok": true, "device": {...}}.  Any failure raises
+and exits non-zero; without a CUDA device it exits non-zero before any
+phase.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -48,6 +61,7 @@ import torch
 # The FP32 peak counts a fused multiply-add as two operations; the kernels
 # build with -fmad=false, so they issue at most half of it.
 PEAK_FP32_OPS = 67e12
+PEAK_FP32_UNFUSED = PEAK_FP32_OPS / 2
 PEAK_BYTES = 3.35e12
 # FP32 operations per (ray, triangle) pair of kernel A, counted from
 # ray_tracer_tpu/ops/pallas_intersect.py:65-83 with the common products
@@ -57,8 +71,13 @@ PEAK_BYTES = 3.35e12
 OPS_PER_PAIR_A = 51
 # FP32 operations per tested triangle of kernel B (cramer_tbg): the three
 # columns (9), four determinants (44), three divisions (3), the pass test
-# and the gate (5).
+# and the gate (5).  Kernel C tests its rows with the same solve.
 OPS_PER_TEST_B = 61
+# FP32 operations per triangle lane of kernel D, counted as for B: the
+# columns (9), four determinants (44), 1/A (1), three products (3), the
+# acceptance test (5) and the running minimum (1).
+OPS_PER_LANE_D = 63
+ALL_PHASES = ("build", "A", "B", "C", "main", "card_vs_cpu", "D", "times")
 
 
 def emit(obj) -> None:
@@ -115,7 +134,7 @@ def once_ms(fn):
     return a.elapsed_time(b), out
 
 
-def profile_render(prep, median_s: float) -> dict:
+def profile_render(prep, median_s: float, config: str) -> dict:
     """One render under torch.profiler: the device's busy time (the sum of
     kernel durations; kernels on one stream do not overlap), the idle
     share of the unprofiled median frame time that leaves, and the device
@@ -133,7 +152,7 @@ def profile_render(prep, median_s: float) -> dict:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"phase": "main_path_profile", "config": "csr", "device_kernels": len(kernels),
+    return {"phase": "main_path_profile", "config": config, "device_kernels": len(kernels),
             "device_busy_ms": busy_us / 1e3, "median_frame_ms": median_s * 1e3,
             "device_idle_share": 1.0 - busy_us / 1e3 / (median_s * 1e3),
             "top_device_ms": {k[:60]: v / 1e3 for k, v in top}}
@@ -161,254 +180,596 @@ def compare(label: str, got, want) -> float:
     return err
 
 
-def main() -> int:
+def ptxas_usage(lib_path: str) -> dict:
+    """Registers and spill bytes per kernel from the build's -Xptxas -v log."""
+    with open(lib_path + ".log") as fh:
+        log = fh.read()
+    out = {}
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out.setdefault(name, {})["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def image_rule(a, b) -> float:
+    """Share of pixels whose channels differ by more than 2 counts."""
+    diff = abs(a.astype(int) - b.astype(int)).max(axis=-1)
+    return float((diff > 2).mean())
+
+
+class Smoke:
+    """The phases share the card, the imports and what each phase measured
+    for the `kernels` line."""
+
+    def __init__(self):
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from ray_tracer_tpu_torch.ops import brute_intersect as kA
+        from ray_tracer_tpu_torch.ops import traverse as kB
+        from ray_tracer_tpu_torch.ops import traverse_packed as kC
+        from ray_tracer_tpu_torch.tools import gather_bench as kD
+
+        self.kA, self.kB, self.kC, self.kD = kA, kB, kC, kD
+        self.counters = {"brute_intersect": kA.brute_intersect_cuda,
+                         "traverse_grid": kB.traverse_grid_cuda,
+                         "packed_march": kC.march_cuda,
+                         "gather_row_test": kD.gather_row_test_cuda}
+        self.dev = torch.device("cuda")
+        self.root = os.path.dirname(os.path.abspath(__file__))
+        self.launches = {}
+        self.err = {"brute_intersect": 0.0, "traverse_grid": 0.0, "packed_march": 0.0,
+                    "gather_row_test": 0.0}
+        self.times = {}
+        self.images = {}
+        self.libs = {}
+
+    def zero_counts(self):
+        for fn in self.counters.values():
+            fn.launches = 0
+
+    def counts(self):
+        return {k: fn.launches for k, fn in self.counters.items()}
+
+    # ---- 2. build ----------------------------------------------------------
+    def build(self):
+        from ray_tracer_tpu_torch.kernels import _build
+
+        t0 = time.perf_counter()
+        self.libs = _build.build()
+        emit({"phase": "build", "seconds": time.perf_counter() - t0,
+              "libraries": {k: os.path.basename(v) for k, v in self.libs.items()},
+              "ptxas": {k: ptxas_usage(self.libs[k])
+                        for k in ("packed_march", "gather_row_test")}})
+
+    # ---- 3. and 4. kernels A and B vs their plain versions ---------------
+    def kernels_ab(self, which):
+        from ray_tracer_tpu_torch.models.scenes import serial_scene_config
+        from ray_tracer_tpu_torch.ops.camera import camera_rays
+        from ray_tracer_tpu_torch.render.renderer import prepare, shadow_rays_for
+
+        kA, kB = self.kA, self.kB
+        base = serial_scene_config(256, 256)
+        prep = prepare(base)
+        grid, meta = prep.grid.arrays, prep.grid.meta
+        v0, v1, v2 = prep.scene.triangle_soa()
+        tri9_soa = kA.triangle_table(v0, v1, v2)
+        tri9_rows = kB.vertex_table(v0, v1, v2)
+        n_tris = v0.shape[0]
+        eps = base.render.shadow_eps
+        rays = camera_rays(base.camera, device=self.dev)
+
+        def shadow_of(cfg, t, hit):
+            poi = torch.where(hit[:, None], rays.at(torch.where(hit, t, torch.zeros_like(t))),
+                              torch.zeros_like(rays.orig))
+            return shadow_rays_for(cfg.render, prep.scene.light_pos, poi, hit)
+
+        if "A" in which:
+            ka = kA.brute_intersect_cuda(rays.orig, rays.dirn, tri9_soa, 0.0)
+            pa = kA.brute_intersect_plain(rays.orig, rays.dirn, tri9_soa, 0.0)
+            err = compare("kernel A primary", ka, pa)
+            hit = ka[1] >= 0
+            srays = shadow_of(dataclasses.replace(base, render=dataclasses.replace(
+                base.render, faithful=False)), ka[0], hit)
+            ks = kA.brute_intersect_cuda(srays.orig, srays.dirn, tri9_soa, eps)
+            ps = kA.brute_intersect_plain(srays.orig, srays.dirn, tri9_soa, eps)
+            err = max(err, compare("kernel A shadow", ks, ps))
+            self.err["brute_intersect"] = max(self.err["brute_intersect"], err)
+            emit({"phase": "kernel_A_vs_plain", "rays": rays.count, "triangles": n_tris,
+                  "primary_hits": int(hit.sum()), "shadow_hits": int((ks[1] >= 0).sum()),
+                  "max_abs_err": err, "tolerance": "bitwise", "equal": True})
+
+        if "B" in which:
+            err = 0.0
+            checked = []
+            for det in ("float32", "float64"):
+                for mode, kw, skw in (
+                    ("faithful", dict(t_gate=None), dict(t_gate=eps)),
+                    ("production", dict(t_gate=0.0, early_exit=True),
+                     dict(t_gate=eps, early_exit=True, stop_on_first_hit=True)),
+                ):
+                    kb = kB.traverse_grid_cuda(rays, grid, meta, tri9_rows, det_dtype=det, **kw)
+                    pb = kB.traverse_grid_plain(rays, grid, meta, tri9_rows, det_dtype=det, **kw)
+                    err = max(err, compare(f"kernel B {det} {mode} primary", kb, pb))
+                    h = kb.any_pass if mode == "faithful" else kb.hit
+                    sr = shadow_of(base, kb.t, h)
+                    kbs = kB.traverse_grid_cuda(sr, grid, meta, tri9_rows, det_dtype=det, **skw)
+                    pbs = kB.traverse_grid_plain(sr, grid, meta, tri9_rows, det_dtype=det, **skw)
+                    err = max(err, compare(f"kernel B {det} {mode} shadow", kbs, pbs))
+                    checked.append({"det": det, "mode": mode, "primary_hits": int(h.sum()),
+                                    "shadow_hits": int(kbs.hit.sum()),
+                                    "mean_steps": float(kb.steps.float().mean())})
+            self.err["traverse_grid"] = max(self.err["traverse_grid"], err)
+            emit({"phase": "kernel_B_vs_plain", "rays": rays.count, "cases": checked,
+                  "max_abs_err": err, "tolerance": "bitwise", "equal": True})
+
+    # ---- 5. kernel C vs its plain version --------------------------------
+    def kernel_c(self):
+        from ray_tracer_tpu_torch.config import apply_turbo
+        from ray_tracer_tpu_torch.models.scenes import serial_scene_config
+        from ray_tracer_tpu_torch.ops.camera import camera_rays
+        from ray_tracer_tpu_torch.ops.persistent import persistent_trace
+        from ray_tracer_tpu_torch.render.renderer import prepare
+
+        kC = self.kC
+        cfg = apply_turbo(serial_scene_config(256, 256), "serial")
+        preps = {"inline": prepare(cfg)}
+        if not preps["inline"].packed.meta.inline:
+            raise AssertionError("the turbo serial grid should take the inline layout")
+        blocks_cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+            cfg.render, grid_layout="blocks"))
+        preps["blocks"] = prepare(blocks_cfg)
+        rcfg = cfg.render
+        rays = camera_rays(cfg.camera, device=self.dev)
+        light = preps["inline"].scene.light_pos
+        fkw = dict(fused=True, shadow_gate=rcfg.shadow_eps, shadow_mint=rcfg.shadow_mint(),
+                   serial_quirk=True, shade_serial=True)
+        cases = [
+            ("inline", "fused_skip", dict(fkw, skip_dead_shadow=True)),
+            ("inline", "fused", dict(fkw)),
+            ("inline", "nearest", dict(t_gate=0.0)),
+            ("inline", "any_hit", dict(t_gate=0.0, stop_on_first_hit=True)),
+            ("blocks", "fused_skip", dict(fkw, skip_dead_shadow=True)),
+            ("blocks", "nearest", dict(t_gate=0.0)),
+            ("blocks", "nearest_chain3", dict(t_gate=0.0, probe_chain=3)),
+        ]
+        err = 0.0
+        out = []
+        capped = torch.zeros((1,), dtype=torch.int32, device=self.dev)
+        for layout, name, kw in cases:
+            p = preps[layout]
+            grid, meta = p.packed.arrays, p.packed.meta
+            plain = kC.march_plain(rays, grid, meta, light, capped_out=capped, **kw)
+            if int(capped.item()):
+                raise AssertionError(f"kernel C {layout} {name}: plain capped {int(capped)}")
+            for mode, mkw in (("per_ray", {}), ("persistent", {"wave": rcfg.wave})):
+                got = kC.march_cuda(rays, grid, meta, light, capped_out=capped, **mkw, **kw)
+                torch.cuda.synchronize()
+                err = max(err, compare(f"kernel C {layout} {name} {mode}", got, plain))
+                if int(capped.item()):
+                    raise AssertionError(f"kernel C {layout} {name} {mode}: "
+                                         f"{int(capped)} rays capped")
+            out.append({"layout": layout, "case": name, "hits": int(plain.hit.sum()),
+                        "in_shadow": int(plain.in_shadow.sum()),
+                        "mean_steps": float(plain.steps.float().mean()),
+                        "max_steps": int(plain.steps.max())})
+        # the queue paths of the persistent wave: compacted, chord-ordered
+        p = preps["inline"]
+        grid, meta = p.packed.arrays, p.packed.meta
+        keys = kC.chord_keys(rays, grid)
+        plain = kC.march_plain(rays, grid, meta, light, skip_dead_shadow=True, **fkw)
+        for qname, qkw in (("compact", dict(compact=True)),
+                           ("chord", dict(order_keys=keys)),
+                           ("compact_chord", dict(compact=True, order_keys=keys))):
+            got = persistent_trace(
+                rays, grid, meta, light, wave=rcfg.wave, fuse_shadow=True, t_gate=0.0,
+                shadow_gate=rcfg.shadow_eps, shadow_mint=rcfg.shadow_mint(),
+                serial_quirk=True, shadow_skip_dead=True, shade_serial=True,
+                need_t=True, need_steps=True, need_shadow_tri=True, capped_out=capped,
+                **qkw)
+            torch.cuda.synchronize()
+            err = max(err, compare(f"kernel C persistent {qname}", got, plain))
+            if int(capped.item()):
+                raise AssertionError(f"kernel C persistent {qname}: rays capped")
+        self.err["packed_march"] = max(self.err["packed_march"], err)
+        emit({"phase": "kernel_C_vs_plain", "rays": rays.count,
+              "grid": list(preps["inline"].packed.meta.n_voxels),
+              "rows": {k: v.packed.meta.n_blocks for k, v in preps.items()},
+              "cases": out, "queues": ["compact", "chord", "compact_chord"],
+              "modes": ["per_ray", "persistent"], "capped": 0,
+              "max_abs_err": err, "tolerance": "bitwise", "equal": True})
+
+    # ---- 6. the main path at full size -----------------------------------
+    def main_path(self):
+        from ray_tracer_tpu_torch.config import apply_turbo
+        from ray_tracer_tpu_torch.io.ppm import read_ppm, tonemap_u8
+        from ray_tracer_tpu_torch.models.scenes import parallel_scene_config, serial_scene_config
+        from ray_tracer_tpu_torch.render.renderer import prepare, render
+
+        size = 1024
+        main_cfg = serial_scene_config(size, size)
+        configs = {
+            "csr": (main_cfg, "traverse_grid"),
+            "brute_pallas": (dataclasses.replace(main_cfg, render=dataclasses.replace(
+                main_cfg.render, traversal="brute_pallas", faithful=False)), "brute_intersect"),
+            "turbo": (apply_turbo(main_cfg, "serial"), "packed_march"),
+        }
+        for name, (cfg, kernel) in configs.items():
+            t0 = time.perf_counter()
+            p = prepare(cfg)
+            torch.cuda.synchronize()
+            prep_s = time.perf_counter() - t0
+            self.zero_counts()
+            img = render(p)
+            torch.cuda.synchronize()
+            counts = self.counts()
+            if counts[kernel] <= 0:
+                raise AssertionError(f"render with config {name} launched {kernel} 0 times")
+            self.launches[kernel] = counts[kernel]
+            if img.shape != (size, size, 3) or not bool(torch.isfinite(img).all()):
+                raise AssertionError(f"{name} render: bad image {tuple(img.shape)}")
+            secs = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                img = render(p)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            med = sorted(secs)[2]
+            self.images[name] = tonemap_u8(img.cpu().numpy())
+            line = {"phase": "main_path", "config": name, "size": size,
+                    "prepare_s": prep_s, "median_ms": med * 1e3,
+                    "renders_ms": [s * 1e3 for s in secs],
+                    "mrays_per_s": size * size * 2 / med / 1e6,
+                    "launches_per_frame": counts,
+                    "lit_pixels": int((self.images[name].max(axis=-1) > 0).sum())}
+            if name == "turbo":
+                line["packed_grid"] = {"n_voxels": list(p.packed.meta.n_voxels),
+                                       "rows": p.packed.meta.n_blocks,
+                                       "inline": p.packed.meta.inline,
+                                       "max_blocks": p.packed.meta.max_blocks,
+                                       "table_mb": p.packed.arrays.blocks.numel() * 4 / 1e6}
+            emit(line)
+            if name in ("csr", "turbo"):
+                emit(profile_render(p, med, name))
+        agree = {}
+        for name in ("brute_pallas", "turbo"):
+            frac = image_rule(self.images["csr"], self.images[name])
+            if frac >= 0.01:
+                raise AssertionError(f"csr vs {name}: {frac:.2%} of pixels differ by > 2")
+            agree[name] = frac
+        emit({"phase": "main_path_agreement", "pixels_over_2_counts": agree["brute_pallas"],
+              "turbo_pixels_over_2_counts": agree["turbo"],
+              "turbo_bytes_differing_from_csr": int(
+                  (self.images["csr"] != self.images["turbo"]).sum())})
+
+        # the default and the --turbo renders through the command line
+        for name, extra in (("csr", []), ("turbo", ["--turbo"])):
+            out_ppm = os.path.join(self.root, "build", f"chip_smoke_cli_{name}.ppm")
+            os.makedirs(os.path.dirname(out_ppm), exist_ok=True)
+            cli = subprocess.run(
+                [sys.executable, "-m", "ray_tracer_tpu_torch.cli", "render", "--scene",
+                 "serial", "--width", str(size), "--out", out_ppm, *extra],
+                cwd=self.root, capture_output=True, text=True, timeout=600,
+            )
+            if cli.returncode != 0:
+                raise AssertionError(f"cli render {name} failed:\n{cli.stderr[-3000:]}")
+            if not (read_ppm(out_ppm) == self.images[name]).all():
+                raise AssertionError(f"cli render {name} differs from the in-process render")
+            emit({"phase": "cli", "config": name, "size": size, "same_bytes_as_render": True,
+                  "stderr": cli.stderr.strip().splitlines()[-1]})
+
+        base = parallel_scene_config(512, 512)
+        turbo = apply_turbo(base, "parallel")
+        turbo = dataclasses.replace(turbo, render=dataclasses.replace(
+            turbo.render, whitted_wave="off"))
+        for name, pcfg, kernel in (("csr", base, "traverse_grid"),
+                                   ("turbo", turbo, "packed_march")):
+            pp = prepare(pcfg)
+            self.zero_counts()
+            render(pp)
+            torch.cuda.synchronize()
+            pcounts = self.counts()
+            if pcounts[kernel] <= 0:
+                raise AssertionError(f"parallel render {name} launched {kernel} 0 times")
+            t0 = time.perf_counter()
+            pimg = render(pp)
+            torch.cuda.synchronize()
+            pms = (time.perf_counter() - t0) * 1e3
+            if not bool(torch.isfinite(pimg).all()):
+                raise AssertionError(f"parallel render {name}: non-finite pixels")
+            self.images["parallel_" + name] = tonemap_u8(pimg.cpu().numpy())
+            emit({"phase": "parallel_scene", "config": name, "size": 512,
+                  "triangles": pp.scene.num_faces, "bounces": pcfg.render.max_bounces,
+                  "ms": pms, "launches_per_frame": pcounts})
+        frac = image_rule(self.images["parallel_csr"], self.images["parallel_turbo"])
+        emit({"phase": "parallel_agreement", "pixels_over_2_counts": frac})
+        if frac >= 0.01:
+            raise AssertionError(f"parallel csr vs turbo: {frac:.2%} of pixels differ by > 2")
+
+    # ---- 7. card vs CPU --------------------------------------------------
+    def card_vs_cpu(self):
+        from ray_tracer_tpu_torch.config import apply_turbo
+        from ray_tracer_tpu_torch.io.ppm import tonemap_u8
+        from ray_tracer_tpu_torch.models.scenes import serial_scene_config
+        from ray_tracer_tpu_torch.ops.camera import camera_rays
+        from ray_tracer_tpu_torch.ops.persistent import persistent_trace
+        from ray_tracer_tpu_torch.render.renderer import prepare, render
+
+        small = serial_scene_config(64, 64)
+        small = dataclasses.replace(small, render=dataclasses.replace(
+            small.render, det_dtype="float64"))
+        on_card = tonemap_u8(render(prepare(small)).cpu().numpy())
+        on_cpu = tonemap_u8(render(prepare(small, device="cpu")).numpy())
+        n_bad = int((on_card != on_cpu).sum())
+        if n_bad:
+            raise AssertionError(f"64x64 float64 render: {n_bad} PPM bytes differ card vs CPU")
+        emit({"phase": "card_vs_cpu", "size": 64, "det_dtype": "float64", "bytes_differing": 0})
+
+        cfg = apply_turbo(serial_scene_config(64, 64), "serial")
+        rcfg = cfg.render
+        recs = {}
+        imgs = {}
+        for dev in ("cuda", "cpu"):
+            p = prepare(cfg, device=dev)
+            rays = camera_rays(cfg.camera, device=dev)
+            recs[dev] = persistent_trace(
+                rays, p.packed.arrays, p.packed.meta, p.scene.light_pos, wave=rcfg.wave,
+                fuse_shadow=True, t_gate=0.0, shadow_gate=rcfg.shadow_eps,
+                shadow_mint=rcfg.shadow_mint(), serial_quirk=True, shadow_skip_dead=True,
+                shade_serial=True, need_t=True, need_steps=True, need_shadow_tri=True)
+            imgs[dev] = tonemap_u8(render(p).cpu().numpy())
+        compare("turbo 64 card vs CPU records", tuple(x.cpu() for x in recs["cuda"]),
+                tuple(recs["cpu"]))
+        frac = image_rule(imgs["cuda"], imgs["cpu"])
+        if frac >= 0.01:
+            raise AssertionError(f"turbo 64 card vs CPU: {frac:.2%} of pixels differ by > 2")
+        emit({"phase": "card_vs_cpu", "size": 64, "config": "turbo", "records_equal": True,
+              "hits": int(recs["cpu"].hit.sum()),
+              "bytes_differing": int((imgs["cuda"] != imgs["cpu"]).sum()),
+              "pixels_over_2_counts": frac})
+
+    # ---- 8. kernel D through the gather tool -----------------------------
+    def kernel_d(self):
+        kD = self.kD
+        chk = kD.check(device=self.dev)
+        self.err["gather_row_test"] = max(self.err["gather_row_test"], chk["max_abs_err"])
+        emit(dict(chk, phase="kernel_D_vs_plain"))
+        self.zero_counts()
+        bench = kD.bench(device=self.dev)
+        counts = self.counts()
+        if counts["gather_row_test"] <= 0:
+            raise AssertionError("the gather tool's step loop launched kernel D 0 times")
+        self.launches["gather_row_test"] = counts["gather_row_test"]
+        self.times["D_bench"] = bench
+        emit(dict(bench, phase="gather_bench", launches=counts["gather_row_test"]))
+
+    # ---- kernel times at the main path's shapes --------------------------
+    def kernel_times(self):
+        from ray_tracer_tpu_torch.config import apply_turbo
+        from ray_tracer_tpu_torch.models.scenes import serial_scene_config
+        from ray_tracer_tpu_torch.ops.camera import camera_rays
+        from ray_tracer_tpu_torch.ops.persistent import persistent_trace
+        from ray_tracer_tpu_torch.render.renderer import prepare, shadow_rays_for
+
+        kA, kB, kC, kD = self.kA, self.kB, self.kC, self.kD
+        dev = self.dev
+        main_cfg = serial_scene_config(1024, 1024)
+        p = prepare(main_cfg)
+        grid, meta = p.grid.arrays, p.grid.meta
+        v0, v1, v2 = p.scene.triangle_soa()
+        n_tris = v0.shape[0]
+        tri9_soa = kA.triangle_table(v0, v1, v2)
+        tri9_rows = kB.vertex_table(v0, v1, v2)
+        rays = camera_rays(main_cfg.camera, device=dev)
+        r = rays.count
+        eps = main_cfg.render.shadow_eps
+
+        def shadow_of(cfg, t, hit):
+            poi = torch.where(hit[:, None], rays.at(torch.where(hit, t, torch.zeros_like(t))),
+                              torch.zeros_like(rays.orig))
+            return shadow_rays_for(cfg.render, p.scene.light_pos, poi, hit)
+
+        # Inputs are made once; each kernel's time is n back-to-back launches
+        # over n, its device time the profiler's mean for the kernel alone.
+        def launch_a():
+            return kA.brute_intersect_cuda(rays.orig, rays.dirn, tri9_soa, 0.0)
+
+        a_ms = cuda_ms(launch_a, 5)
+        a_dev_ms = kernel_device_ms(launch_a, "brute_intersect_kernel", 3)
+        a_out = launch_a()
+        a_plain_ms, a_plain = once_ms(
+            lambda: kA.brute_intersect_plain(rays.orig, rays.dirn, tri9_soa, 0.0))
+        self.err["brute_intersect"] = max(self.err["brute_intersect"],
+                                          compare("kernel A 1024 primary", a_out, a_plain))
+        a_ops = r * n_tris * OPS_PER_PAIR_A
+        a_bytes = r * (24 + 8) + n_tris * 36
+        a_bound = max(a_ops / PEAK_FP32_OPS, a_bytes / PEAK_BYTES) * 1e3
+
+        kw = dict(det_dtype=main_cfg.render.det_dtype, t_gate=main_cfg.render.primary_gate(),
+                  early_exit=not main_cfg.render.faithful)
+
+        def launch_b():
+            return kB.traverse_grid_cuda(rays, grid, meta, tri9_rows, **kw)
+
+        b_ms = cuda_ms(launch_b, 50)
+        b_dev_ms = kernel_device_ms(launch_b, "traverse_grid_kernel", 20)
+        tested = torch.zeros((r,), dtype=torch.int32, device=dev)
+        b_out = kB.traverse_grid_cuda(rays, grid, meta, tri9_rows, tested_out=tested, **kw)
+        b_plain_ms, b_plain = once_ms(
+            lambda: kB.traverse_grid_plain(rays, grid, meta, tri9_rows, **kw))
+        self.err["traverse_grid"] = max(self.err["traverse_grid"],
+                                        compare("kernel B 1024 primary", b_out, b_plain))
+        # the frame's second launch of each kernel: the shadow rays of its hits
+        fast = dataclasses.replace(main_cfg, render=dataclasses.replace(
+            main_cfg.render, faithful=False))
+        sa = shadow_of(fast, a_out[0], a_out[1] >= 0)
+        a_shadow_ms = cuda_ms(lambda: kA.brute_intersect_cuda(sa.orig, sa.dirn, tri9_soa, eps), 5)
+        sb = shadow_of(main_cfg, b_out.t, main_cfg.render.accepted_hit(b_out))
+        b_shadow_ms = cuda_ms(lambda: kB.traverse_grid_cuda(
+            sb, grid, meta, tri9_rows, det_dtype=kw["det_dtype"], t_gate=eps,
+            early_exit=kw["early_exit"], stop_on_first_hit=kw["early_exit"]), 50)
+        n_tests = int(tested.sum())
+        n_steps = int(b_out.steps.sum())
+        # each input read once, each output written once: the rays (32 B) and
+        # five results (14 B), the CSR arrays and the vertex table; the walk's
+        # repeated gathers of them are not counted
+        b_bytes = (r * (32 + 14) + (grid.cell_start.numel() + grid.tri_ids.numel()) * 4
+                   + tri9_rows.numel() * 4)
+        b_ops = n_tests * OPS_PER_TEST_B
+        b_bound = max(b_bytes / PEAK_BYTES, b_ops / PEAK_FP32_OPS) * 1e3
+
+        # kernel C: the turbo frame's one launch, the fused persistent march
+        tcfg = apply_turbo(main_cfg, "serial")
+        tp = prepare(tcfg)
+        pgrid, pmeta = tp.packed.arrays, tp.packed.meta
+        trc = tcfg.render
+        ckw = dict(wave=trc.wave, fuse_shadow=True, t_gate=0.0, shadow_gate=trc.shadow_eps,
+                   shadow_mint=trc.shadow_mint(), serial_quirk=True, shadow_skip_dead=True,
+                   shade_serial=True, need_t=True, need_steps=True, need_shadow_tri=True)
+        light = tp.scene.light_pos
+
+        def launch_c():
+            return persistent_trace(rays, pgrid, pmeta, light, **ckw)
+
+        c_ms = cuda_ms(launch_c, 20)
+        c_dev_ms = kernel_device_ms(launch_c, "packed_march_kernel", 10)
+        c_tested = torch.zeros((r,), dtype=torch.int32, device=dev)
+        touched = torch.zeros((pmeta.n_blocks,), dtype=torch.int32, device=dev)
+        capped = torch.zeros((1,), dtype=torch.int32, device=dev)
+        c_out = persistent_trace(rays, pgrid, pmeta, light, tested_out=c_tested,
+                                 touched_out=touched, capped_out=capped, **ckw)
+        pkw = dict(fused=True, t_gate=0.0, shadow_gate=trc.shadow_eps,
+                   shadow_mint=trc.shadow_mint(), serial_quirk=True, skip_dead_shadow=True,
+                   shade_serial=True)
+        c_plain_ms, c_plain = once_ms(lambda: kC.march_plain(rays, pgrid, pmeta, light, **pkw))
+        self.err["packed_march"] = max(self.err["packed_march"],
+                                       compare("kernel C 1024 turbo", c_out, c_plain))
+        c_per_ray_ms = cuda_ms(lambda: kC.march_cuda(rays, pgrid, pmeta, light, **pkw), 20)
+        if int(capped.item()):
+            raise AssertionError(f"kernel C 1024: {int(capped)} rays capped")
+        rows_tested = int(c_tested.sum())
+        full_rows = int(((touched & 2) != 0).sum())
+        header_rows = int((touched == 1).sum())
+        c_hits = int(c_out.hit.sum())
+        c_shadow = int(c_out.in_shadow.sum())
+        # rays in (32 B), six record fields out (18 B), each distinct row
+        # tested once (row_lanes * 4 B), each header-only row's 8 B, and
+        # one slot_tri entry per primary hit and per blocker
+        c_bytes = (r * (32 + 18) + full_rows * pmeta.row_lanes * 4 + header_rows * 8
+                   + (c_hits + c_shadow) * 4)
+        c_ops = rows_tested * pmeta.block_tris * OPS_PER_TEST_B
+        c_bound = max(c_bytes / PEAK_BYTES, c_ops / PEAK_FP32_UNFUSED) * 1e3
+
+        # kernel D at the gather tool's shapes (W = 8192 lanes, NB = 2270 rows)
+        blocks, o, d, idx0 = kD.make_inputs(device=dev)
+
+        def launch_d():
+            return kD.gather_row_test_cuda(blocks, o, d, idx0)
+
+        d_ms = cuda_ms(launch_d, 200)
+        d_dev_ms = kernel_device_ms(launch_d, "gather_row_test_kernel", 50)
+        d_plain_ms, d_plain = once_ms(lambda: kD.gather_row_test_plain(blocks, o, d, idx0))
+        self.err["gather_row_test"] = max(self.err["gather_row_test"],
+                                          compare("kernel D", (launch_d(),), (d_plain,)))
+        w, tl = idx0.shape[0], blocks.shape[2]
+        d_rows = int(torch.unique(idx0).numel())
+        d_bytes = d_rows * 9 * tl * 4 + w * (24 + 4) + w * 4
+        d_ops = w * tl * OPS_PER_LANE_D
+        d_bound = max(d_bytes / PEAK_BYTES, d_ops / PEAK_FP32_UNFUSED) * 1e3
+
+        self.times.update(
+            A=dict(ms=a_ms, plain_ms=a_plain_ms, bound_ms=a_bound,
+                   bound_by="operations" if a_ops / PEAK_FP32_OPS >= a_bytes / PEAK_BYTES
+                   else "bytes"),
+            B=dict(ms=b_ms, plain_ms=b_plain_ms, bound_ms=b_bound,
+                   bound_by="bytes" if b_bytes / PEAK_BYTES >= b_ops / PEAK_FP32_OPS
+                   else "operations"),
+            C=dict(ms=c_ms, plain_ms=c_plain_ms, bound_ms=c_bound,
+                   bound_by="bytes" if c_bytes / PEAK_BYTES >= c_ops / PEAK_FP32_UNFUSED
+                   else "operations"),
+            D=dict(ms=d_ms, plain_ms=d_plain_ms, bound_ms=d_bound,
+                   bound_by="bytes" if d_bytes / PEAK_BYTES >= d_ops / PEAK_FP32_UNFUSED
+                   else "operations"),
+        )
+        emit({"phase": "kernel_times", "rays": r, "triangles": n_tris,
+              "A": {"ms": a_ms, "device_ms": a_dev_ms, "shadow_ms": a_shadow_ms,
+                    "plain_ms": a_plain_ms, "ops": a_ops, "bytes": a_bytes, "bound_ms": a_bound,
+                    "bound_unfused_ms": a_ops / PEAK_FP32_UNFUSED * 1e3},
+              "B": {"ms": b_ms, "device_ms": b_dev_ms, "shadow_ms": b_shadow_ms,
+                    "plain_ms": b_plain_ms, "steps": n_steps, "tested_triangles": n_tests,
+                    "bytes": b_bytes, "ops": b_ops, "bound_ms": b_bound},
+              "C": {"ms": c_ms, "device_ms": c_dev_ms, "per_ray_mode_ms": c_per_ray_ms,
+                    "plain_ms": c_plain_ms, "wave": trc.wave,
+                    "steps": int(c_out.steps.sum()), "max_steps": int(c_out.steps.max()),
+                    "rows_tested": rows_tested, "distinct_rows_tested": full_rows,
+                    "header_only_rows": header_rows, "table_rows": pmeta.n_blocks,
+                    "hits": c_hits, "in_shadow": c_shadow, "bytes": c_bytes, "ops": c_ops,
+                    "bound_ms": c_bound,
+                    "bound_ops_fma_peak_ms": c_ops / PEAK_FP32_OPS * 1e3,
+                    "bound_bytes_ms": c_bytes / PEAK_BYTES * 1e3},
+              "D": {"ms": d_ms, "device_ms": d_dev_ms, "plain_ms": d_plain_ms,
+                    "lanes": w, "distinct_rows": d_rows, "bytes": d_bytes, "ops": d_ops,
+                    "bound_ms": d_bound, "bound_ops_fma_peak_ms": d_ops / PEAK_FP32_OPS * 1e3,
+                    "bound_bytes_ms": d_bytes / PEAK_BYTES * 1e3}})
+
+    def kernels_line(self):
+        rows = []
+        for name, key, source, replaces in (
+            ("brute_intersect", "A", "ray_tracer_tpu_torch/csrc/brute_intersect.cu",
+             "ray_tracer_tpu/ops/pallas_intersect.py:114"),
+            ("traverse_grid", "B", "ray_tracer_tpu_torch/csrc/traverse_grid.cu",
+             "ray_tracer_tpu/ops/traverse.py:91"),
+            ("packed_march", "C", "ray_tracer_tpu_torch/csrc/packed_march.cu",
+             "ray_tracer_tpu/ops/traverse_packed.py:152"),
+            ("gather_row_test", "D", "ray_tracer_tpu_torch/csrc/gather_row_test.cu",
+             "tools/pallas_gather_bench.py:98"),
+        ):
+            t = self.times[key]
+            rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                         "launches": self.launches[name], "max_abs_err": self.err[name],
+                         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                         "bound_by": t["bound_by"], "library_ms": None})
+        emit({"kernels": rows})
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phases", default=",".join(ALL_PHASES),
+                    help="comma list of " + ",".join(ALL_PHASES))
+    args = ap.parse_args(argv)
+    phases = set(args.phases.split(","))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from ray_tracer_tpu_torch.io.ppm import read_ppm, tonemap_u8
-    from ray_tracer_tpu_torch.kernels import _build
-    from ray_tracer_tpu_torch.models.scenes import parallel_scene_config, serial_scene_config
-    from ray_tracer_tpu_torch.ops import brute_intersect as kA
-    from ray_tracer_tpu_torch.ops import traverse as kB
-    from ray_tracer_tpu_torch.ops.camera import camera_rays
-    from ray_tracer_tpu_torch.render.renderer import prepare, render, shadow_rays_for
-
-    dev = torch.device("cuda")
     card = card_line()
     emit({"phase": "device", "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "card": card,
           "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()})
-
-    t0 = time.perf_counter()
-    libs = _build.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": {k: os.path.basename(v) for k, v in libs.items()}})
-
-    base = serial_scene_config(256, 256)
-    prep = prepare(base)
-    grid, meta = prep.grid.arrays, prep.grid.meta
-    v0, v1, v2 = prep.scene.triangle_soa()
-    tri9_soa = kA.triangle_table(v0, v1, v2)
-    tri9_rows = kB.vertex_table(v0, v1, v2)
-    n_tris = v0.shape[0]
-
-    def shadow_of(cfg, rays, t, hit):
-        poi = torch.where(hit[:, None], rays.at(torch.where(hit, t, torch.zeros_like(t))),
-                          torch.zeros_like(rays.orig))
-        return shadow_rays_for(cfg.render, prep.scene.light_pos, poi, hit)
-
-    # ---- 3. kernel A vs its plain version -------------------------------
-    err_a = 0.0
-    rays = camera_rays(base.camera, device=dev)
-    ka = kA.brute_intersect_cuda(rays.orig, rays.dirn, tri9_soa, 0.0)
-    pa = kA.brute_intersect_plain(rays.orig, rays.dirn, tri9_soa, 0.0)
-    err_a = max(err_a, compare("kernel A primary", ka, pa))
-    hit = ka[1] >= 0
-    srays = shadow_of(dataclasses.replace(base, render=dataclasses.replace(
-        base.render, faithful=False)), rays, ka[0], hit)
-    eps = base.render.shadow_eps
-    ks = kA.brute_intersect_cuda(srays.orig, srays.dirn, tri9_soa, eps)
-    ps = kA.brute_intersect_plain(srays.orig, srays.dirn, tri9_soa, eps)
-    err_a = max(err_a, compare("kernel A shadow", ks, ps))
-    emit({"phase": "kernel_A_vs_plain", "rays": rays.count, "triangles": n_tris,
-          "primary_hits": int(hit.sum()), "shadow_hits": int((ks[1] >= 0).sum()),
-          "max_abs_err": err_a, "tolerance": "bitwise", "equal": True})
-
-    # ---- 4. kernel B vs its plain version -------------------------------
-    err_b = 0.0
-    checked = []
-    for det in ("float32", "float64"):
-        for mode, kw, skw in (
-            ("faithful", dict(t_gate=None), dict(t_gate=eps)),
-            ("production", dict(t_gate=0.0, early_exit=True),
-             dict(t_gate=eps, early_exit=True, stop_on_first_hit=True)),
-        ):
-            kb = kB.traverse_grid_cuda(rays, grid, meta, tri9_rows, det_dtype=det, **kw)
-            pb = kB.traverse_grid_plain(rays, grid, meta, tri9_rows, det_dtype=det, **kw)
-            err_b = max(err_b, compare(f"kernel B {det} {mode} primary", kb, pb))
-            h = kb.any_pass if mode == "faithful" else kb.hit
-            sr = shadow_of(base, rays, kb.t, h)
-            kbs = kB.traverse_grid_cuda(sr, grid, meta, tri9_rows, det_dtype=det, **skw)
-            pbs = kB.traverse_grid_plain(sr, grid, meta, tri9_rows, det_dtype=det, **skw)
-            err_b = max(err_b, compare(f"kernel B {det} {mode} shadow", kbs, pbs))
-            checked.append({"det": det, "mode": mode, "primary_hits": int(h.sum()),
-                            "shadow_hits": int(kbs.hit.sum()),
-                            "mean_steps": float(kb.steps.float().mean())})
-    emit({"phase": "kernel_B_vs_plain", "rays": rays.count, "cases": checked,
-          "max_abs_err": err_b, "tolerance": "bitwise", "equal": True})
-
-    # ---- 5. the main path at full size ----------------------------------
-    size = 1024
-    main_cfg = serial_scene_config(size, size)
-    configs = {
-        "csr": (main_cfg, "traverse_grid"),
-        "brute_pallas": (dataclasses.replace(main_cfg, render=dataclasses.replace(
-            main_cfg.render, traversal="brute_pallas", faithful=False)), "brute_intersect"),
-    }
-    counters = {"brute_intersect": kA.brute_intersect_cuda, "traverse_grid": kB.traverse_grid_cuda}
-    launches = {}
-    images = {}
-    for name, (cfg, kernel) in configs.items():
-        t0 = time.perf_counter()
-        p = prepare(cfg)
-        prep_s = time.perf_counter() - t0
-        for fn in counters.values():
-            fn.launches = 0
-        img = render(p)
-        torch.cuda.synchronize()
-        counts = {k: fn.launches for k, fn in counters.items()}
-        if counts[kernel] <= 0:
-            raise AssertionError(f"render with traversal={name} launched {kernel} 0 times")
-        launches[kernel] = counts[kernel]
-        if img.shape != (size, size, 3) or not bool(torch.isfinite(img).all()):
-            raise AssertionError(f"{name} render: bad image {tuple(img.shape)}")
-        secs = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            img = render(p)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-        med = sorted(secs)[2]
-        images[name] = tonemap_u8(img.cpu().numpy())
-        emit({"phase": "main_path", "config": name, "size": size,
-              "prepare_s": prep_s, "median_ms": med * 1e3,
-              "renders_ms": [s * 1e3 for s in secs],
-              "mrays_per_s": size * size * 2 / med / 1e6,
-              "launches_per_frame": counts,
-              "lit_pixels": int((images[name].max(axis=-1) > 0).sum())})
-        if name == "csr":
-            emit(profile_render(p, med))
-    diff = abs(images["csr"].astype(int) - images["brute_pallas"].astype(int)).max(axis=-1)
-    frac = float((diff > 2).mean())
-    if frac >= 0.01:
-        raise AssertionError(f"csr vs brute_pallas: {frac:.2%} of pixels differ by > 2")
-    emit({"phase": "main_path_agreement", "pixels_over_2_counts": frac})
-
-    # the same default render through the command line, in its own process
-    root = os.path.dirname(os.path.abspath(__file__))
-    out_ppm = os.path.join(root, "build", "chip_smoke_cli.ppm")
-    os.makedirs(os.path.dirname(out_ppm), exist_ok=True)
-    cli = subprocess.run(
-        [sys.executable, "-m", "ray_tracer_tpu_torch.cli", "render", "--scene", "serial",
-         "--width", str(size), "--out", out_ppm],
-        cwd=root, capture_output=True, text=True, timeout=600,
-    )
-    if cli.returncode != 0:
-        raise AssertionError(f"cli render failed:\n{cli.stderr[-3000:]}")
-    cli_img = read_ppm(out_ppm)
-    if not (cli_img == images["csr"]).all():
-        raise AssertionError("cli render differs from the in-process render")
-    emit({"phase": "cli", "size": size, "same_bytes_as_render": True,
-          "stderr": cli.stderr.strip().splitlines()[-1]})
-
-    pcfg = parallel_scene_config(512, 512)
-    pp = prepare(pcfg)
-    for fn in counters.values():
-        fn.launches = 0
-    render(pp)
-    torch.cuda.synchronize()
-    pcounts = {k: fn.launches for k, fn in counters.items()}
-    if pcounts["traverse_grid"] <= 0:
-        raise AssertionError("parallel render launched traverse_grid 0 times")
-    t0 = time.perf_counter()
-    pimg = render(pp)
-    torch.cuda.synchronize()
-    pms = (time.perf_counter() - t0) * 1e3
-    if not bool(torch.isfinite(pimg).all()):
-        raise AssertionError("parallel render: non-finite pixels")
-    emit({"phase": "parallel_scene", "size": 512, "triangles": pp.scene.num_faces,
-          "bounces": pcfg.render.max_bounces, "ms": pms,
-          "launches_per_frame": pcounts})
-
-    # ---- kernel times at the main path's shapes -------------------------
-    p = prepare(main_cfg)
-    grid, meta = p.grid.arrays, p.grid.meta
-    v0, v1, v2 = p.scene.triangle_soa()
-    tri9_soa = kA.triangle_table(v0, v1, v2)
-    tri9_rows = kB.vertex_table(v0, v1, v2)
-    rays = camera_rays(main_cfg.camera, device=dev)
-    r = rays.count
-
-    # Inputs are made once; each kernel's time is n back-to-back launches
-    # over n, its device time the profiler's mean for the kernel alone.
-    def launch_a():
-        return kA.brute_intersect_cuda(rays.orig, rays.dirn, tri9_soa, 0.0)
-
-    a_ms = cuda_ms(launch_a, 5)
-    a_dev_ms = kernel_device_ms(launch_a, "brute_intersect_kernel", 3)
-    a_out = launch_a()
-    a_plain_ms, a_plain = once_ms(
-        lambda: kA.brute_intersect_plain(rays.orig, rays.dirn, tri9_soa, 0.0))
-    err_a = max(err_a, compare("kernel A 1024 primary", a_out, a_plain))
-    a_ops = r * n_tris * OPS_PER_PAIR_A
-    a_bytes = r * (24 + 8) + n_tris * 36
-    a_bound = max(a_ops / PEAK_FP32_OPS, a_bytes / PEAK_BYTES) * 1e3
-
-    kw = dict(det_dtype=main_cfg.render.det_dtype, t_gate=main_cfg.render.primary_gate(),
-              early_exit=not main_cfg.render.faithful)
-
-    def launch_b():
-        return kB.traverse_grid_cuda(rays, grid, meta, tri9_rows, **kw)
-
-    b_ms = cuda_ms(launch_b, 50)
-    b_dev_ms = kernel_device_ms(launch_b, "traverse_grid_kernel", 20)
-    tested = torch.zeros((r,), dtype=torch.int32, device=dev)
-    b_out = kB.traverse_grid_cuda(rays, grid, meta, tri9_rows, tested_out=tested, **kw)
-    b_plain_ms, b_plain = once_ms(
-        lambda: kB.traverse_grid_plain(rays, grid, meta, tri9_rows, **kw))
-    err_b = max(err_b, compare("kernel B 1024 primary", b_out, b_plain))
-    # the frame's second launch of each kernel: the shadow rays of its hits
-    fast = dataclasses.replace(main_cfg, render=dataclasses.replace(main_cfg.render, faithful=False))
-    sa = shadow_of(fast, rays, a_out[0], a_out[1] >= 0)
-    a_shadow_ms = cuda_ms(lambda: kA.brute_intersect_cuda(sa.orig, sa.dirn, tri9_soa, eps), 5)
-    sb = shadow_of(main_cfg, rays, b_out.t, main_cfg.render.accepted_hit(b_out))
-    b_shadow_ms = cuda_ms(lambda: kB.traverse_grid_cuda(
-        sb, grid, meta, tri9_rows, det_dtype=kw["det_dtype"], t_gate=eps,
-        early_exit=kw["early_exit"], stop_on_first_hit=kw["early_exit"]), 50)
-    n_tests = int(tested.sum())
-    n_steps = int(b_out.steps.sum())
-    # each input read once, each output written once: the rays (32 B) and
-    # five results (14 B), the CSR arrays and the vertex table; the walk's
-    # repeated gathers of them are not counted
-    b_bytes = (r * (32 + 14) + (grid.cell_start.numel() + grid.tri_ids.numel()) * 4
-               + tri9_rows.numel() * 4)
-    b_ops = n_tests * OPS_PER_TEST_B
-    b_bound = max(b_bytes / PEAK_BYTES, b_ops / PEAK_FP32_OPS) * 1e3
-    emit({"phase": "kernel_times", "rays": r, "triangles": n_tris,
-          "A": {"ms": a_ms, "device_ms": a_dev_ms, "shadow_ms": a_shadow_ms,
-                "plain_ms": a_plain_ms, "ops": a_ops, "bytes": a_bytes, "bound_ms": a_bound,
-                "bound_unfused_ms": a_ops / (PEAK_FP32_OPS / 2) * 1e3},
-          "B": {"ms": b_ms, "device_ms": b_dev_ms, "shadow_ms": b_shadow_ms,
-                "plain_ms": b_plain_ms, "steps": n_steps, "tested_triangles": n_tests,
-                "bytes": b_bytes, "ops": b_ops, "bound_ms": b_bound}})
-
-    # ---- 6. card vs CPU --------------------------------------------------
-    small = serial_scene_config(64, 64)
-    small = dataclasses.replace(small, render=dataclasses.replace(small.render, det_dtype="float64"))
-    on_card = tonemap_u8(render(prepare(small)).cpu().numpy())
-    on_cpu = tonemap_u8(render(prepare(small, device="cpu")).numpy())
-    n_bad = int((on_card != on_cpu).sum())
-    if n_bad:
-        raise AssertionError(f"64x64 float64 render: {n_bad} PPM bytes differ card vs CPU")
-    emit({"phase": "card_vs_cpu", "size": 64, "det_dtype": "float64", "bytes_differing": 0})
-
-    emit({"kernels": [
-        {"name": "brute_intersect", "route": "cuda",
-         "source": "ray_tracer_tpu_torch/csrc/brute_intersect.cu",
-         "replaces": "ray_tracer_tpu/ops/pallas_intersect.py:114",
-         "launches": launches["brute_intersect"], "max_abs_err": err_a,
-         "ms": a_ms, "plain_ms": a_plain_ms, "bound_ms": a_bound,
-         "bound_by": "operations" if a_ops / PEAK_FP32_OPS >= a_bytes / PEAK_BYTES else "bytes",
-         "library_ms": None},
-        {"name": "traverse_grid", "route": "cuda",
-         "source": "ray_tracer_tpu_torch/csrc/traverse_grid.cu",
-         "replaces": "ray_tracer_tpu/ops/traverse.py:91",
-         "launches": launches["traverse_grid"], "max_abs_err": err_b,
-         "ms": b_ms, "plain_ms": b_plain_ms, "bound_ms": b_bound,
-         "bound_by": "bytes" if b_bytes / PEAK_BYTES >= b_ops / PEAK_FP32_OPS else "operations",
-         "library_ms": None},
-    ]})
+    smoke = Smoke()
+    t_start = time.perf_counter()
+    smoke.build()
+    if phases & {"A", "B"}:
+        smoke.kernels_ab(phases)
+    if "C" in phases:
+        smoke.kernel_c()
+    if "main" in phases:
+        smoke.main_path()
+    if "card_vs_cpu" in phases:
+        smoke.card_vs_cpu()
+    if "D" in phases:
+        smoke.kernel_d()
+    if "times" in phases:
+        smoke.kernel_times()
+    emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
+    if phases >= set(ALL_PHASES):
+        smoke.kernels_line()
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

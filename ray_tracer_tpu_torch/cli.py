@@ -5,6 +5,8 @@
         --traversal csr --det-dtype float32 --out p.ppm
     python -m ray_tracer_tpu_torch.cli render --scene serial --width 64 \\
         --det-dtype float64 --device cpu --out s.ppm
+    python -m ray_tracer_tpu_torch.cli render --scene serial --width 1024 \\
+        --turbo --out t.ppm
 
 The counterpart of `ray_tracer_tpu/cli.py render` for the options this
 port serves.  It runs on the card unless `--device cpu` is given.
@@ -36,6 +38,13 @@ def _build_cfg(args):
         rkw["det_dtype"] = args.det_dtype
     if rkw:
         cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, **rkw))
+    if args.turbo:
+        # the tuned production pipeline, from the per-scene knob table
+        # (config.TUNED_KNOBS, the JAX package's): packed rows, the
+        # persistent wave, auto grid layout, SAT-exact grid insertion
+        from ray_tracer_tpu_torch.config import apply_turbo
+
+        cfg = apply_turbo(cfg, {"serial": "serial", "parallel": "parallel"}.get(args.scene))
     return cfg
 
 
@@ -70,9 +79,13 @@ def main(argv=None) -> None:
     r.add_argument("--out", default="out.ppm")
     r.add_argument("--fast", action="store_true",
                    help="production semantics (gated hits, early-exit DDA)")
-    r.add_argument("--traversal", choices=["csr", "brute_pallas"], default=None,
+    r.add_argument("--traversal", choices=["csr", "brute_pallas", "packed"], default=None,
                    help="csr: the grid DDA kernel (default); brute_pallas: "
-                        "the all-pairs kernel (implies --fast)")
+                        "the all-pairs kernel (implies --fast); packed: the "
+                        "packed-grid march (needs --fast)")
+    r.add_argument("--turbo", action="store_true",
+                   help="the tuned production pipeline (config.apply_turbo): "
+                        "packed grid, persistent wave, fused shadow rays")
     r.add_argument("--det-dtype", choices=["float32", "float64"], default=None,
                    help="determinant precision (float64 = the oracle's)")
     r.add_argument("--device", default="cuda", help="cuda (default) or cpu")

@@ -73,7 +73,8 @@ class GridConfig:
     resolution_multiplier=3 and max_resolution=64 reproduce the reference
     heuristic nVoxels = clamp(delta * 3*cbrt(N)/maxExtent + 1, 1, 64).
     exact_overlap=True SAT-filters each (triangle, voxel) pair; `leap`
-    belongs to the packed layouts, which the port does not serve yet."""
+    ("box" | "cheb") is the packed layouts' empty-cell leap geometry
+    (accel/packed.pack_grid)."""
 
     resolution_multiplier: float = 3.0
     max_resolution: int = 64
@@ -88,15 +89,24 @@ class RenderConfig:
 
       * shading "serial" | "parallel", faithful True | False;
       * traversal "csr" (the CSR DDA, kernel B), "brute" (the plain
-        all-pairs sweep) and "brute_pallas" (the all-pairs kernel A; the
-        name is the JAX package's, kept so configs carry over);
+        all-pairs sweep), "brute_pallas" (the all-pairs kernel A; the
+        name is the JAX package's, kept so configs carry over) and
+        "packed" (the block-packed grid march, kernel C; faithful=False);
+      * the packed path's knobs: packed_block_tris (0 = auto),
+        grid_layout "auto" | "inline" | "blocks", scheduler "tiled" |
+        "persistent", fused_shadow, probe_chain (blocks layout), and
+        queue_order "fifo" | "chord"; wave, pump, refill_retries,
+        camera_refill and packed_unroll are accepted and change no ray's
+        record, in the JAX package as here (ops/persistent.py says which
+        of them shape the card's launch);
       * max_bounces, shadow_eps, shadow_scale, background, ray_tile,
         det_dtype, grid.
 
     Every other knob that changes the JAX package's image must keep its
-    default (the renderer raises); the knobs of the packed and persistent
-    paths (scheduler, wave, pump, ...) do not apply to these traversals,
-    in the JAX package either."""
+    default (the renderer raises).  gi_wave applies only with
+    gi_samples > 0, and whitted_wave="auto" renders through the bounce
+    loop wherever the cross-depth wave is not eligible, as in the JAX
+    package."""
 
     shading: str = "serial"  # "serial" | "parallel"
     faithful: bool = True
@@ -187,3 +197,57 @@ class SceneConfig:
     light: LightConfig = field(default_factory=LightConfig)
     extra_lights: Tuple[LightConfig, ...] = ()
     render: RenderConfig = field(default_factory=RenderConfig)
+
+
+# The JAX package's per-scene tuned knobs (ray_tracer_tpu/config.py
+# TUNED_KNOBS), with the same keys and values: "serial" = the spot+blub
+# scene, "nefertiti" = the dense stand-in, "parallel" = the reflective
+# scene, None = the fallback.  They were swept on a TPU; the port keeps
+# them so that one --turbo config means one image in both packages.
+TUNED_KNOBS = {
+    "serial": dict(block_tris=14, rm=2.0, max_res=128, wave=12288, pump=4,
+                   exact=True, wwave=False, gi_pump=6),
+    "nefertiti": dict(block_tris=14, rm=2.0, max_res=128, wave=4608, pump=4,
+                      exact=True, wwave=False),
+    "parallel": dict(block_tris=14, rm=2.0, max_res=64, wave=8192, pump=4,
+                     exact=True, wwave=True, wwave_pump=10,
+                     wwave_wave=12288),
+    None: dict(block_tris=0, rm=3.0, max_res=64, wave=8192, pump=2,
+               exact=True, wwave=False),
+}
+
+
+def apply_turbo(cfg: SceneConfig, scene_family: "str | None") -> SceneConfig:
+    """The tuned production pipeline (ray_tracer_tpu/config.py
+    apply_turbo): packed block rows + the persistent wave + auto grid
+    layout + SAT-exact grid insertion, with the TUNED_KNOBS row of the
+    scene family."""
+    import dataclasses
+
+    k = TUNED_KNOBS.get(scene_family, TUNED_KNOBS[None])
+    wwave = bool(k.get("wwave"))
+    return dataclasses.replace(
+        cfg,
+        render=dataclasses.replace(
+            cfg.render,
+            faithful=False, det_dtype="float32",
+            traversal="packed", scheduler="persistent",
+            gi_wave="auto",
+            whitted_wave="auto" if wwave else "off",
+            packed_block_tris=k["block_tris"],
+            wave=(k.get("wwave_wave", k["wave"])
+                  if wwave and cfg.render.gi_samples == 0 else k["wave"]),
+            pump=(k.get("gi_pump", k["pump"])
+                  if cfg.render.gi_samples > 0
+                  else (k.get("wwave_pump", k["pump"]) if wwave
+                        else k["pump"])),
+            **({"refill_retries": k["retries"]} if "retries" in k else {}),
+            grid_layout="auto",
+            grid=dataclasses.replace(
+                cfg.render.grid,
+                resolution_multiplier=k["rm"],
+                max_resolution=k["max_res"],
+                exact_overlap=k["exact"],
+            ),
+        ),
+    )

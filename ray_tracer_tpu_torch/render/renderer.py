@@ -1,13 +1,19 @@
 """The renderer: camera -> traversal -> shading -> framebuffer.
 
 Counterpart of `ray_tracer_tpu/render/renderer.py` (`prepare`,
-`make_traversal`, `shadow_rays_for`, `render_rays`, `render`) for the
-Whitted pipeline over the CSR grid or the all-pairs sweep:
+`choose_inline_layout`, `choose_block_tris`, `make_traversal`,
+`shadow_rays_for`, `render_rays`, `whitted_wave_eligible`, `render`) for
+the Whitted pipeline over the CSR grid, the all-pairs sweep or the packed
+grid:
 
   * the image's primary rays are one batch; on the card every trace is
     one kernel launch over the whole batch, on the CPU the batch is cut
     into `ray_tile` chunks for the plain versions (each ray is traced on
-    its own, so the image does not depend on the cut);
+    its own, so the image does not depend on the cut, nor on the JAX
+    package's entry sort of the tiled packed path);
+  * traversal="packed" marches the packed grid (kernel C): with
+    fused_shadow the primary and its shadow ray are one march, at every
+    depth under scheduler="persistent" and at depth 0 under "tiled";
   * the traversal finds the hit topology only; t, the hit point, the
     normal and the shading are recomputed from it in plain tensor code,
     t with `cramer_t_safe` in the determinant type;
@@ -25,9 +31,11 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
-from ray_tracer_tpu_torch.accel.grid import GridArrays, GridMeta, UniformGrid, build_grid
+from ray_tracer_tpu_torch.accel.grid import UniformGrid, build_grid
+from ray_tracer_tpu_torch.accel.packed import PackedGrid, pack_grid
 from ray_tracer_tpu_torch.config import RenderConfig, SceneConfig
 from ray_tracer_tpu_torch.core import vecmath as vm
 from ray_tracer_tpu_torch.core.rays import RayBatch
@@ -42,17 +50,60 @@ from ray_tracer_tpu_torch.ops.shade import (
     shade_parallel,
     shade_serial,
 )
+from ray_tracer_tpu_torch.ops.persistent import persistent_trace
 from ray_tracer_tpu_torch.ops.traverse import traverse_grid, vertex_table
+from ray_tracer_tpu_torch.ops.traverse_packed import (
+    PackedTraceResult,
+    chord_keys,
+    traverse_packed,
+    traverse_packed_fused_shadow,
+)
 
-TRAVERSALS = ("csr", "brute", "brute_pallas")
+TRAVERSALS = ("csr", "brute", "brute_pallas", "packed")
 _DET_DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
-def check_supported(cfg: SceneConfig) -> None:
+def whitted_wave_eligible(cfg: SceneConfig, scene: Scene = None) -> bool:
+    """Would the JAX package render this config through the cross-depth
+    Whitted wave (ray_tracer_tpu/render/renderer.py:836-872)?
+    whitted_wave "off" never, "auto" when eligible, "on" requires it
+    (ValueError when ineligible).  Environment maps do not exist in the
+    port; the texture test reads the scene's uvs when one is given."""
+    rcfg = cfg.render
+    knob = rcfg.whitted_wave
+    if knob == "off":
+        return False
+    ok = (
+        rcfg.gi_samples == 0
+        and rcfg.traversal == "packed"
+        and rcfg.scheduler == "persistent"
+        and not rcfg.faithful
+        and rcfg.det_dtype == "float32"
+        and rcfg.dtype == "float32"
+        and rcfg.normal_mode != "smooth"
+        and (rcfg.texture == "none" or (scene is not None and scene.uvs is None))
+        and not cfg.extra_lights
+        and rcfg.soft_visibility <= 0.0
+        and rcfg.soft_primary <= 0.0
+        and not (rcfg.shadow_samples > 1 and rcfg.light_radius > 0)
+        and not (cfg.camera.aperture > 0.0 and rcfg.spp <= 1)
+    )
+    if knob == "on" and not ok:
+        raise ValueError(
+            "whitted_wave='on' but the configuration is ineligible "
+            "(needs packed+persistent forward, one point light, "
+            "face normals, no texture/env/extra lights, no softening, "
+            "float32 dets)"
+        )
+    return ok
+
+
+def check_supported(cfg: SceneConfig, scene: Scene = None) -> None:
     """Raise NotImplementedError for every option that changes the JAX
-    package's image and that this port does not serve yet.  Knobs of the
-    packed and persistent paths (`scheduler`, `wave`, `pump`, ...) do not
-    apply to these traversals, as in the JAX package."""
+    package's image and that this port does not serve yet, and
+    ValueError where the JAX package raises.  gi_wave matters only with
+    gi_samples > 0, and whitted_wave="auto" on an ineligible config
+    renders through the bounce loop, as in the JAX package's render."""
     r = cfg.render
     bad = []
     if r.traversal not in TRAVERSALS:
@@ -71,10 +122,10 @@ def check_supported(cfg: SceneConfig) -> None:
         bad.append("area-light soft shadows")
     if cfg.extra_lights:
         bad.append("extra lights")
-    if r.gi_samples > 0 or r.gi_wave != "off":
+    if r.gi_samples > 0:
         bad.append("path-traced GI")
-    if r.whitted_wave != "off":
-        bad.append("the cross-depth Whitted wave")
+    elif whitted_wave_eligible(cfg, scene):
+        bad.append("the cross-depth Whitted wave (ops/whitted_wave.py)")
     if any(m.transmissive for m in cfg.materials):
         bad.append("transmissive materials")
     if r.dtype != "float32":
@@ -88,6 +139,11 @@ def check_supported(cfg: SceneConfig) -> None:
     if r.traversal == "brute_pallas" and r.faithful:
         raise ValueError("traversal='brute_pallas' has production semantics "
                          "only (faithful=False)")
+    if r.traversal == "packed":
+        if r.faithful:
+            raise ValueError("traversal='packed' requires faithful=False")
+        if r.grid_layout not in ("auto", "inline", "blocks"):
+            raise ValueError(f"unknown grid_layout {r.grid_layout!r}")
 
 
 def shadow_rays_for(rcfg: RenderConfig, light_pos, poi, hit) -> RayBatch:
@@ -100,10 +156,18 @@ def shadow_rays_for(rcfg: RenderConfig, light_pos, poi, hit) -> RayBatch:
     return RayBatch.make(sorig, sdir, mint=rcfg.shadow_mint())
 
 
+def _persistent_as_packed(res) -> PackedTraceResult:
+    """A fused/persistent trace result as the tiled march's result type
+    (the production convention: any_pass == hit)."""
+    return PackedTraceResult(any_pass=res.hit, hit=res.hit, t=res.t,
+                             tri_id=res.tri_id, steps=res.steps)
+
+
 class Prepared(NamedTuple):
     scene: Scene
     grid: UniformGrid
     cfg: SceneConfig
+    packed: PackedGrid = None  # built when cfg.render.traversal == "packed"
 
     @property
     def device(self) -> torch.device:
@@ -111,10 +175,11 @@ class Prepared(NamedTuple):
 
 
 def prepare(cfg: SceneConfig, scene: Scene = None, device=None) -> Prepared:
-    """Host-side setup: load the meshes, build the grid in numpy, and put
-    scene and grid on the device (cuda unless "cpu" is asked for; a given
-    scene keeps its own device)."""
-    check_supported(cfg)
+    """Host-side setup: load the meshes, build the grid (and, for
+    traversal="packed", the packed grid) in numpy, and put scene and grids
+    on the device (cuda unless "cpu" is asked for; a given scene keeps its
+    own device)."""
+    check_supported(cfg, scene)
     if scene is None:
         dev = resolve_device(device)
         verts_np, faces_np, fmat_np, uvs_np, uvf_np = scene_numpy_arrays(cfg)
@@ -133,14 +198,76 @@ def prepare(cfg: SceneConfig, scene: Scene = None, device=None) -> Prepared:
         exact_overlap=cfg.render.grid.exact_overlap,
         device=dev,
     )
-    return Prepared(scene=scene, grid=grid, cfg=cfg)
+    packed = None
+    if cfg.render.traversal == "packed":
+        bt = cfg.render.packed_block_tris
+        if bt == 0:  # auto: the measured density rule
+            bt = choose_block_tris(grid)
+        layout = cfg.render.grid_layout
+        inline = layout == "inline" or (layout == "auto" and choose_inline_layout(grid, bt))
+        packed = pack_grid(grid, verts_np, faces_np, block_tris=bt, inline=inline,
+                           leap=cfg.render.grid.leap)
+    return Prepared(scene=scene, grid=grid, cfg=cfg, packed=packed)
 
 
-def make_traversal(rcfg: RenderConfig, grid: GridArrays, meta: GridMeta, v0, v1, v2):
-    """The traversal-backend switch: RenderConfig.traversal -> a callable
-    trav(rays, t_gate, stop_on_first_hit=False) whose result has
-    .any_pass/.hit/.t/.tri_id."""
-    if rcfg.traversal == "brute_pallas":
+def choose_inline_layout(grid: UniformGrid, block_tris: int,
+                         budget_bytes: int = 64 << 20) -> bool:
+    """grid_layout="auto": the inline (one row read a step) layout iff its
+    dense first-row-per-cell table fits budget_bytes (the JAX package's
+    rule, renderer.py:150-180; its 64 MB budget was set on a TPU)."""
+    host = grid.host
+    if host is None:
+        return False
+    counts = np.diff(host.cell_start)
+    nx, ny, nz = grid.meta.n_voxels
+    n_cells = nx * ny * nz
+    row_lanes = -(-(block_tris * 9 + 2) // 128) * 128
+    rows = n_cells + int(np.maximum((counts + block_tris - 1) // block_tris - 1, 0).sum())
+    return rows * (row_lanes + block_tris) * 4 <= budget_bytes
+
+
+def choose_block_tris(grid: UniformGrid) -> int:
+    """packed_block_tris=0: round the mean triangles per occupied voxel up
+    to the next row capacity, 14, 28 or 56 (renderer.py:183-199)."""
+    host = grid.host
+    if host is None:
+        return 14
+    counts = np.diff(host.cell_start)
+    occ = int((counts > 0).sum())
+    avg = float(counts.sum()) / max(occ, 1)
+    for bt in (14, 28):
+        if avg <= bt:
+            return bt
+    return 56
+
+
+def make_traversal(rcfg: RenderConfig, grid, meta, v0, v1, v2):
+    """The traversal-backend switch: RenderConfig.traversal (and, for
+    "packed", scheduler) -> a callable trav(rays, t_gate,
+    stop_on_first_hit=False, **kw) whose result has
+    .any_pass/.hit/.t/.tri_id.  The persistent backend also takes
+    camera=, compact= and order_keys=."""
+    if rcfg.traversal == "packed":
+        chain = 1 if meta.inline else rcfg.probe_chain
+        if rcfg.scheduler == "persistent":
+            def trav(rb, t_gate, stop_on_first_hit=False, camera=None, compact=False,
+                     order_keys=None):
+                return _persistent_as_packed(persistent_trace(
+                    rb, grid, meta, wave=rcfg.wave, pump=rcfg.pump, probe_chain=chain,
+                    t_gate=0.0 if t_gate is None else t_gate,
+                    stop_on_first_hit=stop_on_first_hit,
+                    need_t=False,  # t is recomputed from tri_id by the caller
+                    camera=camera, compact=compact, order_keys=order_keys,
+                    refill_retries=rcfg.refill_retries,
+                ))
+        else:
+            def trav(rb, t_gate, stop_on_first_hit=False):
+                return traverse_packed(
+                    rb, grid, meta, t_gate=0.0 if t_gate is None else t_gate,
+                    stop_on_first_hit=stop_on_first_hit, unroll=rcfg.packed_unroll,
+                    probe_chain=chain,
+                )
+    elif rcfg.traversal == "brute_pallas":
         # the all-pairs sweep (kernel A); production f32 semantics
         tri9 = triangle_table(v0, v1, v2)
 
@@ -169,9 +296,11 @@ def make_traversal(rcfg: RenderConfig, grid: GridArrays, meta: GridMeta, v0, v1,
 
 
 @torch.no_grad()
-def render_rays(rays: RayBatch, scene: Scene, grid: GridArrays, meta: GridMeta,
-                rcfg: RenderConfig) -> torch.Tensor:
-    """Trace + shade one ray batch -> (R,3) linear color."""
+def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
+                camera_cfg=None) -> torch.Tensor:
+    """Trace + shade one ray batch -> (R,3) linear color.  camera_cfg is
+    given only when `rays` is that camera's whole batch in pixel order
+    (the persistent wave's camera refill)."""
     serial = rcfg.serial_shading
     eps = rcfg.shadow_eps
     v0, v1, v2 = scene.triangle_soa()
@@ -182,6 +311,10 @@ def render_rays(rays: RayBatch, scene: Scene, grid: GridArrays, meta: GridMeta,
     primary_gate = rcfg.primary_gate()
     early = not rcfg.faithful
     trav = make_traversal(rcfg, grid, meta, v0, v1, v2)
+    persistent = rcfg.traversal == "packed" and rcfg.scheduler == "persistent"
+    # one march for primary + shadow (soft shadows, which need several
+    # shadow rays, raise in check_supported)
+    fused = rcfg.traversal == "packed" and rcfg.fused_shadow
 
     r = rays.count
     cur = rays
@@ -190,7 +323,50 @@ def render_rays(rays: RayBatch, scene: Scene, grid: GridArrays, meta: GridMeta,
     for depth in range(rcfg.max_bounces + 1):
         # bounce depths gate t >= eps (RenderConfig.bounce_gate)
         gate_d = primary_gate if depth == 0 else rcfg.bounce_gate()
-        res = trav(cur, t_gate=gate_d)
+        # difficulty-ordered queue for the depth-0 batch
+        okeys = None
+        if depth == 0 and rcfg.queue_order == "chord" and persistent:
+            okeys = chord_keys(cur, grid)
+        fres = None
+        if fused and (depth == 0 or persistent):
+            # the lane rearms as its own shadow ray when its primary
+            # retires: at every depth in the persistent wave, at depth 0
+            # only in the tiled march
+            fkw = dict(shadow_gate=eps, shadow_mint=rcfg.shadow_mint(),
+                       serial_quirk=rcfg.shadow_dir_away_from_light())
+            if persistent:
+                fres = persistent_trace(
+                    cur, grid, meta, scene.light_pos, wave=rcfg.wave, pump=rcfg.pump,
+                    fuse_shadow=True, probe_chain=1 if meta.inline else rcfg.probe_chain,
+                    need_t=False,  # t is recomputed from tri_id below
+                    # zero-direct hits skip their shadow ray: the serial
+                    # variant adds ambient after the shadow scale, so the
+                    # image is unchanged (renderer.py:392-405 of JAX)
+                    shadow_skip_dead=(serial and rcfg.soft_visibility <= 0.0
+                                      and rcfg.normal_mode == "face"),
+                    shade_serial=serial,
+                    t_gate=0.0 if gate_d is None else gate_d,
+                    need_shadow_tri=rcfg.soft_visibility > 0.0,
+                    camera=(camera_cfg if depth == 0 and rcfg.camera_refill != "off"
+                            else None),
+                    compact=depth > 0, order_keys=okeys,
+                    refill_retries=rcfg.refill_retries, **fkw,
+                )
+            else:
+                fres = traverse_packed_fused_shadow(
+                    cur, grid, meta, scene.light_pos,
+                    primary_gate=0.0 if primary_gate is None else primary_gate, **fkw,
+                )
+            res = _persistent_as_packed(fres)
+        else:
+            tkw = {}
+            if persistent:
+                if depth == 0 and camera_cfg is not None and rcfg.camera_refill != "off":
+                    tkw["camera"] = camera_cfg
+                tkw["compact"] = depth > 0  # bounce batches are mostly dead
+                if okeys is not None:
+                    tkw["order_keys"] = okeys
+            res = trav(cur, t_gate=gate_d, **tkw)
         hit = rcfg.accepted_hit(res)
         tri = torch.clamp(res.tri_id, min=0).long()
 
@@ -212,9 +388,13 @@ def render_rays(rays: RayBatch, scene: Scene, grid: GridArrays, meta: GridMeta,
             poi=torch.where(hit[:, None], geom.poi, torch.zeros_like(geom.poi))
         )
 
-        srays = shadow_rays_for(rcfg, scene.light_pos, geom.poi, hit)
-        sres = trav(srays, t_gate=eps, stop_on_first_hit=early)
-        in_shadow = rcfg.accepted_hit(sres) & hit
+        if fres is not None:
+            in_shadow = fres.in_shadow & hit
+        else:
+            srays = shadow_rays_for(rcfg, scene.light_pos, geom.poi, hit)
+            skw = {"compact": depth > 0} if persistent else {}
+            sres = trav(srays, t_gate=eps, stop_on_first_hit=early, **skw)
+            in_shadow = rcfg.accepted_hit(sres) & hit
 
         if serial:
             color = shade_serial(geom, mat, scene.light_pos, scene.light_intensity,
@@ -253,17 +433,19 @@ def render(prep: Prepared) -> torch.Tensor:
     """Render the prepared scene -> (H, W, 3) float32 linear color on the
     scene's device."""
     cfg = prep.cfg
-    check_supported(cfg)
+    check_supported(cfg, prep.scene)
     rcfg = cfg.render
     rays = camera_rays(cfg.camera, dtype=_DET_DTYPES[rcfg.dtype], device=prep.device)
-    args = (prep.scene, prep.grid.arrays, prep.grid.meta, rcfg)
-    if prep.device.type == "cuda":
-        colors = render_rays(rays, *args)
+    if rcfg.traversal == "packed":
+        args = (prep.scene, prep.packed.arrays, prep.packed.meta, rcfg)
     else:
-        tile = max(1, rcfg.ray_tile)
+        args = (prep.scene, prep.grid.arrays, prep.grid.meta, rcfg)
+    tile = rays.count if prep.device.type == "cuda" else max(1, rcfg.ray_tile)
+    if tile >= rays.count:
+        colors = render_rays(rays, *args, camera_cfg=cfg.camera)
+    else:
         colors = torch.cat([
             render_rays(rays.slice(lo, min(lo + tile, rays.count)), *args)
             for lo in range(0, rays.count, tile)
         ])
     return colors.reshape(cfg.camera.height, cfg.camera.width, 3)
-

@@ -24,9 +24,13 @@ for m in pkgutil.walk_packages(ray_tracer_tpu_torch.__path__, "ray_tracer_tpu_to
     importlib.import_module(m.name)
 import chip_smoke  # the card check imports nothing of JAX either
 from ray_tracer_tpu_torch.models.scenes import serial_scene_config
+from ray_tracer_tpu_torch.config import apply_turbo
 from ray_tracer_tpu_torch.render.renderer import prepare, render
 img = render(prepare(serial_scene_config(8, 8), device="cpu"))
 assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+img = render(prepare(apply_turbo(serial_scene_config(8, 8), "serial"), device="cpu"))
+assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+import ray_tracer_tpu_torch.ops.persistent, ray_tracer_tpu_torch.tools.gather_bench
 loaded = [k for k, v in sys.modules.items()
           if v is not None and (k.split(".")[0] in ("jax", "jaxlib", "ray_tracer_tpu"))]
 assert not loaded, loaded
@@ -35,8 +39,10 @@ print("independent")
 
 
 def test_port_imports_nothing_of_jax():
-    """Every module of the port, and chip_smoke.py, imports and renders an
-    8x8 serial image with `jax` and `ray_tracer_tpu` made unimportable."""
+    """Every module of the port (the packed grid, the packed march, the
+    persistent wave and the gather tool among them), and chip_smoke.py,
+    imports and renders 8x8 serial images, default and turbo, with `jax`
+    and `ray_tracer_tpu` made unimportable."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _INDEPENDENCE], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)
@@ -64,18 +70,19 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    dict(traversal="packed", faithful=False),
+    dict(traversal="packed", faithful=False, soft_visibility=0.1),
     dict(spp=2),
     dict(texture="checker"),
     dict(normal_mode="smooth", faithful=False),
     dict(soft_visibility=0.1),
     dict(shadow_samples=4, light_radius=0.5, faithful=False),
     dict(gi_samples=1, faithful=False),
-    dict(whitted_wave="on"),
+    dict(whitted_wave="on", traversal="packed", scheduler="persistent", faithful=False),
 ])
 def test_unsupported_options_raise(change):
     """Options outside the slice raise NotImplementedError; none is
-    silently ignored."""
+    silently ignored.  (The packed traversal is served since the second
+    slice; its soft-visibility epilogue and the Whitted wave are not.)"""
     from ray_tracer_tpu_torch.models.scenes import serial_scene_config
     from ray_tracer_tpu_torch.render.renderer import prepare
 
@@ -111,3 +118,26 @@ def test_failed_kernel_build_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc failed for brute_intersect.cu"):
         _build.build(["brute_intersect"])
     assert not any(p.suffix == ".so" for p in tmp_path.iterdir())
+
+
+def test_every_kernel_is_built_by_default():
+    """build() with no names compiles all four sources, each into its own
+    library keyed by its sources and flags."""
+    from ray_tracer_tpu_torch.kernels import _build
+
+    assert _build.KERNELS == ("brute_intersect", "traverse_grid", "packed_march",
+                              "gather_row_test")
+    for name in _build.KERNELS:
+        assert os.path.exists(os.path.join(_build.CSRC, name + ".cu"))
+    paths = {_build.library_path(n) for n in _build.KERNELS}
+    assert len(paths) == len(_build.KERNELS)
+
+
+@pytest.mark.parametrize("name", ["packed_march", "gather_row_test"])
+def test_failed_build_of_new_kernels_raises(monkeypatch, tmp_path, name):
+    from ray_tracer_tpu_torch.kernels import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setenv("NVCC", "false")
+    with pytest.raises(RuntimeError, match=f"nvcc failed for {name}.cu"):
+        _build.build([name])
