@@ -7,20 +7,23 @@ Run from the repository root on a machine with a CUDA device.  Phases,
 each printing one JSON line:
 
   1. device: PyTorch/CUDA versions, the card's name and power limit;
-  2. build: compile every kernel of csrc/ (one nvcc per source, in
-     parallel) and time it; registers and spills of kernels C and D;
+  2. build: compile every kernel of csrc/ and the measurement variants of
+     kernels B and C (one nvcc per library, in parallel) and time it;
+     registers and spills of every kernel and variant;
   3. kernel A (csrc/brute_intersect.cu) against its plain PyTorch version
      on the serial scene's 256x256 camera rays and their shadow rays:
      hit and tri_id equal, t bitwise equal;
   4. kernel B (csrc/traverse_grid.cu) against its plain version on the
-     same rays, float32 and float64 determinants, faithful and production
-     modes: all five TraceResult fields equal;
+     same rays and on the parallel scene's grid and camera, float32 and
+     float64 determinants, faithful and production modes: all five
+     TraceResult fields equal;
   5. kernel C (csrc/packed_march.cu) against its plain version on the
-     turbo serial grid's 256x256 camera rays, one thread per ray and as a
-     persistent wave (with the compacted and the chord-ordered queue):
-     fused with and without the dead-shadow skip, nearest and any hit,
-     inline and blocks layouts (and a probe chain): every record field
-     bitwise equal, no ray capped;
+     turbo serial grid's 256x256 camera rays, one lane per ray and as
+     resident lanes popping a queue (also on the compacted and the
+     chord-ordered queues): fused with and without the dead-shadow skip,
+     nearest and any hit, inline and blocks layouts (and a probe chain),
+     rows of 14, 28 and 56 triangles: every record field bitwise equal,
+     no ray capped;
   6. the main path at full size, launch counts zeroed before each render
      and read after it, each config required to launch its kernel:
      prepare + render of the serial scene at 1024x1024 with the default
@@ -38,8 +41,11 @@ each printing one JSON line:
   8. kernel D (csrc/gather_row_test.cu) against its plain version through
      the port's gather tool, and the tool's step-loop time.
 
-Then the kernel times at the main path's shapes, a `kernels` line, the
-card line, and last {"ok": true, "device": {...}}.  Any failure raises
+Then the kernel times at the main path's shapes (kernel C in its warp
+form and with groups of 1, 8, 16 and 32 lanes a ray, in both launch
+modes; kernel B with its mask in shared memory and through L1; each
+variant held bitwise to the plain version), a `kernels` line, the card
+line, and last {"ok": true, "device": {...}}.  Any failure raises
 and exits non-zero; without a CUDA device it exits non-zero before any
 phase.
 """
@@ -78,6 +84,23 @@ OPS_PER_TEST_B = 61
 # acceptance test (5) and the running minimum (1).
 OPS_PER_LANE_D = 63
 ALL_PHASES = ("build", "A", "B", "C", "main", "card_vs_cpu", "D", "times")
+# Measurement builds: kernel C with a group of G lanes a ray instead of
+# its warp form (G = 0), and at 86 registers instead of 64; kernel B with
+# its occupancy mask in shared memory or through L1, and two diagnostic
+# builds that skip the triangle tests (1) or the tables too (2), whose
+# records are not compared.
+C_VARIANTS = {g: (f"PACKED_MARCH_GROUP={g}",) for g in (0, 1, 8, 16, 32)}
+C_VARIANTS["0_min4"] = ("PACKED_MARCH_GROUP=0", "PACKED_MARCH_MIN_BLOCKS=4")
+B_VARIANTS = {"shared": ("TRAVERSE_GRID_SHARED_MASK=1",),
+              "l1": ("TRAVERSE_GRID_SHARED_MASK=0",),
+              "diag_no_tests": ("TRAVERSE_GRID_DIAG=1",),
+              "diag_walk_only": ("TRAVERSE_GRID_DIAG=2",)}
+# The previous designs' times on the 1024^2 main path (one thread per ray
+# in B; C's persistent threads at the JAX wave width of 12,288 and its
+# one-thread-per-ray mode), NVIDIA H100 80GB HBM3 at 700 W, as recorded
+# in PERF.md.
+PREVIOUS_MS = {"B": {"ms": 0.4727},
+               "C": {"ms": 2.171, "device_ms": 1.990, "per_ray_ms": 0.640}}
 
 
 def emit(obj) -> None:
@@ -181,7 +204,9 @@ def compare(label: str, got, want) -> float:
 
 
 def ptxas_usage(lib_path: str) -> dict:
-    """Registers and spill bytes per kernel from the build's -Xptxas -v log."""
+    """Registers and spill bytes per kernel from the build's -Xptxas -v log,
+    keyed by the kernel's name and its mangled template arguments (e.g.
+    packed_march_kernelILi16EE: G = 16)."""
     with open(lib_path + ".log") as fh:
         log = fh.read()
     out = {}
@@ -189,11 +214,14 @@ def ptxas_usage(lib_path: str) -> dict:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            k = re.search(r"([a-z_]+_kernel)(I\w*?EE)?", m.group(1))
+            name = k.group(1) + (k.group(2) or "") if k else m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m and name:
-            out.setdefault(name, {})["spill_stores"] = int(m.group(1))
-            out[name]["spill_loads"] = int(m.group(2))
+            out.setdefault(name, {})["stack_frame"] = int(m.group(1))
+            out[name]["spill_stores"] = int(m.group(2))
+            out[name]["spill_loads"] = int(m.group(3))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             out.setdefault(name, {})["registers"] = int(m.group(1))
@@ -230,6 +258,7 @@ class Smoke:
         self.times = {}
         self.images = {}
         self.libs = {}
+        self.ptxas = {}
 
     def zero_counts(self):
         for fn in self.counters.values():
@@ -243,11 +272,19 @@ class Smoke:
         from ray_tracer_tpu_torch.kernels import _build
 
         t0 = time.perf_counter()
-        self.libs = _build.build()
-        emit({"phase": "build", "seconds": time.perf_counter() - t0,
-              "libraries": {k: os.path.basename(v) for k, v in self.libs.items()},
-              "ptxas": {k: ptxas_usage(self.libs[k])
-                        for k in ("packed_march", "gather_row_test")}})
+        variants = ([("packed_march", d) for d in C_VARIANTS.values()]
+                    + [("traverse_grid", d) for d in B_VARIANTS.values()])
+        self.libs = _build.build(variants=variants)
+        secs = time.perf_counter() - t0
+        self.ptxas = {k: ptxas_usage(v) for k, v in self.libs.items()}
+        for g, d in C_VARIANTS.items():
+            self.ptxas[f"packed_march G={g}"] = ptxas_usage(
+                _build.library_path("packed_march", d))
+        for name, d in B_VARIANTS.items():
+            self.ptxas[f"traverse_grid mask={name}"] = ptxas_usage(
+                _build.library_path("traverse_grid", d))
+        emit({"phase": "build", "seconds": secs, "libraries": len(self.libs) + len(variants),
+              "ptxas": self.ptxas})
 
     # ---- 3. and 4. kernels A and B vs their plain versions ---------------
     def kernels_ab(self, which):
@@ -287,35 +324,60 @@ class Smoke:
                   "max_abs_err": err, "tolerance": "bitwise", "equal": True})
 
         if "B" in which:
+            from ray_tracer_tpu_torch.models.scenes import parallel_scene_config
+
             err = 0.0
             checked = []
-            for det in ("float32", "float64"):
-                for mode, kw, skw in (
-                    ("faithful", dict(t_gate=None), dict(t_gate=eps)),
-                    ("production", dict(t_gate=0.0, early_exit=True),
-                     dict(t_gate=eps, early_exit=True, stop_on_first_hit=True)),
-                ):
-                    kb = kB.traverse_grid_cuda(rays, grid, meta, tri9_rows, det_dtype=det, **kw)
-                    pb = kB.traverse_grid_plain(rays, grid, meta, tri9_rows, det_dtype=det, **kw)
-                    err = max(err, compare(f"kernel B {det} {mode} primary", kb, pb))
-                    h = kb.any_pass if mode == "faithful" else kb.hit
-                    sr = shadow_of(base, kb.t, h)
-                    kbs = kB.traverse_grid_cuda(sr, grid, meta, tri9_rows, det_dtype=det, **skw)
-                    pbs = kB.traverse_grid_plain(sr, grid, meta, tri9_rows, det_dtype=det, **skw)
-                    err = max(err, compare(f"kernel B {det} {mode} shadow", kbs, pbs))
-                    checked.append({"det": det, "mode": mode, "primary_hits": int(h.sum()),
-                                    "shadow_hits": int(kbs.hit.sum()),
-                                    "mean_steps": float(kb.steps.float().mean())})
+            pcfg = parallel_scene_config(256, 256)
+            pprep = prepare(pcfg)
+            prays = camera_rays(pcfg.camera, device=self.dev)
+            for scene, cfg, p, rs in (("serial", base, prep, rays),
+                                      ("parallel", pcfg, pprep, prays)):
+                g, m = p.grid.arrays, p.grid.meta
+                rows = kB.vertex_table(*p.scene.triangle_soa())
+                s_eps = cfg.render.shadow_eps
+
+                def shadow_b(t, hit, p=p, rs=rs, cfg=cfg):
+                    poi = torch.where(hit[:, None], rs.at(torch.where(hit, t, torch.zeros_like(t))),
+                                      torch.zeros_like(rs.orig))
+                    return shadow_rays_for(cfg.render, p.scene.light_pos, poi, hit)
+
+                for det in ("float32", "float64"):
+                    for mode, kw, skw in (
+                        ("faithful", dict(t_gate=None), dict(t_gate=s_eps)),
+                        ("production", dict(t_gate=0.0, early_exit=True),
+                         dict(t_gate=s_eps, early_exit=True, stop_on_first_hit=True)),
+                    ):
+                        label = f"kernel B {scene} {det} {mode}"
+                        kb = kB.traverse_grid_cuda(rs, g, m, rows, det_dtype=det,
+                                                   tables=p.dda, **kw)
+                        pb = kB.traverse_grid_plain(rs, g, m, rows, det_dtype=det, **kw)
+                        err = max(err, compare(f"{label} primary", kb, pb))
+                        h = kb.any_pass if mode == "faithful" else kb.hit
+                        sr = shadow_b(kb.t, h)
+                        kbs = kB.traverse_grid_cuda(sr, g, m, rows, det_dtype=det,
+                                                    tables=p.dda, **skw)
+                        pbs = kB.traverse_grid_plain(sr, g, m, rows, det_dtype=det, **skw)
+                        err = max(err, compare(f"{label} shadow", kbs, pbs))
+                        checked.append({"scene": scene, "det": det, "mode": mode,
+                                        "primary_hits": int(h.sum()),
+                                        "shadow_hits": int(kbs.hit.sum()),
+                                        "mean_steps": float(kb.steps.float().mean())})
+            grids = {name: {"n_voxels": list(p.grid.meta.n_voxels), "nnz": p.grid.meta.nnz,
+                            "occupied_cells": int((p.dda.cell_range[:, 1] > 0).sum()),
+                            "mask_bytes": p.dda.occupancy.numel() * 4}
+                     for name, p in (("serial", prep), ("parallel", pprep))}
             self.err["traverse_grid"] = max(self.err["traverse_grid"], err)
-            emit({"phase": "kernel_B_vs_plain", "rays": rays.count, "cases": checked,
-                  "max_abs_err": err, "tolerance": "bitwise", "equal": True})
+            emit({"phase": "kernel_B_vs_plain", "rays": rays.count, "grids": grids,
+                  "cases": checked, "max_abs_err": err, "tolerance": "bitwise",
+                  "equal": True})
 
     # ---- 5. kernel C vs its plain version --------------------------------
     def kernel_c(self):
         from ray_tracer_tpu_torch.config import apply_turbo
         from ray_tracer_tpu_torch.models.scenes import serial_scene_config
         from ray_tracer_tpu_torch.ops.camera import camera_rays
-        from ray_tracer_tpu_torch.ops.persistent import persistent_trace
+        from ray_tracer_tpu_torch.ops.persistent import persistent_trace, work_queue
         from ray_tracer_tpu_torch.render.renderer import prepare
 
         kC = self.kC
@@ -323,9 +385,11 @@ class Smoke:
         preps = {"inline": prepare(cfg)}
         if not preps["inline"].packed.meta.inline:
             raise AssertionError("the turbo serial grid should take the inline layout")
-        blocks_cfg = dataclasses.replace(cfg, render=dataclasses.replace(
-            cfg.render, grid_layout="blocks"))
-        preps["blocks"] = prepare(blocks_cfg)
+        for name, change in (("blocks", dict(grid_layout="blocks")),
+                             ("bt28", dict(packed_block_tris=28)),
+                             ("bt56", dict(packed_block_tris=56))):
+            preps[name] = prepare(dataclasses.replace(cfg, render=dataclasses.replace(
+                cfg.render, **change)))
         rcfg = cfg.render
         rays = camera_rays(cfg.camera, device=self.dev)
         light = preps["inline"].scene.light_pos
@@ -339,7 +403,12 @@ class Smoke:
             ("blocks", "fused_skip", dict(fkw, skip_dead_shadow=True)),
             ("blocks", "nearest", dict(t_gate=0.0)),
             ("blocks", "nearest_chain3", dict(t_gate=0.0, probe_chain=3)),
+            ("bt28", "fused_skip", dict(fkw, skip_dead_shadow=True)),
+            ("bt28", "nearest", dict(t_gate=0.0)),
+            ("bt56", "fused_skip", dict(fkw, skip_dead_shadow=True)),
+            ("bt56", "any_hit", dict(t_gate=0.0, stop_on_first_hit=True)),
         ]
+        modes = (("per_position", dict(persistent=False)), ("persistent", dict(persistent=True)))
         err = 0.0
         out = []
         capped = torch.zeros((1,), dtype=torch.int32, device=self.dev)
@@ -349,18 +418,20 @@ class Smoke:
             plain = kC.march_plain(rays, grid, meta, light, capped_out=capped, **kw)
             if int(capped.item()):
                 raise AssertionError(f"kernel C {layout} {name}: plain capped {int(capped)}")
-            for mode, mkw in (("per_ray", {}), ("persistent", {"wave": rcfg.wave})):
+            for mode, mkw in modes:
                 got = kC.march_cuda(rays, grid, meta, light, capped_out=capped, **mkw, **kw)
                 torch.cuda.synchronize()
                 err = max(err, compare(f"kernel C {layout} {name} {mode}", got, plain))
                 if int(capped.item()):
                     raise AssertionError(f"kernel C {layout} {name} {mode}: "
                                          f"{int(capped)} rays capped")
-            out.append({"layout": layout, "case": name, "hits": int(plain.hit.sum()),
-                        "in_shadow": int(plain.in_shadow.sum()),
+            out.append({"layout": layout, "case": name, "block_tris": meta.block_tris,
+                        "inline": meta.inline,
+                        "hits": int(plain.hit.sum()), "in_shadow": int(plain.in_shadow.sum()),
                         "mean_steps": float(plain.steps.float().mean()),
                         "max_steps": int(plain.steps.max())})
-        # the queue paths of the persistent wave: compacted, chord-ordered
+        # the queues of the persistent wave (compacted, chord-ordered), in
+        # both launch modes and through persistent_trace
         p = preps["inline"]
         grid, meta = p.packed.arrays, p.packed.meta
         keys = kC.chord_keys(rays, grid)
@@ -368,22 +439,31 @@ class Smoke:
         for qname, qkw in (("compact", dict(compact=True)),
                            ("chord", dict(order_keys=keys)),
                            ("compact_chord", dict(compact=True, order_keys=keys))):
+            ids, n_work = work_queue(rays, grid, compact=qkw.get("compact", False),
+                                     order_keys=qkw.get("order_keys"))
+            for mode, mkw in modes:
+                got = kC.march_cuda(rays, grid, meta, light, queue=ids, n_work=n_work,
+                                    skip_dead_shadow=True, capped_out=capped, **mkw, **fkw)
+                torch.cuda.synchronize()
+                err = max(err, compare(f"kernel C {qname} queue {mode}", got, plain))
+                if int(capped.item()):
+                    raise AssertionError(f"kernel C {qname} queue {mode}: rays capped")
             got = persistent_trace(
-                rays, grid, meta, light, wave=rcfg.wave, fuse_shadow=True, t_gate=0.0,
+                rays, grid, meta, light, fuse_shadow=True, t_gate=0.0,
                 shadow_gate=rcfg.shadow_eps, shadow_mint=rcfg.shadow_mint(),
                 serial_quirk=True, shadow_skip_dead=True, shade_serial=True,
                 need_t=True, need_steps=True, need_shadow_tri=True, capped_out=capped,
                 **qkw)
             torch.cuda.synchronize()
-            err = max(err, compare(f"kernel C persistent {qname}", got, plain))
+            err = max(err, compare(f"kernel C persistent_trace {qname}", got, plain))
             if int(capped.item()):
-                raise AssertionError(f"kernel C persistent {qname}: rays capped")
+                raise AssertionError(f"kernel C persistent_trace {qname}: rays capped")
         self.err["packed_march"] = max(self.err["packed_march"], err)
         emit({"phase": "kernel_C_vs_plain", "rays": rays.count,
               "grid": list(preps["inline"].packed.meta.n_voxels),
               "rows": {k: v.packed.meta.n_blocks for k, v in preps.items()},
               "cases": out, "queues": ["compact", "chord", "compact_chord"],
-              "modes": ["per_ray", "persistent"], "capped": 0,
+              "modes": [m for m, _ in modes], "capped": 0,
               "max_abs_err": err, "tolerance": "bitwise", "equal": True})
 
     # ---- 6. the main path at full size -----------------------------------
@@ -576,6 +656,12 @@ class Smoke:
                               torch.zeros_like(rays.orig))
             return shadow_rays_for(cfg.render, p.scene.light_pos, poi, hit)
 
+        def bound(n_bytes, n_ops):
+            """(bound ms, what bounds it): bytes at the HBM rate, operations
+            at the unfused FP32 rate (every kernel builds with -fmad=false)."""
+            tb, to = n_bytes / PEAK_BYTES, n_ops / PEAK_FP32_UNFUSED
+            return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
         # Inputs are made once; each kernel's time is n back-to-back launches
         # over n, its device time the profiler's mean for the kernel alone.
         def launch_a():
@@ -590,40 +676,62 @@ class Smoke:
                                           compare("kernel A 1024 primary", a_out, a_plain))
         a_ops = r * n_tris * OPS_PER_PAIR_A
         a_bytes = r * (24 + 8) + n_tris * 36
-        a_bound = max(a_ops / PEAK_FP32_OPS, a_bytes / PEAK_BYTES) * 1e3
+        a_bound, a_by = bound(a_bytes, a_ops)
 
+        # kernel B: the csr frame's primary launch over prepare's tables
         kw = dict(det_dtype=main_cfg.render.det_dtype, t_gate=main_cfg.render.primary_gate(),
-                  early_exit=not main_cfg.render.faithful)
+                  early_exit=not main_cfg.render.faithful, tables=p.dda)
 
-        def launch_b():
-            return kB.traverse_grid_cuda(rays, grid, meta, tri9_rows, **kw)
+        def launch_b(**extra):
+            return kB.traverse_grid_cuda(rays, grid, meta, tri9_rows, **kw, **extra)
 
         b_ms = cuda_ms(launch_b, 50)
         b_dev_ms = kernel_device_ms(launch_b, "traverse_grid_kernel", 20)
         tested = torch.zeros((r,), dtype=torch.int32, device=dev)
-        b_out = kB.traverse_grid_cuda(rays, grid, meta, tri9_rows, tested_out=tested, **kw)
+        b_out = launch_b(tested_out=tested)
+        pkw_b = {k: v for k, v in kw.items() if k != "tables"}
         b_plain_ms, b_plain = once_ms(
-            lambda: kB.traverse_grid_plain(rays, grid, meta, tri9_rows, **kw))
-        self.err["traverse_grid"] = max(self.err["traverse_grid"],
-                                        compare("kernel B 1024 primary", b_out, b_plain))
+            lambda: kB.traverse_grid_plain(rays, grid, meta, tri9_rows, **pkw_b))
+        b_err = compare("kernel B 1024 primary", b_out, b_plain)
         # the frame's second launch of each kernel: the shadow rays of its hits
         fast = dataclasses.replace(main_cfg, render=dataclasses.replace(
             main_cfg.render, faithful=False))
         sa = shadow_of(fast, a_out[0], a_out[1] >= 0)
         a_shadow_ms = cuda_ms(lambda: kA.brute_intersect_cuda(sa.orig, sa.dirn, tri9_soa, eps), 5)
         sb = shadow_of(main_cfg, b_out.t, main_cfg.render.accepted_hit(b_out))
-        b_shadow_ms = cuda_ms(lambda: kB.traverse_grid_cuda(
-            sb, grid, meta, tri9_rows, det_dtype=kw["det_dtype"], t_gate=eps,
-            early_exit=kw["early_exit"], stop_on_first_hit=kw["early_exit"]), 50)
+
+        def launch_b_shadow(**extra):
+            return kB.traverse_grid_cuda(
+                sb, grid, meta, tri9_rows, det_dtype=kw["det_dtype"], t_gate=eps,
+                early_exit=kw["early_exit"], stop_on_first_hit=kw["early_exit"],
+                tables=p.dda, **extra)
+
+        b_shadow_ms = cuda_ms(launch_b_shadow, 50)
+        b_shadow_dev_ms = kernel_device_ms(launch_b_shadow, "traverse_grid_kernel", 20)
+        b_variants = {}
+        for name, defs in B_VARIANTS.items():
+            out = launch_b(_defines=defs)
+            if not name.startswith("diag"):  # diagnostics skip work: not compared
+                b_err = max(b_err, compare(f"kernel B 1024 {name}", out, b_plain))
+            b_variants[name] = {
+                "ms": cuda_ms(lambda: launch_b(_defines=defs), 50),
+                "device_ms": kernel_device_ms(lambda: launch_b(_defines=defs),
+                                              "traverse_grid_kernel", 20),
+                "shadow_device_ms": kernel_device_ms(
+                    lambda: launch_b_shadow(_defines=defs), "traverse_grid_kernel", 20),
+                "ptxas": self.ptxas.get(f"traverse_grid mask={name}")}
+        self.err["traverse_grid"] = max(self.err["traverse_grid"], b_err)
         n_tests = int(tested.sum())
         n_steps = int(b_out.steps.sum())
-        # each input read once, each output written once: the rays (32 B) and
-        # five results (14 B), the CSR arrays and the vertex table; the walk's
-        # repeated gathers of them are not counted
+        # each input of the function read once, each output written once:
+        # the rays (32 B) and five results (14 B), the CSR arrays and the
+        # vertex table.  The kernel's own tables (mask, int2 pairs, vertices
+        # in CSR order) are derived from those inputs and not counted: the
+        # bound counts the same work whatever implements it.
         b_bytes = (r * (32 + 14) + (grid.cell_start.numel() + grid.tri_ids.numel()) * 4
                    + tri9_rows.numel() * 4)
         b_ops = n_tests * OPS_PER_TEST_B
-        b_bound = max(b_bytes / PEAK_BYTES, b_ops / PEAK_FP32_OPS) * 1e3
+        b_bound, b_by = bound(b_bytes, b_ops)
 
         # kernel C: the turbo frame's one launch, the fused persistent march
         tcfg = apply_turbo(main_cfg, "serial")
@@ -639,7 +747,7 @@ class Smoke:
             return persistent_trace(rays, pgrid, pmeta, light, **ckw)
 
         c_ms = cuda_ms(launch_c, 20)
-        c_dev_ms = kernel_device_ms(launch_c, "packed_march_kernel", 10)
+        c_dev_ms = kernel_device_ms(launch_c, "packed_march", 10)
         c_tested = torch.zeros((r,), dtype=torch.int32, device=dev)
         touched = torch.zeros((pmeta.n_blocks,), dtype=torch.int32, device=dev)
         capped = torch.zeros((1,), dtype=torch.int32, device=dev)
@@ -649,11 +757,33 @@ class Smoke:
                    shadow_mint=trc.shadow_mint(), serial_quirk=True, skip_dead_shadow=True,
                    shade_serial=True)
         c_plain_ms, c_plain = once_ms(lambda: kC.march_plain(rays, pgrid, pmeta, light, **pkw))
-        self.err["packed_march"] = max(self.err["packed_march"],
-                                       compare("kernel C 1024 turbo", c_out, c_plain))
-        c_per_ray_ms = cuda_ms(lambda: kC.march_cuda(rays, pgrid, pmeta, light, **pkw), 20)
+        c_err = compare("kernel C 1024 turbo", c_out, c_plain)
         if int(capped.item()):
             raise AssertionError(f"kernel C 1024: {int(capped)} rays capped")
+        c_modes = {}
+        for mode, pers in (("per_position", False), ("persistent", True)):
+            def fn(pers=pers):
+                return kC.march_cuda(rays, pgrid, pmeta, light, persistent=pers, **pkw)
+
+            c_modes[mode] = {"ms": cuda_ms(fn, 20),
+                             "device_ms": kernel_device_ms(fn, "packed_march", 10)}
+        # the warp form and the group forms, each in both modes, held to
+        # the plain records
+        c_variants = {}
+        for g, defs in C_VARIANTS.items():
+            for mode, pers in (("per_position", False), ("persistent", True)):
+                def fn(pers=pers, defs=defs):
+                    return kC.march_cuda(rays, pgrid, pmeta, light, persistent=pers,
+                                         _defines=defs, **pkw)
+
+                c_err = max(c_err, compare(f"kernel C 1024 G={g} {mode}", fn(), c_plain))
+                c_variants[f"G{g}_{mode}"] = {
+                    "ms": cuda_ms(fn, 10),
+                    "device_ms": kernel_device_ms(fn, "packed_march", 5)}
+            group = int(str(g).split("_")[0])
+            c_variants[f"G{g}_ptxas"] = self.ptxas.get(f"packed_march G={g}", {}).get(
+                "packed_march_warp_kernel" if group == 0 else f"packed_march_kernelILi{group}EE")
+        self.err["packed_march"] = max(self.err["packed_march"], c_err)
         rows_tested = int(c_tested.sum())
         full_rows = int(((touched & 2) != 0).sum())
         header_rows = int((touched == 1).sum())
@@ -665,7 +795,7 @@ class Smoke:
         c_bytes = (r * (32 + 18) + full_rows * pmeta.row_lanes * 4 + header_rows * 8
                    + (c_hits + c_shadow) * 4)
         c_ops = rows_tested * pmeta.block_tris * OPS_PER_TEST_B
-        c_bound = max(c_bytes / PEAK_BYTES, c_ops / PEAK_FP32_UNFUSED) * 1e3
+        c_bound, c_by = bound(c_bytes, c_ops)
 
         # kernel D at the gather tool's shapes (W = 8192 lanes, NB = 2270 rows)
         blocks, o, d, idx0 = kD.make_inputs(device=dev)
@@ -682,36 +812,38 @@ class Smoke:
         d_rows = int(torch.unique(idx0).numel())
         d_bytes = d_rows * 9 * tl * 4 + w * (24 + 4) + w * 4
         d_ops = w * tl * OPS_PER_LANE_D
-        d_bound = max(d_bytes / PEAK_BYTES, d_ops / PEAK_FP32_UNFUSED) * 1e3
+        d_bound, d_by = bound(d_bytes, d_ops)
 
         self.times.update(
-            A=dict(ms=a_ms, plain_ms=a_plain_ms, bound_ms=a_bound,
-                   bound_by="operations" if a_ops / PEAK_FP32_OPS >= a_bytes / PEAK_BYTES
-                   else "bytes"),
-            B=dict(ms=b_ms, plain_ms=b_plain_ms, bound_ms=b_bound,
-                   bound_by="bytes" if b_bytes / PEAK_BYTES >= b_ops / PEAK_FP32_OPS
-                   else "operations"),
-            C=dict(ms=c_ms, plain_ms=c_plain_ms, bound_ms=c_bound,
-                   bound_by="bytes" if c_bytes / PEAK_BYTES >= c_ops / PEAK_FP32_UNFUSED
-                   else "operations"),
-            D=dict(ms=d_ms, plain_ms=d_plain_ms, bound_ms=d_bound,
-                   bound_by="bytes" if d_bytes / PEAK_BYTES >= d_ops / PEAK_FP32_UNFUSED
-                   else "operations"),
+            A=dict(ms=a_ms, plain_ms=a_plain_ms, bound_ms=a_bound, bound_by=a_by),
+            B=dict(ms=b_ms, plain_ms=b_plain_ms, bound_ms=b_bound, bound_by=b_by),
+            C=dict(ms=c_ms, plain_ms=c_plain_ms, bound_ms=c_bound, bound_by=c_by),
+            D=dict(ms=d_ms, plain_ms=d_plain_ms, bound_ms=d_bound, bound_by=d_by),
         )
         emit({"phase": "kernel_times", "rays": r, "triangles": n_tris,
               "A": {"ms": a_ms, "device_ms": a_dev_ms, "shadow_ms": a_shadow_ms,
                     "plain_ms": a_plain_ms, "ops": a_ops, "bytes": a_bytes, "bound_ms": a_bound,
-                    "bound_unfused_ms": a_ops / PEAK_FP32_UNFUSED * 1e3},
+                    "bound_fma_peak_ms": a_ops / PEAK_FP32_OPS * 1e3},
               "B": {"ms": b_ms, "device_ms": b_dev_ms, "shadow_ms": b_shadow_ms,
-                    "plain_ms": b_plain_ms, "steps": n_steps, "tested_triangles": n_tests,
-                    "bytes": b_bytes, "ops": b_ops, "bound_ms": b_bound},
-              "C": {"ms": c_ms, "device_ms": c_dev_ms, "per_ray_mode_ms": c_per_ray_ms,
-                    "plain_ms": c_plain_ms, "wave": trc.wave,
+                    "shadow_device_ms": b_shadow_dev_ms,
+                    "plain_ms": b_plain_ms, "previous_ms": PREVIOUS_MS["B"],
+                    "mask_bytes": p.dda.occupancy.numel() * 4,
+                    "variants": b_variants, "ptxas": self.ptxas.get("traverse_grid"),
+                    "steps": n_steps, "tested_triangles": n_tests,
+                    "occupied_cells": int((p.dda.cell_range[:, 1] > 0).sum()),
+                    "cells": p.dda.cell_range.shape[0],
+                    "bytes": b_bytes, "ops": b_ops, "bound_ms": b_bound, "bound_by": b_by,
+                    "bound_bytes_ms": b_bytes / PEAK_BYTES * 1e3,
+                    "bound_ops_ms": b_ops / PEAK_FP32_UNFUSED * 1e3},
+              "C": {"ms": c_ms, "device_ms": c_dev_ms, "modes": c_modes,
+                    "plain_ms": c_plain_ms, "previous_ms": PREVIOUS_MS["C"],
+                    "variants": c_variants,
+                    "ptxas": self.ptxas.get("packed_march"),
                     "steps": int(c_out.steps.sum()), "max_steps": int(c_out.steps.max()),
                     "rows_tested": rows_tested, "distinct_rows_tested": full_rows,
                     "header_only_rows": header_rows, "table_rows": pmeta.n_blocks,
                     "hits": c_hits, "in_shadow": c_shadow, "bytes": c_bytes, "ops": c_ops,
-                    "bound_ms": c_bound,
+                    "bound_ms": c_bound, "bound_by": c_by,
                     "bound_ops_fma_peak_ms": c_ops / PEAK_FP32_OPS * 1e3,
                     "bound_bytes_ms": c_bytes / PEAK_BYTES * 1e3},
               "D": {"ms": d_ms, "device_ms": d_dev_ms, "plain_ms": d_plain_ms,

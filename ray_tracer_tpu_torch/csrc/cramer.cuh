@@ -51,3 +51,22 @@ template <typename T>
 __device__ __forceinline__ bool barycentric_pass(T beta, T gamma) {
   return beta > T(0) && gamma > T(0) && beta + gamma < T(1);
 }
+
+// The divide variant of cramer_columns for a caller that reads t only
+// where the barycentric test passes: beta and gamma first, then the t
+// numerator and its division for a pass alone.  Each value it gives is
+// the same op for op, so the same bits; t is +inf where nothing passed.
+template <typename T>
+__device__ __forceinline__ bool cramer_pass_t(const T e1[3], const T e2[3], const T s[3],
+                                              const T d[3], T& t) {
+  const T A = det3(e1[0], e2[0], d[0], e1[1], e2[1], d[1], e1[2], e2[2], d[2]);
+  const T bn = det3(s[0], e2[0], d[0], s[1], e2[1], d[1], s[2], e2[2], d[2]);
+  const T gn = det3(e1[0], s[0], d[0], e1[1], s[1], d[1], e1[2], s[2], d[2]);
+  const bool passed = barycentric_pass(bn / A, gn / A);
+  t = T(INFINITY);
+  if (passed) {
+    const T tn = det3(e1[0], e2[0], s[0], e1[1], e2[1], s[1], e1[2], e2[2], s[2]);
+    t = tn / A;
+  }
+  return passed;
+}

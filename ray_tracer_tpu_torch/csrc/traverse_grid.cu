@@ -6,8 +6,8 @@
 // (Serial/grid.h:167-231).  Each thread walks its own ray and gives the
 // lock-step loop's answers exactly:
 //   * per voxel, the candidate with the smallest t in the determinant type
-//     (first index on ties) replaces the record only if it is below the
-//     float32 running minimum, compared in the determinant type
+//     (first CSR index on ties) replaces the record only if it is below
+//     the float32 running minimum, compared in the determinant type
 //     (traverse.py:156-166);
 //   * any_pass ORs every barycentric pass of every walked voxel, whatever
 //     the gate (traverse.py:153-154);
@@ -18,30 +18,54 @@
 //     and out-of-range values saturated first, the XLA conversion the JAX
 //     code relies on (traverse.py:70-71);
 //   * a lane walks at most nx+ny+nz+2 steps and `steps` counts the voxels
-//     it tested (traverse.py:110, 196).
+//     it walked (traverse.py:110, 196).
 // Determinants are templated on their type: float for the default,
 // double for det_dtype="float64", the byte-exact path.  Everything else is
 // float32, as in the JAX code.
 //
-// Bound on the H100: device-memory bytes, each counted once: the rays in
-// (32 bytes each) and the five results out (14 bytes each), plus the CSR
-// arrays and the vertex table (about 1 MB for the serial scene).  The walk
-// re-reads cell_start, tri_ids and the vertices at every step and tested
-// triangle, gathered without locality between neighbouring threads; those
-// gathers are mostly served from L2 and set the kernel's time, far above
-// that bound (chip_smoke.py reports both).  This
-// first version is simple and correct, not tuned: no shared-memory staging
-// of cell lists, no ray sorting for coherent gathers, no occupancy tuning;
-// the double-precision determinants of the exact path run at the H100's
-// FP64 rate.  wgmma does not apply: the contraction depth is 3.
+// Bound on the H100: FP32 operations at the unfused rate (61 a tested
+// triangle), above the bytes (the rays in and the five results out, 46
+// bytes a ray, plus the CSR arrays and the vertex table, each read once);
+// chip_smoke.py reports both.  The walk reads port-side tables derived
+// from the CSR grid once (ops/traverse.py dda_tables):
+//   * a one-bit-per-cell occupancy mask, staged into shared memory once a
+//     block with cp.async (or read through L1 where it does not fit), so an
+//     empty voxel (92% of the serial grid's cells) costs no global load;
+//   * an (start, count) int2 per cell, one 8-byte load for an occupied one;
+//   * the vertices in CSR order (tri9[tri_ids]), so a voxel's triangles are
+//     contiguous; the winning CSR position becomes a triangle id once, at
+//     the end.
+// The DDA's state stays in registers (its axis selects, never indexes
+// memory), and t's numerator and division are computed only for a
+// triangle that passes the barycentric test (cramer_pass_t).  The DDA
+// arithmetic is untouched: every walked voxel still advances next_crossing
+// and counts in `steps`, so every record is unchanged.  What is left is
+// the triangle tests, about 70% of the kernel's time on the H100 (the
+// diagnostic builds below, PERF.md); sharing them out over the warp timed
+// the same per frame and is not kept.  The double-precision determinants
+// run at the H100's FP64 rate; wgmma does not apply: the contraction
+// depth is 3.
 #include <cuda_runtime.h>
 
 #include "cramer.cuh"
 
+// Diagnostic builds of chip_smoke.py (their records are not the port's):
+// 1 reads the tables but tests no triangle, 2 walks without the tables.
+#ifndef TRAVERSE_GRID_DIAG
+#define TRAVERSE_GRID_DIAG 0
+#endif
+
 namespace {
 
-constexpr int kBlock = 128;
-__constant__ int kCmpToAxis[8] = {2, 1, 2, 1, 2, 2, 0, 0};
+constexpr int kBlock = 512;
+// Registers capped for two resident blocks an SM (64 a thread): half the
+// warp slots; the f32 kernel needs 55, no spills.
+constexpr int kMinBlocks = 2;
+// The largest mask staged in shared memory: the 48 KB a block takes
+// without opting in (a 64^3 grid needs 32 KB).
+constexpr int kMaxSharedMaskBytes = 48 * 1024;
+// The cmpToAxis LUT [2,1,2,1,2,2,0,0], two bits an entry.
+constexpr unsigned kCmpToAxis = 0xA66u;
 
 // torch.minimum / jnp.minimum: NaN if either operand is NaN.
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -69,22 +93,64 @@ __device__ __forceinline__ int clip(int p, int n) {
   return p < 0 ? 0 : (p > n - 1 ? n - 1 : p);
 }
 
+// Copy the occupancy mask (mask_words, a multiple of 4) into shared
+// memory, 16 bytes a cp.async, and wait for the whole block's copies.
+__device__ __forceinline__ void stage_mask(unsigned* smem, const unsigned* mask,
+                                           int mask_words) {
+  for (int i = threadIdx.x; i < mask_words / 4; i += blockDim.x) {
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(smem + 4 * i);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(mask + 4 * i));
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+}
+
+// The voxel's triangles against the ray, in CSR order: the smallest
+// candidate t (first CSR index on ties) and whether any passed.
 template <typename T>
-__global__ void __launch_bounds__(kBlock)
+__device__ __forceinline__ void voxel_min(const float* __restrict__ cell_tri9,
+                                          const T od[3], const T dd[3], int start,
+                                          int count, bool has_gate, T gate, T& vmin,
+                                          int& vpos, bool& vpass) {
+  for (int j = start; j < start + count; ++j) {
+    const float* v = cell_tri9 + (size_t)j * 9;
+    T e1[3], e2[3], s[3];
+    for (int k = 0; k < 3; ++k) {
+      const T a = (T)__ldg(v + k), b = (T)__ldg(v + 3 + k), c = (T)__ldg(v + 6 + k);
+      e1[k] = a - b;
+      e2[k] = a - c;
+      s[k] = a - od[k];
+    }
+    T t;
+    const bool passed = cramer_pass_t(e1, e2, s, dd, t);
+    vpass = vpass || passed;
+    if (passed && (!has_gate || t > gate) && t < vmin) {
+      vmin = t;
+      vpos = j;
+    }
+  }
+}
+
+template <typename T, bool kSharedMask>
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
 traverse_grid_kernel(const float* __restrict__ orig,
                      const float* __restrict__ dirn,
                      const float* __restrict__ mint,
                      const float* __restrict__ maxt,
                      const float* __restrict__ gridf,  // lower, upper, width, inv_width
                      int nx, int ny, int nz,
-                     const int* __restrict__ cell_start,
+                     const unsigned* __restrict__ occupancy, int mask_words,
+                     const int2* __restrict__ cell_range,  // (start, count) a cell
+                     const float* __restrict__ cell_tri9,  // (nnz, 9) in CSR order
                      const int* __restrict__ tri_ids,
-                     const float* __restrict__ tri9,  // (F, 9) v0 v1 v2
                      int n_rays, int has_gate, double t_gate, int early_exit,
                      int stop_on_first_hit, unsigned char* __restrict__ any_pass_out,
                      unsigned char* __restrict__ hit_out, float* __restrict__ t_out,
                      int* __restrict__ tri_out, int* __restrict__ steps_out,
                      int* __restrict__ tested_out) {
+  extern __shared__ __align__(16) unsigned smem_mask[];
+  if (kSharedMask) stage_mask(smem_mask, occupancy, mask_words);
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
   const int nv[3] = {nx, ny, nz};
@@ -135,98 +201,127 @@ traverse_grid_kernel(const float* __restrict__ orig,
   const T gate = (T)t_gate;
   bool any_pass = false, found = false;
   float t_min = INFINITY;
-  int best = -1, steps = 0, tested = 0;
+  int best_pos = 0, steps = 0, tested = 0;
   const int max_steps = nx + ny + nz + 2;
 
   for (int i = 0; i < max_steps && alive; ++i) {
-    // ---- test the current voxel's triangles --------------------------
+    // ---- the current voxel's triangles: (start, count) if occupied ------
+    int start = 0, count = 0;
+#if TRAVERSE_GRID_DIAG != 2
     const int cell = clip(pos[2], nz) * (nx * ny) + clip(pos[1], ny) * nx + clip(pos[0], nx);
-    const int start = cell_start[cell];
-    const int count = cell_start[cell + 1] - start;
-    tested += count;
-    T vmin = (T)INFINITY;
-    int vid = -1;
-    for (int j = 0; j < count; ++j) {
-      const int tri = tri_ids[start + j];
-      const float* v = tri9 + (size_t)tri * 9;
-      T e1[3], e2[3], s[3];
-      for (int k = 0; k < 3; ++k) {
-        const T a = (T)v[k], b = (T)v[3 + k], c = (T)v[6 + k];
-        e1[k] = a - b;
-        e2[k] = a - c;
-        s[k] = a - od[k];
-      }
-      T t, beta, gamma;
-      cramer_columns<T, false>(e1, e2, s, dd, t, beta, gamma);
-      const bool passed = barycentric_pass(beta, gamma);
-      any_pass = any_pass || passed;
-      const bool cand = passed && (!has_gate || t > gate);
-      if (cand && t < vmin) {
-        vmin = t;
-        vid = tri;
-      }
+    const unsigned word = kSharedMask ? smem_mask[cell >> 5] : __ldg(occupancy + (cell >> 5));
+    if ((word >> (cell & 31)) & 1u) {
+      const int2 range = __ldg(cell_range + cell);
+      start = range.x;
+      count = range.y;
     }
+    tested += count;
+#endif
+#if TRAVERSE_GRID_DIAG == 1
+    count = 0;
+#endif
+    T vmin = (T)INFINITY;
+    int vpos = 0;
+    bool vpass = false;
+    voxel_min<T>(cell_tri9, od, dd, start, count, has_gate, gate, vmin, vpos, vpass);
+    any_pass = any_pass || vpass;
     if (vmin < (T)t_min) {  // cross-step compare in the det type
       t_min = (float)vmin;
-      best = vid;
+      best_pos = vpos;
       found = true;
     }
 
     // ---- advance to the next voxel (Serial/grid.h:214-228) -----------
+    // The axis indexes the state through selects, never through memory.
     const int bits = 4 * (next_crossing[0] < next_crossing[1]) +
                      2 * (next_crossing[0] < next_crossing[2]) +
                      (next_crossing[1] < next_crossing[2]);
-    const int axis = kCmpToAxis[bits];
-    const float ncr = next_crossing[axis];
+    const int axis = (kCmpToAxis >> (2 * bits)) & 3;
+    const float ncr = axis == 0 ? next_crossing[0]
+                                : (axis == 1 ? next_crossing[1] : next_crossing[2]);
     const float maxt_eff = early_exit ? nan_min(mx, found ? t_min : INFINITY) : mx;
     const bool move = !(maxt_eff < ncr);
     bool die_out = false;
-    if (move) {
-      pos[axis] += step[axis];
-      die_out = pos[axis] == out[axis];
-      next_crossing[axis] = next_crossing[axis] + delta[axis];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      if (move && k == axis) {
+        pos[k] += step[k];
+        die_out = pos[k] == out[k];
+        next_crossing[k] = next_crossing[k] + delta[k];
+      }
     }
     alive = move && !die_out;
     if (stop_on_first_hit) alive = alive && !found;
     ++steps;
   }
-
   any_pass_out[r] = any_pass;
   hit_out[r] = found;
   t_out[r] = t_min;
-  tri_out[r] = best;
+  tri_out[r] = found ? tri_ids[best_pos] : -1;
   steps_out[r] = steps;
   if (tested_out != nullptr) tested_out[r] = tested;
+}
+
+// Where the walk reads the occupancy mask: shared memory when it fits,
+// else through L1.  A measurement build may force one with
+// -DTRAVERSE_GRID_SHARED_MASK=0 or 1.
+bool shared_mask_for(int mask_words) {
+#ifdef TRAVERSE_GRID_SHARED_MASK
+  (void)mask_words;
+  return TRAVERSE_GRID_SHARED_MASK != 0;
+#else
+  return mask_words * 4 <= kMaxSharedMaskBytes;
+#endif
+}
+
+template <typename T>
+void launch(bool shared, int blocks, cudaStream_t s, const float* orig, const float* dirn,
+            const float* mint, const float* maxt, const float* gridf, int nx, int ny, int nz,
+            const unsigned* occupancy, int mask_words, const int2* cell_range,
+            const float* cell_tri9, const int* tri_ids, int n_rays, int has_gate,
+            double t_gate, int early_exit, int stop_on_first_hit,
+            unsigned char* any_pass_out, unsigned char* hit_out, float* t_out,
+            int* tri_out, int* steps_out, int* tested_out) {
+  const auto kernel = shared ? traverse_grid_kernel<T, true> : traverse_grid_kernel<T, false>;
+  kernel<<<blocks, kBlock, shared ? (size_t)mask_words * 4 : 0, s>>>(
+      orig, dirn, mint, maxt, gridf, nx, ny, nz, occupancy, mask_words, cell_range,
+      cell_tri9, tri_ids, n_rays, has_gate, t_gate, early_exit, stop_on_first_hit,
+      any_pass_out, hit_out, t_out, tri_out, steps_out, tested_out);
 }
 
 }  // namespace
 
 // orig, dirn (n_rays, 3), mint, maxt (n_rays,) f32; gridf (12,) f32 =
-// lower, upper, width, inv_width; cell_start (nx*ny*nz + 1,) and tri_ids
-// (nnz,) i32; tri9 (F, 9) f32.  det_f64 selects double determinants.
-// Writes the five TraceResult fields (bools as one byte) and, when
-// tested_out is not null, the triangles each ray tested.  Returns
-// cudaGetLastError() after the launch.
+// lower, upper, width, inv_width; occupancy (mask_words,) u32, bit c&31 of
+// word c>>5 set iff cell c holds a triangle, mask_words a multiple of 4;
+// cell_range (nx*ny*nz, 2) i32 = (cell_start, count); cell_tri9 (nnz, 9)
+// f32 = tri9[tri_ids]; tri_ids (nnz,) i32.  det_f64 selects double
+// determinants.  Writes the five TraceResult fields (bools as one byte)
+// and, when tested_out is not null, the triangles each ray tested.
+// Returns cudaGetLastError() after the launch.
 extern "C" int traverse_grid_launch(
     int det_f64, const float* orig, const float* dirn, const float* mint,
     const float* maxt, const float* gridf, int nx, int ny, int nz,
-    const int* cell_start, const int* tri_ids, const float* tri9, int n_rays,
-    int has_gate, double t_gate, int early_exit, int stop_on_first_hit,
-    unsigned char* any_pass_out, unsigned char* hit_out, float* t_out,
-    int* tri_out, int* steps_out, int* tested_out, void* stream) {
+    const unsigned* occupancy, int mask_words, const int* cell_range,
+    const float* cell_tri9, const int* tri_ids, int n_rays, int has_gate, double t_gate,
+    int early_exit, int stop_on_first_hit, unsigned char* any_pass_out,
+    unsigned char* hit_out, float* t_out, int* tri_out, int* steps_out, int* tested_out,
+    void* stream) {
   if (n_rays > 0) {
     const int blocks = (n_rays + kBlock - 1) / kBlock;
+    const bool shared = shared_mask_for(mask_words);
+    const int2* range = reinterpret_cast<const int2*>(cell_range);
     cudaStream_t s = (cudaStream_t)stream;
     if (det_f64) {
-      traverse_grid_kernel<double><<<blocks, kBlock, 0, s>>>(
-          orig, dirn, mint, maxt, gridf, nx, ny, nz, cell_start, tri_ids, tri9,
-          n_rays, has_gate, t_gate, early_exit, stop_on_first_hit,
-          any_pass_out, hit_out, t_out, tri_out, steps_out, tested_out);
+      launch<double>(shared, blocks, s, orig, dirn, mint, maxt, gridf, nx, ny, nz,
+                     occupancy, mask_words, range, cell_tri9, tri_ids, n_rays, has_gate,
+                     t_gate, early_exit, stop_on_first_hit, any_pass_out, hit_out, t_out,
+                     tri_out, steps_out, tested_out);
     } else {
-      traverse_grid_kernel<float><<<blocks, kBlock, 0, s>>>(
-          orig, dirn, mint, maxt, gridf, nx, ny, nz, cell_start, tri_ids, tri9,
-          n_rays, has_gate, t_gate, early_exit, stop_on_first_hit,
-          any_pass_out, hit_out, t_out, tri_out, steps_out, tested_out);
+      launch<float>(shared, blocks, s, orig, dirn, mint, maxt, gridf, nx, ny, nz,
+                    occupancy, mask_words, range, cell_tri9, tri_ids, n_rays, has_gate,
+                    t_gate, early_exit, stop_on_first_hit, any_pass_out, hit_out, t_out,
+                    tri_out, steps_out, tested_out);
     }
   }
   return (int)cudaGetLastError();

@@ -8,22 +8,25 @@ its own shadow ray, and scatters one record per ray.  A ray's record
 depends on that ray alone, never on the schedule (tests/test_persistent.py
 pins that in JAX), so:
 
-  * on CUDA tensors the wave is kernel C's persistent launch:
-    min(wave, R) threads, each popping the next queue position with an
-    atomic counter and marching that ray to its end;
+  * on CUDA tensors the wave is one launch of kernel C over the queue,
+    one lane per queue position, which the card's block scheduler keeps
+    resident on every SM; that measured faster on the H100 than kernel
+    C's persistent mode, whose resident lanes pop positions from an
+    atomic counter (PERF.md);
   * on CPU tensors it is the plain lock-step march over the queued rays.
 
 Knobs: `compact` and `order_keys`/`order_classes` build the queue exactly
 as JAX does (live rays only; difficulty classes first) and so decide
-which rays are served and in what order; `wave` sets the card's thread
-count.  `pump`, `refill_retries` and `probe_chain` on the inline layout
-shape only the JAX lock-step loop: a thread that marches one ray at a
-time has no scatter round to pump and no lane to refill, so they have no
-effect here.  `camera` takes the batch from `camera_rays` (which the JAX
-package pins bitwise equal to its `camera_ray_at` regeneration); `rays`
-then supplies only the count.  `need_t`, `need_steps`, `need_shadow_tri`
+which rays are served and in what order.  `wave`, `pump`,
+`refill_retries` and `probe_chain` on the inline layout shape only the
+JAX lock-step loop: the card sizes its launch by itself, and a lane that
+marches one ray at a time has no scatter round to pump and no lane to
+refill, so they have no effect here, on the card or on the CPU.
+`camera` takes the batch from `camera_rays` (which the JAX package pins
+bitwise equal to its `camera_ray_at` regeneration); `rays` then supplies
+only the count.  `need_t`, `need_steps`, `need_shadow_tri`
 and `return_iters` keep their JAX meaning; `return_iters` counts, on the
-card, the most march steps one thread ran, and on the CPU the lock-step
+card, the most march steps one lane ran, and on the CPU the lock-step
 iterations.  A ray still marching after max_iters steps (default: the
 JAX per-ray bound, doubled when fused) keeps its partial record and is
 counted in `capped_out`.
@@ -130,7 +133,7 @@ def persistent_trace(
     fuse_shadow=False the shadow fields are all clear; shadow_tri_id is -1
     unless need_shadow_tri, steps 0 unless need_steps, t a 0/inf hit
     placeholder unless need_t."""
-    del pump, refill_retries  # shape the JAX lock-step loop only
+    del wave, pump, refill_retries  # shape the JAX lock-step loop only
     if fuse_shadow:
         if light_pos is None:
             raise ValueError("fuse_shadow needs light_pos")
@@ -159,7 +162,7 @@ def persistent_trace(
     iters = None
     if rays.orig.is_cuda:
         iters_out = torch.zeros((1,), dtype=torch.int32, device=dev) if return_iters else None
-        res = march_cuda(rays, grid, meta, light_pos, wave=wave,
+        res = march_cuda(rays, grid, meta, light_pos, persistent=False,
                          queue=None if queue is None else queue[0],
                          n_work=None if queue is None else queue[1],
                          iters_out=iters_out, tested_out=tested_out, **kw)

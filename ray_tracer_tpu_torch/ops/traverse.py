@@ -15,7 +15,10 @@ Counterpart of `ray_tracer_tpu/ops/traverse.py` (`traverse_grid`,
     (grid.h:217-221).
 
 `traverse_grid_cuda` launches `csrc/traverse_grid.cu`, one thread per
-ray.  `traverse_grid_plain` is the JAX package's lock-step loop in plain
+ray, over `DdaTables` derived from the CSR grid once (`dda_tables`: an
+occupancy bit per cell, an (start, count) pair per cell, the vertices in
+CSR order), which neither the JAX package nor the plain version uses.
+`traverse_grid_plain` is the JAX package's lock-step loop in plain
 PyTorch: the batch advances together, dead lanes frozen by masks, until
 every lane is dead or nx+ny+nz+2 steps are done.  `traverse_grid` takes
 the kernel for CUDA tensors and the plain version for CPU tensors.
@@ -24,7 +27,7 @@ the kernel for CUDA tensors and the plain version for CPU tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -49,6 +52,34 @@ class TraceResult(NamedTuple):
 def vertex_table(v0, v1, v2) -> torch.Tensor:
     """(F, 9) f32 rows v0 v1 v2, the kernel's per-triangle gather unit."""
     return torch.cat([v0, v1, v2], dim=1).to(torch.float32).contiguous()
+
+
+class DdaTables(NamedTuple):
+    """Kernel B's tables, derived from the CSR grid and the vertex table."""
+
+    occupancy: torch.Tensor  # (W,) i32: bit c & 31 of word c >> 5 = cell c
+    #                          holds a triangle; W a multiple of 4 (16 B)
+    cell_range: torch.Tensor  # (n_cells, 2) i32 (cell_start, count)
+    cell_tri9: torch.Tensor  # (nnz, 9) f32 = tri9[tri_ids], CSR order
+
+
+def dda_tables(grid: GridArrays, tri9: torch.Tensor) -> DdaTables:
+    """Kernel B's tables on the grid's device: the occupancy mask of
+    diff(cell_start) > 0, the (start, count) pair of every cell and the
+    vertex rows in CSR order."""
+    start = grid.cell_start.to(torch.int64)
+    counts = start[1:] - start[:-1]
+    n_cells = counts.shape[0]
+    words = -(-n_cells // 128) * 4
+    occ = torch.zeros((words * 32,), dtype=torch.int64, device=counts.device)
+    occ[:n_cells] = (counts > 0).to(torch.int64)
+    bits = torch.arange(32, dtype=torch.int64, device=counts.device)
+    packed = (occ.reshape(words, 32) << bits).sum(dim=1)
+    packed = torch.where(packed >= (1 << 31), packed - (1 << 32), packed)  # as int32 bits
+    cell_range = torch.stack([start[:-1], counts], dim=1).to(torch.int32).contiguous()
+    cell_tri9 = tri9.to(torch.float32)[grid.tri_ids.long()].contiguous()
+    return DdaTables(occupancy=packed.to(torch.int32), cell_range=cell_range,
+                     cell_tri9=cell_tri9)
 
 
 def _to_cell(pos_f: torch.Tensor, nvox: torch.Tensor) -> torch.Tensor:
@@ -188,9 +219,14 @@ def traverse_grid_cuda(
     rays: RayBatch, grid: GridArrays, meta: GridMeta, tri9: torch.Tensor, *,
     t_gate: Optional[float] = None, early_exit: bool = False,
     stop_on_first_hit: bool = False, det_dtype: str = "float32",
-    tested_out: Optional[torch.Tensor] = None,
+    tested_out: Optional[torch.Tensor] = None, tables: Optional[DdaTables] = None,
+    _defines: Tuple[str, ...] = (),
 ) -> TraceResult:
-    """Kernel B on CUDA tensors; the same outputs as the plain version."""
+    """Kernel B on CUDA tensors; the same outputs as the plain version.
+    `tables` are `dda_tables(grid, tri9)`, built here when not given.
+    `_defines` are nvcc -D flags of a measurement build (chip_smoke.py
+    times the mask read through L1 and from shared memory with
+    TRAVERSE_GRID_SHARED_MASK); the port passes none."""
     if not rays.orig.is_cuda:
         raise ValueError("traverse_grid_cuda takes CUDA tensors")
     if det_dtype not in _DET_DTYPES:
@@ -198,10 +234,17 @@ def traverse_grid_cuda(
     dev = rays.orig.device
     f32 = [x.to(torch.float32).contiguous() for x in rays]
     orig, dirn, mint, maxt = f32
-    tri9 = tri9.to(torch.float32).contiguous()
+    if tables is None:
+        tables = dda_tables(grid, tri9)
+    occupancy = tables.occupancy.to(torch.int32).contiguous()
+    cell_range = tables.cell_range.to(torch.int32).contiguous()
+    cell_tri9 = tables.cell_tri9.to(torch.float32).contiguous()
+    nx, ny, nz = meta.n_voxels
+    if (occupancy.numel() % 4 or occupancy.numel() * 32 < nx * ny * nz
+            or cell_range.shape != (nx * ny * nz, 2) or cell_tri9.shape != (meta.nnz, 9)):
+        raise ValueError("tables do not match the grid")
     gridf = torch.cat([grid.lower, grid.upper, grid.width, grid.inv_width]).to(
         torch.float32).contiguous()
-    cell_start = grid.cell_start.to(torch.int32).contiguous()
     tri_ids = grid.tri_ids.to(torch.int32).contiguous()
     if tri_ids.numel() == 0:
         tri_ids = torch.zeros((1,), dtype=torch.int32, device=dev)
@@ -218,18 +261,17 @@ def traverse_grid_cuda(
     if r == 0:
         return TraceResult(any_pass=any_pass, hit=hit, t=t, tri_id=tri_id, steps=steps)
 
-    lib = _build.library("traverse_grid")
-    fn = lib.traverse_grid_launch
+    fn = _build.library("traverse_grid", _defines).traverse_grid_launch
     fn.restype = ctypes.c_int
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i, p, p, p, p, p, i, i, i, p, p, p, i, i, ctypes.c_double,
+    fn.argtypes = [i, p, p, p, p, p, i, i, i, p, i, p, p, p, i, i, ctypes.c_double,
                    i, i, p, p, p, p, p, p, p]
-    nx, ny, nz = meta.n_voxels
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(int(det_dtype == "float64"), orig.data_ptr(), dirn.data_ptr(),
                  mint.data_ptr(), maxt.data_ptr(), gridf.data_ptr(), nx, ny, nz,
-                 cell_start.data_ptr(), tri_ids.data_ptr(), tri9.data_ptr(), r,
+                 occupancy.data_ptr(), occupancy.numel(), cell_range.data_ptr(),
+                 cell_tri9.data_ptr(), tri_ids.data_ptr(), r,
                  int(t_gate is not None), float(t_gate or 0.0), int(early_exit),
                  int(stop_on_first_hit), any_pass.data_ptr(), hit.data_ptr(),
                  t.data_ptr(), tri_id.data_ptr(), steps.data_ptr(),
@@ -247,11 +289,11 @@ def traverse_grid(
     rays: RayBatch, grid: GridArrays, meta: GridMeta, tri9: torch.Tensor, *,
     t_gate: Optional[float] = None, early_exit: bool = False,
     stop_on_first_hit: bool = False, det_dtype: str = "float32",
-    tested_out: Optional[torch.Tensor] = None,
+    tested_out: Optional[torch.Tensor] = None, tables: Optional[DdaTables] = None,
 ) -> TraceResult:
     """Nearest-hit walk of every ray through the CSR grid: kernel B for
-    CUDA tensors, the plain version for CPU tensors.  tri9 is the (F, 9)
-    `vertex_table`."""
+    CUDA tensors (over `tables`, built when not given), the plain version
+    for CPU tensors.  tri9 is the (F, 9) `vertex_table`."""
     kw = dict(t_gate=t_gate, early_exit=early_exit,
               stop_on_first_hit=stop_on_first_hit, det_dtype=det_dtype,
               tested_out=tested_out)
@@ -268,7 +310,7 @@ def traverse_grid(
             steps=torch.zeros((r,), dtype=torch.int32, device=zb.device),
         )
     if rays.orig.is_cuda:
-        return traverse_grid_cuda(rays, grid, meta, tri9, **kw)
+        return traverse_grid_cuda(rays, grid, meta, tri9, tables=tables, **kw)
     if rays.orig.device.type != "cpu":
         raise ValueError(f"unsupported device {rays.orig.device}")
     return traverse_grid_plain(rays, grid, meta, tri9, **kw)

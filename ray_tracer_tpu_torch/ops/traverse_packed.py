@@ -31,16 +31,18 @@ because PyTorch and CUDA differ from XLA there:
     XLA; `_probe_cell` writes that out (clamped to [-1, n], which keeps
     every inside/outside decision and every in-grid cell).
 
-`march_cuda` launches `csrc/packed_march.cu` (kernel C), one thread per
-ray or as a persistent wave popping a queue (ops/persistent.py), with the
-plain version's records bit for bit.  `march` takes the kernel for CUDA
-tensors and the plain version for CPU tensors.
+`march_cuda` launches `csrc/packed_march.cu` (kernel C): each lane
+marches one ray and the warp deals out the slots of the rows its lanes
+test in a step (tests/test_torch_kernel_layouts.py models that fold in
+numpy), one lane per queue position or as resident lanes popping a
+queue, with the plain version's records bit for bit.  `march` takes the
+kernel for CUDA tensors and the plain version for CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -518,17 +520,23 @@ def march_cuda(
     tested_out: Optional[torch.Tensor] = None,
     touched_out: Optional[torch.Tensor] = None,
     capped_out: Optional[torch.Tensor] = None,
-    wave: Optional[int] = None, queue: Optional[torch.Tensor] = None,
+    persistent: bool = False, queue: Optional[torch.Tensor] = None,
     n_work: Optional[int] = None, iters_out: Optional[torch.Tensor] = None,
+    _defines: Tuple[str, ...] = (),
 ) -> FusedTraceResult:
     """Kernel C on CUDA tensors; the plain version's records.
 
-    wave=None launches one thread per ray.  wave=W launches min(W, R)
-    persistent threads that pop queue positions with an atomic counter
-    and march each popped ray to its end; `queue` (n_work ray ids) is the
-    compacted or ordered work list, positions past n_work are never
-    served and keep the miss record.  iters_out (1,) i32 receives the
-    most march steps one thread ran."""
+    Each lane marches one ray, and the warp shares out the row tests of
+    every step.  Positions [0, n_work) of `queue` (ray ids; every ray in
+    order when None) are marched; rays never served keep the miss record.
+    persistent=False launches one lane per position; persistent=True as
+    many lanes as the card holds resident (the kernel's occupancy times
+    the SM count, whatever the JAX wave width), each taking the next
+    position from an atomic counter whenever its ray has ended.
+    iters_out (1,) i32 receives the most march steps one lane ran.
+    `_defines` are nvcc -D flags of a measurement build (chip_smoke.py
+    times a group of G lanes a ray with PACKED_MARCH_GROUP=G); the port
+    passes none."""
     if not rays.orig.is_cuda:
         raise ValueError("march_cuda takes CUDA tensors")
     if fused and stop_on_first_hit:
@@ -576,8 +584,7 @@ def march_cuda(
             raise ValueError("n_work exceeds the queue")
     elif n_work is None:
         n_work = r
-    threads = 0 if wave is None else max(1, min(int(wave), r))
-    counter = torch.zeros((1,), dtype=torch.int32, device=dev) if threads else None
+    counter = torch.zeros((1,), dtype=torch.int32, device=dev) if persistent else None
     light = (_host_vec3(light_pos) if light_pos is not None
              else (ctypes.c_float * 3)(0.0, 0.0, 0.0))
     nx, ny, nz = meta.n_voxels
@@ -598,8 +605,7 @@ def march_cuda(
     def ptr(x):
         return x.data_ptr() if x is not None else None
 
-    lib = _build.library("packed_march")
-    fn = lib.packed_march_launch
+    fn = _build.library("packed_march", _defines).packed_march_launch
     fn.restype = ctypes.c_int
     p = ctypes.c_void_p
     fn.argtypes = [_MarchParams] + [p] * 18 + [ctypes.c_int, p, p]
@@ -610,7 +616,8 @@ def march_cuda(
                  slot_tri.data_ptr(), ptr(queue), ptr(counter), hit.data_ptr(),
                  t.data_ptr(), tri_id.data_ptr(), in_shadow.data_ptr(),
                  shadow_tri.data_ptr(), steps.data_ptr(), ptr(tested_out),
-                 ptr(touched_out), ptr(capped_out), threads, ptr(iters_out), stream)
+                 ptr(touched_out), ptr(capped_out), int(persistent), ptr(iters_out),
+                 stream)
     _build.check(err, "packed_march")
     march_cuda.launches += 1
     return res
@@ -621,8 +628,8 @@ march_cuda.launches = 0
 
 def march(rays: RayBatch, grid: PackedGridArrays, meta: PackedGridMeta,
           light_pos: Optional[torch.Tensor] = None, **kw) -> FusedTraceResult:
-    """Kernel C (one thread per ray) for CUDA tensors, the plain version
-    for CPU tensors."""
+    """Kernel C (one lane per ray, in order) for CUDA tensors, the plain
+    version for CPU tensors."""
     if rays.orig.is_cuda:
         return march_cuda(rays, grid, meta, light_pos, **kw)
     if rays.orig.device.type != "cpu":

@@ -51,7 +51,7 @@ from ray_tracer_tpu_torch.ops.shade import (
     shade_serial,
 )
 from ray_tracer_tpu_torch.ops.persistent import persistent_trace
-from ray_tracer_tpu_torch.ops.traverse import traverse_grid, vertex_table
+from ray_tracer_tpu_torch.ops.traverse import DdaTables, dda_tables, traverse_grid, vertex_table
 from ray_tracer_tpu_torch.ops.traverse_packed import (
     PackedTraceResult,
     chord_keys,
@@ -168,6 +168,7 @@ class Prepared(NamedTuple):
     grid: UniformGrid
     cfg: SceneConfig
     packed: PackedGrid = None  # built when cfg.render.traversal == "packed"
+    dda: DdaTables = None  # kernel B's tables, built when traversal == "csr"
 
     @property
     def device(self) -> torch.device:
@@ -178,7 +179,8 @@ def prepare(cfg: SceneConfig, scene: Scene = None, device=None) -> Prepared:
     """Host-side setup: load the meshes, build the grid (and, for
     traversal="packed", the packed grid) in numpy, and put scene and grids
     on the device (cuda unless "cpu" is asked for; a given scene keeps its
-    own device)."""
+    own device).  For traversal="csr", kernel B's tables (`dda_tables`)
+    are derived there once."""
     check_supported(cfg, scene)
     if scene is None:
         dev = resolve_device(device)
@@ -207,7 +209,10 @@ def prepare(cfg: SceneConfig, scene: Scene = None, device=None) -> Prepared:
         inline = layout == "inline" or (layout == "auto" and choose_inline_layout(grid, bt))
         packed = pack_grid(grid, verts_np, faces_np, block_tris=bt, inline=inline,
                            leap=cfg.render.grid.leap)
-    return Prepared(scene=scene, grid=grid, cfg=cfg, packed=packed)
+    dda = None
+    if cfg.render.traversal == "csr":
+        dda = dda_tables(grid.arrays, vertex_table(*scene.triangle_soa()))
+    return Prepared(scene=scene, grid=grid, cfg=cfg, packed=packed, dda=dda)
 
 
 def choose_inline_layout(grid: UniformGrid, block_tris: int,
@@ -241,12 +246,13 @@ def choose_block_tris(grid: UniformGrid) -> int:
     return 56
 
 
-def make_traversal(rcfg: RenderConfig, grid, meta, v0, v1, v2):
+def make_traversal(rcfg: RenderConfig, grid, meta, v0, v1, v2, dda=None):
     """The traversal-backend switch: RenderConfig.traversal (and, for
     "packed", scheduler) -> a callable trav(rays, t_gate,
     stop_on_first_hit=False, **kw) whose result has
     .any_pass/.hit/.t/.tri_id.  The persistent backend also takes
-    camera=, compact= and order_keys=."""
+    camera=, compact= and order_keys=.  dda: kernel B's tables for "csr"
+    (`Prepared.dda`; the kernel's wrapper derives them when not given)."""
     if rcfg.traversal == "packed":
         chain = 1 if meta.inline else rcfg.probe_chain
         if rcfg.scheduler == "persistent":
@@ -290,17 +296,17 @@ def make_traversal(rcfg: RenderConfig, grid, meta, v0, v1, v2):
                 rb, grid, meta, tri9, t_gate=t_gate,
                 early_exit=not rcfg.faithful,
                 stop_on_first_hit=stop_on_first_hit,
-                det_dtype=rcfg.det_dtype,
+                det_dtype=rcfg.det_dtype, tables=dda,
             )
     return trav
 
 
 @torch.no_grad()
 def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
-                camera_cfg=None) -> torch.Tensor:
+                camera_cfg=None, dda: DdaTables = None) -> torch.Tensor:
     """Trace + shade one ray batch -> (R,3) linear color.  camera_cfg is
     given only when `rays` is that camera's whole batch in pixel order
-    (the persistent wave's camera refill)."""
+    (the persistent wave's camera refill); dda are kernel B's tables."""
     serial = rcfg.serial_shading
     eps = rcfg.shadow_eps
     v0, v1, v2 = scene.triangle_soa()
@@ -310,7 +316,7 @@ def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
     ddt = _DET_DTYPES[rcfg.det_dtype]
     primary_gate = rcfg.primary_gate()
     early = not rcfg.faithful
-    trav = make_traversal(rcfg, grid, meta, v0, v1, v2)
+    trav = make_traversal(rcfg, grid, meta, v0, v1, v2, dda=dda)
     persistent = rcfg.traversal == "packed" and rcfg.scheduler == "persistent"
     # one march for primary + shadow (soft shadows, which need several
     # shadow rays, raise in check_supported)
@@ -442,10 +448,10 @@ def render(prep: Prepared) -> torch.Tensor:
         args = (prep.scene, prep.grid.arrays, prep.grid.meta, rcfg)
     tile = rays.count if prep.device.type == "cuda" else max(1, rcfg.ray_tile)
     if tile >= rays.count:
-        colors = render_rays(rays, *args, camera_cfg=cfg.camera)
+        colors = render_rays(rays, *args, camera_cfg=cfg.camera, dda=prep.dda)
     else:
         colors = torch.cat([
-            render_rays(rays.slice(lo, min(lo + tile, rays.count)), *args)
+            render_rays(rays.slice(lo, min(lo + tile, rays.count)), *args, dda=prep.dda)
             for lo in range(0, rays.count, tile)
         ])
     return colors.reshape(cfg.camera.height, cfg.camera.width, 3)
