@@ -7,9 +7,8 @@ Run from the repository root on a machine with a CUDA device.  Phases,
 each printing one JSON line:
 
   1. device: PyTorch/CUDA versions, the card's name and power limit;
-  2. build: compile every kernel of csrc/ and the measurement variants of
-     kernels B and C (one nvcc per library, in parallel) and time it;
-     registers and spills of every kernel and variant;
+  2. build: compile every kernel of csrc/ (one nvcc per source, in
+     parallel) and time it; registers and spills of every kernel;
   3. kernel A (csrc/brute_intersect.cu) against its plain PyTorch version
      on the serial scene's 256x256 camera rays and their shadow rays:
      hit and tri_id equal, t bitwise equal;
@@ -18,9 +17,9 @@ each printing one JSON line:
      float64 determinants, faithful and production modes: all five
      TraceResult fields equal;
   5. kernel C (csrc/packed_march.cu) against its plain version on the
-     turbo serial grid's 256x256 camera rays, one lane per ray and as
-     resident lanes popping a queue (also on the compacted and the
-     chord-ordered queues): fused with and without the dead-shadow skip,
+     turbo serial grid's 256x256 camera rays, one lane per ray and on the
+     compacted and the chord-ordered queues (directly and through
+     persistent_trace): fused with and without the dead-shadow skip,
      nearest and any hit, inline and blocks layouts (and a probe chain),
      rows of 14, 28 and 56 triangles: every record field bitwise equal,
      no ray capped;
@@ -41,11 +40,10 @@ each printing one JSON line:
   8. kernel D (csrc/gather_row_test.cu) against its plain version through
      the port's gather tool, and the tool's step-loop time.
 
-Then the kernel times at the main path's shapes (kernel C in its warp
-form and with groups of 1, 8, 16 and 32 lanes a ray, in both launch
-modes; kernel B with its mask in shared memory and through L1; each
-variant held bitwise to the plain version), a `kernels` line, the card
-line, and last {"ok": true, "device": {...}}.  Any failure raises
+Then the kernel times at the main path's shapes (each launch held
+bitwise to the plain version; B's and C's barycentric passes counted for
+their operation bounds), a `kernels` line, the card line, and last
+{"ok": true, "device": {...}}.  Any failure raises
 and exits non-zero; without a CUDA device it exits non-zero before any
 phase.
 """
@@ -75,26 +73,19 @@ PEAK_BYTES = 3.35e12
 # numerator (5 beyond the shared terms), 1/A (1), three products (3),
 # beta + gamma (1), and the five comparisons of the acceptance test.
 OPS_PER_PAIR_A = 51
-# FP32 operations per tested triangle of kernel B (cramer_tbg): the three
-# columns (9), four determinants (44), three divisions (3), the pass test
-# and the gate (5).  Kernel C tests its rows with the same solve.
-OPS_PER_TEST_B = 61
+# FP32 operations per tested triangle of kernels B and C (cramer.cuh
+# cramer_pass_t, 11 a determinant as for A and D): one that fails the
+# barycentric test takes the three columns (9), the determinant A and
+# beta's and gamma's numerators (33), two divisions (2) and the test (4);
+# one that passes adds t's numerator (11), its division (1) and the gate
+# (1).  The kernels count the passes of this run's data.
+OPS_PER_FAILED_TEST = 48
+OPS_PER_PASSED_TEST = 61
 # FP32 operations per triangle lane of kernel D, counted as for B: the
 # columns (9), four determinants (44), 1/A (1), three products (3), the
 # acceptance test (5) and the running minimum (1).
 OPS_PER_LANE_D = 63
 ALL_PHASES = ("build", "A", "B", "C", "main", "card_vs_cpu", "D", "times")
-# Measurement builds: kernel C with a group of G lanes a ray instead of
-# its warp form (G = 0), and at 86 registers instead of 64; kernel B with
-# its occupancy mask in shared memory or through L1, and two diagnostic
-# builds that skip the triangle tests (1) or the tables too (2), whose
-# records are not compared.
-C_VARIANTS = {g: (f"PACKED_MARCH_GROUP={g}",) for g in (0, 1, 8, 16, 32)}
-C_VARIANTS["0_min4"] = ("PACKED_MARCH_GROUP=0", "PACKED_MARCH_MIN_BLOCKS=4")
-B_VARIANTS = {"shared": ("TRAVERSE_GRID_SHARED_MASK=1",),
-              "l1": ("TRAVERSE_GRID_SHARED_MASK=0",),
-              "diag_no_tests": ("TRAVERSE_GRID_DIAG=1",),
-              "diag_walk_only": ("TRAVERSE_GRID_DIAG=2",)}
 # The previous designs' times on the 1024^2 main path (one thread per ray
 # in B; C's persistent threads at the JAX wave width of 12,288 and its
 # one-thread-per-ray mode), NVIDIA H100 80GB HBM3 at 700 W, as recorded
@@ -206,7 +197,7 @@ def compare(label: str, got, want) -> float:
 def ptxas_usage(lib_path: str) -> dict:
     """Registers and spill bytes per kernel from the build's -Xptxas -v log,
     keyed by the kernel's name and its mangled template arguments (e.g.
-    packed_march_kernelILi16EE: G = 16)."""
+    traverse_grid_kernelIdEE: double determinants)."""
     with open(lib_path + ".log") as fh:
         log = fh.read()
     out = {}
@@ -272,18 +263,10 @@ class Smoke:
         from ray_tracer_tpu_torch.kernels import _build
 
         t0 = time.perf_counter()
-        variants = ([("packed_march", d) for d in C_VARIANTS.values()]
-                    + [("traverse_grid", d) for d in B_VARIANTS.values()])
-        self.libs = _build.build(variants=variants)
+        self.libs = _build.build()
         secs = time.perf_counter() - t0
         self.ptxas = {k: ptxas_usage(v) for k, v in self.libs.items()}
-        for g, d in C_VARIANTS.items():
-            self.ptxas[f"packed_march G={g}"] = ptxas_usage(
-                _build.library_path("packed_march", d))
-        for name, d in B_VARIANTS.items():
-            self.ptxas[f"traverse_grid mask={name}"] = ptxas_usage(
-                _build.library_path("traverse_grid", d))
-        emit({"phase": "build", "seconds": secs, "libraries": len(self.libs) + len(variants),
+        emit({"phase": "build", "seconds": secs, "libraries": len(self.libs),
               "ptxas": self.ptxas})
 
     # ---- 3. and 4. kernels A and B vs their plain versions ---------------
@@ -408,7 +391,6 @@ class Smoke:
             ("bt56", "fused_skip", dict(fkw, skip_dead_shadow=True)),
             ("bt56", "any_hit", dict(t_gate=0.0, stop_on_first_hit=True)),
         ]
-        modes = (("per_position", dict(persistent=False)), ("persistent", dict(persistent=True)))
         err = 0.0
         out = []
         capped = torch.zeros((1,), dtype=torch.int32, device=self.dev)
@@ -418,20 +400,18 @@ class Smoke:
             plain = kC.march_plain(rays, grid, meta, light, capped_out=capped, **kw)
             if int(capped.item()):
                 raise AssertionError(f"kernel C {layout} {name}: plain capped {int(capped)}")
-            for mode, mkw in modes:
-                got = kC.march_cuda(rays, grid, meta, light, capped_out=capped, **mkw, **kw)
-                torch.cuda.synchronize()
-                err = max(err, compare(f"kernel C {layout} {name} {mode}", got, plain))
-                if int(capped.item()):
-                    raise AssertionError(f"kernel C {layout} {name} {mode}: "
-                                         f"{int(capped)} rays capped")
+            got = kC.march_cuda(rays, grid, meta, light, capped_out=capped, **kw)
+            torch.cuda.synchronize()
+            err = max(err, compare(f"kernel C {layout} {name}", got, plain))
+            if int(capped.item()):
+                raise AssertionError(f"kernel C {layout} {name}: {int(capped)} rays capped")
             out.append({"layout": layout, "case": name, "block_tris": meta.block_tris,
                         "inline": meta.inline,
                         "hits": int(plain.hit.sum()), "in_shadow": int(plain.in_shadow.sum()),
                         "mean_steps": float(plain.steps.float().mean()),
                         "max_steps": int(plain.steps.max())})
-        # the queues of the persistent wave (compacted, chord-ordered), in
-        # both launch modes and through persistent_trace
+        # the queues of the persistent wave (compacted, chord-ordered),
+        # directly and through persistent_trace
         p = preps["inline"]
         grid, meta = p.packed.arrays, p.packed.meta
         keys = kC.chord_keys(rays, grid)
@@ -441,13 +421,12 @@ class Smoke:
                            ("compact_chord", dict(compact=True, order_keys=keys))):
             ids, n_work = work_queue(rays, grid, compact=qkw.get("compact", False),
                                      order_keys=qkw.get("order_keys"))
-            for mode, mkw in modes:
-                got = kC.march_cuda(rays, grid, meta, light, queue=ids, n_work=n_work,
-                                    skip_dead_shadow=True, capped_out=capped, **mkw, **fkw)
-                torch.cuda.synchronize()
-                err = max(err, compare(f"kernel C {qname} queue {mode}", got, plain))
-                if int(capped.item()):
-                    raise AssertionError(f"kernel C {qname} queue {mode}: rays capped")
+            got = kC.march_cuda(rays, grid, meta, light, queue=ids, n_work=n_work,
+                                skip_dead_shadow=True, capped_out=capped, **fkw)
+            torch.cuda.synchronize()
+            err = max(err, compare(f"kernel C {qname} queue", got, plain))
+            if int(capped.item()):
+                raise AssertionError(f"kernel C {qname} queue: rays capped")
             got = persistent_trace(
                 rays, grid, meta, light, fuse_shadow=True, t_gate=0.0,
                 shadow_gate=rcfg.shadow_eps, shadow_mint=rcfg.shadow_mint(),
@@ -462,8 +441,7 @@ class Smoke:
         emit({"phase": "kernel_C_vs_plain", "rays": rays.count,
               "grid": list(preps["inline"].packed.meta.n_voxels),
               "rows": {k: v.packed.meta.n_blocks for k, v in preps.items()},
-              "cases": out, "queues": ["compact", "chord", "compact_chord"],
-              "modes": [m for m, _ in modes], "capped": 0,
+              "cases": out, "queues": ["compact", "chord", "compact_chord"], "capped": 0,
               "max_abs_err": err, "tolerance": "bitwise", "equal": True})
 
     # ---- 6. the main path at full size -----------------------------------
@@ -688,7 +666,8 @@ class Smoke:
         b_ms = cuda_ms(launch_b, 50)
         b_dev_ms = kernel_device_ms(launch_b, "traverse_grid_kernel", 20)
         tested = torch.zeros((r,), dtype=torch.int32, device=dev)
-        b_out = launch_b(tested_out=tested)
+        b_passes = torch.zeros((1,), dtype=torch.int32, device=dev)
+        b_out = launch_b(tested_out=tested, passes_out=b_passes)
         pkw_b = {k: v for k, v in kw.items() if k != "tables"}
         b_plain_ms, b_plain = once_ms(
             lambda: kB.traverse_grid_plain(rays, grid, meta, tri9_rows, **pkw_b))
@@ -708,20 +687,11 @@ class Smoke:
 
         b_shadow_ms = cuda_ms(launch_b_shadow, 50)
         b_shadow_dev_ms = kernel_device_ms(launch_b_shadow, "traverse_grid_kernel", 20)
-        b_variants = {}
-        for name, defs in B_VARIANTS.items():
-            out = launch_b(_defines=defs)
-            if not name.startswith("diag"):  # diagnostics skip work: not compared
-                b_err = max(b_err, compare(f"kernel B 1024 {name}", out, b_plain))
-            b_variants[name] = {
-                "ms": cuda_ms(lambda: launch_b(_defines=defs), 50),
-                "device_ms": kernel_device_ms(lambda: launch_b(_defines=defs),
-                                              "traverse_grid_kernel", 20),
-                "shadow_device_ms": kernel_device_ms(
-                    lambda: launch_b_shadow(_defines=defs), "traverse_grid_kernel", 20),
-                "ptxas": self.ptxas.get(f"traverse_grid mask={name}")}
         self.err["traverse_grid"] = max(self.err["traverse_grid"], b_err)
         n_tests = int(tested.sum())
+        n_passes = int(b_passes.item())
+        if not int(b_out.any_pass.sum()) <= n_passes <= n_tests:  # a passing ray passes once
+            raise AssertionError(f"kernel B counted {n_passes} passes of {n_tests} tests")
         n_steps = int(b_out.steps.sum())
         # each input of the function read once, each output written once:
         # the rays (32 B) and five results (14 B), the CSR arrays and the
@@ -730,7 +700,7 @@ class Smoke:
         # bound counts the same work whatever implements it.
         b_bytes = (r * (32 + 14) + (grid.cell_start.numel() + grid.tri_ids.numel()) * 4
                    + tri9_rows.numel() * 4)
-        b_ops = n_tests * OPS_PER_TEST_B
+        b_ops = (n_tests - n_passes) * OPS_PER_FAILED_TEST + n_passes * OPS_PER_PASSED_TEST
         b_bound, b_by = bound(b_bytes, b_ops)
 
         # kernel C: the turbo frame's one launch, the fused persistent march
@@ -748,41 +718,22 @@ class Smoke:
 
         c_ms = cuda_ms(launch_c, 20)
         c_dev_ms = kernel_device_ms(launch_c, "packed_march", 10)
-        c_tested = torch.zeros((r,), dtype=torch.int32, device=dev)
-        touched = torch.zeros((pmeta.n_blocks,), dtype=torch.int32, device=dev)
-        capped = torch.zeros((1,), dtype=torch.int32, device=dev)
-        c_out = persistent_trace(rays, pgrid, pmeta, light, tested_out=c_tested,
-                                 touched_out=touched, capped_out=capped, **ckw)
         pkw = dict(fused=True, t_gate=0.0, shadow_gate=trc.shadow_eps,
                    shadow_mint=trc.shadow_mint(), serial_quirk=True, skip_dead_shadow=True,
                    shade_serial=True)
         c_plain_ms, c_plain = once_ms(lambda: kC.march_plain(rays, pgrid, pmeta, light, **pkw))
-        c_err = compare("kernel C 1024 turbo", c_out, c_plain)
+        c_err = compare("kernel C 1024 turbo", launch_c(), c_plain)
+        # the same march with its counters: rows tested and touched, passes
+        c_tested = torch.zeros((r,), dtype=torch.int32, device=dev)
+        touched = torch.zeros((pmeta.n_blocks,), dtype=torch.int32, device=dev)
+        capped = torch.zeros((1,), dtype=torch.int32, device=dev)
+        c_passes = torch.zeros((1,), dtype=torch.int32, device=dev)
+        c_out = kC.march_cuda(rays, pgrid, pmeta, light, tested_out=c_tested,
+                              touched_out=touched, capped_out=capped, passes_out=c_passes,
+                              **pkw)
+        c_err = max(c_err, compare("kernel C 1024 turbo counted", c_out, c_plain))
         if int(capped.item()):
             raise AssertionError(f"kernel C 1024: {int(capped)} rays capped")
-        c_modes = {}
-        for mode, pers in (("per_position", False), ("persistent", True)):
-            def fn(pers=pers):
-                return kC.march_cuda(rays, pgrid, pmeta, light, persistent=pers, **pkw)
-
-            c_modes[mode] = {"ms": cuda_ms(fn, 20),
-                             "device_ms": kernel_device_ms(fn, "packed_march", 10)}
-        # the warp form and the group forms, each in both modes, held to
-        # the plain records
-        c_variants = {}
-        for g, defs in C_VARIANTS.items():
-            for mode, pers in (("per_position", False), ("persistent", True)):
-                def fn(pers=pers, defs=defs):
-                    return kC.march_cuda(rays, pgrid, pmeta, light, persistent=pers,
-                                         _defines=defs, **pkw)
-
-                c_err = max(c_err, compare(f"kernel C 1024 G={g} {mode}", fn(), c_plain))
-                c_variants[f"G{g}_{mode}"] = {
-                    "ms": cuda_ms(fn, 10),
-                    "device_ms": kernel_device_ms(fn, "packed_march", 5)}
-            group = int(str(g).split("_")[0])
-            c_variants[f"G{g}_ptxas"] = self.ptxas.get(f"packed_march G={g}", {}).get(
-                "packed_march_warp_kernel" if group == 0 else f"packed_march_kernelILi{group}EE")
         self.err["packed_march"] = max(self.err["packed_march"], c_err)
         rows_tested = int(c_tested.sum())
         full_rows = int(((touched & 2) != 0).sum())
@@ -794,7 +745,11 @@ class Smoke:
         # one slot_tri entry per primary hit and per blocker
         c_bytes = (r * (32 + 18) + full_rows * pmeta.row_lanes * 4 + header_rows * 8
                    + (c_hits + c_shadow) * 4)
-        c_ops = rows_tested * pmeta.block_tris * OPS_PER_TEST_B
+        slot_tests = rows_tested * pmeta.block_tris
+        c_pass = int(c_passes.item())
+        if not 0 <= c_pass <= slot_tests:
+            raise AssertionError(f"kernel C counted {c_pass} passes of {slot_tests} tests")
+        c_ops = (slot_tests - c_pass) * OPS_PER_FAILED_TEST + c_pass * OPS_PER_PASSED_TEST
         c_bound, c_by = bound(c_bytes, c_ops)
 
         # kernel D at the gather tool's shapes (W = 8192 lanes, NB = 2270 rows)
@@ -828,23 +783,23 @@ class Smoke:
                     "shadow_device_ms": b_shadow_dev_ms,
                     "plain_ms": b_plain_ms, "previous_ms": PREVIOUS_MS["B"],
                     "mask_bytes": p.dda.occupancy.numel() * 4,
-                    "variants": b_variants, "ptxas": self.ptxas.get("traverse_grid"),
-                    "steps": n_steps, "tested_triangles": n_tests,
+                    "ptxas": self.ptxas.get("traverse_grid"),
+                    "steps": n_steps, "tested_triangles": n_tests, "passes": n_passes,
                     "occupied_cells": int((p.dda.cell_range[:, 1] > 0).sum()),
                     "cells": p.dda.cell_range.shape[0],
                     "bytes": b_bytes, "ops": b_ops, "bound_ms": b_bound, "bound_by": b_by,
                     "bound_bytes_ms": b_bytes / PEAK_BYTES * 1e3,
                     "bound_ops_ms": b_ops / PEAK_FP32_UNFUSED * 1e3},
-              "C": {"ms": c_ms, "device_ms": c_dev_ms, "modes": c_modes,
+              "C": {"ms": c_ms, "device_ms": c_dev_ms,
                     "plain_ms": c_plain_ms, "previous_ms": PREVIOUS_MS["C"],
-                    "variants": c_variants,
                     "ptxas": self.ptxas.get("packed_march"),
                     "steps": int(c_out.steps.sum()), "max_steps": int(c_out.steps.max()),
-                    "rows_tested": rows_tested, "distinct_rows_tested": full_rows,
+                    "rows_tested": rows_tested, "slot_tests": slot_tests, "passes": c_pass,
+                    "distinct_rows_tested": full_rows,
                     "header_only_rows": header_rows, "table_rows": pmeta.n_blocks,
                     "hits": c_hits, "in_shadow": c_shadow, "bytes": c_bytes, "ops": c_ops,
                     "bound_ms": c_bound, "bound_by": c_by,
-                    "bound_ops_fma_peak_ms": c_ops / PEAK_FP32_OPS * 1e3,
+                    "bound_ops_ms": c_ops / PEAK_FP32_UNFUSED * 1e3,
                     "bound_bytes_ms": c_bytes / PEAK_BYTES * 1e3},
               "D": {"ms": d_ms, "device_ms": d_dev_ms, "plain_ms": d_plain_ms,
                     "lanes": w, "distinct_rows": d_rows, "bytes": d_bytes, "ops": d_ops,

@@ -98,8 +98,8 @@ class RenderConfig:
         queue_order "fifo" | "chord"; wave, pump, refill_retries,
         camera_refill and packed_unroll are accepted and change no ray's
         record, in the JAX package as here; wave, pump and refill_retries
-        shape only the JAX lock-step loop, and the card sizes kernel C's
-        launch by its own occupancy (ops/persistent.py);
+        shape only the JAX lock-step loop, and kernel C's launch on the
+        card takes one lane per queued ray (ops/persistent.py);
       * max_bounces, shadow_eps, shadow_scale, background, ray_tile,
         det_dtype, grid.
 

@@ -29,17 +29,13 @@
 // neighbouring triangles of one row), and a segmented butterfly of (t,
 // slot) pairs, smaller t first and then lower slot, gives each owner the
 // sequential loop's "first slot of the row minimum": accepted t are never
-// NaN, so the fold is order-free.  Two launch modes run the same device
-// code: one lane per queue position (mode a), or as many lanes as the card
-// holds resident, each taking the next position from an atomic counter,
-// one atomicAdd for the lanes of a warp that take together, when its ray
-// has ended (mode b).  A ray's march does not depend on which lane runs it
-// or when, so both modes give the same record, and both give the JAX
-// loop's record.  A measurement build (-DPACKED_MARCH_GROUP=G) instead
-// marches each ray with a group of G lanes that all hold its state and
-// split its rows (slots j, j+G, ... to lane j, a butterfly over the group);
-// on the H100 that spends the group's lanes on the probe and retire each
-// lane repeats, and measured slower for every G (PERF.md).
+// NaN, so the fold is order-free.  The launch gives one lane to each queue
+// position and leaves the residency to the card's block scheduler.  A
+// ray's march does not depend on which lane runs it or when, so the record
+// is the JAX loop's.  On the H100 this measured faster than a group of G
+// lanes a ray (G = 1, 8, 16, 32: the group's lanes all repeat the probe
+// and the retire) and than resident lanes popping positions from an atomic
+// counter (PERF.md).
 //
 // Exactness against the plain version (ops/traverse_packed.march_plain):
 // built with -fmad=false and no fast math, so every product, sum, IEEE
@@ -48,14 +44,15 @@
 // written out (the box exit maps NaN and +inf to FLT_MAX and -inf to
 // -FLT_MAX); the float-to-int cell cast saturates with NaN -> 0 as XLA's.
 //
-// Bound on the H100: FP32 operations and device-memory bytes, level on
-// the turbo serial frame (chip_smoke.py reports both): each ray reads its
-// 32 bytes and writes its record, the march reads each distinct row it
-// tests once, and every tested row costs block_tris Cramer solves at the
-// unfused FP32 rate.  The kernel stands far from it, bound by instruction
-// issue: a warp runs until its longest ray ends (a mean of 2.35 steps a
-// ray against a maximum of 62 on that frame) and executes the union of its
-// lanes' paths.  Sharing the row tests spreads a row's solves over the
+// Bound on the H100: device-memory bytes and FP32 operations, close to
+// level on the turbo serial frame (chip_smoke.py reports both): each ray
+// reads its 32 bytes and writes its record, the march reads each distinct
+// row it tests once, and every tested slot costs a Cramer test at the
+// unfused FP32 rate, t's numerator and division only where the
+// barycentric test passes.  The kernel stands far from it, bound by
+// instruction issue: a warp runs until its longest ray ends (a mean of
+// 2.35 steps a ray against a maximum of 62 on that frame) and executes the
+// union of its lanes' paths.  Sharing the row tests spreads a row's solves over the
 // warp's lanes instead of one lane's loop, and t's numerator and division
 // are computed only for a triangle that passes the barycentric test
 // (cramer_pass_t).
@@ -81,14 +78,10 @@ namespace {
 constexpr int kBlock = 128;
 constexpr unsigned kFull = 0xffffffffu;
 // Resident blocks an SM must hold: caps the registers at 64 a thread, so
-// that half of the SM's 64 warp slots can be filled (the warp form then
-// spills about 100 bytes; at 86 registers, no spills and 20 warps an SM,
+// that half of the SM's 64 warp slots can be filled (the kernel then
+// spills about 140 bytes; at 86 registers, no spills and 20 warps an SM,
 // it times the same: PERF.md).
-#ifdef PACKED_MARCH_MIN_BLOCKS  // a measurement build's other register cap
-constexpr int kMinBlocks = PACKED_MARCH_MIN_BLOCKS;
-#else
 constexpr int kMinBlocks = 8;
-#endif
 constexpr int kFirstMask = (1 << 21) - 1;
 constexpr int kNoSlot = 1 << 30;
 
@@ -102,23 +95,7 @@ struct Outputs {
   int* tested;   // optional: rows tested per ray
   int* touched;  // optional: per row, |1 header read, |2 triangles tested
   int* capped;   // optional: rays still marching at max_steps
-};
-
-// The G lanes of a warp that march one ray.
-template <int G>
-struct Group {
-  unsigned mask;  // the group's lanes in the warp
-  int rank;       // this lane's index in the group
-  __device__ Group() {
-    const int lane = threadIdx.x & 31;
-    rank = lane & (G - 1);
-    mask = G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (lane & ~(G - 1));
-  }
-  __device__ bool leader() const { return rank == 0; }
-  template <typename V>
-  __device__ V from(V v, int src) const {
-    return G == 1 ? v : __shfl_sync(mask, v, src, G);
-  }
+  int* passes;   // optional: tested slots that passed the barycentric test
 };
 
 // jnp.minimum / jnp.maximum: NaN if either operand is NaN.
@@ -184,23 +161,19 @@ __device__ __forceinline__ void decode_extents(int word, int lo[3], int hi[3]) {
   hi[2] = (w >> 25) & 31;
 }
 
-// The march state of one ray (the JAX loop's carry keys), held alike by
-// every lane of its group; the winning triangle is spread over the group.
-template <int G>
+// The march state of one ray (the JAX loop's carry keys).
 struct Lane {
-  static constexpr int kTriPart = (9 + G - 1) / G;
   float o[3], d[3], invd[3];
   float gate, t_cur, t_exit_cell, best_t, p_best_t;
   int first_blk, n_blk, cursor, best_blk, best_slot, p_best_blk, p_best_slot;
   bool alive, testing, phase, shadow_hit;
-  float tri9[kTriPart];  // floats rank, rank+G, ... of the winning triangle
+  float tri9[9];  // the winning triangle, for the dead-shadow test
 };
 
 // Probe the cell at t_cur + max(delta, t_cur*4e-6) of a ray that is not
 // mid-cell.  Returns false if the probe left the grid; else fills the
 // cell's header and the safe box's exit t.
-template <int G>
-__device__ bool probe(const MarchParams& P, const Lane<G>& L, const int* cell_info,
+__device__ bool probe(const MarchParams& P, const Lane& L, const int* cell_info,
                       const float* blocks, int* touched, float& probe_t, int& lin,
                       int& first, int& nblk, float& t_exit) {
   const int nv[3] = {P.nx, P.ny, P.nz};
@@ -247,8 +220,9 @@ __device__ bool probe(const MarchParams& P, const Lane<G>& L, const int* cell_in
 }
 
 // Slot j of the row against the ray: its t if accepted and below +inf
-// (t, j), else (+inf, kNoSlot).  Accepted t are never NaN.
-__device__ __forceinline__ void test_slot(const float* row, int j, const float o[3],
+// (t, j), else (+inf, kNoSlot).  Accepted t are never NaN.  Returns
+// whether the barycentric test passed.
+__device__ __forceinline__ bool test_slot(const float* row, int j, const float o[3],
                                           const float d[3], float gate, float maxt_lane,
                                           float& t_out, int& slot_out) {
   const float* v = row + 9 * j;
@@ -260,10 +234,11 @@ __device__ __forceinline__ void test_slot(const float* row, int j, const float o
     s[k] = a - o[k];
   }
   float t;
-  const bool take = cramer_pass_t(e1, e2, s, d, t) && t > gate && t <= maxt_lane &&
-                    t < INFINITY;
+  const bool passed = cramer_pass_t(e1, e2, s, d, t);
+  const bool take = passed && t > gate && t <= maxt_lane && t < INFINITY;
   t_out = take ? t : INFINITY;
   slot_out = take ? j : kNoSlot;
+  return passed;
 }
 
 // (t, slot) <- the lexicographic minimum: smaller t, then lower slot.
@@ -274,39 +249,17 @@ __device__ __forceinline__ void lex_min(float& t, int& slot, float ot, int os) {
   }
 }
 
-// The row's nearest accepted t and its first slot, in every lane of the
-// group: lane j tests slots j, j+G, ... keeping its own first minimum,
-// then a butterfly folds the (t, slot) pairs lexicographically.  slot is
-// 0 when nothing was accepted (m = +inf), as in the sequential loop.
-template <int G>
-__device__ __forceinline__ void row_min(const MarchParams& P, const Group<G>& g,
-                                        const float* row, const Lane<G>& L,
-                                        float maxt_lane, float& m, int& slot) {
-  m = INFINITY;
-  slot = kNoSlot;
-  for (int j = g.rank; j < P.block_tris; j += G) {
-    float t;
-    int s;
-    test_slot(row, j, L.o, L.d, L.gate, maxt_lane, t, s);
-    lex_min(m, slot, t, s);
-  }
-#pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1) {
-    const float om = __shfl_xor_sync(g.mask, m, off, G);
-    const int os = __shfl_xor_sync(g.mask, slot, off, G);
-    lex_min(m, slot, om, os);
-  }
-  if (!(m < INFINITY)) slot = 0;
-}
-
-// The rows of a step in the warp's form: each lane marches its own ray,
-// and the slots of every row a lane tests this step (blk >= 0) are dealt
-// out 32 at a time in lane order; each lane tests one slot with its
-// owner's ray, and a segmented butterfly takes each row's lexicographic
-// (t, slot) minimum to its first lane of the round, which the owner reads.
-// Every lane of the warp calls it.
+// The rows of a step: each lane marches its own ray, and the slots of
+// every row a lane tests this step (blk >= 0) are dealt out 32 at a time
+// in lane order; each lane tests one slot with its owner's ray, and a
+// segmented butterfly takes each row's lexicographic (t, slot) minimum to
+// its first lane of the round, which the owner reads; slot is 0 when
+// nothing was accepted (m = +inf), as in the sequential loop.  Every lane
+// of the warp calls it.  `passes`, when not null, counts the slots whose
+// barycentric test passed.
 __device__ void rows_min_warp(const MarchParams& P, const float* blocks, int blk,
-                              const Lane<1>& L, float maxt_lane, float& m, int& slot) {
+                              const Lane& L, float maxt_lane, int* passes, float& m,
+                              int& slot) {
   const int lane = threadIdx.x & 31;
   const unsigned testers = __ballot_sync(kFull, blk >= 0);
   m = INFINITY;
@@ -329,8 +282,14 @@ __device__ void rows_min_warp(const MarchParams& P, const float* blocks, int blk
     const int row = __shfl_sync(kFull, blk, owner);
     float t = INFINITY;
     int s = kNoSlot;
+    bool passed = false;
     if (q < pairs) {
-      test_slot(blocks + (size_t)row * P.row_lanes, q - rank * bt, o, d, gate, mx, t, s);
+      passed = test_slot(blocks + (size_t)row * P.row_lanes, q - rank * bt, o, d, gate, mx,
+                         t, s);
+    }
+    if (passes != nullptr) {
+      const unsigned passers = __ballot_sync(kFull, passed);
+      if (lane == 0 && passers != 0u) atomicAdd(passes, __popc(passers));
     }
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {
@@ -349,9 +308,7 @@ __device__ void rows_min_warp(const MarchParams& P, const float* blocks, int blk
 
 // The fetch half of a march step (_march_step): a ray not mid-cell probes
 // and leaps or arms its cell.  Returns the row the step tests, or -1.
-// `touched` is the leader's stats pointer (null in the other lanes).
-template <int G>
-__device__ int step_fetch(const MarchParams& P, Lane<G>& L, const int* cell_info,
+__device__ int step_fetch(const MarchParams& P, Lane& L, const int* cell_info,
                           const float* blocks, int* touched) {
   bool start_test = false;
   int lin = 0;
@@ -382,10 +339,9 @@ __device__ int step_fetch(const MarchParams& P, Lane<G>& L, const int* cell_info
 
 // The rest of the step: take row blk's (m, slot) (blk >= 0), then the
 // probe_chain - 1 extra probes of a ray that is still a pure leaper.
-template <int G>
-__device__ void step_finish(const MarchParams& P, const Group<G>& g, Lane<G>& L, int blk,
-                            float m, int slot, const int* cell_info, const float* blocks,
-                            int* touched, int& tested) {
+__device__ void step_finish(const MarchParams& P, Lane& L, int blk, float m, int slot,
+                            const int* cell_info, const float* blocks, int* touched,
+                            int& tested) {
   if (blk >= 0) {
     ++tested;
     if (touched != nullptr) atomicOr(touched + blk, 2);
@@ -395,10 +351,7 @@ __device__ void step_finish(const MarchParams& P, const Group<G>& g, Lane<G>& L,
       L.best_slot = slot;
       if (P.skip_dead) {
         const float* row = blocks + (size_t)blk * P.row_lanes;
-        for (int i = 0; i < Lane<G>::kTriPart; ++i) {
-          const int k = g.rank + G * i;
-          if (k < 9) L.tri9[i] = row[9 * slot + k];
-        }
+        for (int k = 0; k < 9; ++k) L.tri9[k] = row[9 * slot + k];
       }
     }
     L.cursor += 1;
@@ -436,9 +389,7 @@ __device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
 }
 
 // _fused_retire_rearm for a ray that ran this step (pre_alive).
-template <int G>
-__device__ void retire_rearm(const MarchParams& P, const Group<G>& g, Lane<G>& L,
-                             float maxt0) {
+__device__ void retire_rearm(const MarchParams& P, Lane& L, float maxt0) {
   const bool walked_out = !L.alive;
   const bool hit_now = finite(L.best_t);
   const float limit = nan_min(maxt0, L.best_t);
@@ -458,12 +409,9 @@ __device__ void retire_rearm(const MarchParams& P, const Group<G>& g, Lane<G>& L
     const float den = norm > 0.0f ? norm : 1.0f;
     for (int k = 0; k < 3; ++k) sdir[k] = to_light[k] / den;
     if (P.skip_dead) {
-      float tri9[9];
-#pragma unroll
-      for (int k = 0; k < 9; ++k) tri9[k] = g.from(L.tri9[k / G], k % G);
-      const float* a = tri9;
-      const float* b = tri9 + 3;
-      const float* c = tri9 + 6;
+      const float* a = L.tri9;
+      const float* b = L.tri9 + 3;
+      const float* c = L.tri9 + 6;
       float ab[3], ca[3], cb[3], n[3], h[3];
       for (int k = 0; k < 3; ++k) {
         ab[k] = a[k] - b[k];
@@ -517,10 +465,9 @@ __device__ __forceinline__ int slot_tri_of(const MarchParams& P, const int* slot
 }
 
 // Load ray r into the march state; returns its own maxt.
-template <int G>
 __device__ float start_ray(const MarchParams& P, int r, const float* orig,
                            const float* dirn, const float* mint, const float* maxt,
-                           Lane<G>& L) {
+                           Lane& L) {
   for (int k = 0; k < 3; ++k) {
     L.o[k] = orig[3 * r + k];
     L.d[k] = dirn[3 * r + k];
@@ -539,16 +486,14 @@ __device__ float start_ray(const MarchParams& P, int r, const float* orig,
   L.best_blk = L.best_slot = L.p_best_blk = L.p_best_slot = 0;
   L.alive = entered;
   L.testing = L.phase = L.shadow_hit = false;
-  for (int i = 0; i < Lane<G>::kTriPart; ++i) L.tri9[i] = 0.0f;
+  for (int k = 0; k < 9; ++k) L.tri9[k] = 0.0f;
   return maxt0;
 }
 
 // Retirement after a step: the fused rearm, or the nearest/any-hit rule.
-template <int G>
-__device__ __forceinline__ void after_step(const MarchParams& P, const Group<G>& g,
-                                           Lane<G>& L, float maxt0) {
+__device__ __forceinline__ void after_step(const MarchParams& P, Lane& L, float maxt0) {
   if (P.fused) {
-    retire_rearm(P, g, L, maxt0);
+    retire_rearm(P, L, maxt0);
   } else {
     const float limit = nan_min(maxt0, L.best_t);
     L.alive = L.alive && (L.testing || L.t_cur <= limit);
@@ -559,9 +504,8 @@ __device__ __forceinline__ void after_step(const MarchParams& P, const Group<G>&
   }
 }
 
-// Write ray r's record (one lane of its group).
-template <int G>
-__device__ void finish_ray(const MarchParams& P, const Lane<G>& L, int r, int steps,
+// Write ray r's record.
+__device__ void finish_ray(const MarchParams& P, const Lane& L, int r, int steps,
                            int tested, const int* slot_tri, const Outputs& out) {
   if (L.alive && out.capped != nullptr) atomicAdd(out.capped, 1);
   bool hit, shadow = false;
@@ -590,179 +534,46 @@ __device__ void finish_ray(const MarchParams& P, const Lane<G>& L, int r, int st
   if (out.tested != nullptr) out.tested[r] = tested;
 }
 
-// March ray r to its end with the group; the leader writes its record.
-// Returns the ray's steps.
-template <int G>
-__device__ int march_ray(const MarchParams& P, const Group<G>& g, int r,
-                         const float* orig, const float* dirn, const float* mint,
-                         const float* maxt, const int* cell_info, const float* blocks,
-                         const int* slot_tri, const Outputs& out) {
-  Lane<G> L;
-  const float maxt0 = start_ray(P, r, orig, dirn, mint, maxt, L);
-  int* touched = g.leader() ? out.touched : nullptr;
-  int steps = 0, tested = 0;
-  for (int i = 0; i < P.max_steps && L.alive; ++i) {
-    // shadow rays march unbounded; the primary keeps its own maxt
-    const float maxt_lane = (P.fused && L.phase) ? INFINITY : maxt0;
-    const int blk = step_fetch(P, L, cell_info, blocks, touched);
-    float m = INFINITY;
-    int slot = 0;
-    if (blk >= 0) row_min(P, g, blocks + (size_t)blk * P.row_lanes, L, maxt_lane, m, slot);
-    step_finish(P, g, L, blk, m, slot, cell_info, blocks, touched, tested);
-    after_step(P, g, L, maxt0);
-    ++steps;
-  }
-  if (g.leader()) finish_ray(P, L, r, steps, tested, slot_tri, out);
-  return steps;
-}
-
-// The next queue position for the calling lane: one atomicAdd for all the
-// lanes of the warp that pop together.
-__device__ __forceinline__ int pop(int* counter) {
-  const unsigned poppers = __activemask();
-  const int lane = threadIdx.x & 31;
-  const int first = __ffs(poppers) - 1;
-  int base = 0;
-  if (lane == first) base = atomicAdd(counter, __popc(poppers));
-  return __shfl_sync(poppers, base, first) + __popc(poppers & ((1u << lane) - 1u));
-}
-
-template <int G>
+// Each lane marches the ray at its queue position step by step, and the
+// warp shares out the row tests of each step (rows_min_warp); a lane whose
+// ray has ended keeps dealing slots until the warp's last ray ends.
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
 packed_march_kernel(MarchParams P, const float* __restrict__ orig,
                     const float* __restrict__ dirn, const float* __restrict__ mint,
                     const float* __restrict__ maxt, const int* __restrict__ cell_info,
                     const float* __restrict__ blocks, const int* __restrict__ slot_tri,
-                    const int* __restrict__ queue, int* counter, Outputs out,
-                    int persistent, int* iters) {
-  const Group<G> g;
-  int total = 0;
-  if (!persistent) {  // mode a: one group per queue position
-    const long long pos = ((long long)blockIdx.x * kBlock + threadIdx.x) / G;
-    if (pos >= P.n_work) return;
-    const int r = queue != nullptr ? queue[pos] : (int)pos;
-    total = march_ray(P, g, r, orig, dirn, mint, maxt, cell_info, blocks, slot_tri, out);
-  } else {  // mode b: resident groups popping the queue
-    for (;;) {
-      int k = 0;
-      if (g.leader()) k = pop(counter);
-      k = g.from(k, 0);
-      if (k >= P.n_work) break;
-      const int r = queue != nullptr ? queue[k] : k;
-      total += march_ray(P, g, r, orig, dirn, mint, maxt, cell_info, blocks, slot_tri, out);
+                    const int* __restrict__ queue, Outputs out, int* iters) {
+  Lane L;
+  const int position = blockIdx.x * kBlock + threadIdx.x;
+  int r = 0, steps = 0, tested = 0;
+  float maxt0 = 0.0f;
+  bool has_ray = false;
+  if (position < P.n_work) {
+    r = queue != nullptr ? queue[position] : position;
+    maxt0 = start_ray(P, r, orig, dirn, mint, maxt, L);
+    if (L.alive && P.max_steps > 0) {
+      has_ray = true;
+    } else {
+      finish_ray(P, L, r, 0, 0, slot_tri, out);
     }
   }
-  if (iters != nullptr && g.leader()) atomicMax(iters, total);
-}
-
-// The warp's form: each lane marches its own ray step by step, and the
-// warp shares out the row tests of each step (rows_min_warp).  Mode a
-// gives each lane one queue position; in mode b a lane whose ray has
-// ended pops the next position, so the warp's lanes stay busy until the
-// queue runs dry.
-__global__ void __launch_bounds__(kBlock, kMinBlocks)
-packed_march_warp_kernel(MarchParams P, const float* __restrict__ orig,
-                         const float* __restrict__ dirn, const float* __restrict__ mint,
-                         const float* __restrict__ maxt, const int* __restrict__ cell_info,
-                         const float* __restrict__ blocks, const int* __restrict__ slot_tri,
-                         const int* __restrict__ queue, int* counter, Outputs out,
-                         int persistent, int* iters) {
-  const Group<1> g;
-  Lane<1> L;
-  const int position = blockIdx.x * kBlock + threadIdx.x;
-  int r = 0, steps = 0, tested = 0, total = 0;
-  float maxt0 = 0.0f;
-  bool has_ray = false, exhausted = false;
-  for (;;) {
-    while (!has_ray && !exhausted) {  // take the next ray
-      int k = position;
-      if (persistent) {
-        k = pop(counter);
-      } else {
-        exhausted = true;
-      }
-      if (k >= P.n_work) {
-        exhausted = true;
-        break;
-      }
-      r = queue != nullptr ? queue[k] : k;
-      maxt0 = start_ray(P, r, orig, dirn, mint, maxt, L);
-      steps = tested = 0;
-      if (L.alive && P.max_steps > 0) {
-        has_ray = true;
-      } else {
-        finish_ray(P, L, r, 0, 0, slot_tri, out);
-      }
-    }
-    if (!__any_sync(kFull, has_ray)) break;
+  while (__any_sync(kFull, has_ray)) {
     // shadow rays march unbounded; the primary keeps its own maxt
     const float maxt_lane = (P.fused && L.phase) ? INFINITY : maxt0;
     const int blk = has_ray ? step_fetch(P, L, cell_info, blocks, out.touched) : -1;
     float m;
     int slot;
-    rows_min_warp(P, blocks, blk, L, maxt_lane, m, slot);
+    rows_min_warp(P, blocks, blk, L, maxt_lane, out.passes, m, slot);
     if (!has_ray) continue;
-    step_finish(P, g, L, blk, m, slot, cell_info, blocks, out.touched, tested);
-    after_step(P, g, L, maxt0);
+    step_finish(P, L, blk, m, slot, cell_info, blocks, out.touched, tested);
+    after_step(P, L, maxt0);
     ++steps;
     if (!L.alive || steps >= P.max_steps) {
       finish_ray(P, L, r, steps, tested, slot_tri, out);
-      total += steps;
       has_ray = false;
     }
   }
-  if (iters != nullptr) atomicMax(iters, total);
-}
-
-// The march's form: the warp's form (0) in the port; a measurement build
-// may force a group of G lanes a ray with -DPACKED_MARCH_GROUP=G (G in 1,
-// 8, 16, 32).
-#ifndef PACKED_MARCH_GROUP
-#define PACKED_MARCH_GROUP 0
-#endif
-
-// Blocks for n_work positions of `lanes` lanes each; in mode b no more
-// than the card holds resident.
-template <typename Kernel>
-long long grid_for(Kernel kernel, long long n_work, int lanes, int persistent) {
-  long long grid = (n_work * lanes + kBlock - 1) / kBlock;
-  if (persistent) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlock, 0);
-    const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
-    grid = grid < resident ? grid : resident;
-  }
-  return grid;
-}
-
-template <int G>
-int launch(const MarchParams& P, const float* orig, const float* dirn, const float* mint,
-           const float* maxt, const int* cell_info, const float* blocks,
-           const int* slot_tri, const int* queue, int* counter, const Outputs& out,
-           int persistent, int* iters, cudaStream_t stream) {
-  const long long grid = grid_for(packed_march_kernel<G>, P.n_work, G, persistent);
-  if (grid > 0) {
-    packed_march_kernel<G><<<(unsigned)grid, kBlock, 0, stream>>>(
-        P, orig, dirn, mint, maxt, cell_info, blocks, slot_tri, queue, counter, out,
-        persistent, iters);
-  }
-  return (int)cudaGetLastError();
-}
-
-template <>
-int launch<0>(const MarchParams& P, const float* orig, const float* dirn, const float* mint,
-              const float* maxt, const int* cell_info, const float* blocks,
-              const int* slot_tri, const int* queue, int* counter, const Outputs& out,
-              int persistent, int* iters, cudaStream_t stream) {
-  const long long grid = grid_for(packed_march_warp_kernel, P.n_work, 1, persistent);
-  if (grid > 0) {
-    packed_march_warp_kernel<<<(unsigned)grid, kBlock, 0, stream>>>(
-        P, orig, dirn, mint, maxt, cell_info, blocks, slot_tri, queue, counter, out,
-        persistent, iters);
-  }
-  return (int)cudaGetLastError();
+  if (iters != nullptr) atomicMax(iters, steps);
 }
 
 }  // namespace
@@ -770,21 +581,22 @@ int launch<0>(const MarchParams& P, const float* orig, const float* dirn, const 
 // Launch kernel C.  Rays orig/dirn (n_rays, 3), mint/maxt (n_rays,) f32;
 // cell_info (n_cells,) or (1,) i32, blocks (n_blocks, row_lanes) f32,
 // slot_tri (n_slots,) i32.  Positions [0, n_work) of `queue` (ray ids;
-// identity when null) are marched: persistent == 0 launches one group (or
-// lane) per position, persistent != 0 as many as the card holds resident,
-// popping positions through *counter, which the caller zeroes.  The
-// caller pre-fills the outputs with the miss record, which rays never
-// served keep.  Returns cudaGetLastError() after the launch.
+// identity when null) are marched, one lane a position.  The caller
+// pre-fills the outputs with the miss record, which rays never served
+// keep, and zeroes the optional counters (tested, touched, capped,
+// passes, iters: null when not wanted).  Returns cudaGetLastError() after
+// the launch.
 extern "C" int packed_march_launch(
     MarchParams P, const float* orig, const float* dirn, const float* mint,
     const float* maxt, const int* cell_info, const float* blocks,
-    const int* slot_tri, const int* queue, int* counter, unsigned char* hit,
-    float* t, int* tri, unsigned char* in_shadow, int* shadow_tri, int* steps,
-    int* tested, int* touched, int* capped, int persistent, int* iters,
-    void* stream) {
-  const Outputs out{hit, t, tri, in_shadow, shadow_tri, steps, tested, touched, capped};
-  return launch<PACKED_MARCH_GROUP>(P, orig, dirn, mint, maxt, cell_info, blocks, slot_tri,
-                                    queue, counter, out, persistent, iters,
-                                    (cudaStream_t)stream);
+    const int* slot_tri, const int* queue, unsigned char* hit, float* t, int* tri,
+    unsigned char* in_shadow, int* shadow_tri, int* steps, int* tested, int* touched,
+    int* capped, int* passes, int* iters, void* stream) {
+  const Outputs out{hit, t, tri, in_shadow, shadow_tri, steps, tested, touched, capped, passes};
+  const long long grid = ((long long)P.n_work + kBlock - 1) / kBlock;
+  if (grid > 0) {
+    packed_march_kernel<<<(unsigned)grid, kBlock, 0, (cudaStream_t)stream>>>(
+        P, orig, dirn, mint, maxt, cell_info, blocks, slot_tri, queue, out, iters);
+  }
+  return (int)cudaGetLastError();
 }
-

@@ -23,14 +23,15 @@
 // double for det_dtype="float64", the byte-exact path.  Everything else is
 // float32, as in the JAX code.
 //
-// Bound on the H100: FP32 operations at the unfused rate (61 a tested
-// triangle), above the bytes (the rays in and the five results out, 46
-// bytes a ray, plus the CSR arrays and the vertex table, each read once);
-// chip_smoke.py reports both.  The walk reads port-side tables derived
-// from the CSR grid once (ops/traverse.py dda_tables):
-//   * a one-bit-per-cell occupancy mask, staged into shared memory once a
-//     block with cp.async (or read through L1 where it does not fit), so an
-//     empty voxel (92% of the serial grid's cells) costs no global load;
+// Bound on the H100: FP32 operations at the unfused rate (48 a tested
+// triangle that fails the barycentric test, 61 one that passes), above the
+// bytes (the rays in and the five results out, 46 bytes a ray, plus the
+// CSR arrays and the vertex table, each read once); chip_smoke.py reports
+// both.  The walk reads port-side tables derived from the CSR grid once
+// (ops/traverse.py dda_tables):
+//   * a one-bit-per-cell occupancy mask, read through L1, so an empty
+//     voxel (92% of the serial grid's cells) costs no global load (staging
+//     it into shared memory with cp.async timed the same: PERF.md);
 //   * an (start, count) int2 per cell, one 8-byte load for an occupied one;
 //   * the vertices in CSR order (tri9[tri_ids]), so a voxel's triangles are
 //     contiguous; the winning CSR position becomes a triangle id once, at
@@ -40,30 +41,20 @@
 // triangle that passes the barycentric test (cramer_pass_t).  The DDA
 // arithmetic is untouched: every walked voxel still advances next_crossing
 // and counts in `steps`, so every record is unchanged.  What is left is
-// the triangle tests, about 70% of the kernel's time on the H100 (the
-// diagnostic builds below, PERF.md); sharing them out over the warp timed
-// the same per frame and is not kept.  The double-precision determinants
-// run at the H100's FP64 rate; wgmma does not apply: the contraction
-// depth is 3.
+// the triangle tests, about 77% of the kernel's time on the H100
+// (PERF.md); sharing them out over the warp timed the same per frame and
+// is not kept.  The double-precision determinants run at the H100's FP64
+// rate; wgmma does not apply: the contraction depth is 3.
 #include <cuda_runtime.h>
 
 #include "cramer.cuh"
-
-// Diagnostic builds of chip_smoke.py (their records are not the port's):
-// 1 reads the tables but tests no triangle, 2 walks without the tables.
-#ifndef TRAVERSE_GRID_DIAG
-#define TRAVERSE_GRID_DIAG 0
-#endif
 
 namespace {
 
 constexpr int kBlock = 512;
 // Registers capped for two resident blocks an SM (64 a thread): half the
-// warp slots; the f32 kernel needs 55, no spills.
+// warp slots; the f32 kernel needs 56, no spills.
 constexpr int kMinBlocks = 2;
-// The largest mask staged in shared memory: the 48 KB a block takes
-// without opting in (a 64^3 grid needs 32 KB).
-constexpr int kMaxSharedMaskBytes = 48 * 1024;
 // The cmpToAxis LUT [2,1,2,1,2,2,0,0], two bits an entry.
 constexpr unsigned kCmpToAxis = 0xA66u;
 
@@ -93,26 +84,14 @@ __device__ __forceinline__ int clip(int p, int n) {
   return p < 0 ? 0 : (p > n - 1 ? n - 1 : p);
 }
 
-// Copy the occupancy mask (mask_words, a multiple of 4) into shared
-// memory, 16 bytes a cp.async, and wait for the whole block's copies.
-__device__ __forceinline__ void stage_mask(unsigned* smem, const unsigned* mask,
-                                           int mask_words) {
-  for (int i = threadIdx.x; i < mask_words / 4; i += blockDim.x) {
-    const unsigned dst = (unsigned)__cvta_generic_to_shared(smem + 4 * i);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                 "l"(mask + 4 * i));
-  }
-  asm volatile("cp.async.wait_all;\n" ::);
-  __syncthreads();
-}
-
 // The voxel's triangles against the ray, in CSR order: the smallest
-// candidate t (first CSR index on ties) and whether any passed.
+// candidate t (first CSR index on ties), whether any passed, and how
+// many passed (added to n_pass).
 template <typename T>
 __device__ __forceinline__ void voxel_min(const float* __restrict__ cell_tri9,
                                           const T od[3], const T dd[3], int start,
                                           int count, bool has_gate, T gate, T& vmin,
-                                          int& vpos, bool& vpass) {
+                                          int& vpos, bool& vpass, int& n_pass) {
   for (int j = start; j < start + count; ++j) {
     const float* v = cell_tri9 + (size_t)j * 9;
     T e1[3], e2[3], s[3];
@@ -125,6 +104,7 @@ __device__ __forceinline__ void voxel_min(const float* __restrict__ cell_tri9,
     T t;
     const bool passed = cramer_pass_t(e1, e2, s, dd, t);
     vpass = vpass || passed;
+    n_pass += passed;
     if (passed && (!has_gate || t > gate) && t < vmin) {
       vmin = t;
       vpos = j;
@@ -132,7 +112,7 @@ __device__ __forceinline__ void voxel_min(const float* __restrict__ cell_tri9,
   }
 }
 
-template <typename T, bool kSharedMask>
+template <typename T>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
 traverse_grid_kernel(const float* __restrict__ orig,
                      const float* __restrict__ dirn,
@@ -140,7 +120,7 @@ traverse_grid_kernel(const float* __restrict__ orig,
                      const float* __restrict__ maxt,
                      const float* __restrict__ gridf,  // lower, upper, width, inv_width
                      int nx, int ny, int nz,
-                     const unsigned* __restrict__ occupancy, int mask_words,
+                     const unsigned* __restrict__ occupancy,
                      const int2* __restrict__ cell_range,  // (start, count) a cell
                      const float* __restrict__ cell_tri9,  // (nnz, 9) in CSR order
                      const int* __restrict__ tri_ids,
@@ -148,9 +128,7 @@ traverse_grid_kernel(const float* __restrict__ orig,
                      int stop_on_first_hit, unsigned char* __restrict__ any_pass_out,
                      unsigned char* __restrict__ hit_out, float* __restrict__ t_out,
                      int* __restrict__ tri_out, int* __restrict__ steps_out,
-                     int* __restrict__ tested_out) {
-  extern __shared__ __align__(16) unsigned smem_mask[];
-  if (kSharedMask) stage_mask(smem_mask, occupancy, mask_words);
+                     int* __restrict__ tested_out, int* __restrict__ passes_out) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
   const int nv[3] = {nx, ny, nz};
@@ -201,29 +179,23 @@ traverse_grid_kernel(const float* __restrict__ orig,
   const T gate = (T)t_gate;
   bool any_pass = false, found = false;
   float t_min = INFINITY;
-  int best_pos = 0, steps = 0, tested = 0;
+  int best_pos = 0, steps = 0, tested = 0, n_pass = 0;
   const int max_steps = nx + ny + nz + 2;
 
   for (int i = 0; i < max_steps && alive; ++i) {
     // ---- the current voxel's triangles: (start, count) if occupied ------
     int start = 0, count = 0;
-#if TRAVERSE_GRID_DIAG != 2
     const int cell = clip(pos[2], nz) * (nx * ny) + clip(pos[1], ny) * nx + clip(pos[0], nx);
-    const unsigned word = kSharedMask ? smem_mask[cell >> 5] : __ldg(occupancy + (cell >> 5));
-    if ((word >> (cell & 31)) & 1u) {
+    if ((__ldg(occupancy + (cell >> 5)) >> (cell & 31)) & 1u) {
       const int2 range = __ldg(cell_range + cell);
       start = range.x;
       count = range.y;
     }
     tested += count;
-#endif
-#if TRAVERSE_GRID_DIAG == 1
-    count = 0;
-#endif
     T vmin = (T)INFINITY;
     int vpos = 0;
     bool vpass = false;
-    voxel_min<T>(cell_tri9, od, dd, start, count, has_gate, gate, vmin, vpos, vpass);
+    voxel_min<T>(cell_tri9, od, dd, start, count, has_gate, gate, vmin, vpos, vpass, n_pass);
     any_pass = any_pass || vpass;
     if (vmin < (T)t_min) {  // cross-step compare in the det type
       t_min = (float)vmin;
@@ -260,69 +232,36 @@ traverse_grid_kernel(const float* __restrict__ orig,
   tri_out[r] = found ? tri_ids[best_pos] : -1;
   steps_out[r] = steps;
   if (tested_out != nullptr) tested_out[r] = tested;
-}
-
-// Where the walk reads the occupancy mask: shared memory when it fits,
-// else through L1.  A measurement build may force one with
-// -DTRAVERSE_GRID_SHARED_MASK=0 or 1.
-bool shared_mask_for(int mask_words) {
-#ifdef TRAVERSE_GRID_SHARED_MASK
-  (void)mask_words;
-  return TRAVERSE_GRID_SHARED_MASK != 0;
-#else
-  return mask_words * 4 <= kMaxSharedMaskBytes;
-#endif
-}
-
-template <typename T>
-void launch(bool shared, int blocks, cudaStream_t s, const float* orig, const float* dirn,
-            const float* mint, const float* maxt, const float* gridf, int nx, int ny, int nz,
-            const unsigned* occupancy, int mask_words, const int2* cell_range,
-            const float* cell_tri9, const int* tri_ids, int n_rays, int has_gate,
-            double t_gate, int early_exit, int stop_on_first_hit,
-            unsigned char* any_pass_out, unsigned char* hit_out, float* t_out,
-            int* tri_out, int* steps_out, int* tested_out) {
-  const auto kernel = shared ? traverse_grid_kernel<T, true> : traverse_grid_kernel<T, false>;
-  kernel<<<blocks, kBlock, shared ? (size_t)mask_words * 4 : 0, s>>>(
-      orig, dirn, mint, maxt, gridf, nx, ny, nz, occupancy, mask_words, cell_range,
-      cell_tri9, tri_ids, n_rays, has_gate, t_gate, early_exit, stop_on_first_hit,
-      any_pass_out, hit_out, t_out, tri_out, steps_out, tested_out);
+  if (passes_out != nullptr && n_pass > 0) atomicAdd(passes_out, n_pass);
 }
 
 }  // namespace
 
 // orig, dirn (n_rays, 3), mint, maxt (n_rays,) f32; gridf (12,) f32 =
-// lower, upper, width, inv_width; occupancy (mask_words,) u32, bit c&31 of
-// word c>>5 set iff cell c holds a triangle, mask_words a multiple of 4;
-// cell_range (nx*ny*nz, 2) i32 = (cell_start, count); cell_tri9 (nnz, 9)
-// f32 = tri9[tri_ids]; tri_ids (nnz,) i32.  det_f64 selects double
-// determinants.  Writes the five TraceResult fields (bools as one byte)
-// and, when tested_out is not null, the triangles each ray tested.
-// Returns cudaGetLastError() after the launch.
+// lower, upper, width, inv_width; occupancy (ceil(n_cells / 32),) u32, bit
+// c&31 of word c>>5 set iff cell c holds a triangle; cell_range
+// (nx*ny*nz, 2) i32 = (cell_start, count); cell_tri9 (nnz, 9) f32 =
+// tri9[tri_ids]; tri_ids (nnz,) i32.  det_f64 selects double determinants.
+// Writes the five TraceResult fields (bools as one byte); when not null,
+// tested_out (n_rays,) receives the triangles each ray tested, and
+// passes_out (1,), which the caller zeroes, the count of tested triangles
+// that passed the barycentric test.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int traverse_grid_launch(
     int det_f64, const float* orig, const float* dirn, const float* mint,
     const float* maxt, const float* gridf, int nx, int ny, int nz,
-    const unsigned* occupancy, int mask_words, const int* cell_range,
-    const float* cell_tri9, const int* tri_ids, int n_rays, int has_gate, double t_gate,
-    int early_exit, int stop_on_first_hit, unsigned char* any_pass_out,
-    unsigned char* hit_out, float* t_out, int* tri_out, int* steps_out, int* tested_out,
-    void* stream) {
+    const unsigned* occupancy, const int* cell_range, const float* cell_tri9,
+    const int* tri_ids, int n_rays, int has_gate, double t_gate, int early_exit,
+    int stop_on_first_hit, unsigned char* any_pass_out, unsigned char* hit_out, float* t_out,
+    int* tri_out, int* steps_out, int* tested_out, int* passes_out, void* stream) {
   if (n_rays > 0) {
-    const int blocks = (n_rays + kBlock - 1) / kBlock;
-    const bool shared = shared_mask_for(mask_words);
+    const unsigned blocks = (unsigned)((n_rays + kBlock - 1) / kBlock);
     const int2* range = reinterpret_cast<const int2*>(cell_range);
-    cudaStream_t s = (cudaStream_t)stream;
-    if (det_f64) {
-      launch<double>(shared, blocks, s, orig, dirn, mint, maxt, gridf, nx, ny, nz,
-                     occupancy, mask_words, range, cell_tri9, tri_ids, n_rays, has_gate,
-                     t_gate, early_exit, stop_on_first_hit, any_pass_out, hit_out, t_out,
-                     tri_out, steps_out, tested_out);
-    } else {
-      launch<float>(shared, blocks, s, orig, dirn, mint, maxt, gridf, nx, ny, nz,
-                    occupancy, mask_words, range, cell_tri9, tri_ids, n_rays, has_gate,
-                    t_gate, early_exit, stop_on_first_hit, any_pass_out, hit_out, t_out,
-                    tri_out, steps_out, tested_out);
-    }
+    const auto kernel = det_f64 ? traverse_grid_kernel<double> : traverse_grid_kernel<float>;
+    kernel<<<blocks, kBlock, 0, (cudaStream_t)stream>>>(
+        orig, dirn, mint, maxt, gridf, nx, ny, nz, occupancy, range, cell_tri9, tri_ids,
+        n_rays, has_gate, t_gate, early_exit, stop_on_first_hit, any_pass_out, hit_out, t_out,
+        tri_out, steps_out, tested_out, passes_out);
   }
   return (int)cudaGetLastError();
 }

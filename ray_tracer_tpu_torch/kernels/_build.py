@@ -10,8 +10,6 @@ Flags: sm_90a, C++17, -O3, and -fmad=false so that no a*b+c is contracted
 into an FMA: the kernels must give the bytes of their plain PyTorch
 versions, which round every elementwise op on its own.  No fast math.
 A failed build raises; nothing falls back to the plain versions.
-`defines` (nvcc -D flags) build a measurement variant of a kernel into a
-library of its own; the port's wrappers pass none.
 """
 
 from __future__ import annotations
@@ -21,7 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PACKAGE_DIR, "csrc")
@@ -32,7 +30,7 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_LOADED: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
+_LOADED: Dict[str, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -52,38 +50,32 @@ def _sources(name: str):
     return [os.path.join(CSRC, name + ".cu")] + [os.path.join(CSRC, h) for h in headers]
 
 
-def _flags(defines: Tuple[str, ...]) -> Tuple[str, ...]:
-    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-
-
-def library_path(name: str, defines: Tuple[str, ...] = ()) -> str:
-    h = hashlib.sha256(" ".join(_flags(defines)).encode())
+def library_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in _sources(name):
         with open(path, "rb") as fh:
             h.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
-def build(names: Iterable[str] = KERNELS, defines: Tuple[str, ...] = (),
-          variants: Iterable[Tuple[str, Tuple[str, ...]]] = ()) -> Dict[str, str]:
-    """Compile every named kernel (with `defines`) and every (name,
-    defines) variant that is not built yet, one nvcc process per library,
-    all started together.  Returns {name: library path} for `names`.
+def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+    """Compile every named kernel that is not built yet, one nvcc process
+    per source, all started together.  Returns {name: library path}.
     Raises with nvcc's output if any build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    paths = {n: library_path(n, defines) for n in names}
-    specs = [(n, tuple(defines), p) for n, p in paths.items()]
-    specs += [(n, tuple(d), library_path(n, tuple(d))) for n, d in variants]
+    paths = {n: library_path(n) for n in names}
     procs = {}
-    for name, defs, path in specs:
-        if os.path.exists(path) or path in procs:
+    for name, path in paths.items():
+        if os.path.exists(path):
             continue
         tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *_flags(defs), "-o", tmp, os.path.join(CSRC, name + ".cu")]
-        procs[path] = (name, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                              stderr=subprocess.STDOUT, text=True), tmp)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC, name + ".cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, path)
     failures = []
-    for path, (name, proc, tmp) in procs.items():
+    for name, (proc, tmp, path) in procs.items():
         log, _ = proc.communicate()
         with open(path + ".log", "w") as fh:
             fh.write(log)
@@ -96,15 +88,13 @@ def build(names: Iterable[str] = KERNELS, defines: Tuple[str, ...] = (),
     return paths
 
 
-def library(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
-    """The loaded library of kernel `name` (with the nvcc -D flags
-    `defines`), built first if needed."""
-    key = (name, tuple(defines))
-    lib = _LOADED.get(key)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, built first if needed."""
+    lib = _LOADED.get(name)
     if lib is None:
-        path = build([name], key[1])[name]
+        path = build([name])[name]
         lib = ctypes.CDLL(path)
-        _LOADED[key] = lib
+        _LOADED[name] = lib
     return lib
 
 

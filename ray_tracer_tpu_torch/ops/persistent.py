@@ -10,9 +10,8 @@ pins that in JAX), so:
 
   * on CUDA tensors the wave is one launch of kernel C over the queue,
     one lane per queue position, which the card's block scheduler keeps
-    resident on every SM; that measured faster on the H100 than kernel
-    C's persistent mode, whose resident lanes pop positions from an
-    atomic counter (PERF.md);
+    resident on every SM; that measured faster on the H100 than resident
+    lanes popping positions from an atomic counter (PERF.md);
   * on CPU tensors it is the plain lock-step march over the queued rays.
 
 Knobs: `compact` and `order_keys`/`order_classes` build the queue exactly
@@ -162,8 +161,7 @@ def persistent_trace(
     iters = None
     if rays.orig.is_cuda:
         iters_out = torch.zeros((1,), dtype=torch.int32, device=dev) if return_iters else None
-        res = march_cuda(rays, grid, meta, light_pos, persistent=False,
-                         queue=None if queue is None else queue[0],
+        res = march_cuda(rays, grid, meta, light_pos, queue=None if queue is None else queue[0],
                          n_work=None if queue is None else queue[1],
                          iters_out=iters_out, tested_out=tested_out, **kw)
         if return_iters:

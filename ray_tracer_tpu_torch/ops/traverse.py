@@ -27,7 +27,7 @@ the kernel for CUDA tensors and the plain version for CPU tensors.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -57,8 +57,8 @@ def vertex_table(v0, v1, v2) -> torch.Tensor:
 class DdaTables(NamedTuple):
     """Kernel B's tables, derived from the CSR grid and the vertex table."""
 
-    occupancy: torch.Tensor  # (W,) i32: bit c & 31 of word c >> 5 = cell c
-    #                          holds a triangle; W a multiple of 4 (16 B)
+    occupancy: torch.Tensor  # (ceil(n_cells / 32),) i32: bit c & 31 of
+    #                          word c >> 5 = cell c holds a triangle
     cell_range: torch.Tensor  # (n_cells, 2) i32 (cell_start, count)
     cell_tri9: torch.Tensor  # (nnz, 9) f32 = tri9[tri_ids], CSR order
 
@@ -70,7 +70,7 @@ def dda_tables(grid: GridArrays, tri9: torch.Tensor) -> DdaTables:
     start = grid.cell_start.to(torch.int64)
     counts = start[1:] - start[:-1]
     n_cells = counts.shape[0]
-    words = -(-n_cells // 128) * 4
+    words = -(-n_cells // 32)
     occ = torch.zeros((words * 32,), dtype=torch.int64, device=counts.device)
     occ[:n_cells] = (counts > 0).to(torch.int64)
     bits = torch.arange(32, dtype=torch.int64, device=counts.device)
@@ -220,13 +220,13 @@ def traverse_grid_cuda(
     t_gate: Optional[float] = None, early_exit: bool = False,
     stop_on_first_hit: bool = False, det_dtype: str = "float32",
     tested_out: Optional[torch.Tensor] = None, tables: Optional[DdaTables] = None,
-    _defines: Tuple[str, ...] = (),
+    passes_out: Optional[torch.Tensor] = None,
 ) -> TraceResult:
     """Kernel B on CUDA tensors; the same outputs as the plain version.
     `tables` are `dda_tables(grid, tri9)`, built here when not given.
-    `_defines` are nvcc -D flags of a measurement build (chip_smoke.py
-    times the mask read through L1 and from shared memory with
-    TRAVERSE_GRID_SHARED_MASK); the port passes none."""
+    passes_out (1,) i32, when given, receives the number of tested
+    triangles that passed the barycentric test (chip_smoke.py counts the
+    operation bound from it)."""
     if not rays.orig.is_cuda:
         raise ValueError("traverse_grid_cuda takes CUDA tensors")
     if det_dtype not in _DET_DTYPES:
@@ -240,18 +240,21 @@ def traverse_grid_cuda(
     cell_range = tables.cell_range.to(torch.int32).contiguous()
     cell_tri9 = tables.cell_tri9.to(torch.float32).contiguous()
     nx, ny, nz = meta.n_voxels
-    if (occupancy.numel() % 4 or occupancy.numel() * 32 < nx * ny * nz
-            or cell_range.shape != (nx * ny * nz, 2) or cell_tri9.shape != (meta.nnz, 9)):
+    if (occupancy.numel() * 32 < nx * ny * nz or cell_range.shape != (nx * ny * nz, 2)
+            or cell_tri9.shape != (meta.nnz, 9)):
         raise ValueError("tables do not match the grid")
     gridf = torch.cat([grid.lower, grid.upper, grid.width, grid.inv_width]).to(
         torch.float32).contiguous()
     tri_ids = grid.tri_ids.to(torch.int32).contiguous()
     if tri_ids.numel() == 0:
         tri_ids = torch.zeros((1,), dtype=torch.int32, device=dev)
-    if tested_out is not None and (tested_out.dtype != torch.int32
-                                   or not tested_out.is_contiguous()
-                                   or tested_out.shape != (rays.count,)):
-        raise ValueError("tested_out must be a contiguous (R,) int32 tensor")
+    for name, buf, shape in (("tested_out", tested_out, (rays.count,)),
+                             ("passes_out", passes_out, (1,))):
+        if buf is not None and (buf.dtype != torch.int32 or not buf.is_contiguous()
+                                or tuple(buf.shape) != shape or buf.device != dev):
+            raise ValueError(f"{name} must be a contiguous {shape} int32 CUDA tensor")
+    if passes_out is not None:
+        passes_out.zero_()
     r = rays.count
     any_pass = torch.empty((r,), dtype=torch.bool, device=dev)
     hit = torch.empty((r,), dtype=torch.bool, device=dev)
@@ -261,22 +264,22 @@ def traverse_grid_cuda(
     if r == 0:
         return TraceResult(any_pass=any_pass, hit=hit, t=t, tri_id=tri_id, steps=steps)
 
-    fn = _build.library("traverse_grid", _defines).traverse_grid_launch
+    fn = _build.library("traverse_grid").traverse_grid_launch
     fn.restype = ctypes.c_int
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i, p, p, p, p, p, i, i, i, p, i, p, p, p, i, i, ctypes.c_double,
-                   i, i, p, p, p, p, p, p, p]
+    fn.argtypes = ([i] + [p] * 5 + [i] * 3 + [p] * 4 + [i, i, ctypes.c_double, i, i]
+                   + [p] * 8)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(int(det_dtype == "float64"), orig.data_ptr(), dirn.data_ptr(),
                  mint.data_ptr(), maxt.data_ptr(), gridf.data_ptr(), nx, ny, nz,
-                 occupancy.data_ptr(), occupancy.numel(), cell_range.data_ptr(),
+                 occupancy.data_ptr(), cell_range.data_ptr(),
                  cell_tri9.data_ptr(), tri_ids.data_ptr(), r,
                  int(t_gate is not None), float(t_gate or 0.0), int(early_exit),
                  int(stop_on_first_hit), any_pass.data_ptr(), hit.data_ptr(),
                  t.data_ptr(), tri_id.data_ptr(), steps.data_ptr(),
                  tested_out.data_ptr() if tested_out is not None else None,
-                 stream)
+                 passes_out.data_ptr() if passes_out is not None else None, stream)
     _build.check(err, "traverse_grid")
     traverse_grid_cuda.launches += 1
     return TraceResult(any_pass=any_pass, hit=hit, t=t, tri_id=tri_id, steps=steps)

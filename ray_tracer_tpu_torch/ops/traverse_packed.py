@@ -34,15 +34,15 @@ because PyTorch and CUDA differ from XLA there:
 `march_cuda` launches `csrc/packed_march.cu` (kernel C): each lane
 marches one ray and the warp deals out the slots of the rows its lanes
 test in a step (tests/test_torch_kernel_layouts.py models that fold in
-numpy), one lane per queue position or as resident lanes popping a
-queue, with the plain version's records bit for bit.  `march` takes the
+numpy), one lane per queue position, with the plain version's records
+bit for bit.  `march` takes the
 kernel for CUDA tensors and the plain version for CPU tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -520,23 +520,20 @@ def march_cuda(
     tested_out: Optional[torch.Tensor] = None,
     touched_out: Optional[torch.Tensor] = None,
     capped_out: Optional[torch.Tensor] = None,
-    persistent: bool = False, queue: Optional[torch.Tensor] = None,
-    n_work: Optional[int] = None, iters_out: Optional[torch.Tensor] = None,
-    _defines: Tuple[str, ...] = (),
+    queue: Optional[torch.Tensor] = None, n_work: Optional[int] = None,
+    iters_out: Optional[torch.Tensor] = None, passes_out: Optional[torch.Tensor] = None,
 ) -> FusedTraceResult:
     """Kernel C on CUDA tensors; the plain version's records.
 
-    Each lane marches one ray, and the warp shares out the row tests of
-    every step.  Positions [0, n_work) of `queue` (ray ids; every ray in
-    order when None) are marched; rays never served keep the miss record.
-    persistent=False launches one lane per position; persistent=True as
-    many lanes as the card holds resident (the kernel's occupancy times
-    the SM count, whatever the JAX wave width), each taking the next
-    position from an atomic counter whenever its ray has ended.
-    iters_out (1,) i32 receives the most march steps one lane ran.
-    `_defines` are nvcc -D flags of a measurement build (chip_smoke.py
-    times a group of G lanes a ray with PACKED_MARCH_GROUP=G); the port
-    passes none."""
+    One lane a queue position marches that ray, and the warp shares out
+    the row tests of every step; the card's block scheduler keeps the
+    lanes resident, so the launch has no width to set (the JAX wave width
+    has no counterpart here).  Positions [0, n_work) of `queue` (ray ids;
+    every ray in order when None) are marched; rays never served keep the
+    miss record.  iters_out (1,) i32 receives the most march steps one
+    lane ran; passes_out (1,) i32 the number of tested slots that passed
+    the barycentric test (chip_smoke.py counts the operation bound from
+    it)."""
     if not rays.orig.is_cuda:
         raise ValueError("march_cuda takes CUDA tensors")
     if fused and stop_on_first_hit:
@@ -556,11 +553,12 @@ def march_cuda(
     for name, buf, shape in (("tested_out", tested_out, (r,)),
                              ("touched_out", touched_out, (meta.n_blocks,)),
                              ("capped_out", capped_out, (1,)),
-                             ("iters_out", iters_out, (1,))):
+                             ("iters_out", iters_out, (1,)),
+                             ("passes_out", passes_out, (1,))):
         if buf is not None and (buf.dtype != torch.int32 or not buf.is_contiguous()
                                 or tuple(buf.shape) != shape or buf.device != dev):
             raise ValueError(f"{name} must be a contiguous {shape} int32 CUDA tensor")
-    for buf in (touched_out, capped_out, iters_out):
+    for buf in (touched_out, capped_out, iters_out, passes_out):
         if buf is not None:
             buf.zero_()
     hit = torch.zeros((r,), dtype=torch.bool, device=dev)
@@ -584,7 +582,6 @@ def march_cuda(
             raise ValueError("n_work exceeds the queue")
     elif n_work is None:
         n_work = r
-    counter = torch.zeros((1,), dtype=torch.int32, device=dev) if persistent else None
     light = (_host_vec3(light_pos) if light_pos is not None
              else (ctypes.c_float * 3)(0.0, 0.0, 0.0))
     nx, ny, nz = meta.n_voxels
@@ -605,19 +602,18 @@ def march_cuda(
     def ptr(x):
         return x.data_ptr() if x is not None else None
 
-    fn = _build.library("packed_march", _defines).packed_march_launch
+    fn = _build.library("packed_march").packed_march_launch
     fn.restype = ctypes.c_int
     p = ctypes.c_void_p
-    fn.argtypes = [_MarchParams] + [p] * 18 + [ctypes.c_int, p, p]
+    fn.argtypes = [_MarchParams] + [p] * 20
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(params, orig.data_ptr(), dirn.data_ptr(), mint.data_ptr(),
                  maxt.data_ptr(), cell_info.data_ptr(), blocks.data_ptr(),
-                 slot_tri.data_ptr(), ptr(queue), ptr(counter), hit.data_ptr(),
-                 t.data_ptr(), tri_id.data_ptr(), in_shadow.data_ptr(),
-                 shadow_tri.data_ptr(), steps.data_ptr(), ptr(tested_out),
-                 ptr(touched_out), ptr(capped_out), int(persistent), ptr(iters_out),
-                 stream)
+                 slot_tri.data_ptr(), ptr(queue), hit.data_ptr(), t.data_ptr(),
+                 tri_id.data_ptr(), in_shadow.data_ptr(), shadow_tri.data_ptr(),
+                 steps.data_ptr(), ptr(tested_out), ptr(touched_out), ptr(capped_out),
+                 ptr(passes_out), ptr(iters_out), stream)
     _build.check(err, "packed_march")
     march_cuda.launches += 1
     return res

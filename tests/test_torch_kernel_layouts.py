@@ -1,11 +1,10 @@
 """The layouts and reductions of kernels B and C that can be checked on the
 CPU: kernel B's tables derived from the CSR grid (occupancy bits, the
-(start, count) pairs, the vertices in CSR order); numpy models of the
-kernels' shuffle folds (C's rows dealt over the warp, B's voxels dealt
-over the warp, and the group-of-G-lanes row fold of C's measurement
-builds) against the sequential loops they replace; and the rule that the
-card's launch does not read the JAX wave width.  The kernels themselves
-run on the card only (chip_smoke.py)."""
+(start, count) pairs, the vertices in CSR order); a numpy model of kernel
+C's shuffle fold (each step's rows dealt over the warp) against the
+sequential row loop it replaces; and the rule that the card's launch does
+not read the JAX wave width.  The kernels themselves run on the card only
+(chip_smoke.py)."""
 
 import inspect
 
@@ -17,11 +16,13 @@ torch.set_num_threads(1)
 
 from ray_tracer_tpu_torch.accel.grid import build_grid  # noqa: E402
 from ray_tracer_tpu_torch.config import apply_turbo  # noqa: E402
+from ray_tracer_tpu_torch.core.rays import RayBatch  # noqa: E402
 from ray_tracer_tpu_torch.models import scenes  # noqa: E402
 from ray_tracer_tpu_torch.ops import persistent as ps  # noqa: E402
 from ray_tracer_tpu_torch.ops import traverse_packed as tp  # noqa: E402
 from ray_tracer_tpu_torch.ops.camera import camera_rays  # noqa: E402
-from ray_tracer_tpu_torch.ops.traverse import dda_tables, vertex_table  # noqa: E402
+from ray_tracer_tpu_torch.ops.traverse import (  # noqa: E402
+    dda_tables, traverse_grid_cuda, vertex_table)
 from ray_tracer_tpu_torch.render.renderer import prepare  # noqa: E402
 
 
@@ -51,8 +52,8 @@ def test_dda_tables_are_the_csr_grid(name, exact):
     counts = np.diff(cs)
     n_cells = counts.shape[0]
     words = tabs.occupancy.numpy().view(np.uint32)
-    assert tabs.occupancy.dtype == torch.int32 and words.shape[0] % 4 == 0
-    assert words.shape[0] * 32 >= n_cells > (words.shape[0] - 4) * 32
+    assert tabs.occupancy.dtype == torch.int32
+    assert words.shape[0] * 32 >= n_cells > (words.shape[0] - 1) * 32
     bits = (words[:, None] >> np.arange(32, dtype=np.uint32)) & 1
     bits = bits.reshape(-1)
     np.testing.assert_array_equal(bits[:n_cells].astype(bool), counts > 0)
@@ -78,7 +79,6 @@ def test_prepare_derives_the_tables_for_csr_only():
 
 
 NO_SLOT = 1 << 30
-INT_MAX = np.iinfo(np.int32).max
 LANES = np.arange(32)
 
 
@@ -95,43 +95,22 @@ def _sequential_row_min(t, accept):
     return m, slot
 
 
-def _rows(rng, n, bt, dtype=np.float32):
+def _rows(rng, n, bt):
     """Rows with ties (values drawn from a few levels), +inf lanes and
     rejected lanes, including rows with nothing accepted."""
-    levels = np.array([0.5, 1.0, 1.0, 2.0, np.inf], dtype)
+    levels = np.array([0.5, 1.0, 1.0, 2.0, np.inf], np.float32)
     t = levels[rng.integers(0, levels.size, size=(n, bt))]
-    t = np.where(rng.random((n, bt)) < 0.3, (rng.random((n, bt)) * 4).astype(dtype), t)
+    t = np.where(rng.random((n, bt)) < 0.3, (rng.random((n, bt)) * 4).astype(np.float32), t)
     accept = rng.random((n, bt)) < 0.6
     accept[: n // 8] = False  # nothing accepted
     t[n // 8: n // 4] = np.inf  # only +inf accepted
-    return t.astype(dtype), accept
+    return t.astype(np.float32), accept
 
 
 def _lex_min(t, k, ot, ok, where=True):
     """(t, k) <- (ot, ok) where ot < t, or ot == t and ok < k."""
     take = where & ((ot < t) | ((ot == t) & (ok < k)))
     return np.where(take, ot, t), np.where(take, ok, k)
-
-
-def group_row_min_model(t, accept, group):
-    """The row fold of kernel C's measurement builds, G lanes a ray: lane j
-    keeps the first minimum of the accepted t in slots j, j+G, ...; a
-    butterfly (partner lane ^ off, off = G/2 .. 1) folds the (t, slot)
-    pairs; slot 0 when nothing was accepted.  Returns every lane's
-    (m, slot), each (N, G)."""
-    n, bt = t.shape
-    m = np.full((n, group), np.inf, t.dtype)
-    slot = np.full((n, group), NO_SLOT, np.int64)
-    for lane in range(group):
-        for j in range(lane, bt, group):
-            take = accept[:, j] & (t[:, j] < np.inf)
-            m[:, lane], slot[:, lane] = _lex_min(m[:, lane], slot[:, lane], t[:, j], j, take)
-    off = group // 2
-    while off > 0:
-        partner = np.arange(group) ^ off
-        m, slot = _lex_min(m, slot, m[:, partner], slot[:, partner])
-        off //= 2
-    return m, np.where(m < np.inf, slot, 0)
 
 
 def _shfl_down(x, off):
@@ -141,7 +120,7 @@ def _shfl_down(x, off):
 
 
 def _segmented_fold(t, k, key):
-    """The kernels' segmented butterfly: after it, the first lane of each
+    """Kernel C's segmented butterfly: after it, the first lane of each
     run of equal `key` holds the run's lexicographic (t, k) minimum."""
     for off in (1, 2, 4, 8, 16):
         t, k = _lex_min(t, k, _shfl_down(t, off), _shfl_down(k, off),
@@ -180,60 +159,6 @@ def warp_rows_min_model(testers, t, accept):
     return m, np.where(m < np.inf, slot, 0)
 
 
-def warp_voxel_min_model(counts, t, cand, passed):
-    """csrc/traverse_grid.cu voxel_min_warp: lane l's `counts[l]` pairs
-    (flat, in lane order, CSR positions 1000*l + j) are dealt 32 a round;
-    a lane finds its pair's owner by a binary search of the inclusive
-    prefix sums, the segmented fold takes each owner's (t, position)
-    minimum, and each owner ORs its pairs' passes from the ballot.
-    Returns (vmin, vpos, vpass) per lane."""
-    incl = np.cumsum(counts)
-    excl = incl - counts
-    total = int(incl[-1])
-    pos_of = np.concatenate([1000 * l + np.arange(c) for l, c in enumerate(counts)]
-                            + [np.zeros(0, int)])
-    vmin = np.full(32, np.inf, t.dtype)
-    vpos = np.full(32, INT_MAX, np.int64)
-    vpass = np.zeros(32, bool)
-    for base in range(0, total, 32):
-        q = base + LANES
-        owner = np.zeros(32, int)
-        for step in (16, 8, 4, 2, 1):
-            owner = np.where(incl[owner + step - 1] <= q, owner + step, owner)
-        live = q < total
-        qq = np.where(live, q, 0)
-        ok = live & cand[qq] & (t[qq] < np.inf)
-        tv = np.where(ok, t[qq], np.inf).astype(t.dtype)
-        kv = np.where(ok, pos_of[qq], INT_MAX)
-        tv, kv = _segmented_fold(tv, kv, owner)
-        passes = live & passed[qq]
-        lo, hi = excl - base, incl - base
-        head = np.maximum(lo, 0)
-        mine = (counts > 0) & (hi > 0) & (lo < 32)
-        vmin, vpos = _lex_min(vmin, vpos, tv[head & 31], kv[head & 31], mine)
-        for lane in np.flatnonzero(mine):
-            vpass[lane] |= passes[head[lane]:min(hi[lane], 32)].any()
-    return vmin, vpos, vpass
-
-
-@pytest.mark.parametrize("block_tris", [1, 14, 28, 56])
-@pytest.mark.parametrize("group", [1, 2, 4, 8, 16, 32])
-def test_group_fold_is_the_sequential_row_loop(group, block_tris):
-    """The lexicographic (t, slot) butterfly over G lanes gives every lane
-    exactly the sequential loop's (row min, first slot)."""
-    rng = np.random.default_rng(group * 100 + block_tris)
-    t, accept = _rows(rng, 512, block_tris)
-    m_want, slot_want = _sequential_row_min(t, accept)
-    m, slot = group_row_min_model(t, accept, group)
-    for lane in range(group):
-        assert m[:, lane].tobytes() == m_want.tobytes()
-        np.testing.assert_array_equal(slot[:, lane], slot_want)
-    # the torch argmin of the plain march agrees where a hit exists
-    tm = torch.where(torch.from_numpy(accept), torch.from_numpy(t), torch.tensor(np.inf))
-    hit = np.isfinite(m_want)
-    np.testing.assert_array_equal(torch.argmin(tm, dim=-1).numpy()[hit], slot_want[hit])
-
-
 @pytest.mark.parametrize("block_tris", [1, 14, 28, 56])
 @pytest.mark.parametrize("n_testers", [1, 3, 17, 32])
 def test_warp_row_fold_is_the_sequential_row_loop(n_testers, block_tris):
@@ -251,49 +176,6 @@ def test_warp_row_fold_is_the_sequential_row_loop(n_testers, block_tris):
         m, slot = warp_rows_min_model(testers, t, accept)
         assert m[lanes].tobytes() == m_want.tobytes()
         np.testing.assert_array_equal(slot[lanes], slot_want)
-
-
-@pytest.mark.parametrize("seed", [0, 1, 2])
-@pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_warp_voxel_fold_is_the_sequential_voxel_loop(dtype, seed):
-    """Kernel B's warp form: each lane gets exactly its own voxel loop's
-    minimum (first CSR position on ties) and the OR of its passes, for
-    counts from 0 to the serial grid's 54 a voxel."""
-    rng = np.random.default_rng(seed)
-    for trial in range(20):
-        counts = np.where(rng.random(32) < 0.5, 0, rng.integers(1, 55, size=32))
-        if trial % 5 == 0:
-            counts[:] = 0
-            counts[rng.integers(0, 32)] = rng.integers(1, 55)
-        n = int(counts.sum())
-        t, cand = _rows(rng, 1, max(n, 1), dtype)
-        t, cand = t[0, :n], cand[0, :n]
-        passed = cand | (rng.random(n) < 0.2)
-        vmin, vpos, vpass = warp_voxel_min_model(counts, t, cand, passed)
-        start = 0
-        for lane, c in enumerate(counts):
-            seq_t, seq_pos = np.inf, INT_MAX
-            for j in range(c):
-                if cand[start + j] and t[start + j] < seq_t:
-                    seq_t, seq_pos = t[start + j], 1000 * lane + j
-            assert vmin[lane].tobytes() == dtype(seq_t).tobytes()
-            if seq_t < np.inf:
-                assert vpos[lane] == seq_pos
-            assert vpass[lane] == bool(passed[start:start + c].any())
-            start += c
-
-
-def test_persistent_launch_does_not_take_the_wave_width():
-    """On the card the launch is sized by the card: march_cuda has no wave
-    parameter, and persistent_trace documents that wave, like pump and
-    refill_retries, shapes only the JAX lock-step loop."""
-    assert "wave" not in inspect.signature(tp.march_cuda).parameters
-    assert "persistent" in inspect.signature(tp.march_cuda).parameters
-    assert "occupancy" in " ".join(tp.march_cuda.__doc__.split())
-    doc = " ".join(ps.__doc__.split())
-    assert "`wave`, `pump`, `refill_retries`" in doc and "no effect here" in doc
-    assert "the card sizes its launch by itself" in doc
-    assert "wave" in inspect.signature(ps.persistent_trace).parameters
 
 
 @pytest.fixture(scope="module")
@@ -317,3 +199,55 @@ def test_persistent_trace_on_the_cpu_ignores_wave(turbo16, wave):
     assert bool(base.hit.any())
     for g, w in zip(got, base):
         assert torch.equal(g, w)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports itself on the card, so that
+    persistent_trace takes its card path to the (recorded) kernel call."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_persistent_launch_does_not_take_the_wave_width(turbo16, monkeypatch):
+    """On the card, persistent_trace hands kernel C the same call whatever
+    the JAX wave width (march_cuda has no width to take), and that call
+    gives the CPU path's records."""
+    cfg, prep, rays = turbo16
+    calls = []
+
+    def kernel_c(r, grid, meta, light, **kw):
+        calls.append(kw)
+        plain_kw = {k: v for k, v in kw.items() if k not in ("queue", "n_work", "iters_out")}
+        return tp.march_plain(RayBatch(*(x.as_subclass(torch.Tensor) for x in r)),
+                              grid, meta, light, **plain_kw)
+
+    assert "wave" not in inspect.signature(tp.march_cuda).parameters
+    kw = dict(fuse_shadow=True, t_gate=0.0, shadow_gate=0.1, shadow_mint=0.1,
+              serial_quirk=True, shadow_skip_dead=True, shade_serial=True, need_t=True,
+              need_steps=True, need_shadow_tri=True)
+    args = (prep.packed.arrays, prep.packed.meta, prep.scene.light_pos)
+    want = ps.persistent_trace(rays, *args, **kw)
+    assert bool(want.hit.any())
+    monkeypatch.setattr(ps, "march_cuda", kernel_c)
+    on_card = RayBatch(*(x.as_subclass(_OnCard) for x in rays))
+    for wave in (1, 7, 12288, 65536):
+        got = ps.persistent_trace(on_card, *args, wave=wave, **kw)
+        for g, w in zip(got, want):
+            assert torch.equal(g.as_subclass(torch.Tensor), w)
+    assert len(calls) == 4 and all(c == calls[0] for c in calls)
+    assert not any("wave" in k for k in calls[0])
+
+
+def test_traverse_grid_cuda_refuses_cpu_tensors():
+    """Kernel B's wrapper takes CUDA tensors only; it never falls back to
+    the plain version, and counts no launch."""
+    cfg = scenes.serial_scene_config(8, 8)
+    prep = prepare(cfg, device="cpu")
+    rays = camera_rays(cfg.camera, device="cpu")
+    before = traverse_grid_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        traverse_grid_cuda(rays, prep.grid.arrays, prep.grid.meta,
+                           vertex_table(*prep.scene.triangle_soa()), tables=prep.dda)
+    assert traverse_grid_cuda.launches == before
