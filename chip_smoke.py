@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and check it.
 
     python3 chip_smoke.py                    # every phase
-    python3 chip_smoke.py --phases build,C   # a subset, for a quick check
+    python3 chip_smoke.py --phases build,C,E # a subset, for a quick check
 
 Run from the repository root on a machine with a CUDA device.  Phases,
 each printing one JSON line:
@@ -23,29 +23,39 @@ each printing one JSON line:
      nearest and any hit, inline and blocks layouts (and a probe chain),
      rows of 14, 28 and 56 triangles: every record field bitwise equal,
      no ray capped;
-  6. the main path at full size, launch counts zeroed before each render
+  6. kernel E (csrc/whitted_wave.cu) against its plain version: the turbo
+     parallel scene at 256x256, the serial scene at 256x256 with
+     whitted_wave="on", the parallel scene at 128x128 with spp 2, and with
+     spp 2 and a lens (aperture 0.25, focus 20): colors bitwise equal,
+     every counter equal, no lane capped;
+  7. the main path at full size, launch counts zeroed before each render
      and read after it, each config required to launch its kernel:
      prepare + render of the serial scene at 1024x1024 with the default
      config (csr), traversal="brute_pallas" and the tuned production
      config (config.apply_turbo: packed grid, persistent fused march);
      median of 5 renders after a warm-up and Mrays/s (primary + shadow);
      the images agree with the csr image up to boundary pixels; the
-     command line renders the csr and the --turbo PPM bytes; one timed
-     render of the 3-bounce parallel scene at 512x512, csr and turbo
-     (whitted_wave="off");
-  7. card vs CPU: the 64x64 float64 csr render gives the PPM bytes of the
+     command line renders the csr and the --turbo PPM bytes; the turbo
+     parallel scene at 1024x1024 through the cross-depth Whitted wave (one
+     launch of E a frame and none of C; median of 5, the profile, pixels
+     and segments marched a second of frame; its image against the bounce
+     loop's, 4 launches of C, by the 2-count rule; the command line's PPM
+     bytes); one timed render of the 3-bounce parallel scene at 512x512,
+     csr and turbo (whitted_wave="off");
+  8. card vs CPU: the 64x64 float64 csr render gives the PPM bytes of the
      port's own CPU render; the 64x64 turbo march gives the CPU's per-ray
      records, and its image differs by more than 2 counts on under 1% of
-     pixels;
-  8. kernel D (csrc/gather_row_test.cu) against its plain version through
+     pixels; so does the 64x64 turbo parallel image through the wave;
+  9. kernel D (csrc/gather_row_test.cu) against its plain version through
      the port's gather tool, and the tool's step-loop time.
 
 Then the kernel times at the main path's shapes (each launch held
-bitwise to the plain version; B's and C's barycentric passes counted for
-their operation bounds), a `kernels` line, the card line, and last
-{"ok": true, "device": {...}}.  Any failure raises
-and exits non-zero; without a CUDA device it exits non-zero before any
-phase.
+bitwise to the plain version; B's, C's and E's barycentric passes, and
+E's vertices and reflections, counted for their operation bounds; C's
+device time against its time before the shared header), a `kernels`
+line, the card line, and last {"ok": true, "device": {...}}.  Any
+failure raises and exits non-zero; without a CUDA device it exits
+non-zero before any phase.
 """
 
 from __future__ import annotations
@@ -85,13 +95,28 @@ OPS_PER_PASSED_TEST = 61
 # columns (9), four determinants (44), 1/A (1), three products (3), the
 # acceptance test (5) and the running minimum (1).
 OPS_PER_LANE_D = 63
-ALL_PHASES = ("build", "A", "B", "C", "main", "card_vs_cpu", "D", "times")
-# The previous designs' times on the 1024^2 main path (one thread per ray
-# in B; C's persistent threads at the JAX wave width of 12,288 and its
-# one-thread-per-ray mode), NVIDIA H100 80GB HBM3 at 700 W, as recorded
-# in PERF.md.
-PREVIOUS_MS = {"B": {"ms": 0.4727},
-               "C": {"ms": 2.171, "device_ms": 1.990, "per_ray_ms": 0.640}}
+# FP32 operations per vertex of kernel E beyond its slot tests (counted as
+# for C), from csrc/whitted_wave.cu with a normalize at 10 (length 5, sqrt,
+# reciprocal, three products) and powf at 3 (lg2, multiply, ex2): the
+# recomputed t (columns 9, two determinants 22, the division), the two hit
+# points (12), the normal (edges 6, cross 9), the view and light directions
+# (3 + 10 each), h (3 + 10, normalized in the parallel variant), n.l and
+# n.h with their max (12), powf, A and B (21 in the parallel variant); the
+# shadow ray (light - poi 3, length 6, divisions 3) and its slab entry (30:
+# three reciprocals, six subtractions, six products, the min/max folds);
+# and the blend (color 6, tint and 1 - km 7, the weighted sum 6).
+OPS_PER_VERTEX_E = 195
+# ... and per reflection: the normalized incident direction and normal
+# (20), the dot and its double (6), nn * two and the subtraction (6), the
+# normalized result (10), the slab entry (30), the weight (1) and an
+# escape's background (6).
+OPS_PER_REFLECTION_E = 79
+ALL_PHASES = ("build", "A", "B", "C", "E", "main", "card_vs_cpu", "D", "times")
+# The kernels' device times on the 1024^2 main path before this version
+# of the sources (B and C as redesigned, before C's march step moved into
+# csrc/packed_step.cuh), NVIDIA H100 80GB HBM3 at 700 W, as recorded in
+# PERF.md; C's must stay within 5%.
+PREVIOUS_MS = {"B": {"device_ms": 0.4504}, "C": {"device_ms": 0.4288}}
 
 
 def emit(obj) -> None:
@@ -234,22 +259,25 @@ class Smoke:
         from ray_tracer_tpu_torch.ops import brute_intersect as kA
         from ray_tracer_tpu_torch.ops import traverse as kB
         from ray_tracer_tpu_torch.ops import traverse_packed as kC
+        from ray_tracer_tpu_torch.ops import whitted_wave as kE
         from ray_tracer_tpu_torch.tools import gather_bench as kD
 
-        self.kA, self.kB, self.kC, self.kD = kA, kB, kC, kD
+        self.kA, self.kB, self.kC, self.kD, self.kE = kA, kB, kC, kD, kE
         self.counters = {"brute_intersect": kA.brute_intersect_cuda,
                          "traverse_grid": kB.traverse_grid_cuda,
                          "packed_march": kC.march_cuda,
-                         "gather_row_test": kD.gather_row_test_cuda}
+                         "gather_row_test": kD.gather_row_test_cuda,
+                         "whitted_wave": kE.whitted_wave_cuda}
         self.dev = torch.device("cuda")
         self.root = os.path.dirname(os.path.abspath(__file__))
         self.launches = {}
         self.err = {"brute_intersect": 0.0, "traverse_grid": 0.0, "packed_march": 0.0,
-                    "gather_row_test": 0.0}
+                    "gather_row_test": 0.0, "whitted_wave": 0.0}
         self.times = {}
         self.images = {}
         self.libs = {}
         self.ptxas = {}
+        self.wave_frame = None  # (cfg, prepared) of the turbo parallel 1024^2 frame
 
     def zero_counts(self):
         for fn in self.counters.values():
@@ -444,7 +472,83 @@ class Smoke:
               "cases": out, "queues": ["compact", "chord", "compact_chord"], "capped": 0,
               "max_abs_err": err, "tolerance": "bitwise", "equal": True})
 
-    # ---- 6. the main path at full size -----------------------------------
+    # ---- 6. kernel E vs its plain version --------------------------------
+    def wave_inputs(self, cfg, prep):
+        """Kernel E's arguments for a prepared wave config: the camera batch,
+        the scene and grid tensors, and the knobs of _render_whitted_wave."""
+        from ray_tracer_tpu_torch.ops.camera import camera_rays
+
+        rc = cfg.render
+        mat9, tri9 = self.kE.build_wave_tables(prep.scene)
+        rays = camera_rays(cfg.camera, spp=rc.spp, device=self.dev)
+        pg = rc.primary_gate()
+        kw = dict(max_bounces=rc.max_bounces, serial=rc.serial_shading,
+                  gate0=0.0 if pg is None else pg, gate_b=rc.bounce_gate(), eps=rc.shadow_eps,
+                  smint=rc.shadow_mint(), quirk=rc.shadow_dir_away_from_light(),
+                  shadow_scale=rc.shadow_scale, bg=tuple(rc.background))
+        args = (rays, prep.scene.light_pos, prep.scene.light_intensity, mat9, tri9,
+                prep.packed.arrays, prep.packed.meta)
+        return args, kw
+
+    def wave_counters(self, prep, r):
+        def z(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=self.dev)
+
+        return dict(capped_out=z(1), passes_out=z(1), tested_out=z(r),
+                    touched_out=z(prep.packed.meta.n_blocks),
+                    slots_out=z(prep.packed.arrays.slot_tri.shape[0]),
+                    events_out=z(len(self.kE.EVENTS)))
+
+    def kernel_e(self):
+        from ray_tracer_tpu_torch.config import apply_turbo
+        from ray_tracer_tpu_torch.models.scenes import parallel_scene_config, serial_scene_config
+        from ray_tracer_tpu_torch.render.renderer import prepare, whitted_wave_eligible
+
+        kE = self.kE
+
+        def turbo(make, size, family, camera=None, **kw):
+            cfg = apply_turbo(make(size, size), family)
+            cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, **kw))
+            if camera:
+                cfg = dataclasses.replace(cfg, camera=dataclasses.replace(cfg.camera, **camera))
+            return cfg
+
+        cases = [
+            ("parallel_256", turbo(parallel_scene_config, 256, "parallel")),
+            ("serial_256_on", turbo(serial_scene_config, 256, "serial", whitted_wave="on")),
+            ("parallel_128_spp2", turbo(parallel_scene_config, 128, "parallel", spp=2)),
+            ("parallel_128_spp2_dof", turbo(parallel_scene_config, 128, "parallel", spp=2,
+                                            camera=dict(aperture=0.25, focus_distance=20.0))),
+        ]
+        err = 0.0
+        out = []
+        for name, cfg in cases:
+            prep = prepare(cfg)
+            if not whitted_wave_eligible(cfg, prep.scene):
+                raise AssertionError(f"kernel E {name}: the config should take the wave")
+            args, kw = self.wave_inputs(cfg, prep)
+            r = args[0].count
+            ck, cp = self.wave_counters(prep, r), self.wave_counters(prep, r)
+            got = kE.whitted_wave_cuda(*args, **kw, **ck)
+            want = kE.whitted_wave_plain(*args, **kw, **cp)
+            torch.cuda.synchronize()
+            err = max(err, compare(f"kernel E {name}", (got.reshape(-1),), (want.reshape(-1),)))
+            for key in ck:
+                if not torch.equal(ck[key], cp[key]):
+                    raise AssertionError(f"kernel E {name}: counter {key} differs from the plain "
+                                         "version's")
+            if int(ck["capped_out"].item()):
+                raise AssertionError(f"kernel E {name}: {int(ck['capped_out'])} lanes capped")
+            out.append({"case": name, "positions": r, "spp": cfg.render.spp,
+                        "aperture": cfg.camera.aperture, "serial": cfg.render.serial_shading,
+                        "events": dict(zip(kE.EVENTS, ck["events_out"].tolist())),
+                        "rows_tested": int(ck["tested_out"].sum()),
+                        "passes": int(ck["passes_out"].item()), "capped": 0})
+        self.err["whitted_wave"] = max(self.err["whitted_wave"], err)
+        emit({"phase": "kernel_E_vs_plain", "cases": out, "max_abs_err": err,
+              "tolerance": "bitwise (colors and every counter)", "equal": True})
+
+    # ---- 7. the main path at full size -----------------------------------
     def main_path(self):
         from ray_tracer_tpu_torch.config import apply_turbo
         from ray_tracer_tpu_torch.io.ppm import read_ppm, tonemap_u8
@@ -523,6 +627,8 @@ class Smoke:
             emit({"phase": "cli", "config": name, "size": size, "same_bytes_as_render": True,
                   "stderr": cli.stderr.strip().splitlines()[-1]})
 
+        self.main_wave()
+
         base = parallel_scene_config(512, 512)
         turbo = apply_turbo(base, "parallel")
         turbo = dataclasses.replace(turbo, render=dataclasses.replace(
@@ -551,7 +657,101 @@ class Smoke:
         if frac >= 0.01:
             raise AssertionError(f"parallel csr vs turbo: {frac:.2%} of pixels differ by > 2")
 
-    # ---- 7. card vs CPU --------------------------------------------------
+    def main_wave(self):
+        """The turbo parallel scene at 1024x1024 through prepare + render: the
+        cross-depth Whitted wave, one launch of kernel E a frame and none of
+        C; against the bounce loop (whitted_wave="off", four launches of C)
+        and through the command line."""
+        from ray_tracer_tpu_torch.config import apply_turbo
+        from ray_tracer_tpu_torch.io.ppm import read_ppm, tonemap_u8
+        from ray_tracer_tpu_torch.models.scenes import parallel_scene_config
+        from ray_tracer_tpu_torch.render.renderer import prepare, render
+
+        kE = self.kE
+        size = 1024
+        cfg = apply_turbo(parallel_scene_config(size, size), "parallel")
+        t0 = time.perf_counter()
+        p = prepare(cfg)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        self.zero_counts()
+        img = render(p)
+        torch.cuda.synchronize()
+        counts = self.counts()
+        if counts["whitted_wave"] != 1 or counts["packed_march"] != 0:
+            raise AssertionError(f"the turbo parallel frame launched {counts}: E once and C "
+                                 "never expected")
+        self.launches["whitted_wave"] = counts["whitted_wave"]
+        if img.shape != (size, size, 3) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"turbo parallel render: bad image {tuple(img.shape)}")
+        secs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            img = render(p)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        med = sorted(secs)[2]
+        wave_u8 = tonemap_u8(img.cpu().numpy())
+        # E's counters on this frame's inputs (a separate, counted launch)
+        args, kw = self.wave_inputs(cfg, p)
+        ck = self.wave_counters(p, args[0].count)
+        counted = kE.whitted_wave_cuda(*args, **kw, **ck)
+        torch.cuda.synchronize()
+        if not torch.equal(counted.view(torch.int32), img.reshape(-1, 3).view(torch.int32)):
+            raise AssertionError("the counted launch of kernel E differs from the frame")
+        if int(ck["capped_out"].item()):
+            raise AssertionError(f"turbo parallel frame: {int(ck['capped_out'])} lanes capped")
+        events = dict(zip(kE.EVENTS, ck["events_out"].tolist()))
+        segments = events["primaries"] + events["shadow_rays"] + events["mirror_rays"]
+        self.wave_frame = (cfg, p)
+        emit({"phase": "main_path", "config": "turbo_parallel_wave", "size": size,
+              "triangles": p.scene.num_faces, "bounces": cfg.render.max_bounces,
+              "prepare_s": prep_s, "median_ms": med * 1e3, "renders_ms": [x * 1e3 for x in secs],
+              "pixels_per_s_of_frame": size * size / med,
+              "segments_marched": segments,
+              "segments_marched_per_s_of_frame": segments / med,
+              "events": events, "launches_per_frame": counts,
+              "packed_grid": {"n_voxels": list(p.packed.meta.n_voxels),
+                              "rows": p.packed.meta.n_blocks, "inline": p.packed.meta.inline,
+                              "block_tris": p.packed.meta.block_tris,
+                              "max_blocks": p.packed.meta.max_blocks,
+                              "table_mb": p.packed.arrays.blocks.numel() * 4 / 1e6}})
+        emit(profile_render(p, med, "turbo_parallel_wave"))
+
+        off = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render,
+                                                                  whitted_wave="off"))
+        self.zero_counts()
+        loop = render(p._replace(cfg=off))
+        torch.cuda.synchronize()
+        lcounts = self.counts()
+        if lcounts["packed_march"] != cfg.render.max_bounces + 1 or lcounts["whitted_wave"]:
+            raise AssertionError(f"the bounce-loop frame launched {lcounts}")
+        frac = image_rule(wave_u8, tonemap_u8(loop.cpu().numpy()))
+        big = torch.maximum(img.abs(), loop.abs())
+        rel = float(torch.where(big > 0, (img - loop).abs() / big,
+                                torch.zeros_like(big)).max())
+        emit({"phase": "wave_vs_bounce_loop", "size": size, "pixels_over_2_counts": frac,
+              "bytes_differing": int((wave_u8 != tonemap_u8(loop.cpu().numpy())).sum()),
+              "max_rel_diff": rel, "max_abs_diff": float((img - loop).abs().max()),
+              "bounce_loop_launches": lcounts})
+        if frac >= 0.01:
+            raise AssertionError(f"wave vs bounce loop: {frac:.2%} of pixels differ by > 2")
+
+        out_ppm = os.path.join(self.root, "build", "chip_smoke_cli_parallel.ppm")
+        os.makedirs(os.path.dirname(out_ppm), exist_ok=True)
+        cli = subprocess.run(
+            [sys.executable, "-m", "ray_tracer_tpu_torch.cli", "render", "--scene", "parallel",
+             "--width", str(size), "--turbo", "--out", out_ppm],
+            cwd=self.root, capture_output=True, text=True, timeout=600,
+        )
+        if cli.returncode != 0:
+            raise AssertionError(f"cli render parallel failed:\n{cli.stderr[-3000:]}")
+        if not (read_ppm(out_ppm) == wave_u8).all():
+            raise AssertionError("cli render parallel differs from the in-process render")
+        emit({"phase": "cli", "config": "turbo_parallel_wave", "size": size,
+              "same_bytes_as_render": True, "stderr": cli.stderr.strip().splitlines()[-1]})
+
+    # ---- 8. card vs CPU --------------------------------------------------
     def card_vs_cpu(self):
         from ray_tracer_tpu_torch.config import apply_turbo
         from ray_tracer_tpu_torch.io.ppm import tonemap_u8
@@ -593,7 +793,25 @@ class Smoke:
               "bytes_differing": int((imgs["cuda"] != imgs["cpu"]).sum()),
               "pixels_over_2_counts": frac})
 
-    # ---- 8. kernel D through the gather tool -----------------------------
+        from ray_tracer_tpu_torch.models.scenes import parallel_scene_config
+
+        wcfg = apply_turbo(parallel_scene_config(64, 64), "parallel")
+        self.zero_counts()
+        w_card = render(prepare(wcfg))
+        torch.cuda.synchronize()
+        if self.counts()["whitted_wave"] != 1:
+            raise AssertionError("the 64x64 turbo parallel render did not launch kernel E")
+        w_cpu = render(prepare(wcfg, device="cpu"))
+        a, b = tonemap_u8(w_card.cpu().numpy()), tonemap_u8(w_cpu.numpy())
+        frac = image_rule(a, b)
+        if frac >= 0.01:
+            raise AssertionError(f"wave 64 card vs CPU: {frac:.2%} of pixels differ by > 2")
+        emit({"phase": "card_vs_cpu", "size": 64, "config": "turbo_parallel_wave",
+              "bytes_differing": int((a != b).sum()), "pixels_over_2_counts": frac,
+              "floats_differing": int((w_card.cpu().view(torch.int32)
+                                       != w_cpu.view(torch.int32)).sum())})
+
+    # ---- 9. kernel D through the gather tool -----------------------------
     def kernel_d(self):
         kD = self.kD
         chk = kD.check(device=self.dev)
@@ -769,7 +987,10 @@ class Smoke:
         d_ops = w * tl * OPS_PER_LANE_D
         d_bound, d_by = bound(d_bytes, d_ops)
 
+        e = self.wave_times(bound)
+
         self.times.update(
+            E=e,
             A=dict(ms=a_ms, plain_ms=a_plain_ms, bound_ms=a_bound, bound_by=a_by),
             B=dict(ms=b_ms, plain_ms=b_plain_ms, bound_ms=b_bound, bound_by=b_by),
             C=dict(ms=c_ms, plain_ms=c_plain_ms, bound_ms=c_bound, bound_by=c_by),
@@ -792,6 +1013,8 @@ class Smoke:
                     "bound_ops_ms": b_ops / PEAK_FP32_UNFUSED * 1e3},
               "C": {"ms": c_ms, "device_ms": c_dev_ms,
                     "plain_ms": c_plain_ms, "previous_ms": PREVIOUS_MS["C"],
+                    "device_vs_previous": (c_dev_ms / PREVIOUS_MS["C"]["device_ms"]
+                                           if c_dev_ms else None),
                     "ptxas": self.ptxas.get("packed_march"),
                     "steps": int(c_out.steps.sum()), "max_steps": int(c_out.steps.max()),
                     "rows_tested": rows_tested, "slot_tests": slot_tests, "passes": c_pass,
@@ -806,6 +1029,72 @@ class Smoke:
                     "bound_ms": d_bound, "bound_ops_fma_peak_ms": d_ops / PEAK_FP32_OPS * 1e3,
                     "bound_bytes_ms": d_bytes / PEAK_BYTES * 1e3}})
 
+    def wave_times(self, bound) -> dict:
+        """Kernel E at the main path's shape, the turbo parallel 1024^2
+        frame: events over n launches, the profiler's device time, the plain
+        version once (held bitwise), and the bound from a counted launch."""
+        from ray_tracer_tpu_torch.config import apply_turbo
+        from ray_tracer_tpu_torch.models.scenes import parallel_scene_config
+        from ray_tracer_tpu_torch.render.renderer import prepare
+
+        kE = self.kE
+        if self.wave_frame is None:
+            cfg = apply_turbo(parallel_scene_config(1024, 1024), "parallel")
+            self.wave_frame = (cfg, prepare(cfg))
+        cfg, p = self.wave_frame
+        args, kw = self.wave_inputs(cfg, p)
+        r = args[0].count
+
+        def launch_e():
+            return kE.whitted_wave_cuda(*args, **kw)
+
+        e_ms = cuda_ms(launch_e, 10)
+        e_dev_ms = kernel_device_ms(launch_e, "whitted_wave_kernel", 5)
+        e_plain_ms, e_plain = once_ms(lambda: kE.whitted_wave_plain(*args, **kw))
+        err = compare("kernel E 1024 turbo parallel", (launch_e().reshape(-1),),
+                      (e_plain.reshape(-1),))
+        self.err["whitted_wave"] = max(self.err["whitted_wave"], err)
+        ck = self.wave_counters(p, r)
+        kE.whitted_wave_cuda(*args, **kw, **ck)
+        torch.cuda.synchronize()
+        if int(ck["capped_out"].item()):
+            raise AssertionError(f"kernel E 1024: {int(ck['capped_out'])} lanes capped")
+        meta, grid = p.packed.meta, p.packed.arrays
+        events = dict(zip(kE.EVENTS, ck["events_out"].tolist()))
+        rows_tested = int(ck["tested_out"].sum())
+        slot_tests = rows_tested * meta.block_tris
+        passes = int(ck["passes_out"].item())
+        if not 0 <= passes <= slot_tests:
+            raise AssertionError(f"kernel E counted {passes} passes of {slot_tests} tests")
+        touched = ck["touched_out"]
+        full_rows = int(((touched & 2) != 0).sum())
+        header_rows = int((touched == 1).sum())
+        slots = ck["slots_out"].nonzero()[:, 0]
+        tris = torch.unique(grid.slot_tri[slots])
+        mats = torch.unique(p.scene.face_material[tris.long()])
+        # rays in (32 B) and colors out (12 B), each distinct row tested once
+        # (row_lanes * 4 B), each header-only row's 8 B, and the slot_tri
+        # entries, tri9 rows (40 B) and mat9 rows (36 B) the vertices used
+        e_bytes = (r * (32 + 12) + full_rows * meta.row_lanes * 4 + header_rows * 8
+                   + slots.numel() * 4 + tris.numel() * 40 + mats.numel() * 36)
+        e_ops = ((slot_tests - passes) * OPS_PER_FAILED_TEST + passes * OPS_PER_PASSED_TEST
+                 + events["vertices"] * OPS_PER_VERTEX_E
+                 + events["reflections"] * OPS_PER_REFLECTION_E)
+        e_bound, e_by = bound(e_bytes, e_ops)
+        segments = events["primaries"] + events["shadow_rays"] + events["mirror_rays"]
+        emit({"phase": "kernel_times_E", "positions": r, "ms": e_ms, "device_ms": e_dev_ms,
+              "plain_ms": e_plain_ms, "ptxas": self.ptxas.get("whitted_wave"),
+              "events": events, "segments": segments,
+              "segments_per_s_of_kernel": segments / ((e_dev_ms or e_ms) / 1e3),
+              "rows_tested": rows_tested, "slot_tests": slot_tests, "passes": passes,
+              "distinct_rows_tested": full_rows, "header_only_rows": header_rows,
+              "slots_used": slots.numel(), "triangles_used": tris.numel(),
+              "materials_used": mats.numel(), "bytes": e_bytes, "ops": e_ops,
+              "bound_ms": e_bound, "bound_by": e_by,
+              "bound_bytes_ms": e_bytes / PEAK_BYTES * 1e3,
+              "bound_ops_ms": e_ops / PEAK_FP32_UNFUSED * 1e3, "max_abs_err": err})
+        return dict(ms=e_ms, plain_ms=e_plain_ms, bound_ms=e_bound, bound_by=e_by)
+
     def kernels_line(self):
         rows = []
         for name, key, source, replaces in (
@@ -817,6 +1106,8 @@ class Smoke:
              "ray_tracer_tpu/ops/traverse_packed.py:152"),
             ("gather_row_test", "D", "ray_tracer_tpu_torch/csrc/gather_row_test.cu",
              "tools/pallas_gather_bench.py:98"),
+            ("whitted_wave", "E", "ray_tracer_tpu_torch/csrc/whitted_wave.cu",
+             "ray_tracer_tpu/ops/whitted_wave.py:79"),
         ):
             t = self.times[key]
             rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -846,6 +1137,8 @@ def main(argv=None) -> int:
         smoke.kernels_ab(phases)
     if "C" in phases:
         smoke.kernel_c()
+    if "E" in phases:
+        smoke.kernel_e()
     if "main" in phases:
         smoke.main_path()
     if "card_vs_cpu" in phases:

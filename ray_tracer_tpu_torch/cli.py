@@ -7,6 +7,10 @@
         --det-dtype float64 --device cpu --out s.ppm
     python -m ray_tracer_tpu_torch.cli render --scene serial --width 1024 \\
         --turbo --out t.ppm
+    python -m ray_tracer_tpu_torch.cli render --scene parallel --width 1024 \\
+        --turbo --out p.ppm          # the cross-depth Whitted wave (kernel E)
+    python -m ray_tracer_tpu_torch.cli render --scene parallel --width 256 \\
+        --turbo --spp 2 --aperture 0.25 --focus-distance 20 --out dof.ppm
 
 The counterpart of `ray_tracer_tpu/cli.py render` for the options this
 port serves.  It runs on the card unless `--device cpu` is given.
@@ -45,6 +49,13 @@ def _build_cfg(args):
         from ray_tracer_tpu_torch.config import apply_turbo
 
         cfg = apply_turbo(cfg, {"serial": "serial", "parallel": "parallel"}.get(args.scene))
+    if args.spp > 1:
+        cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, spp=args.spp))
+    if args.aperture:
+        cfg = dataclasses.replace(cfg, camera=dataclasses.replace(
+            cfg.camera, aperture=args.aperture, focus_distance=args.focus_distance or 0.0))
+    if cfg.camera.aperture > 0 and cfg.render.spp <= 1:
+        raise SystemExit("depth of field needs render.spp > 1 (one lens point per subsample)")
     return cfg
 
 
@@ -62,8 +73,10 @@ def cmd_render(args) -> None:
         torch.cuda.synchronize(prep.device)
     dt = time.perf_counter() - t0
     write_ppm(args.out, img.cpu().numpy())
-    rays = cfg.camera.width * cfg.camera.height * 2
-    print(f"wrote {args.out} ({cfg.camera.width}x{cfg.camera.height}, "
+    spp2 = cfg.render.spp * cfg.render.spp
+    rays = cfg.camera.width * cfg.camera.height * spp2 * 2
+    print(f"wrote {args.out} ({cfg.camera.width}x{cfg.camera.height}"
+          f"{f', spp={cfg.render.spp}' if spp2 > 1 else ''}, "
           f"{cfg.render.traversal}, {prep.device}) in {dt:.3f}s = "
           f"{rays / dt / 1e6:.2f} Mrays/s (primary+shadow, excl. reflection "
           f"bounces, incl. first-use kernel build)", file=sys.stderr)
@@ -88,6 +101,12 @@ def main(argv=None) -> None:
                         "packed grid, persistent wave, fused shadow rays")
     r.add_argument("--det-dtype", choices=["float32", "float64"], default=None,
                    help="determinant precision (float64 = the oracle's)")
+    r.add_argument("--spp", type=int, default=1,
+                   help="anti-aliasing: spp x spp subpixel samples per pixel")
+    r.add_argument("--aperture", type=float, default=0.0,
+                   help="thin-lens radius for depth of field (needs --spp>1)")
+    r.add_argument("--focus-distance", type=float, default=0.0,
+                   help="focal-plane distance (default: distance to target)")
     r.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     r.set_defaults(fn=cmd_render)
     args = ap.parse_args(argv)

@@ -229,6 +229,9 @@ def _march_step(s, *, o, d, invd, gate, maxt, grid, meta, need_hit_tri=False,
 
     if stats is not None:
         stats["tested"] += testing.to(torch.int32)
+        if stats.get("passes") is not None:  # slots tested that pass barycentric
+            passed = (beta > 0) & (gamma > 0) & (beta + gamma < 1) & testing[:, None]
+            stats["passes"] += passed.sum()
         if stats["touched"] is not None:
             if meta.inline:
                 stats["touched"][gidx[fetch & inside].long()] |= 1
@@ -486,7 +489,7 @@ def march_plain(
 
 
 class _MarchParams(ctypes.Structure):
-    """Mirror of `MarchParams` in csrc/packed_march.cu (passed by value)."""
+    """Mirror of `MarchParams` in csrc/packed_step.cuh (passed by value)."""
 
     _fields_ = [
         ("lower", ctypes.c_float * 3), ("upper", ctypes.c_float * 3),

@@ -2,11 +2,17 @@
 
 Counterpart of `ray_tracer_tpu/render/renderer.py` (`prepare`,
 `choose_inline_layout`, `choose_block_tris`, `make_traversal`,
-`shadow_rays_for`, `render_rays`, `whitted_wave_eligible`, `render`) for
-the Whitted pipeline over the CSR grid, the all-pairs sweep or the packed
+`shadow_rays_for`, `render_rays`, `accumulate_spp`,
+`whitted_wave_eligible`, `_render_whitted_wave`, `render`) for the
+Whitted pipeline over the CSR grid, the all-pairs sweep or the packed
 grid:
 
-  * the image's primary rays are one batch; on the card every trace is
+  * configs that `whitted_wave_eligible` admits (the turbo parallel
+    scene) render through the cross-depth Whitted wave
+    (ops/whitted_wave.py, kernel E): one lane a pixel subsample serves
+    its whole mirror recursion;
+  * otherwise each spp subsample's primary rays are one batch (spp > 1
+    folds the batches in turn, `accumulate_spp`); on the card every trace is
     one kernel launch over the whole batch, on the CPU the batch is cut
     into `ray_tile` chunks for the plain versions (each ray is traced on
     its own, so the image does not depend on the cut, nor on the JAX
@@ -42,7 +48,7 @@ from ray_tracer_tpu_torch.core.rays import RayBatch
 from ray_tracer_tpu_torch.device import resolve_device
 from ray_tracer_tpu_torch.models.scenes import Scene, scene_from_numpy, scene_numpy_arrays
 from ray_tracer_tpu_torch.ops.brute_intersect import intersect_brute_kernel, triangle_table
-from ray_tracer_tpu_torch.ops.camera import camera_rays
+from ray_tracer_tpu_torch.ops.camera import camera_rays, camera_rays_subsample
 from ray_tracer_tpu_torch.ops.intersect import cramer_t_safe, intersect_brute
 from ray_tracer_tpu_torch.ops.shade import (
     hit_geometry_parallel,
@@ -102,16 +108,14 @@ def check_supported(cfg: SceneConfig, scene: Scene = None) -> None:
     """Raise NotImplementedError for every option that changes the JAX
     package's image and that this port does not serve yet, and
     ValueError where the JAX package raises.  gi_wave matters only with
-    gi_samples > 0, and whitted_wave="auto" on an ineligible config
-    renders through the bounce loop, as in the JAX package's render."""
+    gi_samples > 0; whitted_wave="auto" renders an eligible config
+    through the cross-depth wave and any other through the bounce loop,
+    and "on" with an ineligible config raises ValueError, as in the JAX
+    package's render."""
     r = cfg.render
     bad = []
     if r.traversal not in TRAVERSALS:
         bad.append(f"traversal={r.traversal!r}")
-    if r.spp != 1:
-        bad.append("spp > 1")
-    if cfg.camera.aperture > 0.0:
-        bad.append("camera aperture (depth of field)")
     if r.texture != "none":
         bad.append(f"texture={r.texture!r}")
     if r.normal_mode != "face":
@@ -124,8 +128,6 @@ def check_supported(cfg: SceneConfig, scene: Scene = None) -> None:
         bad.append("extra lights")
     if r.gi_samples > 0:
         bad.append("path-traced GI")
-    elif whitted_wave_eligible(cfg, scene):
-        bad.append("the cross-depth Whitted wave (ops/whitted_wave.py)")
     if any(m.transmissive for m in cfg.materials):
         bad.append("transmissive materials")
     if r.dtype != "float32":
@@ -136,6 +138,9 @@ def check_supported(cfg: SceneConfig, scene: Scene = None) -> None:
         )
     if r.det_dtype not in _DET_DTYPES:
         raise ValueError(f"unknown det_dtype {r.det_dtype!r}")
+    if r.spp < 1:
+        raise ValueError(f"spp must be >= 1, got {r.spp}")
+    whitted_wave_eligible(cfg, scene)  # "on" with an ineligible config raises
     if r.traversal == "brute_pallas" and r.faithful:
         raise ValueError("traversal='brute_pallas' has production semantics "
                          "only (faithful=False)")
@@ -435,23 +440,71 @@ def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
     return result
 
 
+def accumulate_spp(one, camera_cfg, spp: int, dtype, device) -> torch.Tensor:
+    """Sequential subsample accumulation -> (R, 3) colors, one subsample
+    batch at a time: acc = c0; acc = acc + c_s in turn; then the mean
+    (ray_tracer_tpu/render/renderer.py:796-814).  `one(rays, camera_ok)`
+    traces a batch; camera_ok is True only for the spp-1 pixel-center
+    batch (the persistent wave's camera refill)."""
+    if spp == 1:
+        return one(camera_rays(camera_cfg, dtype=dtype, device=device), True)
+    total = spp * spp
+    acc = None
+    for s in range(total):
+        c = one(camera_rays_subsample(camera_cfg, s, spp, dtype=dtype, device=device), False)
+        acc = c if acc is None else acc + c
+    return vm.div_scalar(acc, float(total))
+
+
+def _render_whitted_wave(prep: Prepared) -> torch.Tensor:
+    """The cross-depth Whitted wave (kernel E on the card) with the JAX
+    dispatch's knob mapping (renderer.py:875-899) -> (H, W, 3); its wave,
+    pump and refill_retries shape only the JAX loop and are not passed."""
+    from ray_tracer_tpu_torch.ops.whitted_wave import build_wave_tables, whitted_wave_trace
+
+    cfg = prep.cfg
+    rcfg = cfg.render
+    scene = prep.scene
+    mat9, tri9 = build_wave_tables(scene)
+    pg = rcfg.primary_gate()
+    col = whitted_wave_trace(
+        scene.light_pos, scene.light_intensity, mat9, tri9,
+        prep.packed.arrays, prep.packed.meta,
+        camera=cfg.camera, max_bounces=rcfg.max_bounces,
+        serial=rcfg.serial_shading, spp=rcfg.spp,
+        gate0=0.0 if pg is None else pg, gate_b=rcfg.bounce_gate(),
+        eps=rcfg.shadow_eps, smint=rcfg.shadow_mint(),
+        quirk=rcfg.shadow_dir_away_from_light(),
+        shadow_scale=rcfg.shadow_scale, bg=tuple(rcfg.background),
+        tile=None if prep.device.type == "cuda" else max(1, rcfg.ray_tile),
+    )
+    return col.reshape(cfg.camera.height, cfg.camera.width, 3)
+
+
 def render(prep: Prepared) -> torch.Tensor:
     """Render the prepared scene -> (H, W, 3) float32 linear color on the
-    scene's device."""
+    scene's device.  Configs that `whitted_wave_eligible` admits take the
+    cross-depth Whitted wave, as in the JAX package's render; the others
+    the bounce loop, spp subsamples accumulated in turn."""
     cfg = prep.cfg
     check_supported(cfg, prep.scene)
+    if whitted_wave_eligible(cfg, prep.scene):
+        return _render_whitted_wave(prep)
     rcfg = cfg.render
-    rays = camera_rays(cfg.camera, dtype=_DET_DTYPES[rcfg.dtype], device=prep.device)
     if rcfg.traversal == "packed":
         args = (prep.scene, prep.packed.arrays, prep.packed.meta, rcfg)
     else:
         args = (prep.scene, prep.grid.arrays, prep.grid.meta, rcfg)
-    tile = rays.count if prep.device.type == "cuda" else max(1, rcfg.ray_tile)
-    if tile >= rays.count:
-        colors = render_rays(rays, *args, camera_cfg=cfg.camera, dda=prep.dda)
-    else:
-        colors = torch.cat([
+
+    def one(rays, camera_ok):
+        tile = rays.count if prep.device.type == "cuda" else max(1, rcfg.ray_tile)
+        if tile >= rays.count:
+            return render_rays(rays, *args, camera_cfg=cfg.camera if camera_ok else None,
+                               dda=prep.dda)
+        return torch.cat([
             render_rays(rays.slice(lo, min(lo + tile, rays.count)), *args, dda=prep.dda)
             for lo in range(0, rays.count, tile)
         ])
+
+    colors = accumulate_spp(one, cfg.camera, rcfg.spp, _DET_DTYPES[rcfg.dtype], prep.device)
     return colors.reshape(cfg.camera.height, cfg.camera.width, 3)

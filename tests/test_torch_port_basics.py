@@ -30,7 +30,11 @@ img = render(prepare(serial_scene_config(8, 8), device="cpu"))
 assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 img = render(prepare(apply_turbo(serial_scene_config(8, 8), "serial"), device="cpu"))
 assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+from ray_tracer_tpu_torch.models.scenes import parallel_scene_config
+img = render(prepare(apply_turbo(parallel_scene_config(8, 8), "parallel"), device="cpu"))
+assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 import ray_tracer_tpu_torch.ops.persistent, ray_tracer_tpu_torch.tools.gather_bench
+import ray_tracer_tpu_torch.ops.whitted_wave
 loaded = [k for k, v in sys.modules.items()
           if v is not None and (k.split(".")[0] in ("jax", "jaxlib", "ray_tracer_tpu"))]
 assert not loaded, loaded
@@ -40,9 +44,10 @@ print("independent")
 
 def test_port_imports_nothing_of_jax():
     """Every module of the port (the packed grid, the packed march, the
-    persistent wave and the gather tool among them), and chip_smoke.py,
-    imports and renders 8x8 serial images, default and turbo, with `jax`
-    and `ray_tracer_tpu` made unimportable."""
+    persistent wave, the Whitted wave and the gather tool among them), and
+    chip_smoke.py, imports and renders 8x8 images (serial default and
+    turbo, and the turbo parallel scene through the Whitted wave) with
+    `jax` and `ray_tracer_tpu` made unimportable."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _INDEPENDENCE], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)
@@ -71,22 +76,27 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 @pytest.mark.parametrize("change", [
     dict(traversal="packed", faithful=False, soft_visibility=0.1),
-    dict(spp=2),
+    dict(dtype="float64"),
     dict(texture="checker"),
     dict(normal_mode="smooth", faithful=False),
     dict(soft_visibility=0.1),
     dict(shadow_samples=4, light_radius=0.5, faithful=False),
     dict(gi_samples=1, faithful=False),
-    dict(whitted_wave="on", traversal="packed", scheduler="persistent", faithful=False),
+    dict(extra_lights=True, traversal="packed", scheduler="persistent", faithful=False),
 ])
 def test_unsupported_options_raise(change):
     """Options outside the slice raise NotImplementedError; none is
-    silently ignored.  (The packed traversal is served since the second
-    slice; its soft-visibility epilogue and the Whitted wave are not.)"""
+    silently ignored.  (The packed traversal, spp, depth of field and the
+    Whitted wave are served; the soft-visibility epilogue, float64
+    rendering and extra lights are not.)"""
+    from ray_tracer_tpu_torch.config import LightConfig
     from ray_tracer_tpu_torch.models.scenes import serial_scene_config
     from ray_tracer_tpu_torch.render.renderer import prepare
 
     cfg = serial_scene_config(8, 8)
+    change = dict(change)
+    if change.pop("extra_lights", False):
+        cfg = dataclasses.replace(cfg, extra_lights=(LightConfig((1.0, 2.0, 3.0), 1.0),))
     cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, **change))
     with pytest.raises(NotImplementedError):
         prepare(cfg, device="cpu")
@@ -121,19 +131,20 @@ def test_failed_kernel_build_raises(monkeypatch, tmp_path):
 
 
 def test_every_kernel_is_built_by_default():
-    """build() with no names compiles all four sources, each into its own
-    library keyed by its sources and flags."""
+    """build() with no names compiles all five sources, each into its own
+    library keyed by its sources and flags (the shared headers included:
+    packed_step.cuh serves kernels C and E)."""
     from ray_tracer_tpu_torch.kernels import _build
 
     assert _build.KERNELS == ("brute_intersect", "traverse_grid", "packed_march",
-                              "gather_row_test")
+                              "gather_row_test", "whitted_wave")
     for name in _build.KERNELS:
         assert os.path.exists(os.path.join(_build.CSRC, name + ".cu"))
     paths = {_build.library_path(n) for n in _build.KERNELS}
     assert len(paths) == len(_build.KERNELS)
 
 
-@pytest.mark.parametrize("name", ["packed_march", "gather_row_test"])
+@pytest.mark.parametrize("name", ["packed_march", "gather_row_test", "whitted_wave"])
 def test_failed_build_of_new_kernels_raises(monkeypatch, tmp_path, name):
     from ray_tracer_tpu_torch.kernels import _build
 

@@ -117,18 +117,32 @@ def test_cli_turbo_writes_the_in_process_bytes(serial_turbo, tmp_path):
     assert (read_ppm(str(out)) == tonemap_u8(img.numpy())).all()
 
 
-def test_parallel_turbo_needs_the_whitted_wave():
-    """TUNED_KNOBS["parallel"] opts into the cross-depth Whitted wave,
-    which the port does not serve yet (ROADMAP item 8)."""
+def test_parallel_turbo_needs_the_whitted_wave(monkeypatch, tmp_path):
+    """TUNED_KNOBS["parallel"] opts into the cross-depth Whitted wave:
+    `render` and the command line of the 8x8 turbo parallel scene go
+    through it (kernel E's plain version on the CPU), with the same
+    bytes."""
+    from ray_tracer_tpu_torch import cli
+    from ray_tracer_tpu_torch.ops import whitted_wave
+
     cfg = apply_turbo(scenes.parallel_scene_config(8, 8), "parallel")
     assert whitted_wave_eligible(cfg)
-    with pytest.raises(NotImplementedError, match="Whitted wave"):
-        check_supported(cfg)
-    from ray_tracer_tpu_torch import cli
+    check_supported(cfg)
+    calls = []
+    plain = whitted_wave.whitted_wave_plain
 
-    with pytest.raises(NotImplementedError):
-        cli.main(["render", "--scene", "parallel", "--width", "8", "--turbo",
-                  "--device", "cpu", "--out", os.devnull])
+    def spy(rays, *args, **kw):
+        calls.append(rays.count)
+        return plain(rays, *args, **kw)
+
+    monkeypatch.setattr(whitted_wave, "whitted_wave_plain", spy)
+    img = render(prepare(cfg, device="cpu"))
+    assert calls == [64] and img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+    out = tmp_path / "parallel.ppm"
+    cli.main(["render", "--scene", "parallel", "--width", "8", "--turbo",
+              "--device", "cpu", "--out", str(out)])
+    assert calls == [64, 64]
+    assert (read_ppm(str(out)) == tonemap_u8(img.numpy())).all()
 
 
 def test_whitted_wave_knob_follows_jax():
