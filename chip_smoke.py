@@ -479,7 +479,7 @@ class Smoke:
         from ray_tracer_tpu_torch.ops.camera import camera_rays
 
         rc = cfg.render
-        mat9, tri9 = self.kE.build_wave_tables(prep.scene)
+        mat9, tri9 = prep.wave
         rays = camera_rays(cfg.camera, spp=rc.spp, device=self.dev)
         pg = rc.primary_gate()
         kw = dict(max_bounces=rc.max_bounces, serial=rc.serial_shading,

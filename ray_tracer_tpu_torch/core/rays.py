@@ -35,3 +35,11 @@ class RayBatch(NamedTuple):
     def slice(self, lo: int, hi: int) -> "RayBatch":
         return RayBatch(*(x[lo:hi] for x in self))
 
+    def map_tiles(self, fn, tile: int) -> torch.Tensor:
+        """fn over consecutive chunks of at most `tile` rays, the results
+        concatenated; one call on the whole batch when tile >= count."""
+        r = self.count
+        if tile >= r:
+            return fn(self)
+        return torch.cat([fn(self.slice(lo, min(lo + tile, r))) for lo in range(0, r, tile)])
+

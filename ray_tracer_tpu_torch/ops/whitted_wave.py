@@ -26,7 +26,7 @@ thread per queue position, with the plain version's colors bit for bit.
 `whitted_wave_trace` makes the camera batch (`camera_rays`, which the
 JAX package pins bitwise to its `camera_ray_at` regeneration), takes the
 kernel for CUDA tensors and the plain version for CPU tensors, and folds
-spp > 1 subsample-major in `accumulate_spp`'s order.
+spp > 1 subsample-major in `accumulate_spp`'s order (`fold_subsamples`).
 """
 
 from __future__ import annotations
@@ -81,7 +81,7 @@ def whitted_wave_plain(
     grid: PackedGridArrays, meta: PackedGridMeta, *,
     max_bounces: int, serial: bool, gate0: float = 0.0, gate_b: float = 1e-4,
     eps: float = 1e-4, smint: float = 1e-4, quirk: bool = False,
-    shadow_scale: float = 0.5, bg=(0.0, 0.0, 0.0), seg_bound: Optional[int] = None,
+    shadow_scale: float = 0.5, bg=(0.0, 0.0, 0.0),
     capped_out=None, passes_out=None, tested_out=None, touched_out=None,
     slots_out=None, events_out=None,
 ) -> torch.Tensor:
@@ -101,8 +101,6 @@ def whitted_wave_plain(
     r = o0.shape[0]
     bt = meta.block_tris
     n_slots, n_faces, n_mats = grid.slot_tri.shape[0], tri9.shape[0], mat9.shape[0]
-    if seg_bound is None:
-        seg_bound = _default_max_steps(meta)
     for name, buf, shape in (("capped_out", capped_out, (1,)), ("passes_out", passes_out, (1,)),
                              ("tested_out", tested_out, (r,)),
                              ("touched_out", touched_out, (meta.n_blocks,)),
@@ -139,9 +137,10 @@ def whitted_wave_plain(
                      passes=torch.zeros((), dtype=torch.int64, device=dev))
     capped = zb
     events = [int(entered.sum()), 0, 0, 0, 0]
-    slots = torch.zeros((n_slots,), dtype=torch.int32, device=dev) if slots_out is not None else None
-    c = dict(seg_bound=seg_bound, bt=bt, n_slots=n_slots, n_faces=n_faces, n_mats=n_mats,
-             light=light, li=li, bg3=bg3, scale=scale, serial=serial, quirk=quirk,
+    slots = (torch.zeros((n_slots,), dtype=torch.int32, device=dev)
+             if slots_out is not None else None)
+    c = dict(seg_bound=_default_max_steps(meta), bt=bt, n_slots=n_slots, n_faces=n_faces,
+             n_mats=n_mats, light=light, li=li, bg3=bg3, scale=scale, serial=serial, quirk=quirk,
              max_bounces=max_bounces, smint=full(smint), eps_v=full(eps), inf_v=zf + inf,
              eps=eps, gate_b=gate_b, mat9=mat9.to(f32), tri9=tri9.to(f32))
     while bool(s["alive"].any()):
@@ -335,7 +334,7 @@ def whitted_wave_cuda(
     grid: PackedGridArrays, meta: PackedGridMeta, *,
     max_bounces: int, serial: bool, gate0: float = 0.0, gate_b: float = 1e-4,
     eps: float = 1e-4, smint: float = 1e-4, quirk: bool = False,
-    shadow_scale: float = 0.5, bg=(0.0, 0.0, 0.0), seg_bound: Optional[int] = None,
+    shadow_scale: float = 0.5, bg=(0.0, 0.0, 0.0),
     capped_out=None, passes_out=None, tested_out=None, touched_out=None,
     slots_out=None, events_out=None,
 ) -> torch.Tensor:
@@ -371,8 +370,7 @@ def whitted_wave_cuda(
     color = torch.empty((r, 3), dtype=torch.float32, device=dev)
     if r == 0:
         return color
-    if seg_bound is None:
-        seg_bound = _default_max_steps(meta)
+    seg_bound = _default_max_steps(meta)
     nx, ny, nz = meta.n_voxels
     march = _MarchParams(
         lower=_host_vec3(grid.lower), upper=_host_vec3(grid.upper),
@@ -421,19 +419,6 @@ def whitted_wave(rays: RayBatch, *args, **kw) -> torch.Tensor:
     return whitted_wave_plain(rays, *args, **kw)
 
 
-def fold_spp(col: torch.Tensor, spp: int, pixels: int) -> torch.Tensor:
-    """(spp^2 * pixels, 3) subsample-major colors -> (pixels, 3): acc = c0;
-    acc = acc + c_s in turn; then the mean (accumulate_spp's order)."""
-    if spp == 1:
-        return col
-    ss = spp * spp
-    parts = col.reshape(ss, pixels, 3)
-    acc = parts[0]
-    for j in range(1, ss):
-        acc = acc + parts[j]
-    return vm.div_scalar(acc, float(ss))
-
-
 def whitted_wave_trace(
     light_pos, light_intensity, mat9, tri9, grid: PackedGridArrays, meta: PackedGridMeta, *,
     camera, max_bounces: int, serial: bool, spp: int = 1, wave: int = 12288, pump: int = 1,
@@ -456,22 +441,21 @@ def whitted_wave_trace(
     if pix_offset is not None or pix_stride != 1 or queue_len is not None:
         raise NotImplementedError("the sharded wave queue (pix_offset, pix_stride, "
                                   "queue_len) is not served by the port yet")
-    from ray_tracer_tpu_torch.ops.camera import camera_rays
+    from ray_tracer_tpu_torch.ops.camera import camera_rays, fold_subsamples
 
     rays = camera_rays(camera, spp=spp, device=grid.lower.device)
     kw = dict(max_bounces=max_bounces, serial=serial, gate0=gate0, gate_b=gate_b, eps=eps,
               smint=smint, quirk=quirk, shadow_scale=shadow_scale, bg=tuple(bg))
     args = (light_pos, light_intensity, mat9, tri9, grid, meta)
-    r = rays.count
-    if rays.orig.is_cuda or tile is None or tile >= r:
-        col = whitted_wave(rays, *args, **kw)
-    else:
-        col = torch.cat([whitted_wave(rays.slice(lo, min(lo + tile, r)), *args, **kw)
-                         for lo in range(0, r, tile)])
-    return fold_spp(col, spp, camera.width * camera.height)
+    if rays.orig.is_cuda or tile is None:
+        tile = rays.count
+    col = rays.map_tiles(lambda rb: whitted_wave(rb, *args, **kw), tile)
+    if spp == 1:
+        return col
+    return fold_subsamples(col.reshape(spp * spp, camera.width * camera.height, 3))
 
 
 __all__ = [
-    "EVENTS", "build_wave_tables", "fold_spp", "whitted_wave", "whitted_wave_cuda",
+    "EVENTS", "build_wave_tables", "whitted_wave", "whitted_wave_cuda",
     "whitted_wave_plain", "whitted_wave_trace",
 ]

@@ -48,7 +48,7 @@ from ray_tracer_tpu_torch.core.rays import RayBatch
 from ray_tracer_tpu_torch.device import resolve_device
 from ray_tracer_tpu_torch.models.scenes import Scene, scene_from_numpy, scene_numpy_arrays
 from ray_tracer_tpu_torch.ops.brute_intersect import intersect_brute_kernel, triangle_table
-from ray_tracer_tpu_torch.ops.camera import camera_rays, camera_rays_subsample
+from ray_tracer_tpu_torch.ops.camera import camera_rays, camera_rays_subsample, fold_subsamples
 from ray_tracer_tpu_torch.ops.intersect import cramer_t_safe, intersect_brute
 from ray_tracer_tpu_torch.ops.shade import (
     hit_geometry_parallel,
@@ -64,6 +64,7 @@ from ray_tracer_tpu_torch.ops.traverse_packed import (
     traverse_packed,
     traverse_packed_fused_shadow,
 )
+from ray_tracer_tpu_torch.ops.whitted_wave import build_wave_tables, whitted_wave_trace
 
 TRAVERSALS = ("csr", "brute", "brute_pallas", "packed")
 _DET_DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -104,14 +105,14 @@ def whitted_wave_eligible(cfg: SceneConfig, scene: Scene = None) -> bool:
     return ok
 
 
-def check_supported(cfg: SceneConfig, scene: Scene = None) -> None:
+def check_supported(cfg: SceneConfig, scene: Scene = None) -> bool:
     """Raise NotImplementedError for every option that changes the JAX
     package's image and that this port does not serve yet, and
-    ValueError where the JAX package raises.  gi_wave matters only with
-    gi_samples > 0; whitted_wave="auto" renders an eligible config
-    through the cross-depth wave and any other through the bounce loop,
-    and "on" with an ineligible config raises ValueError, as in the JAX
-    package's render."""
+    ValueError where the JAX package raises; else return whether the
+    config renders through the cross-depth Whitted wave
+    (`whitted_wave_eligible`: "auto" takes it when eligible, "on" with an
+    ineligible config raises ValueError, as in the JAX package's render).
+    gi_wave matters only with gi_samples > 0."""
     r = cfg.render
     bad = []
     if r.traversal not in TRAVERSALS:
@@ -140,7 +141,7 @@ def check_supported(cfg: SceneConfig, scene: Scene = None) -> None:
         raise ValueError(f"unknown det_dtype {r.det_dtype!r}")
     if r.spp < 1:
         raise ValueError(f"spp must be >= 1, got {r.spp}")
-    whitted_wave_eligible(cfg, scene)  # "on" with an ineligible config raises
+    wave = whitted_wave_eligible(cfg, scene)
     if r.traversal == "brute_pallas" and r.faithful:
         raise ValueError("traversal='brute_pallas' has production semantics "
                          "only (faithful=False)")
@@ -149,6 +150,7 @@ def check_supported(cfg: SceneConfig, scene: Scene = None) -> None:
             raise ValueError("traversal='packed' requires faithful=False")
         if r.grid_layout not in ("auto", "inline", "blocks"):
             raise ValueError(f"unknown grid_layout {r.grid_layout!r}")
+    return wave
 
 
 def shadow_rays_for(rcfg: RenderConfig, light_pos, poi, hit) -> RayBatch:
@@ -174,6 +176,7 @@ class Prepared(NamedTuple):
     cfg: SceneConfig
     packed: PackedGrid = None  # built when cfg.render.traversal == "packed"
     dda: DdaTables = None  # kernel B's tables, built when traversal == "csr"
+    wave: tuple = None  # kernel E's (mat9, tri9), built when the config takes the wave
 
     @property
     def device(self) -> torch.device:
@@ -184,9 +187,10 @@ def prepare(cfg: SceneConfig, scene: Scene = None, device=None) -> Prepared:
     """Host-side setup: load the meshes, build the grid (and, for
     traversal="packed", the packed grid) in numpy, and put scene and grids
     on the device (cuda unless "cpu" is asked for; a given scene keeps its
-    own device).  For traversal="csr", kernel B's tables (`dda_tables`)
-    are derived there once."""
-    check_supported(cfg, scene)
+    own device).  For traversal="csr", kernel B's tables (`dda_tables`),
+    and for a config that takes the Whitted wave, kernel E's
+    (`build_wave_tables`), are derived there once."""
+    takes_wave = check_supported(cfg, scene)
     if scene is None:
         dev = resolve_device(device)
         verts_np, faces_np, fmat_np, uvs_np, uvf_np = scene_numpy_arrays(cfg)
@@ -217,7 +221,8 @@ def prepare(cfg: SceneConfig, scene: Scene = None, device=None) -> Prepared:
     dda = None
     if cfg.render.traversal == "csr":
         dda = dda_tables(grid.arrays, vertex_table(*scene.triangle_soa()))
-    return Prepared(scene=scene, grid=grid, cfg=cfg, packed=packed, dda=dda)
+    wave = build_wave_tables(scene) if takes_wave else None
+    return Prepared(scene=scene, grid=grid, cfg=cfg, packed=packed, dda=dda, wave=wave)
 
 
 def choose_inline_layout(grid: UniformGrid, block_tris: int,
@@ -448,24 +453,21 @@ def accumulate_spp(one, camera_cfg, spp: int, dtype, device) -> torch.Tensor:
     batch (the persistent wave's camera refill)."""
     if spp == 1:
         return one(camera_rays(camera_cfg, dtype=dtype, device=device), True)
-    total = spp * spp
-    acc = None
-    for s in range(total):
-        c = one(camera_rays_subsample(camera_cfg, s, spp, dtype=dtype, device=device), False)
-        acc = c if acc is None else acc + c
-    return vm.div_scalar(acc, float(total))
+    return fold_subsamples(
+        one(camera_rays_subsample(camera_cfg, s, spp, dtype=dtype, device=device), False)
+        for s in range(spp * spp))
 
 
 def _render_whitted_wave(prep: Prepared) -> torch.Tensor:
     """The cross-depth Whitted wave (kernel E on the card) with the JAX
     dispatch's knob mapping (renderer.py:875-899) -> (H, W, 3); its wave,
-    pump and refill_retries shape only the JAX loop and are not passed."""
-    from ray_tracer_tpu_torch.ops.whitted_wave import build_wave_tables, whitted_wave_trace
-
+    pump and refill_retries shape only the JAX loop and are not passed.
+    The tables come from `prepare`; a Prepared whose cfg was swapped for
+    a wave config after it was made gets them built here."""
     cfg = prep.cfg
     rcfg = cfg.render
     scene = prep.scene
-    mat9, tri9 = build_wave_tables(scene)
+    mat9, tri9 = prep.wave if prep.wave is not None else build_wave_tables(scene)
     pg = rcfg.primary_gate()
     col = whitted_wave_trace(
         scene.light_pos, scene.light_intensity, mat9, tri9,
@@ -487,8 +489,7 @@ def render(prep: Prepared) -> torch.Tensor:
     cross-depth Whitted wave, as in the JAX package's render; the others
     the bounce loop, spp subsamples accumulated in turn."""
     cfg = prep.cfg
-    check_supported(cfg, prep.scene)
-    if whitted_wave_eligible(cfg, prep.scene):
+    if check_supported(cfg, prep.scene):
         return _render_whitted_wave(prep)
     rcfg = cfg.render
     if rcfg.traversal == "packed":
@@ -498,13 +499,10 @@ def render(prep: Prepared) -> torch.Tensor:
 
     def one(rays, camera_ok):
         tile = rays.count if prep.device.type == "cuda" else max(1, rcfg.ray_tile)
-        if tile >= rays.count:
-            return render_rays(rays, *args, camera_cfg=cfg.camera if camera_ok else None,
-                               dda=prep.dda)
-        return torch.cat([
-            render_rays(rays.slice(lo, min(lo + tile, rays.count)), *args, dda=prep.dda)
-            for lo in range(0, rays.count, tile)
-        ])
+        # the camera refill needs the camera's whole batch in one trace
+        cam = cfg.camera if camera_ok and tile >= rays.count else None
+        return rays.map_tiles(lambda rb: render_rays(rb, *args, camera_cfg=cam, dda=prep.dda),
+                              tile)
 
     colors = accumulate_spp(one, cfg.camera, rcfg.spp, _DET_DTYPES[rcfg.dtype], prep.device)
     return colors.reshape(cfg.camera.height, cfg.camera.width, 3)

@@ -229,6 +229,25 @@ def test_build_wave_tables_equal_jax(parallel_turbo):
         _bitwise(g.numpy(), w)
 
 
+def test_prepare_builds_the_wave_tables_once(parallel_turbo, monkeypatch):
+    """`prepare` derives kernel E's tables for a config that takes the wave
+    and `render` reads them from there; a config that does not take the
+    wave gets none."""
+    from ray_tracer_tpu_torch.render import renderer
+
+    prep, _, img = parallel_turbo
+    for g, w in zip(prep.wave, wave.build_wave_tables(prep.scene)):
+        assert torch.equal(g, w)
+
+    def refuse(scene):
+        raise AssertionError("render rebuilt the wave's tables")
+
+    monkeypatch.setattr(renderer, "build_wave_tables", refuse)
+    assert torch.equal(render(prep), img)
+    off = _replace(scenes.parallel_scene_config(8, 8), whitted_wave="off")
+    assert prepare(off, device="cpu").wave is None
+
+
 def _eligibility_table():
     turbo = dict(traversal="packed", scheduler="persistent", faithful=False,
                  whitted_wave="auto")
