@@ -1055,10 +1055,12 @@ class Smoke:
                       (e_plain.reshape(-1),))
         self.err["whitted_wave"] = max(self.err["whitted_wave"], err)
         ck = self.wave_counters(p, r)
-        kE.whitted_wave_cuda(*args, **kw, **ck)
+        lanes = torch.zeros((2,), dtype=torch.int64, device=self.dev)
+        kE.whitted_wave_cuda(*args, **kw, **ck, lanes_out=lanes)
         torch.cuda.synchronize()
         if int(ck["capped_out"].item()):
             raise AssertionError(f"kernel E 1024: {int(ck['capped_out'])} lanes capped")
+        warp_iters, lane_steps = lanes.tolist()
         meta, grid = p.packed.meta, p.packed.arrays
         events = dict(zip(kE.EVENTS, ck["events_out"].tolist()))
         rows_tested = int(ck["tested_out"].sum())
@@ -1084,7 +1086,9 @@ class Smoke:
         segments = events["primaries"] + events["shadow_rays"] + events["mirror_rays"]
         emit({"phase": "kernel_times_E", "positions": r, "ms": e_ms, "device_ms": e_dev_ms,
               "plain_ms": e_plain_ms, "ptxas": self.ptxas.get("whitted_wave"),
-              "events": events, "segments": segments,
+              "events": events, "segments": segments, "warp_iterations": warp_iters,
+              "active_lane_steps": lane_steps,
+              "lane_utilisation": lane_steps / (32 * warp_iters),
               "segments_per_s_of_kernel": segments / ((e_dev_ms or e_ms) / 1e3),
               "rows_tested": rows_tested, "slot_tests": slot_tests, "passes": passes,
               "distinct_rows_tested": full_rows, "header_only_rows": header_rows,

@@ -336,11 +336,14 @@ def whitted_wave_cuda(
     eps: float = 1e-4, smint: float = 1e-4, quirk: bool = False,
     shadow_scale: float = 0.5, bg=(0.0, 0.0, 0.0),
     capped_out=None, passes_out=None, tested_out=None, touched_out=None,
-    slots_out=None, events_out=None,
+    slots_out=None, events_out=None, lanes_out=None,
 ) -> torch.Tensor:
     """Kernel E on CUDA tensors: one thread a queue position, the warp
     sharing each step's row tests as kernel C does; the plain version's
-    colors and counters (zeroed here, then filled by the launch)."""
+    colors and counters (zeroed here, then filled by the launch).
+    lanes_out (2,) int64, the kernel's own: its warps' loop iterations
+    and the active lane-steps in them (lane utilisation = the second
+    over 32 times the first)."""
     if not rays.orig.is_cuda:
         raise ValueError("whitted_wave_cuda takes CUDA tensors")
     dev = rays.orig.device
@@ -364,7 +367,11 @@ def whitted_wave_cuda(
                              ("slots_out", slots_out, (n_slots,)),
                              ("events_out", events_out, (len(EVENTS),))):
         _check_counter(name, buf, shape, dev)
-    for buf in (capped_out, passes_out, tested_out, touched_out, slots_out, events_out):
+    if lanes_out is not None and (lanes_out.dtype != torch.int64 or lanes_out.shape != (2,)
+                                  or not lanes_out.is_contiguous() or lanes_out.device != dev):
+        raise ValueError(f"lanes_out must be a contiguous (2,) int64 tensor on {dev}")
+    for buf in (capped_out, passes_out, tested_out, touched_out, slots_out, events_out,
+                lanes_out):
         if buf is not None:
             buf.zero_()
     color = torch.empty((r, 3), dtype=torch.float32, device=dev)
@@ -394,14 +401,14 @@ def whitted_wave_cuda(
 
     fn = _build.library("whitted_wave").whitted_wave_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [_WaveParams] + [ctypes.c_void_p] * 17
+    fn.argtypes = [_WaveParams] + [ctypes.c_void_p] * 18
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(params, orig.data_ptr(), dirn.data_ptr(), mint.data_ptr(), maxt.data_ptr(),
                  cell_info.data_ptr(), blocks.data_ptr(), slot_tri.data_ptr(),
                  tri9.data_ptr(), mat9.data_ptr(), color.data_ptr(), ptr(capped_out),
                  ptr(passes_out), ptr(tested_out), ptr(touched_out), ptr(slots_out),
-                 ptr(events_out), stream)
+                 ptr(events_out), ptr(lanes_out), stream)
     _build.check(err, "whitted_wave")
     whitted_wave_cuda.launches += 1
     return color
