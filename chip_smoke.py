@@ -111,6 +111,14 @@ OPS_PER_VERTEX_E = 195
 # normalized result (10), the slab entry (30), the weight (1) and an
 # escape's background (6).
 OPS_PER_REFLECTION_E = 79
+# ... and per camera ray it makes (csrc/camera.cuh, the pinhole): xw (4) and
+# yw (3), the direction (a negation, three products and two sums a
+# component: 18), its normalize (10), and the primary's reciprocal
+# direction (3) and slab entry (30).
+OPS_PER_CAMERA_RAY_E = 68
+# Kernel E's schedules measured against each other, the first kept: the
+# persistent wave that refills idle lanes, and one thread a position.
+WAVE_VARIANTS = (("refill", True), ("one", False))
 ALL_PHASES = ("build", "A", "B", "C", "E", "main", "card_vs_cpu", "D", "times")
 # The kernels' device times on the 1024^2 main path before this version
 # of the sources (B and C as redesigned, before C's march step moved into
@@ -474,21 +482,40 @@ class Smoke:
 
     # ---- 6. kernel E vs its plain version --------------------------------
     def wave_inputs(self, cfg, prep):
-        """Kernel E's arguments for a prepared wave config: the camera batch,
-        the scene and grid tensors, and the knobs of _render_whitted_wave."""
+        """Kernel E's arguments for a prepared wave config after the camera
+        (the scene and grid tensors, the knobs of _render_whitted_wave) and
+        the plain version's rays: the CPU camera batch, moved to the card,
+        whose bits E's own rays must have."""
+        from ray_tracer_tpu_torch.core.rays import RayBatch
         from ray_tracer_tpu_torch.ops.camera import camera_rays
 
         rc = cfg.render
         mat9, tri9 = prep.wave
-        rays = camera_rays(cfg.camera, spp=rc.spp, device=self.dev)
+        rays = RayBatch(*(x.to(self.dev) for x in camera_rays(cfg.camera, spp=rc.spp,
+                                                                device="cpu")))
         pg = rc.primary_gate()
         kw = dict(max_bounces=rc.max_bounces, serial=rc.serial_shading,
                   gate0=0.0 if pg is None else pg, gate_b=rc.bounce_gate(), eps=rc.shadow_eps,
                   smint=rc.shadow_mint(), quirk=rc.shadow_dir_away_from_light(),
                   shadow_scale=rc.shadow_scale, bg=tuple(rc.background))
-        args = (rays, prep.scene.light_pos, prep.scene.light_intensity, mat9, tri9,
+        tail = (prep.scene.light_pos, prep.scene.light_intensity, mat9, tri9,
                 prep.packed.arrays, prep.packed.meta)
-        return args, kw
+        return tail, kw, rays
+
+    def wave_launch(self, cfg, prep, tail, kw, refill=True, **extra):
+        """One launch of kernel E on a prepared wave config."""
+        return self.kE.whitted_wave_cuda(cfg.camera, *tail, spp=cfg.render.spp, **kw,
+                                         cam=prep.setup.cam, consts=prep.setup.consts,
+                                         refill=refill, **extra)
+
+    def check_rays(self, label, rays_out, rays):
+        """E's own camera rays (orig, dirn, mint, maxt a row) against the CPU
+        batch's bits."""
+        want = torch.cat([rays.orig, rays.dirn, rays.mint[:, None], rays.maxt[:, None]], dim=1)
+        bad = int((rays_out.view(torch.int32) != want.view(torch.int32)).sum())
+        if bad:
+            raise AssertionError(f"{label}: {bad} floats of kernel E's camera rays differ from "
+                                 "the CPU batch")
 
     def wave_counters(self, prep, r):
         def z(*shape):
@@ -526,27 +553,38 @@ class Smoke:
             prep = prepare(cfg)
             if not whitted_wave_eligible(cfg, prep.scene):
                 raise AssertionError(f"kernel E {name}: the config should take the wave")
-            args, kw = self.wave_inputs(cfg, prep)
-            r = args[0].count
-            ck, cp = self.wave_counters(prep, r), self.wave_counters(prep, r)
-            got = kE.whitted_wave_cuda(*args, **kw, **ck)
-            want = kE.whitted_wave_plain(*args, **kw, **cp)
-            torch.cuda.synchronize()
-            err = max(err, compare(f"kernel E {name}", (got.reshape(-1),), (want.reshape(-1),)))
-            for key in ck:
-                if not torch.equal(ck[key], cp[key]):
-                    raise AssertionError(f"kernel E {name}: counter {key} differs from the plain "
-                                         "version's")
-            if int(ck["capped_out"].item()):
-                raise AssertionError(f"kernel E {name}: {int(ck['capped_out'])} lanes capped")
-            out.append({"case": name, "positions": r, "spp": cfg.render.spp,
-                        "aperture": cfg.camera.aperture, "serial": cfg.render.serial_shading,
-                        "events": dict(zip(kE.EVENTS, ck["events_out"].tolist())),
-                        "rows_tested": int(ck["tested_out"].sum()),
-                        "passes": int(ck["passes_out"].item()), "capped": 0})
+            tail, kw, rays = self.wave_inputs(cfg, prep)
+            r = rays.count
+            cp = self.wave_counters(prep, r)
+            want = kE.whitted_wave_plain(rays, *tail, **kw, **cp)
+            row = {"case": name, "positions": r, "spp": cfg.render.spp,
+                   "aperture": cfg.camera.aperture, "serial": cfg.render.serial_shading,
+                   "events": dict(zip(kE.EVENTS, cp["events_out"].tolist())),
+                   "rows_tested": int(cp["tested_out"].sum()),
+                   "passes": int(cp["passes_out"].item()), "capped": 0, "rays_equal": True}
+            for variant, refill in WAVE_VARIANTS:
+                ck = self.wave_counters(prep, r)
+                ro = torch.empty((r, 8), dtype=torch.float32, device=self.dev)
+                lanes = torch.zeros((2,), dtype=torch.int64, device=self.dev)
+                got = self.wave_launch(cfg, prep, tail, kw, refill=refill, rays_out=ro,
+                                       lanes_out=lanes, **ck)
+                torch.cuda.synchronize()
+                label = f"kernel E {name} {variant}"
+                self.check_rays(label, ro, rays)
+                err = max(err, compare(label, (got.reshape(-1),), (want.reshape(-1),)))
+                for key in ck:
+                    if not torch.equal(ck[key], cp[key]):
+                        raise AssertionError(f"{label}: counter {key} differs from the plain "
+                                             "version's")
+                if int(ck["capped_out"].item()):
+                    raise AssertionError(f"{label}: {int(ck['capped_out'])} lanes capped")
+                it, steps = lanes.tolist()
+                row["lane_utilisation_" + variant] = steps / (32 * it) if it else None
+            out.append(row)
         self.err["whitted_wave"] = max(self.err["whitted_wave"], err)
         emit({"phase": "kernel_E_vs_plain", "cases": out, "max_abs_err": err,
-              "tolerance": "bitwise (colors and every counter)", "equal": True})
+              "tolerance": "bitwise (colors, every counter and E's camera rays)",
+              "equal": True})
 
     # ---- 7. the main path at full size -----------------------------------
     def main_path(self):
@@ -684,19 +722,28 @@ class Smoke:
         self.launches["whitted_wave"] = counts["whitted_wave"]
         if img.shape != (size, size, 3) or not bool(torch.isfinite(img).all()):
             raise AssertionError(f"turbo parallel render: bad image {tuple(img.shape)}")
+        # each frame under the sync debug mode: a device-to-host copy or a
+        # synchronisation inside render raises
         secs = []
         for _ in range(5):
             t0 = time.perf_counter()
-            img = render(p)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                img = render(p)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
         med = sorted(secs)[2]
         wave_u8 = tonemap_u8(img.cpu().numpy())
-        # E's counters on this frame's inputs (a separate, counted launch)
-        args, kw = self.wave_inputs(cfg, p)
-        ck = self.wave_counters(p, args[0].count)
-        counted = kE.whitted_wave_cuda(*args, **kw, **ck)
+        # E's counters and camera rays on this frame's inputs (a separate,
+        # counted launch)
+        tail, kw, rays = self.wave_inputs(cfg, p)
+        ck = self.wave_counters(p, rays.count)
+        ro = torch.empty((rays.count, 8), dtype=torch.float32, device=self.dev)
+        counted = self.wave_launch(cfg, p, tail, kw, rays_out=ro, **ck)
         torch.cuda.synchronize()
+        self.check_rays("kernel E 1024", ro, rays)
         if not torch.equal(counted.view(torch.int32), img.reshape(-1, 3).view(torch.int32)):
             raise AssertionError("the counted launch of kernel E differs from the frame")
         if int(ck["capped_out"].item()):
@@ -710,6 +757,7 @@ class Smoke:
               "pixels_per_s_of_frame": size * size / med,
               "segments_marched": segments,
               "segments_marched_per_s_of_frame": segments / med,
+              "sync_debug_mode": "error", "rays_equal_cpu_batch": True,
               "events": events, "launches_per_frame": counts,
               "packed_grid": {"n_voxels": list(p.packed.meta.n_voxels),
                               "rows": p.packed.meta.n_blocks, "inline": p.packed.meta.inline,
@@ -796,8 +844,9 @@ class Smoke:
         from ray_tracer_tpu_torch.models.scenes import parallel_scene_config
 
         wcfg = apply_turbo(parallel_scene_config(64, 64), "parallel")
+        wprep = prepare(wcfg)
         self.zero_counts()
-        w_card = render(prepare(wcfg))
+        w_card = render(wprep)
         torch.cuda.synchronize()
         if self.counts()["whitted_wave"] != 1:
             raise AssertionError("the 64x64 turbo parallel render did not launch kernel E")
@@ -806,10 +855,68 @@ class Smoke:
         frac = image_rule(a, b)
         if frac >= 0.01:
             raise AssertionError(f"wave 64 card vs CPU: {frac:.2%} of pixels differ by > 2")
-        emit({"phase": "card_vs_cpu", "size": 64, "config": "turbo_parallel_wave",
-              "bytes_differing": int((a != b).sum()), "pixels_over_2_counts": frac,
-              "floats_differing": int((w_card.cpu().view(torch.int32)
-                                       != w_cpu.view(torch.int32)).sum())})
+        diff = (w_card.cpu().view(torch.int32) != w_cpu.view(torch.int32)).any(dim=-1)
+        # the torch CUDA camera batch (what the wave traced before kernel E
+        # made its own rays) against the CPU batch
+        cam_card = camera_rays(wcfg.camera, device=self.dev)
+        cam_cpu = camera_rays(wcfg.camera, device="cpu")
+        cam_bad = sum(int((x.cpu().view(torch.int32) != y.view(torch.int32)).sum())
+                      for x, y in zip(cam_card[:2], cam_cpu[:2]))
+        line = {"phase": "card_vs_cpu", "size": 64, "config": "turbo_parallel_wave",
+                "bytes_differing": int((a != b).sum()), "pixels_over_2_counts": frac,
+                "floats_differing": int((w_card.cpu().view(torch.int32)
+                                         != w_cpu.view(torch.int32)).sum()),
+                "pixels_differing": int(diff.sum()),
+                "cuda_camera_batch_floats_differing": cam_bad}
+        if bool(diff.any()):
+            line["pow"] = self.wave_pow_probe(wcfg, wprep, diff.reshape(-1).nonzero()[:, 0])
+        emit(line)
+
+    def wave_pow_probe(self, cfg, prep, lanes):
+        """The wave's plain version on the card over the differing pixels'
+        CPU camera rays, twice: with torch.pow on the card, and with each
+        pow's inputs taken to the CPU and torch.pow there.  Reports the pow
+        inputs whose results differ and whether pow on the CPU alone gives
+        the CPU's colors."""
+        from ray_tracer_tpu_torch.core.rays import RayBatch
+        from ray_tracer_tpu_torch.ops import shade
+
+        kE = self.kE
+        tail, kw, rays = self.wave_inputs(cfg, prep)
+        sub = RayBatch(*(x[lanes] for x in rays))
+        cpu_tail = tuple(x.cpu() if torch.is_tensor(x) else x for x in tail[:4]) + (
+            type(tail[4])(*(x.cpu() for x in tail[4])), tail[5])
+        want = kE.whitted_wave_plain(RayBatch(*(x.cpu() for x in sub)), *cpu_tail, **kw)
+        seen = []
+
+        def card_pow(base, e):
+            pos = base > 0
+            seen.append((base[pos], e[pos]))
+            return shade._pow_safe(base, e)
+
+        def host_pow(base, e):
+            return shade._pow_safe(base.cpu(), e.cpu()).to(base.device)
+
+        try:
+            kE._pow_safe = card_pow
+            on_card = kE.whitted_wave_plain(sub, *tail, **kw).cpu()
+            kE._pow_safe = host_pow
+            host = kE.whitted_wave_plain(sub, *tail, **kw).cpu()
+        finally:
+            kE._pow_safe = shade._pow_safe
+        base = torch.cat([b for b, _ in seen])
+        e = torch.cat([x for _, x in seen])
+        p_card = torch.pow(base, e).cpu()
+        p_cpu = torch.pow(base.cpu(), e.cpu())
+        bad = (p_card.view(torch.int32) != p_cpu.view(torch.int32)).nonzero()[:, 0]
+        examples = [{"base": float(base[i]), "exponent": float(e[i]), "card": float(p_card[i]),
+                     "cpu": float(p_cpu[i])} for i in bad[:8].tolist()]
+        return {"pixels": int(lanes.numel()), "pow_inputs": int(base.numel()),
+                "pow_results_differing": int(bad.numel()), "examples": examples,
+                "card_plain_equals_cpu": bool(torch.equal(on_card.view(torch.int32),
+                                                          want.view(torch.int32))),
+                "card_plain_with_cpu_pow_equals_cpu": bool(
+                    torch.equal(host.view(torch.int32), want.view(torch.int32)))}
 
     # ---- 9. kernel D through the gather tool -----------------------------
     def kernel_d(self):
@@ -1042,25 +1149,40 @@ class Smoke:
             cfg = apply_turbo(parallel_scene_config(1024, 1024), "parallel")
             self.wave_frame = (cfg, prepare(cfg))
         cfg, p = self.wave_frame
-        args, kw = self.wave_inputs(cfg, p)
-        r = args[0].count
+        tail, kw, rays = self.wave_inputs(cfg, p)
+        r = rays.count
+        # the schedules in turns on one card (first, second, second, first)
+        order = list(WAVE_VARIANTS) + list(reversed(WAVE_VARIANTS))
+        variants = {}
+        for variant, refill in order:
+            def launch(refill=refill):
+                return self.wave_launch(cfg, p, tail, kw, refill=refill)
 
-        def launch_e():
-            return kE.whitted_wave_cuda(*args, **kw)
-
-        e_ms = cuda_ms(launch_e, 10)
-        e_dev_ms = kernel_device_ms(launch_e, "whitted_wave_kernel", 5)
-        e_plain_ms, e_plain = once_ms(lambda: kE.whitted_wave_plain(*args, **kw))
-        err = compare("kernel E 1024 turbo parallel", (launch_e().reshape(-1),),
-                      (e_plain.reshape(-1),))
+            ms = cuda_ms(launch, 10)
+            dev_ms = kernel_device_ms(launch, "whitted_wave_kernel", 5)
+            lanes = torch.zeros((2,), dtype=torch.int64, device=self.dev)
+            self.wave_launch(cfg, p, tail, kw, refill=refill, lanes_out=lanes)
+            it, steps = lanes.tolist()
+            v = variants.setdefault(variant, {"ms": [], "device_ms": [], "refill": refill})
+            v["ms"].append(ms)
+            v["device_ms"].append(dev_ms)
+            v.update(warp_iterations=it, active_lane_steps=steps,
+                     lane_utilisation=steps / (32 * it))
+        kept = WAVE_VARIANTS[0][0]
+        e_ms = min(variants[kept]["ms"])
+        e_dev_ms = min(variants[kept]["device_ms"])
+        e_plain_ms, e_plain = once_ms(lambda: kE.whitted_wave_plain(rays, *tail, **kw))
+        err = 0.0
+        for variant, refill in WAVE_VARIANTS:
+            err = max(err, compare(f"kernel E 1024 turbo parallel {variant}",
+                                   (self.wave_launch(cfg, p, tail, kw, refill=refill).reshape(-1),),
+                                   (e_plain.reshape(-1),)))
         self.err["whitted_wave"] = max(self.err["whitted_wave"], err)
         ck = self.wave_counters(p, r)
-        lanes = torch.zeros((2,), dtype=torch.int64, device=self.dev)
-        kE.whitted_wave_cuda(*args, **kw, **ck, lanes_out=lanes)
+        self.wave_launch(cfg, p, tail, kw, **ck)
         torch.cuda.synchronize()
         if int(ck["capped_out"].item()):
             raise AssertionError(f"kernel E 1024: {int(ck['capped_out'])} lanes capped")
-        warp_iters, lane_steps = lanes.tolist()
         meta, grid = p.packed.meta, p.packed.arrays
         events = dict(zip(kE.EVENTS, ck["events_out"].tolist()))
         rows_tested = int(ck["tested_out"].sum())
@@ -1074,21 +1196,23 @@ class Smoke:
         slots = ck["slots_out"].nonzero()[:, 0]
         tris = torch.unique(grid.slot_tri[slots])
         mats = torch.unique(p.scene.face_material[tris.long()])
-        # rays in (32 B) and colors out (12 B), each distinct row tested once
-        # (row_lanes * 4 B), each header-only row's 8 B, and the slot_tri
-        # entries, tri9 rows (40 B) and mat9 rows (36 B) the vertices used
-        e_bytes = (r * (32 + 12) + full_rows * meta.row_lanes * 4 + header_rows * 8
-                   + slots.numel() * 4 + tris.numel() * 40 + mats.numel() * 36)
+        # the camera's launch values in (its subsample table) and colors out
+        # (12 B), each distinct row tested once (row_lanes * 4 B), each
+        # header-only row's 8 B, and the slot_tri entries, tri9 rows (40 B)
+        # and mat9 rows (36 B) the vertices used
+        e_bytes = (p.setup.cam.table.numel() * 4 + r * 12 + full_rows * meta.row_lanes * 4
+                   + header_rows * 8 + slots.numel() * 4 + tris.numel() * 40
+                   + mats.numel() * 36)
         e_ops = ((slot_tests - passes) * OPS_PER_FAILED_TEST + passes * OPS_PER_PASSED_TEST
+                 + r * OPS_PER_CAMERA_RAY_E
                  + events["vertices"] * OPS_PER_VERTEX_E
                  + events["reflections"] * OPS_PER_REFLECTION_E)
         e_bound, e_by = bound(e_bytes, e_ops)
         segments = events["primaries"] + events["shadow_rays"] + events["mirror_rays"]
-        emit({"phase": "kernel_times_E", "positions": r, "ms": e_ms, "device_ms": e_dev_ms,
+        emit({"phase": "kernel_times_E", "positions": r, "kept": kept, "ms": e_ms,
+              "device_ms": e_dev_ms, "variants": variants,
               "plain_ms": e_plain_ms, "ptxas": self.ptxas.get("whitted_wave"),
-              "events": events, "segments": segments, "warp_iterations": warp_iters,
-              "active_lane_steps": lane_steps,
-              "lane_utilisation": lane_steps / (32 * warp_iters),
+              "events": events, "segments": segments,
               "segments_per_s_of_kernel": segments / ((e_dev_ms or e_ms) / 1e3),
               "rows_tested": rows_tested, "slot_tests": slot_tests, "passes": passes,
               "distinct_rows_tested": full_rows, "header_only_rows": header_rows,

@@ -20,8 +20,9 @@ import torch
 def div_scalar(x: torch.Tensor, s: float) -> torch.Tensor:
     """x / s as a true IEEE division.  PyTorch's CUDA `x / python_scalar`
     multiplies by the scalar's reciprocal instead, which can differ by
-    one ulp; a 0-d tensor on x's own device keeps the division."""
-    return x / torch.tensor(s, dtype=x.dtype, device=x.device)
+    one ulp; a 0-d tensor on x's own device keeps the division (made by
+    a fill, not copied from the host, so no synchronisation)."""
+    return x / torch.full((), s, dtype=x.dtype, device=x.device)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -326,4 +326,12 @@ __device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
   return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
 }
 
+// vecmath.normalize: a * (1 / sqrt(|a|^2)); zero (and NaN-length) vectors
+// scale by 0.
+__device__ __forceinline__ void normalize3(const float a[3], float out[3]) {
+  const float n2 = dot3(a, a);
+  const float inv = n2 > 0.0f ? 1.0f / sqrtf(n2) : 0.0f;
+  for (int k = 0; k < 3; ++k) out[k] = a[k] * inv;
+}
+
 }  // namespace

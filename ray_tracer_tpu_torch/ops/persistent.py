@@ -41,6 +41,7 @@ from ray_tracer_tpu_torch.accel.packed import PackedGridArrays, PackedGridMeta
 from ray_tracer_tpu_torch.core.rays import RayBatch
 from ray_tracer_tpu_torch.ops.traverse_packed import (
     FusedTraceResult,
+    LaunchConsts,
     _default_max_steps,
     _slab_entry,
     march_cuda,
@@ -125,13 +126,15 @@ def persistent_trace(
     capped_out: Optional[torch.Tensor] = None,
     touched_out: Optional[torch.Tensor] = None,
     tested_out: Optional[torch.Tensor] = None,
+    consts: Optional[LaunchConsts] = None,
 ):
     """March every ray through the packed grid as a persistent wave;
     optionally fuse each ray's shadow query.  Returns an (R,)-aligned
     FusedTraceResult (and the iteration count with return_iters).  With
     fuse_shadow=False the shadow fields are all clear; shadow_tri_id is -1
     unless need_shadow_tri, steps 0 unless need_steps, t a 0/inf hit
-    placeholder unless need_t."""
+    placeholder unless need_t.  consts: kernel C's host-held launch
+    values (`launch_consts`), on the card."""
     del wave, pump, refill_retries  # shape the JAX lock-step loop only
     if fuse_shadow:
         if light_pos is None:
@@ -163,7 +166,7 @@ def persistent_trace(
         iters_out = torch.zeros((1,), dtype=torch.int32, device=dev) if return_iters else None
         res = march_cuda(rays, grid, meta, light_pos, queue=None if queue is None else queue[0],
                          n_work=None if queue is None else queue[1],
-                         iters_out=iters_out, tested_out=tested_out, **kw)
+                         iters_out=iters_out, tested_out=tested_out, consts=consts, **kw)
         if return_iters:
             iters = int(iters_out.item())
     elif dev.type == "cpu":

@@ -508,8 +508,49 @@ class _MarchParams(ctypes.Structure):
     ]
 
 
-def _host_vec3(x: torch.Tensor):
-    return (ctypes.c_float * 3)(*(float(v) for v in x.detach().to("cpu", torch.float32)))
+class LaunchConsts(NamedTuple):
+    """Host copies of the device values a packed kernel's launch passes by
+    value, as Python floats: the grid's box, cell widths and inverse
+    widths, the light and its intensity.  `render.renderer.prepare`
+    reads them once; a wrapper given none reads them itself, a blocking
+    copy each."""
+
+    lower: tuple
+    upper: tuple
+    width: tuple
+    inv_width: tuple
+    light: tuple = (0.0, 0.0, 0.0)
+    intensity: float = 0.0
+
+
+def _host_vec3(x: torch.Tensor) -> tuple:
+    return tuple(float(v) for v in x.detach().to("cpu", torch.float32))
+
+
+def launch_consts(grid: PackedGridArrays, light_pos: Optional[torch.Tensor] = None,
+                  light_intensity: Optional[torch.Tensor] = None) -> LaunchConsts:
+    """Read the launch values of `grid` and the light from the device."""
+    light = _host_vec3(light_pos) if light_pos is not None else (0.0, 0.0, 0.0)
+    li = float(light_intensity) if light_intensity is not None else 0.0
+    return LaunchConsts(lower=_host_vec3(grid.lower), upper=_host_vec3(grid.upper),
+                        width=_host_vec3(grid.width), inv_width=_host_vec3(grid.inv_width),
+                        light=light, intensity=li)
+
+
+def _c_vec3(v) -> ctypes.Array:
+    return (ctypes.c_float * 3)(*v)
+
+
+def march_params(consts: LaunchConsts, meta: PackedGridMeta, **fields) -> _MarchParams:
+    """A _MarchParams of the grid's box and the light from `consts`, the
+    layout from `meta`, and the launch's other fields."""
+    nx, ny, nz = meta.n_voxels
+    return _MarchParams(
+        lower=_c_vec3(consts.lower), upper=_c_vec3(consts.upper),
+        width=_c_vec3(consts.width), inv_width=_c_vec3(consts.inv_width),
+        light=_c_vec3(consts.light), probe_delta=meta.probe_delta, nx=nx, ny=ny, nz=nz,
+        n_blocks=meta.n_blocks, block_tris=meta.block_tris, row_lanes=meta.row_lanes,
+        inline_layout=int(meta.inline), **fields)
 
 
 def march_cuda(
@@ -525,6 +566,7 @@ def march_cuda(
     capped_out: Optional[torch.Tensor] = None,
     queue: Optional[torch.Tensor] = None, n_work: Optional[int] = None,
     iters_out: Optional[torch.Tensor] = None, passes_out: Optional[torch.Tensor] = None,
+    consts: Optional[LaunchConsts] = None,
 ) -> FusedTraceResult:
     """Kernel C on CUDA tensors; the plain version's records.
 
@@ -536,7 +578,8 @@ def march_cuda(
     miss record.  iters_out (1,) i32 receives the most march steps one
     lane ran; passes_out (1,) i32 the number of tested slots that passed
     the barycentric test (chip_smoke.py counts the operation bound from
-    it)."""
+    it).  consts: the grid's and the light's launch values held on the
+    host (`launch_consts`; read from the device here when None)."""
     if not rays.orig.is_cuda:
         raise ValueError("march_cuda takes CUDA tensors")
     if fused and stop_on_first_hit:
@@ -585,16 +628,12 @@ def march_cuda(
             raise ValueError("n_work exceeds the queue")
     elif n_work is None:
         n_work = r
-    light = (_host_vec3(light_pos) if light_pos is not None
-             else (ctypes.c_float * 3)(0.0, 0.0, 0.0))
-    nx, ny, nz = meta.n_voxels
-    params = _MarchParams(
-        lower=_host_vec3(grid.lower), upper=_host_vec3(grid.upper),
-        width=_host_vec3(grid.width), inv_width=_host_vec3(grid.inv_width),
-        light=light, probe_delta=meta.probe_delta, gate=t_gate,
-        shadow_gate=shadow_gate, shadow_mint=shadow_mint,
-        nx=nx, ny=ny, nz=nz, n_blocks=meta.n_blocks, block_tris=meta.block_tris,
-        row_lanes=meta.row_lanes, inline_layout=int(meta.inline),
+    if consts is None:
+        consts = launch_consts(grid, light_pos)
+    if light_pos is None:
+        consts = consts._replace(light=(0.0, 0.0, 0.0))
+    params = march_params(
+        consts, meta, gate=t_gate, shadow_gate=shadow_gate, shadow_mint=shadow_mint,
         n_slots=slot_tri.shape[0], fused=int(fused),
         stop_on_first_hit=int(stop_on_first_hit), skip_dead=int(skip_dead_shadow),
         shade_serial=int(shade_serial), serial_quirk=int(serial_quirk),
@@ -626,11 +665,13 @@ march_cuda.launches = 0
 
 
 def march(rays: RayBatch, grid: PackedGridArrays, meta: PackedGridMeta,
-          light_pos: Optional[torch.Tensor] = None, **kw) -> FusedTraceResult:
+          light_pos: Optional[torch.Tensor] = None, consts: Optional[LaunchConsts] = None,
+          **kw) -> FusedTraceResult:
     """Kernel C (one lane per ray, in order) for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors; consts are the kernel's host-held launch
+    values."""
     if rays.orig.is_cuda:
-        return march_cuda(rays, grid, meta, light_pos, **kw)
+        return march_cuda(rays, grid, meta, light_pos, consts=consts, **kw)
     if rays.orig.device.type != "cpu":
         raise ValueError(f"unsupported device {rays.orig.device}")
     return march_plain(rays, grid, meta, light_pos, **kw)
@@ -648,11 +689,13 @@ def traverse_packed(
     rays: RayBatch, grid: PackedGridArrays, meta: PackedGridMeta, *,
     t_gate: float = 0.0, stop_on_first_hit: bool = False,
     max_steps: Optional[int] = None, unroll: int = 1, probe_chain: int = 1,
+    consts: Optional[LaunchConsts] = None,
 ) -> PackedTraceResult:
     """Nearest hit (or any hit with stop_on_first_hit) of every ray over
     the packed grid (traverse_packed.py:497)."""
     res = march(rays, grid, meta, t_gate=t_gate, stop_on_first_hit=stop_on_first_hit,
-                probe_chain=probe_chain, max_steps=_max_steps_of(meta, max_steps, unroll))
+                probe_chain=probe_chain, max_steps=_max_steps_of(meta, max_steps, unroll),
+                consts=consts)
     return PackedTraceResult(any_pass=res.hit, hit=res.hit, t=res.t,
                              tri_id=res.tri_id, steps=res.steps)
 
@@ -662,6 +705,7 @@ def traverse_packed_fused_shadow(
     light_pos: torch.Tensor, *, primary_gate: float = 0.0,
     shadow_gate: float = 1e-4, shadow_mint: float = 1e-4,
     serial_quirk: bool = False, max_steps: Optional[int] = None,
+    consts: Optional[LaunchConsts] = None,
 ) -> FusedTraceResult:
     """Primary nearest hit + shadow occlusion in one march: a lane rearms
     in place as its shadow ray when its primary retires
@@ -670,10 +714,11 @@ def traverse_packed_fused_shadow(
         max_steps = 2 * _default_max_steps(meta)
     return march(rays, grid, meta, light_pos, fused=True, t_gate=primary_gate,
                  shadow_gate=shadow_gate, shadow_mint=shadow_mint,
-                 serial_quirk=serial_quirk, max_steps=max_steps)
+                 serial_quirk=serial_quirk, max_steps=max_steps, consts=consts)
 
 
 __all__ = [
-    "PackedTraceResult", "FusedTraceResult", "chord_keys", "march", "march_cuda",
+    "LaunchConsts", "PackedTraceResult", "FusedTraceResult", "chord_keys", "launch_consts",
+    "march", "march_cuda",
     "march_plain", "traverse_packed", "traverse_packed_fused_shadow",
 ]

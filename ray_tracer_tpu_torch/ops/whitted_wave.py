@@ -38,17 +38,26 @@ import numpy as np
 import torch
 
 from ray_tracer_tpu_torch.accel.packed import PackedGridArrays, PackedGridMeta
+from ray_tracer_tpu_torch.config import CameraConfig
 from ray_tracer_tpu_torch.core import vecmath as vm
 from ray_tracer_tpu_torch.core.rays import RayBatch
 from ray_tracer_tpu_torch.kernels import _build
+from ray_tracer_tpu_torch.ops.camera import (
+    CameraLaunch,
+    camera_launch,
+    camera_rays,
+    fold_subsamples,
+)
 from ray_tracer_tpu_torch.ops.intersect import cramer_t_safe
 from ray_tracer_tpu_torch.ops.shade import _pow_safe, _relu
 from ray_tracer_tpu_torch.ops.traverse_packed import (
-    _MarchParams,
+    LaunchConsts,
     _default_max_steps,
-    _host_vec3,
+    _MarchParams,
     _march_step,
     _slab_entry,
+    launch_consts,
+    march_params,
 )
 
 _INF = float("inf")
@@ -329,37 +338,93 @@ class _WaveParams(ctypes.Structure):
     ]
 
 
+class _CameraParams(ctypes.Structure):
+    """Mirror of `CameraParams` in csrc/camera.cuh (passed by value)."""
+
+    _fields_ = [
+        ("pos", ctypes.c_float * 3), ("u", ctypes.c_float * 3),
+        ("v", ctypes.c_float * 3), ("w", ctypes.c_float * 3),
+        ("fd", ctypes.c_float), ("aspect", ctypes.c_float),
+        ("half_w", ctypes.c_float), ("half_h", ctypes.c_float),
+        ("fw", ctypes.c_float), ("fh", ctypes.c_float), ("focus", ctypes.c_float),
+        ("width", ctypes.c_int), ("height", ctypes.c_int),
+        ("n_sub", ctypes.c_int), ("lens", ctypes.c_int),
+    ]
+
+
+def _launch_params(cam: CameraLaunch, consts: LaunchConsts, meta: PackedGridMeta, *,
+                   n_slots: int, n_faces: int, n_mats: int, max_bounces: int, serial: bool,
+                   gate0: float, gate_b: float, eps: float, smint: float, quirk: bool,
+                   shadow_scale: float, bg) -> "tuple[_WaveParams, _CameraParams]":
+    """Kernel E's launch parameters, from host values only."""
+    n = cam.camera.width * cam.camera.height * cam.spp * cam.spp
+    seg_bound = _default_max_steps(meta)
+    march = march_params(
+        consts, meta, gate=gate0, shadow_gate=eps, shadow_mint=smint, n_slots=n_slots,
+        fused=0, stop_on_first_hit=0, skip_dead=0, shade_serial=int(serial),
+        serial_quirk=int(quirk), probe_chain=1, max_steps=int(seg_bound), n_rays=n, n_work=n)
+    wave = _WaveParams(
+        m=march, li=consts.intensity, shadow_scale=shadow_scale, gate0=gate0, gate_b=gate_b,
+        eps=eps, smint=smint, bg=(ctypes.c_float * 3)(*(float(x) for x in bg)),
+        serial=int(serial), quirk=int(quirk), max_bounces=int(max_bounces),
+        seg_bound=int(seg_bound), n_faces=n_faces, n_mats=n_mats)
+    pos, u, v, w = ((ctypes.c_float * 3)(*b) for b in cam.basis)
+    fd, aspect, half_w, half_h, fw, fh, focus = cam.scalars
+    camera = _CameraParams(
+        pos=pos, u=u, v=v, w=w, fd=fd, aspect=aspect, half_w=half_w, half_h=half_h, fw=fw,
+        fh=fh, focus=focus, width=cam.camera.width, height=cam.camera.height,
+        n_sub=cam.spp * cam.spp, lens=int(cam.lens))
+    return wave, camera
+
+
 def whitted_wave_cuda(
-    rays: RayBatch, light_pos, light_intensity, mat9, tri9,
+    camera: CameraConfig, light_pos, light_intensity, mat9, tri9,
     grid: PackedGridArrays, meta: PackedGridMeta, *,
-    max_bounces: int, serial: bool, gate0: float = 0.0, gate_b: float = 1e-4,
+    max_bounces: int, serial: bool, spp: int = 1, gate0: float = 0.0, gate_b: float = 1e-4,
     eps: float = 1e-4, smint: float = 1e-4, quirk: bool = False,
     shadow_scale: float = 0.5, bg=(0.0, 0.0, 0.0),
-    capped_out=None, passes_out=None, tested_out=None, touched_out=None,
-    slots_out=None, events_out=None, lanes_out=None,
+    cam: Optional[CameraLaunch] = None, consts: Optional[LaunchConsts] = None,
+    rays_out=None, capped_out=None, passes_out=None, tested_out=None, touched_out=None,
+    slots_out=None, events_out=None, lanes_out=None, refill: bool = True,
 ) -> torch.Tensor:
-    """Kernel E on CUDA tensors: one thread a queue position, the warp
-    sharing each step's row tests as kernel C does; the plain version's
-    colors and counters (zeroed here, then filled by the launch).
-    lanes_out (2,) int64, the kernel's own: its warps' loop iterations
-    and the active lane-steps in them (lane utilisation = the second
-    over 32 times the first)."""
-    if not rays.orig.is_cuda:
+    """Kernel E on CUDA tensors: the color of every queue position of
+    `camera`'s H*W*spp^2 subsamples -> (R, 3) f32, the plain version's
+    bits for the rays of `camera_rays(camera, spp=spp)`.  The kernel
+    makes each position's camera ray itself; rays_out (R, 8) f32, when
+    given, receives them (orig, dirn, mint, maxt).
+
+    cam (`camera_launch(camera, spp)`) and consts (`launch_consts(grid,
+    light_pos, light_intensity)`) are the launch's host-held values:
+    given both, the call neither copies to nor from the device nor
+    synchronises; each one missing is made here.  The counters are the
+    plain version's (zeroed here, then filled by the launch); lanes_out
+    (2,) int64, the kernel's own: its warps' loop iterations and the
+    active lane-steps in them (lane utilisation = the second over 32
+    times the first)."""
+    if not grid.blocks.is_cuda:
         raise ValueError("whitted_wave_cuda takes CUDA tensors")
-    dev = rays.orig.device
-    r = rays.count
-    orig, dirn, mint, maxt = (x.to(torch.float32).contiguous() for x in rays)
+    dev = grid.blocks.device
+    if cam is None:
+        cam = camera_launch(camera, spp, device=dev)
+    elif cam.camera != camera or cam.spp != spp:
+        raise ValueError("cam was made for another camera or spp")
+    if consts is None:
+        consts = launch_consts(grid, light_pos, light_intensity)
+    r = camera.width * camera.height * spp * spp
     blocks = grid.blocks.to(torch.float32).contiguous()
     cell_info = grid.cell_info.to(torch.int32).contiguous()
     slot_tri = grid.slot_tri.to(torch.int32).contiguous()
     tri9 = tri9.to(device=dev, dtype=torch.float32).contiguous()
     mat9 = mat9.to(device=dev, dtype=torch.float32).contiguous()
+    table = cam.table.to(device=dev, dtype=torch.float32).contiguous()
     if blocks.shape != (meta.n_blocks, meta.row_lanes):
         raise ValueError("blocks does not match the meta")
     if tri9.ndim != 2 or tri9.shape[1] != 10 or mat9.ndim != 2 or mat9.shape[1] != 9:
         raise ValueError("tri9 must be (F, 10) and mat9 (M, 9)")
     if slot_tri.shape[0] >= (1 << 30):
         raise ValueError("slot index must fit in 30 bits")
+    if r >= (1 << 31):
+        raise ValueError("the queue's positions must fit in 31 bits")
     n_slots = slot_tri.shape[0]
     for name, buf, shape in (("capped_out", capped_out, (1,)), ("passes_out", passes_out, (1,)),
                              ("tested_out", tested_out, (r,)),
@@ -367,9 +432,11 @@ def whitted_wave_cuda(
                              ("slots_out", slots_out, (n_slots,)),
                              ("events_out", events_out, (len(EVENTS),))):
         _check_counter(name, buf, shape, dev)
-    if lanes_out is not None and (lanes_out.dtype != torch.int64 or lanes_out.shape != (2,)
-                                  or not lanes_out.is_contiguous() or lanes_out.device != dev):
-        raise ValueError(f"lanes_out must be a contiguous (2,) int64 tensor on {dev}")
+    for name, buf, shape, dtype in (("lanes_out", lanes_out, (2,), torch.int64),
+                                    ("rays_out", rays_out, (r, 8), torch.float32)):
+        if buf is not None and (buf.dtype != dtype or tuple(buf.shape) != shape
+                                or not buf.is_contiguous() or buf.device != dev):
+            raise ValueError(f"{name} must be a contiguous {shape} {dtype} tensor on {dev}")
     for buf in (capped_out, passes_out, tested_out, touched_out, slots_out, events_out,
                 lanes_out):
         if buf is not None:
@@ -377,38 +444,26 @@ def whitted_wave_cuda(
     color = torch.empty((r, 3), dtype=torch.float32, device=dev)
     if r == 0:
         return color
-    seg_bound = _default_max_steps(meta)
-    nx, ny, nz = meta.n_voxels
-    march = _MarchParams(
-        lower=_host_vec3(grid.lower), upper=_host_vec3(grid.upper),
-        width=_host_vec3(grid.width), inv_width=_host_vec3(grid.inv_width),
-        light=_host_vec3(light_pos), probe_delta=meta.probe_delta, gate=gate0,
-        shadow_gate=eps, shadow_mint=smint, nx=nx, ny=ny, nz=nz,
-        n_blocks=meta.n_blocks, block_tris=meta.block_tris, row_lanes=meta.row_lanes,
-        inline_layout=int(meta.inline), n_slots=n_slots, fused=0, stop_on_first_hit=0,
-        skip_dead=0, shade_serial=int(serial), serial_quirk=int(quirk), probe_chain=1,
-        max_steps=int(seg_bound), n_rays=r, n_work=r,
-    )
-    params = _WaveParams(
-        m=march, li=float(light_intensity), shadow_scale=shadow_scale, gate0=gate0,
-        gate_b=gate_b, eps=eps, smint=smint, bg=(ctypes.c_float * 3)(*(float(x) for x in bg)),
-        serial=int(serial), quirk=int(quirk), max_bounces=int(max_bounces),
-        seg_bound=int(seg_bound), n_faces=tri9.shape[0], n_mats=mat9.shape[0],
-    )
+    head = torch.zeros((1,), dtype=torch.int32, device=dev)
+    wave, cparams = _launch_params(
+        cam, consts, meta, n_slots=n_slots, n_faces=tri9.shape[0], n_mats=mat9.shape[0],
+        max_bounces=max_bounces, serial=serial, gate0=gate0, gate_b=gate_b, eps=eps,
+        smint=smint, quirk=quirk, shadow_scale=shadow_scale, bg=bg)
 
     def ptr(x):
         return x.data_ptr() if x is not None else None
 
     fn = _build.library("whitted_wave").whitted_wave_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [_WaveParams] + [ctypes.c_void_p] * 18
+    p = ctypes.c_void_p
+    fn.argtypes = [_WaveParams, _CameraParams] + [p] * 17 + [ctypes.c_int, p]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(params, orig.data_ptr(), dirn.data_ptr(), mint.data_ptr(), maxt.data_ptr(),
-                 cell_info.data_ptr(), blocks.data_ptr(), slot_tri.data_ptr(),
-                 tri9.data_ptr(), mat9.data_ptr(), color.data_ptr(), ptr(capped_out),
-                 ptr(passes_out), ptr(tested_out), ptr(touched_out), ptr(slots_out),
-                 ptr(events_out), ptr(lanes_out), stream)
+        err = fn(wave, cparams, table.data_ptr(), cell_info.data_ptr(), blocks.data_ptr(),
+                 slot_tri.data_ptr(), tri9.data_ptr(), mat9.data_ptr(), color.data_ptr(),
+                 ptr(rays_out), head.data_ptr(), ptr(capped_out), ptr(passes_out),
+                 ptr(tested_out), ptr(touched_out), ptr(slots_out), ptr(events_out),
+                 ptr(lanes_out), int(refill), stream)
     _build.check(err, "whitted_wave")
     whitted_wave_cuda.launches += 1
     return color
@@ -417,52 +472,48 @@ def whitted_wave_cuda(
 whitted_wave_cuda.launches = 0
 
 
-def whitted_wave(rays: RayBatch, *args, **kw) -> torch.Tensor:
-    """Kernel E for CUDA tensors, the plain version for CPU tensors."""
-    if rays.orig.is_cuda:
-        return whitted_wave_cuda(rays, *args, **kw)
-    if rays.orig.device.type != "cpu":
-        raise ValueError(f"unsupported device {rays.orig.device}")
-    return whitted_wave_plain(rays, *args, **kw)
-
-
 def whitted_wave_trace(
     light_pos, light_intensity, mat9, tri9, grid: PackedGridArrays, meta: PackedGridMeta, *,
     camera, max_bounces: int, serial: bool, spp: int = 1, wave: int = 12288, pump: int = 1,
     gate0: float = 0.0, gate_b: float = 1e-4, eps: float = 1e-4, smint: float = 1e-4,
     quirk: bool = False, shadow_scale: float = 0.5, bg=(0.0, 0.0, 0.0),
     refill_retries: int = 3, max_iters=None, pix_offset=None, pix_stride: int = 1,
-    queue_len=None, tile: Optional[int] = None,
+    queue_len=None, tile: Optional[int] = None, cam: Optional[CameraLaunch] = None,
+    consts: Optional[LaunchConsts] = None,
 ) -> torch.Tensor:
     """Whitted-shaded color per pixel -> (H*W, 3) f32, on grid's device.
 
     The queue holds the H*W*spp^2 camera subsamples (index s*H*W + pixel)
-    and the subsample colors fold subsample-major after the trace.
-    `wave`, `pump`, `refill_retries` and `max_iters` shape only the JAX
-    lock-step loop and change no color.  The sharded queue
-    (`pix_offset`, `pix_stride`, `queue_len`) is not served.  `tile`
-    (CPU only) runs the plain version over that many positions at a time;
-    each position is traced on its own, so the colors do not depend on
-    it."""
+    and the subsample colors fold subsample-major after the trace.  On
+    the card kernel E makes the camera rays itself (cam and consts, when
+    given, are its host-held launch values); on the CPU the plain
+    version traces the batch of `camera_rays`, `tile` positions at a time
+    (each position is traced on its own, so the colors do not depend on
+    it).  `wave`, `pump`, `refill_retries` and `max_iters` shape only the
+    JAX lock-step loop and change no color.  The sharded queue
+    (`pix_offset`, `pix_stride`, `queue_len`) is not served."""
     del wave, pump, refill_retries, max_iters
     if pix_offset is not None or pix_stride != 1 or queue_len is not None:
         raise NotImplementedError("the sharded wave queue (pix_offset, pix_stride, "
                                   "queue_len) is not served by the port yet")
-    from ray_tracer_tpu_torch.ops.camera import camera_rays, fold_subsamples
-
-    rays = camera_rays(camera, spp=spp, device=grid.lower.device)
     kw = dict(max_bounces=max_bounces, serial=serial, gate0=gate0, gate_b=gate_b, eps=eps,
               smint=smint, quirk=quirk, shadow_scale=shadow_scale, bg=tuple(bg))
     args = (light_pos, light_intensity, mat9, tri9, grid, meta)
-    if rays.orig.is_cuda or tile is None:
-        tile = rays.count
-    col = rays.map_tiles(lambda rb: whitted_wave(rb, *args, **kw), tile)
+    dev = grid.blocks.device
+    if grid.blocks.is_cuda:
+        col = whitted_wave_cuda(camera, *args, spp=spp, cam=cam, consts=consts, **kw)
+    elif dev.type == "cpu":
+        rays = camera_rays(camera, spp=spp, device=dev)
+        col = rays.map_tiles(lambda rb: whitted_wave_plain(rb, *args, **kw),
+                             rays.count if tile is None else tile)
+    else:
+        raise ValueError(f"unsupported device {dev}")
     if spp == 1:
         return col
     return fold_subsamples(col.reshape(spp * spp, camera.width * camera.height, 3))
 
 
 __all__ = [
-    "EVENTS", "build_wave_tables", "whitted_wave", "whitted_wave_cuda",
-    "whitted_wave_plain", "whitted_wave_trace",
+    "EVENTS", "build_wave_tables", "whitted_wave_cuda", "whitted_wave_plain",
+    "whitted_wave_trace",
 ]

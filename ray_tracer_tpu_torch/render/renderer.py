@@ -48,7 +48,13 @@ from ray_tracer_tpu_torch.core.rays import RayBatch
 from ray_tracer_tpu_torch.device import resolve_device
 from ray_tracer_tpu_torch.models.scenes import Scene, scene_from_numpy, scene_numpy_arrays
 from ray_tracer_tpu_torch.ops.brute_intersect import intersect_brute_kernel, triangle_table
-from ray_tracer_tpu_torch.ops.camera import camera_rays, camera_rays_subsample, fold_subsamples
+from ray_tracer_tpu_torch.ops.camera import (
+    CameraLaunch,
+    camera_launch,
+    camera_rays,
+    camera_rays_subsample,
+    fold_subsamples,
+)
 from ray_tracer_tpu_torch.ops.intersect import cramer_t_safe, intersect_brute
 from ray_tracer_tpu_torch.ops.shade import (
     hit_geometry_parallel,
@@ -59,8 +65,10 @@ from ray_tracer_tpu_torch.ops.shade import (
 from ray_tracer_tpu_torch.ops.persistent import persistent_trace
 from ray_tracer_tpu_torch.ops.traverse import DdaTables, dda_tables, traverse_grid, vertex_table
 from ray_tracer_tpu_torch.ops.traverse_packed import (
+    LaunchConsts,
     PackedTraceResult,
     chord_keys,
+    launch_consts,
     traverse_packed,
     traverse_packed_fused_shadow,
 )
@@ -170,6 +178,30 @@ def _persistent_as_packed(res) -> PackedTraceResult:
                              tri_id=res.tri_id, steps=res.steps)
 
 
+class FrameSetup(NamedTuple):
+    """The facts every frame of `cfg` reuses, settled once: whether it
+    renders through the Whitted wave (`check_supported`), and on the card
+    the packed kernels' host-held launch values (the grid box, cell
+    widths and light) and the wave's camera launch (the basis and the
+    subsample table), so that a wave frame neither reads the device nor
+    synchronises."""
+
+    cfg: SceneConfig
+    wave: bool
+    consts: LaunchConsts = None
+    cam: CameraLaunch = None
+
+
+def frame_setup(cfg: SceneConfig, scene: Scene, packed: PackedGrid = None) -> FrameSetup:
+    takes_wave = check_supported(cfg, scene)
+    consts = cam = None
+    if scene.device.type == "cuda" and packed is not None:
+        consts = launch_consts(packed.arrays, scene.light_pos, scene.light_intensity)
+        if takes_wave:
+            cam = camera_launch(cfg.camera, cfg.render.spp, device=scene.device)
+    return FrameSetup(cfg=cfg, wave=takes_wave, consts=consts, cam=cam)
+
+
 class Prepared(NamedTuple):
     scene: Scene
     grid: UniformGrid
@@ -177,10 +209,18 @@ class Prepared(NamedTuple):
     packed: PackedGrid = None  # built when cfg.render.traversal == "packed"
     dda: DdaTables = None  # kernel B's tables, built when traversal == "csr"
     wave: tuple = None  # kernel E's (mat9, tri9), built when the config takes the wave
+    setup: FrameSetup = None  # the frame facts of cfg
 
     @property
     def device(self) -> torch.device:
         return self.scene.device
+
+    def frame(self) -> FrameSetup:
+        """The frame facts of cfg: prepare's, or made anew for a Prepared
+        whose cfg was swapped after it was made."""
+        if self.setup is not None and self.setup.cfg == self.cfg:
+            return self.setup
+        return frame_setup(self.cfg, self.scene, self.packed)
 
 
 def prepare(cfg: SceneConfig, scene: Scene = None, device=None) -> Prepared:
@@ -189,8 +229,9 @@ def prepare(cfg: SceneConfig, scene: Scene = None, device=None) -> Prepared:
     on the device (cuda unless "cpu" is asked for; a given scene keeps its
     own device).  For traversal="csr", kernel B's tables (`dda_tables`),
     and for a config that takes the Whitted wave, kernel E's
-    (`build_wave_tables`), are derived there once."""
-    takes_wave = check_supported(cfg, scene)
+    (`build_wave_tables`), are derived there once, and so are the frame
+    facts (`frame_setup`)."""
+    check_supported(cfg, scene)  # raise before any work
     if scene is None:
         dev = resolve_device(device)
         verts_np, faces_np, fmat_np, uvs_np, uvf_np = scene_numpy_arrays(cfg)
@@ -221,8 +262,10 @@ def prepare(cfg: SceneConfig, scene: Scene = None, device=None) -> Prepared:
     dda = None
     if cfg.render.traversal == "csr":
         dda = dda_tables(grid.arrays, vertex_table(*scene.triangle_soa()))
-    wave = build_wave_tables(scene) if takes_wave else None
-    return Prepared(scene=scene, grid=grid, cfg=cfg, packed=packed, dda=dda, wave=wave)
+    setup = frame_setup(cfg, scene, packed)
+    wave = build_wave_tables(scene) if setup.wave else None
+    return Prepared(scene=scene, grid=grid, cfg=cfg, packed=packed, dda=dda, wave=wave,
+                    setup=setup)
 
 
 def choose_inline_layout(grid: UniformGrid, block_tris: int,
@@ -256,13 +299,14 @@ def choose_block_tris(grid: UniformGrid) -> int:
     return 56
 
 
-def make_traversal(rcfg: RenderConfig, grid, meta, v0, v1, v2, dda=None):
+def make_traversal(rcfg: RenderConfig, grid, meta, v0, v1, v2, dda=None, consts=None):
     """The traversal-backend switch: RenderConfig.traversal (and, for
     "packed", scheduler) -> a callable trav(rays, t_gate,
     stop_on_first_hit=False, **kw) whose result has
     .any_pass/.hit/.t/.tri_id.  The persistent backend also takes
     camera=, compact= and order_keys=.  dda: kernel B's tables for "csr"
-    (`Prepared.dda`; the kernel's wrapper derives them when not given)."""
+    (`Prepared.dda`; the kernel's wrapper derives them when not given);
+    consts: kernel C's host-held launch values for "packed"."""
     if rcfg.traversal == "packed":
         chain = 1 if meta.inline else rcfg.probe_chain
         if rcfg.scheduler == "persistent":
@@ -274,14 +318,14 @@ def make_traversal(rcfg: RenderConfig, grid, meta, v0, v1, v2, dda=None):
                     stop_on_first_hit=stop_on_first_hit,
                     need_t=False,  # t is recomputed from tri_id by the caller
                     camera=camera, compact=compact, order_keys=order_keys,
-                    refill_retries=rcfg.refill_retries,
+                    refill_retries=rcfg.refill_retries, consts=consts,
                 ))
         else:
             def trav(rb, t_gate, stop_on_first_hit=False):
                 return traverse_packed(
                     rb, grid, meta, t_gate=0.0 if t_gate is None else t_gate,
                     stop_on_first_hit=stop_on_first_hit, unroll=rcfg.packed_unroll,
-                    probe_chain=chain,
+                    probe_chain=chain, consts=consts,
                 )
     elif rcfg.traversal == "brute_pallas":
         # the all-pairs sweep (kernel A); production f32 semantics
@@ -313,10 +357,12 @@ def make_traversal(rcfg: RenderConfig, grid, meta, v0, v1, v2, dda=None):
 
 @torch.no_grad()
 def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
-                camera_cfg=None, dda: DdaTables = None) -> torch.Tensor:
+                camera_cfg=None, dda: DdaTables = None,
+                consts: LaunchConsts = None) -> torch.Tensor:
     """Trace + shade one ray batch -> (R,3) linear color.  camera_cfg is
     given only when `rays` is that camera's whole batch in pixel order
-    (the persistent wave's camera refill); dda are kernel B's tables."""
+    (the persistent wave's camera refill); dda are kernel B's tables,
+    consts kernel C's host-held launch values."""
     serial = rcfg.serial_shading
     eps = rcfg.shadow_eps
     v0, v1, v2 = scene.triangle_soa()
@@ -326,7 +372,7 @@ def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
     ddt = _DET_DTYPES[rcfg.det_dtype]
     primary_gate = rcfg.primary_gate()
     early = not rcfg.faithful
-    trav = make_traversal(rcfg, grid, meta, v0, v1, v2, dda=dda)
+    trav = make_traversal(rcfg, grid, meta, v0, v1, v2, dda=dda, consts=consts)
     persistent = rcfg.traversal == "packed" and rcfg.scheduler == "persistent"
     # one march for primary + shadow (soft shadows, which need several
     # shadow rays, raise in check_supported)
@@ -366,12 +412,13 @@ def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
                     camera=(camera_cfg if depth == 0 and rcfg.camera_refill != "off"
                             else None),
                     compact=depth > 0, order_keys=okeys,
-                    refill_retries=rcfg.refill_retries, **fkw,
+                    refill_retries=rcfg.refill_retries, consts=consts, **fkw,
                 )
             else:
                 fres = traverse_packed_fused_shadow(
                     cur, grid, meta, scene.light_pos,
-                    primary_gate=0.0 if primary_gate is None else primary_gate, **fkw,
+                    primary_gate=0.0 if primary_gate is None else primary_gate,
+                    consts=consts, **fkw,
                 )
             res = _persistent_as_packed(fres)
         else:
@@ -458,7 +505,7 @@ def accumulate_spp(one, camera_cfg, spp: int, dtype, device) -> torch.Tensor:
         for s in range(spp * spp))
 
 
-def _render_whitted_wave(prep: Prepared) -> torch.Tensor:
+def _render_whitted_wave(prep: Prepared, setup: FrameSetup) -> torch.Tensor:
     """The cross-depth Whitted wave (kernel E on the card) with the JAX
     dispatch's knob mapping (renderer.py:875-899) -> (H, W, 3); its wave,
     pump and refill_retries shape only the JAX loop and are not passed.
@@ -478,7 +525,7 @@ def _render_whitted_wave(prep: Prepared) -> torch.Tensor:
         eps=rcfg.shadow_eps, smint=rcfg.shadow_mint(),
         quirk=rcfg.shadow_dir_away_from_light(),
         shadow_scale=rcfg.shadow_scale, bg=tuple(rcfg.background),
-        tile=None if prep.device.type == "cuda" else max(1, rcfg.ray_tile),
+        tile=max(1, rcfg.ray_tile), cam=setup.cam, consts=setup.consts,
     )
     return col.reshape(cfg.camera.height, cfg.camera.width, 3)
 
@@ -489,8 +536,9 @@ def render(prep: Prepared) -> torch.Tensor:
     cross-depth Whitted wave, as in the JAX package's render; the others
     the bounce loop, spp subsamples accumulated in turn."""
     cfg = prep.cfg
-    if check_supported(cfg, prep.scene):
-        return _render_whitted_wave(prep)
+    setup = prep.frame()
+    if setup.wave:
+        return _render_whitted_wave(prep, setup)
     rcfg = cfg.render
     if rcfg.traversal == "packed":
         args = (prep.scene, prep.packed.arrays, prep.packed.meta, rcfg)
@@ -501,8 +549,8 @@ def render(prep: Prepared) -> torch.Tensor:
         tile = rays.count if prep.device.type == "cuda" else max(1, rcfg.ray_tile)
         # the camera refill needs the camera's whole batch in one trace
         cam = cfg.camera if camera_ok and tile >= rays.count else None
-        return rays.map_tiles(lambda rb: render_rays(rb, *args, camera_cfg=cam, dda=prep.dda),
-                              tile)
+        return rays.map_tiles(lambda rb: render_rays(rb, *args, camera_cfg=cam, dda=prep.dda,
+                                                     consts=setup.consts), tile)
 
     colors = accumulate_spp(one, cfg.camera, rcfg.spp, _DET_DTYPES[rcfg.dtype], prep.device)
     return colors.reshape(cfg.camera.height, cfg.camera.width, 3)
