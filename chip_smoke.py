@@ -117,8 +117,9 @@ OPS_PER_REFLECTION_E = 79
 # direction (3) and slab entry (30).
 OPS_PER_CAMERA_RAY_E = 68
 # Kernel E's schedules measured against each other, the first kept: the
-# persistent wave that refills idle lanes, and one thread a position.
-WAVE_VARIANTS = (("refill", True), ("one", False))
+# persistent wave that refills idle lanes every step or when half the warp
+# is idle, from warp-local chunks of the queue, and one thread a position.
+WAVE_VARIANTS = (("refill", 1), ("refill_half", 2), ("one", 0))
 ALL_PHASES = ("build", "A", "B", "C", "E", "main", "card_vs_cpu", "D", "times")
 # The kernels' device times on the 1024^2 main path before this version
 # of the sources (B and C as redesigned, before C's march step moved into
@@ -154,19 +155,32 @@ def cuda_ms(fn, n: int) -> float:
     return a.elapsed_time(b) / n
 
 
+def profiled_kernels(fn, n: int, cpu: bool = False, attempts: int = 3):
+    """The device kernels of n calls of fn() under torch.profiler, after a
+    warm-up.  A window in which the profiler saw no kernel is taken
+    again, up to `attempts` windows (a window can come back empty on the
+    chip machine).  Returns (kernel events, windows taken)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(1, attempts + 1):
+        with profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        if kernels:
+            break
+    return kernels, attempt
+
+
 def kernel_device_ms(fn, kernel: str, n: int):
     """Mean device time of the CUDA kernels whose name holds `kernel` over
     n calls of fn() under torch.profiler; None if the profiler saw none."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type.name == "CUDA" and kernel in e.name]
+    kernels, _ = profiled_kernels(fn, n)
+    us = [e.time_range.end - e.time_range.start for e in kernels if kernel in e.name]
     return sum(us) / len(us) / 1e3 if us else None
 
 
@@ -181,28 +195,28 @@ def once_ms(fn):
     return a.elapsed_time(b), out
 
 
-def profile_render(prep, median_s: float, config: str) -> dict:
-    """One render under torch.profiler: the device's busy time (the sum of
-    kernel durations; kernels on one stream do not overlap), the idle
-    share of the unprofiled median frame time that leaves, and the device
-    time by kernel name."""
-    from torch.profiler import ProfilerActivity, profile
-
+def profile_render(prep, median_s: float, config: str, frames: int = 3) -> dict:
+    """`frames` renders under torch.profiler: a frame's device kernels, the
+    device's busy time of a frame (the sum of kernel durations; kernels on
+    one stream do not overlap), the idle share of the unprofiled median
+    frame time that leaves, and the device time by kernel name."""
     from ray_tracer_tpu_torch.render.renderer import render
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        render(prep)
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    busy_us = sum(e.time_range.end - e.time_range.start for e in kernels)
+    kernels, windows = profiled_kernels(lambda: render(prep), frames, cpu=True)
+    if not kernels:  # the profiler's failure, not the program's: nothing to report
+        return {"phase": "main_path_profile", "config": config, "device_kernels": None,
+                "profile_windows": windows, "median_frame_ms": median_s * 1e3}
+    busy_us = sum(e.time_range.end - e.time_range.start for e in kernels) / frames
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"phase": "main_path_profile", "config": config, "device_kernels": len(kernels),
-            "device_busy_ms": busy_us / 1e3, "median_frame_ms": median_s * 1e3,
+    return {"phase": "main_path_profile", "config": config,
+            "device_kernels": len(kernels) / frames, "frames": frames,
+            "profile_windows": windows, "device_busy_ms": busy_us / 1e3,
+            "median_frame_ms": median_s * 1e3,
             "device_idle_share": 1.0 - busy_us / 1e3 / (median_s * 1e3),
-            "top_device_ms": {k[:60]: v / 1e3 for k, v in top}}
+            "top_device_ms": {k[:60]: v / 1e3 / frames for k, v in top}}
 
 
 def compare(label: str, got, want) -> float:
@@ -502,11 +516,11 @@ class Smoke:
                 prep.packed.arrays, prep.packed.meta)
         return tail, kw, rays
 
-    def wave_launch(self, cfg, prep, tail, kw, refill=True, **extra):
+    def wave_launch(self, cfg, prep, tail, kw, mode=1, **extra):
         """One launch of kernel E on a prepared wave config."""
         return self.kE.whitted_wave_cuda(cfg.camera, *tail, spp=cfg.render.spp, **kw,
                                          cam=prep.setup.cam, consts=prep.setup.consts,
-                                         refill=refill, **extra)
+                                         mode=mode, **extra)
 
     def check_rays(self, label, rays_out, rays):
         """E's own camera rays (orig, dirn, mint, maxt a row) against the CPU
@@ -562,11 +576,11 @@ class Smoke:
                    "events": dict(zip(kE.EVENTS, cp["events_out"].tolist())),
                    "rows_tested": int(cp["tested_out"].sum()),
                    "passes": int(cp["passes_out"].item()), "capped": 0, "rays_equal": True}
-            for variant, refill in WAVE_VARIANTS:
+            for variant, mode in WAVE_VARIANTS:
                 ck = self.wave_counters(prep, r)
                 ro = torch.empty((r, 8), dtype=torch.float32, device=self.dev)
                 lanes = torch.zeros((2,), dtype=torch.int64, device=self.dev)
-                got = self.wave_launch(cfg, prep, tail, kw, refill=refill, rays_out=ro,
+                got = self.wave_launch(cfg, prep, tail, kw, mode=mode, rays_out=ro,
                                        lanes_out=lanes, **ck)
                 torch.cuda.synchronize()
                 label = f"kernel E {name} {variant}"
@@ -1154,16 +1168,16 @@ class Smoke:
         # the schedules in turns on one card (first, second, second, first)
         order = list(WAVE_VARIANTS) + list(reversed(WAVE_VARIANTS))
         variants = {}
-        for variant, refill in order:
-            def launch(refill=refill):
-                return self.wave_launch(cfg, p, tail, kw, refill=refill)
+        for variant, mode in order:
+            def launch(mode=mode):
+                return self.wave_launch(cfg, p, tail, kw, mode=mode)
 
             ms = cuda_ms(launch, 10)
             dev_ms = kernel_device_ms(launch, "whitted_wave_kernel", 5)
             lanes = torch.zeros((2,), dtype=torch.int64, device=self.dev)
-            self.wave_launch(cfg, p, tail, kw, refill=refill, lanes_out=lanes)
+            self.wave_launch(cfg, p, tail, kw, mode=mode, lanes_out=lanes)
             it, steps = lanes.tolist()
-            v = variants.setdefault(variant, {"ms": [], "device_ms": [], "refill": refill})
+            v = variants.setdefault(variant, {"ms": [], "device_ms": [], "mode": mode})
             v["ms"].append(ms)
             v["device_ms"].append(dev_ms)
             v.update(warp_iterations=it, active_lane_steps=steps,
@@ -1173,9 +1187,9 @@ class Smoke:
         e_dev_ms = min(variants[kept]["device_ms"])
         e_plain_ms, e_plain = once_ms(lambda: kE.whitted_wave_plain(rays, *tail, **kw))
         err = 0.0
-        for variant, refill in WAVE_VARIANTS:
+        for variant, mode in WAVE_VARIANTS:
             err = max(err, compare(f"kernel E 1024 turbo parallel {variant}",
-                                   (self.wave_launch(cfg, p, tail, kw, refill=refill).reshape(-1),),
+                                   (self.wave_launch(cfg, p, tail, kw, mode=mode).reshape(-1),),
                                    (e_plain.reshape(-1),)))
         self.err["whitted_wave"] = max(self.err["whitted_wave"], err)
         ck = self.wave_counters(p, r)

@@ -20,13 +20,16 @@ The colors do not depend on the schedule: the JAX loop's `wave`, `pump`,
 so they are accepted and have no effect here.  `whitted_wave_plain` is
 one lock-step lane per queue position running the JAX `transition` after
 every `_march_step`, one elementwise op at a time; it is held bitwise
-against the JAX function run op by op (tests/test_torch_whitted_wave.py).
-`whitted_wave_cuda` launches `csrc/whitted_wave.cu` (kernel E), one
-thread per queue position, with the plain version's colors bit for bit.
-`whitted_wave_trace` makes the camera batch (`camera_rays`, which the
-JAX package pins bitwise to its `camera_ray_at` regeneration), takes the
-kernel for CUDA tensors and the plain version for CPU tensors, and folds
-spp > 1 subsample-major in `accumulate_spp`'s order (`fold_subsamples`).
+against the JAX function run op by op (tests/test_torch_whitted_wave.py),
+and gives the same bits for any order of the positions.
+`whitted_wave_cuda` launches `csrc/whitted_wave.cu` (kernel E), which
+makes each position's camera ray itself (`camera_ray_at`, the bits of
+the CPU `camera_rays`) from host-held launch values (`CameraLaunch`,
+`LaunchConsts`), with the plain version's colors and counters bit for
+bit.  `whitted_wave_trace` takes the kernel for a grid on the card and
+the plain version over the `camera_rays` batch for one on the CPU, and
+folds spp > 1 subsample-major in `accumulate_spp`'s order
+(`fold_subsamples`).
 """
 
 from __future__ import annotations
@@ -385,7 +388,7 @@ def whitted_wave_cuda(
     shadow_scale: float = 0.5, bg=(0.0, 0.0, 0.0),
     cam: Optional[CameraLaunch] = None, consts: Optional[LaunchConsts] = None,
     rays_out=None, capped_out=None, passes_out=None, tested_out=None, touched_out=None,
-    slots_out=None, events_out=None, lanes_out=None, refill: bool = True,
+    slots_out=None, events_out=None, lanes_out=None, mode: int = 1,
 ) -> torch.Tensor:
     """Kernel E on CUDA tensors: the color of every queue position of
     `camera`'s H*W*spp^2 subsamples -> (R, 3) f32, the plain version's
@@ -456,14 +459,14 @@ def whitted_wave_cuda(
     fn = _build.library("whitted_wave").whitted_wave_launch
     fn.restype = ctypes.c_int
     p = ctypes.c_void_p
-    fn.argtypes = [_WaveParams, _CameraParams] + [p] * 17 + [ctypes.c_int, p]
+    fn.argtypes = [_WaveParams, _CameraParams] + [p] * 16 + [ctypes.c_int, p]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(wave, cparams, table.data_ptr(), cell_info.data_ptr(), blocks.data_ptr(),
                  slot_tri.data_ptr(), tri9.data_ptr(), mat9.data_ptr(), color.data_ptr(),
                  ptr(rays_out), head.data_ptr(), ptr(capped_out), ptr(passes_out),
                  ptr(tested_out), ptr(touched_out), ptr(slots_out), ptr(events_out),
-                 ptr(lanes_out), int(refill), stream)
+                 ptr(lanes_out), int(mode), stream)
     _build.check(err, "whitted_wave")
     whitted_wave_cuda.launches += 1
     return color

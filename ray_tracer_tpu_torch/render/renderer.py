@@ -180,11 +180,11 @@ def _persistent_as_packed(res) -> PackedTraceResult:
 
 class FrameSetup(NamedTuple):
     """The facts every frame of `cfg` reuses, settled once: whether it
-    renders through the Whitted wave (`check_supported`), and on the card
-    the packed kernels' host-held launch values (the grid box, cell
+    renders through the Whitted wave (`check_supported`), and for the
+    packed grid the kernels' host-held launch values (the grid box, cell
     widths and light) and the wave's camera launch (the basis and the
-    subsample table), so that a wave frame neither reads the device nor
-    synchronises."""
+    subsample table), so that a wave frame on the card neither reads the
+    device nor synchronises."""
 
     cfg: SceneConfig
     wave: bool
@@ -195,7 +195,7 @@ class FrameSetup(NamedTuple):
 def frame_setup(cfg: SceneConfig, scene: Scene, packed: PackedGrid = None) -> FrameSetup:
     takes_wave = check_supported(cfg, scene)
     consts = cam = None
-    if scene.device.type == "cuda" and packed is not None:
+    if packed is not None:
         consts = launch_consts(packed.arrays, scene.light_pos, scene.light_intensity)
         if takes_wave:
             cam = camera_launch(cfg.camera, cfg.render.spp, device=scene.device)

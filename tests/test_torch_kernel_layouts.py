@@ -219,7 +219,8 @@ def test_persistent_launch_does_not_take_the_wave_width(turbo16, monkeypatch):
 
     def kernel_c(r, grid, meta, light, **kw):
         calls.append(kw)
-        plain_kw = {k: v for k, v in kw.items() if k not in ("queue", "n_work", "iters_out")}
+        plain_kw = {k: v for k, v in kw.items()
+                    if k not in ("queue", "n_work", "iters_out", "consts")}
         return tp.march_plain(RayBatch(*(x.as_subclass(torch.Tensor) for x in r)),
                               grid, meta, light, **plain_kw)
 

@@ -303,10 +303,9 @@ def test_sharded_queue_and_cuda_wrapper_refuse(parallel_turbo):
     with pytest.raises(NotImplementedError, match="sharded"):
         wave.whitted_wave_trace(*args, camera=prep.cfg.camera, max_bounces=3, serial=False,
                                 pix_offset=0, pix_stride=2, queue_len=128)
-    rays = camera_rays(prep.cfg.camera, device="cpu")
     before = wave.whitted_wave_cuda.launches
     with pytest.raises(ValueError, match="CUDA"):
-        wave.whitted_wave_cuda(rays, *args, max_bounces=3, serial=False)
+        wave.whitted_wave_cuda(prep.cfg.camera, *args, max_bounces=3, serial=False)
     assert wave.whitted_wave_cuda.launches == before
     # the JAX loop's schedule knobs change no color
     rc = prep.cfg.render
@@ -317,3 +316,86 @@ def test_sharded_queue_and_cuda_wrapper_refuse(parallel_turbo):
                                   wave=7, pump=3, refill_retries=0, max_iters=5)
     assert torch.equal(col, parallel_turbo[2].reshape(-1, 3))
 
+
+
+def _plain_counted(rays, prep):
+    """The plain wave over `rays` with every counter."""
+    rc = prep.cfg.render
+    mat9, tri9 = prep.wave
+    g, m = prep.packed.arrays, prep.packed.meta
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.int32)
+
+    cnt = dict(capped_out=z(1), passes_out=z(1), tested_out=z(rays.count),
+               touched_out=z(m.n_blocks), slots_out=z(g.slot_tri.shape[0]),
+               events_out=z(len(wave.EVENTS)))
+    col = wave.whitted_wave_plain(
+        rays, prep.scene.light_pos, prep.scene.light_intensity, mat9, tri9, g, m,
+        max_bounces=rc.max_bounces, serial=rc.serial_shading, gate0=rc.primary_gate(),
+        gate_b=rc.bounce_gate(), eps=rc.shadow_eps, smint=rc.shadow_mint(),
+        quirk=rc.shadow_dir_away_from_light(), shadow_scale=rc.shadow_scale,
+        bg=tuple(rc.background), **cnt)
+    return col, cnt
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_colors_and_counters_do_not_depend_on_the_order(parallel_turbo, mirror, seed):
+    """The plain wave over a shuffled order of the queue positions,
+    unshuffled after, gives the same colors and counters bit for bit:
+    kernel E's refill serves positions in whatever order its lanes free
+    up, and is held to the plain version on that."""
+    for prep in (parallel_turbo[0], mirror[0]):
+        rays = camera_rays(prep.cfg.camera, device="cpu")
+        col, cnt = _plain_counted(rays, prep)
+        perm = torch.from_numpy(np.random.default_rng(seed).permutation(rays.count))
+        scol, scnt = _plain_counted(type(rays)(*(x[perm] for x in rays)), prep)
+        back = torch.empty_like(perm)
+        back[perm] = torch.arange(rays.count)
+        _bitwise(scol[back].numpy(), col.numpy())
+        for key in cnt:
+            want = cnt[key]
+            got = scnt[key][back] if key == "tested_out" else scnt[key]
+            assert torch.equal(got, want), key
+        assert int(cnt["events_out"][0]) > 0
+
+
+def test_prepare_settles_the_frame_and_render_reads_nothing(parallel_turbo, monkeypatch):
+    """`prepare` settles the frame's facts once: the wave flag, kernel E's
+    camera launch and the grid's and light's launch values (equal to
+    what the wrappers would read from the device).  Kernel E's launch
+    parameters then come from host values alone, and `render` neither
+    decides the wave again nor reads a tensor back (`_host_vec3`,
+    `.cpu()`, `.item()`, `.tolist()` and the two makers refuse)."""
+    from ray_tracer_tpu_torch.ops import traverse_packed
+    from ray_tracer_tpu_torch.ops.camera import camera_launch
+    from ray_tracer_tpu_torch.render import renderer
+
+    prep, _, img = parallel_turbo
+    setup = prep.setup
+    assert setup.wave and setup.cfg is prep.cfg
+    g = prep.packed.arrays
+    assert setup.consts == traverse_packed.launch_consts(g, prep.scene.light_pos,
+                                                         prep.scene.light_intensity)
+    want_cam = camera_launch(prep.cfg.camera, prep.cfg.render.spp, device="cpu")
+    assert setup.cam[:5] == want_cam[:5] and torch.equal(setup.cam.table, want_cam.table)
+
+    def refuse(*a, **k):
+        raise AssertionError("a frame-time read or re-derivation")
+
+    for mod, name in ((traverse_packed, "_host_vec3"), (renderer, "check_supported"),
+                      (renderer, "launch_consts"), (renderer, "camera_launch"),
+                      (wave, "launch_consts"), (wave, "camera_launch")):
+        monkeypatch.setattr(mod, name, refuse)
+    rc = prep.cfg.render
+    mat9, tri9 = prep.wave
+    params, cparams = wave._launch_params(
+        setup.cam, setup.consts, prep.packed.meta, n_slots=g.slot_tri.shape[0],
+        n_faces=tri9.shape[0], n_mats=mat9.shape[0], max_bounces=rc.max_bounces,
+        serial=False, gate0=0.0, gate_b=rc.bounce_gate(), eps=rc.shadow_eps,
+        smint=rc.shadow_mint(), quirk=False, shadow_scale=rc.shadow_scale, bg=(0.0, 0.0, 0.0))
+    assert tuple(params.m.lower) == setup.consts.lower and params.m.n_rays == 16 * 16
+    assert tuple(cparams.w) == setup.cam.basis[3] and cparams.n_sub == 1
+    for name in ("cpu", "item", "tolist"):
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    assert torch.equal(render(prep), img)
