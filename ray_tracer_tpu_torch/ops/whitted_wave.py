@@ -388,7 +388,7 @@ def whitted_wave_cuda(
     shadow_scale: float = 0.5, bg=(0.0, 0.0, 0.0),
     cam: Optional[CameraLaunch] = None, consts: Optional[LaunchConsts] = None,
     rays_out=None, capped_out=None, passes_out=None, tested_out=None, touched_out=None,
-    slots_out=None, events_out=None, lanes_out=None, mode: int = 1,
+    slots_out=None, events_out=None, lanes_out=None, mode: int = 0,
 ) -> torch.Tensor:
     """Kernel E on CUDA tensors: the color of every queue position of
     `camera`'s H*W*spp^2 subsamples -> (R, 3) f32, the plain version's
