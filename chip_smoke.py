@@ -117,9 +117,10 @@ OPS_PER_REFLECTION_E = 79
 # direction (3) and slab entry (30).
 OPS_PER_CAMERA_RAY_E = 68
 # Kernel E's schedules measured against each other, the first kept: the
-# persistent wave that refills idle lanes every step or when half the warp
-# is idle, from warp-local chunks of the queue, and one thread a position.
-WAVE_VARIANTS = (("one", 0), ("refill_half", 2))
+# persistent wave that refills idle lanes from warp-local chunks of the
+# queue when 16, 8 or 24 of a warp's lanes are idle, and one thread a
+# position (0).
+WAVE_VARIANTS = (("refill_16", 16), ("refill_8", 8), ("refill_24", 24), ("one", 0))
 ALL_PHASES = ("build", "A", "B", "C", "E", "main", "card_vs_cpu", "D", "times")
 # The kernels' device times on the 1024^2 main path before this version
 # of the sources (B and C as redesigned, before C's march step moved into
@@ -205,8 +206,7 @@ def profile_render(prep, median_s: float, config: str, windows: int = 5) -> dict
     count."""
     from ray_tracer_tpu_torch.render.renderer import render
 
-    seen = [profiled_kernels(lambda: render(prep), 1, cpu=True, attempts=1)[0]
-            for _ in range(windows)]
+    seen = [profiled_kernels(lambda: render(prep), 1, attempts=1)[0] for _ in range(windows)]
     kernels = max(seen, key=len)
     busy_us = sum(e.time_range.end - e.time_range.start for e in kernels)
     by_name = {}
@@ -517,11 +517,11 @@ class Smoke:
                 prep.packed.arrays, prep.packed.meta)
         return tail, kw, rays
 
-    def wave_launch(self, cfg, prep, tail, kw, mode=0, **extra):
+    def wave_launch(self, cfg, prep, tail, kw, mode=16, **extra):
         """One launch of kernel E on a prepared wave config."""
         return self.kE.whitted_wave_cuda(cfg.camera, *tail, spp=cfg.render.spp, **kw,
                                          cam=prep.setup.cam, consts=prep.setup.consts,
-                                         mode=mode, **extra)
+                                         refill_at=mode, **extra)
 
     def check_rays(self, label, rays_out, rays):
         """E's own camera rays (orig, dirn, mint, maxt a row) against the CPU
@@ -1167,7 +1167,7 @@ class Smoke:
         tail, kw, rays = self.wave_inputs(cfg, p)
         r = rays.count
         # the schedules in turns on one card (first, second, second, first)
-        order = (list(WAVE_VARIANTS) + list(reversed(WAVE_VARIANTS))) * 4
+        order = (list(WAVE_VARIANTS) + list(reversed(WAVE_VARIANTS))) * 3
         variants = {}
         for variant, mode in order:
             def launch(mode=mode):

@@ -388,7 +388,7 @@ def whitted_wave_cuda(
     shadow_scale: float = 0.5, bg=(0.0, 0.0, 0.0),
     cam: Optional[CameraLaunch] = None, consts: Optional[LaunchConsts] = None,
     rays_out=None, capped_out=None, passes_out=None, tested_out=None, touched_out=None,
-    slots_out=None, events_out=None, lanes_out=None, mode: int = 0,
+    slots_out=None, events_out=None, lanes_out=None, refill_at: int = 16,
 ) -> torch.Tensor:
     """Kernel E on CUDA tensors: the color of every queue position of
     `camera`'s H*W*spp^2 subsamples -> (R, 3) f32, the plain version's
@@ -466,7 +466,7 @@ def whitted_wave_cuda(
                  slot_tri.data_ptr(), tri9.data_ptr(), mat9.data_ptr(), color.data_ptr(),
                  ptr(rays_out), head.data_ptr(), ptr(capped_out), ptr(passes_out),
                  ptr(tested_out), ptr(touched_out), ptr(slots_out), ptr(events_out),
-                 ptr(lanes_out), int(mode), stream)
+                 ptr(lanes_out), int(refill_at), stream)
     _build.check(err, "whitted_wave")
     whitted_wave_cuda.launches += 1
     return color

@@ -399,3 +399,24 @@ def test_prepare_settles_the_frame_and_render_reads_nothing(parallel_turbo, monk
     for name in ("cpu", "item", "tolist"):
         monkeypatch.setattr(torch.Tensor, name, refuse)
     assert torch.equal(render(prep), img)
+
+
+# pow inputs of the 64x64 turbo parallel wave on which the card's torch.pow
+# (libdevice powf, as kernel E's) and the CPU's differ, with the card's
+# results, from chip_smoke.py's card_vs_cpu phase on an NVIDIA H100
+POW_ON_THE_CARD = [(0.07957273721694946, 1.25, 0.042262520641088486),
+                   (0.06625868380069733, 1.25, 0.033616576343774796),
+                   (0.05103904381394386, 1.25, 0.0242592953145504)]
+
+
+def test_cpu_pow_is_correctly_rounded_where_the_card_differs():
+    """The 64x64 wave's 25 card-vs-CPU floats come from pow alone: on
+    these inputs the CPU's torch.pow gives the correctly rounded f32 (the
+    double root of the f32 inputs, rounded), and the card's is one ulp
+    away, within its documented 2 ulp."""
+    for base, e, card in POW_ON_THE_CARD:
+        b32, e32, c32 = np.float32(base), np.float32(e), np.float32(card)
+        want = np.float32(float(b32) ** float(e32))
+        got = torch.pow(torch.tensor([b32]), torch.tensor([e32])).numpy()[0]
+        assert got.view(np.uint32) == want.view(np.uint32)
+        assert abs(int(c32.view(np.int32)) - int(want.view(np.int32))) == 1
