@@ -26,8 +26,9 @@ each printing one JSON line:
   6. kernel E (csrc/whitted_wave.cu) against its plain version: the turbo
      parallel scene at 256x256, the serial scene at 256x256 with
      whitted_wave="on", the parallel scene at 128x128 with spp 2, and with
-     spp 2 and a lens (aperture 0.25, focus 20): colors bitwise equal,
-     every counter equal, no lane capped;
+     spp 2 and a lens (aperture 0.25, focus 20): the camera rays E makes
+     bitwise equal to the CPU batch (which the plain version traces),
+     colors bitwise equal, every counter equal, no lane capped;
   7. the main path at full size, launch counts zeroed before each render
      and read after it, each config required to launch its kernel:
      prepare + render of the serial scene at 1024x1024 with the default
@@ -37,23 +38,30 @@ each printing one JSON line:
      the images agree with the csr image up to boundary pixels; the
      command line renders the csr and the --turbo PPM bytes; the turbo
      parallel scene at 1024x1024 through the cross-depth Whitted wave (one
-     launch of E a frame and none of C; median of 5, the profile, pixels
-     and segments marched a second of frame; its image against the bounce
-     loop's, 4 launches of C, by the 2-count rule; the command line's PPM
-     bytes); one timed render of the 3-bounce parallel scene at 512x512,
-     csr and turbo (whitted_wave="off");
+     launch of E a frame and none of C; median of 5, each frame under
+     torch.cuda.set_sync_debug_mode("error"), so that a device-to-host
+     copy or a synchronisation inside render raises; the profile's device
+     kernels, pixels and segments marched a second of frame; E's camera
+     rays against the CPU batch; its image against the bounce loop's, 4
+     launches of C, by the 2-count rule; the command line's PPM bytes);
+     one timed render of the 3-bounce parallel scene at 512x512, csr and
+     turbo (whitted_wave="off");
   8. card vs CPU: the 64x64 float64 csr render gives the PPM bytes of the
      port's own CPU render; the 64x64 turbo march gives the CPU's per-ray
      records, and its image differs by more than 2 counts on under 1% of
-     pixels; so does the 64x64 turbo parallel image through the wave;
+     pixels; so does the 64x64 turbo parallel image through the wave, and
+     where its floats differ, the pow inputs of those pixels are taken on
+     both devices (the plain wave on the card with pow on the CPU gives
+     the CPU's colors);
   9. kernel D (csrc/gather_row_test.cu) against its plain version through
      the port's gather tool, and the tool's step-loop time.
 
 Then the kernel times at the main path's shapes (each launch held
 bitwise to the plain version; B's, C's and E's barycentric passes, and
-E's vertices and reflections, counted for their operation bounds; C's
-device time against its time before the shared header), a `kernels`
-line, the card line, and last {"ok": true, "device": {...}}.  Any
+E's camera rays, vertices and reflections, counted for their operation
+bounds; C's device time against its time before the shared header; E's
+lane utilisation before and after its redesign, on lines of their own),
+a `kernels` line, the card line, and last {"ok": true, "device": {...}}.  Any
 failure raises and exits non-zero; without a CUDA device it exits
 non-zero before any phase.
 """
@@ -116,17 +124,17 @@ OPS_PER_REFLECTION_E = 79
 # component: 18), its normalize (10), and the primary's reciprocal
 # direction (3) and slab entry (30).
 OPS_PER_CAMERA_RAY_E = 68
-# Kernel E's schedules measured against each other, the first kept: the
-# persistent wave that refills idle lanes from warp-local chunks of the
-# queue when 16, 8 or 24 of a warp's lanes are idle, and one thread a
-# position (0).
-WAVE_VARIANTS = (("refill_16", 16), ("refill_8", 8), ("refill_24", 24), ("one", 0))
 ALL_PHASES = ("build", "A", "B", "C", "E", "main", "card_vs_cpu", "D", "times")
 # The kernels' device times on the 1024^2 main path before this version
 # of the sources (B and C as redesigned, before C's march step moved into
 # csrc/packed_step.cuh), NVIDIA H100 80GB HBM3 at 700 W, as recorded in
 # PERF.md; C's must stay within 5%.
 PREVIOUS_MS = {"B": {"device_ms": 0.4504}, "C": {"device_ms": 0.4288}}
+# Kernel E on the turbo parallel 1024^2 frame before its redesign as a
+# persistent wave (one thread a queue position, the camera batch in
+# memory), on the same card as recorded in PERF.md: device time and lane
+# utilisation (active lane-steps over 32 x warp loop iterations).
+PREVIOUS_E = {"device_ms": 1.8276, "lane_utilisation": 0.7347491342129305}
 
 
 def emit(obj) -> None:
@@ -156,18 +164,19 @@ def cuda_ms(fn, n: int) -> float:
     return a.elapsed_time(b) / n
 
 
-def profiled_kernels(fn, n: int, cpu: bool = False, attempts: int = 3):
-    """The device kernels of n calls of fn() under torch.profiler, after a
-    warm-up.  A window in which the profiler saw no kernel is taken
-    again, up to `attempts` windows (a window can come back empty on the
-    chip machine).  Returns (kernel events, windows taken)."""
+def profiled_kernels(fn, n: int, attempts: int = 3):
+    """The device kernels of n calls of fn() under torch.profiler (CUDA
+    activity), after a warm-up.  A window in which the profiler saw no
+    kernel is taken again, up to `attempts` windows (on the chip machine
+    a window can come back empty or short).  Returns (kernel events,
+    windows taken)."""
     from torch.profiler import ProfilerActivity, profile
 
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
     fn()
     torch.cuda.synchronize()
     for attempt in range(1, attempts + 1):
-        with profile(activities=acts) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.01)  # let the tracer settle before the window's first launch
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
@@ -196,7 +205,7 @@ def once_ms(fn):
     return a.elapsed_time(b), out
 
 
-def profile_render(prep, median_s: float, config: str, windows: int = 5) -> dict:
+def profile_render(prep, median_s: float, config: str, windows: int = 8) -> dict:
     """One render under torch.profiler, `windows` times: a frame's device
     kernels, its device busy time (the sum of kernel durations; kernels on
     one stream do not overlap), the idle share of the unprofiled median
@@ -517,11 +526,11 @@ class Smoke:
                 prep.packed.arrays, prep.packed.meta)
         return tail, kw, rays
 
-    def wave_launch(self, cfg, prep, tail, kw, mode=16, **extra):
+    def wave_launch(self, cfg, prep, tail, kw, **extra):
         """One launch of kernel E on a prepared wave config."""
         return self.kE.whitted_wave_cuda(cfg.camera, *tail, spp=cfg.render.spp, **kw,
                                          cam=prep.setup.cam, consts=prep.setup.consts,
-                                         refill_at=mode, **extra)
+                                         **extra)
 
     def check_rays(self, label, rays_out, rays):
         """E's own camera rays (orig, dirn, mint, maxt a row) against the CPU
@@ -572,30 +581,27 @@ class Smoke:
             r = rays.count
             cp = self.wave_counters(prep, r)
             want = kE.whitted_wave_plain(rays, *tail, **kw, **cp)
-            row = {"case": name, "positions": r, "spp": cfg.render.spp,
-                   "aperture": cfg.camera.aperture, "serial": cfg.render.serial_shading,
-                   "events": dict(zip(kE.EVENTS, cp["events_out"].tolist())),
-                   "rows_tested": int(cp["tested_out"].sum()),
-                   "passes": int(cp["passes_out"].item()), "capped": 0, "rays_equal": True}
-            for variant, mode in WAVE_VARIANTS:
-                ck = self.wave_counters(prep, r)
-                ro = torch.empty((r, 8), dtype=torch.float32, device=self.dev)
-                lanes = torch.zeros((2,), dtype=torch.int64, device=self.dev)
-                got = self.wave_launch(cfg, prep, tail, kw, mode=mode, rays_out=ro,
-                                       lanes_out=lanes, **ck)
-                torch.cuda.synchronize()
-                label = f"kernel E {name} {variant}"
-                self.check_rays(label, ro, rays)
-                err = max(err, compare(label, (got.reshape(-1),), (want.reshape(-1),)))
-                for key in ck:
-                    if not torch.equal(ck[key], cp[key]):
-                        raise AssertionError(f"{label}: counter {key} differs from the plain "
-                                             "version's")
-                if int(ck["capped_out"].item()):
-                    raise AssertionError(f"{label}: {int(ck['capped_out'])} lanes capped")
-                it, steps = lanes.tolist()
-                row["lane_utilisation_" + variant] = steps / (32 * it) if it else None
-            out.append(row)
+            ck = self.wave_counters(prep, r)
+            ro = torch.empty((r, 8), dtype=torch.float32, device=self.dev)
+            lanes = torch.zeros((2,), dtype=torch.int64, device=self.dev)
+            got = self.wave_launch(cfg, prep, tail, kw, rays_out=ro, lanes_out=lanes, **ck)
+            torch.cuda.synchronize()
+            label = f"kernel E {name}"
+            self.check_rays(label, ro, rays)
+            err = max(err, compare(label, (got.reshape(-1),), (want.reshape(-1),)))
+            for key in ck:
+                if not torch.equal(ck[key], cp[key]):
+                    raise AssertionError(f"{label}: counter {key} differs from the plain "
+                                         "version's")
+            if int(ck["capped_out"].item()):
+                raise AssertionError(f"{label}: {int(ck['capped_out'])} lanes capped")
+            it, steps = lanes.tolist()
+            out.append({"case": name, "positions": r, "spp": cfg.render.spp,
+                        "aperture": cfg.camera.aperture, "serial": cfg.render.serial_shading,
+                        "events": dict(zip(kE.EVENTS, ck["events_out"].tolist())),
+                        "rows_tested": int(ck["tested_out"].sum()),
+                        "passes": int(ck["passes_out"].item()), "capped": 0,
+                        "rays_equal": True, "lane_utilisation": steps / (32 * it)})
         self.err["whitted_wave"] = max(self.err["whitted_wave"], err)
         emit({"phase": "kernel_E_vs_plain", "cases": out, "max_abs_err": err,
               "tolerance": "bitwise (colors, every counter and E's camera rays)",
@@ -1166,36 +1172,27 @@ class Smoke:
         cfg, p = self.wave_frame
         tail, kw, rays = self.wave_inputs(cfg, p)
         r = rays.count
-        # the schedules in turns on one card (first, second, second, first)
-        order = (list(WAVE_VARIANTS) + list(reversed(WAVE_VARIANTS))) * 3
-        variants = {}
-        for variant, mode in order:
-            def launch(mode=mode):
-                return self.wave_launch(cfg, p, tail, kw, mode=mode)
 
-            ms = cuda_ms(launch, 20)
-            dev_ms = kernel_device_ms(launch, "whitted_wave_kernel", 10)
-            lanes = torch.zeros((2,), dtype=torch.int64, device=self.dev)
-            self.wave_launch(cfg, p, tail, kw, mode=mode, lanes_out=lanes)
-            it, steps = lanes.tolist()
-            v = variants.setdefault(variant, {"ms": [], "device_ms": [], "mode": mode})
-            v["ms"].append(ms)
-            v["device_ms"].append(dev_ms)
-            v.update(warp_iterations=it, active_lane_steps=steps,
-                     lane_utilisation=steps / (32 * it))
-        for v in variants.values():
-            v["ms_mean"] = sum(v["ms"]) / len(v["ms"])
-            v["device_ms_mean"] = sum(v["device_ms"]) / len(v["device_ms"])
-        kept = WAVE_VARIANTS[0][0]
-        e_ms = min(variants[kept]["ms"])
-        e_dev_ms = min(variants[kept]["device_ms"])
+        def launch_e(**extra):
+            return self.wave_launch(cfg, p, tail, kw, **extra)
+
+        e_ms = cuda_ms(launch_e, 20)
+        e_dev_ms = kernel_device_ms(launch_e, "whitted_wave_kernel", 10)
         e_plain_ms, e_plain = once_ms(lambda: kE.whitted_wave_plain(rays, *tail, **kw))
-        err = 0.0
-        for variant, mode in WAVE_VARIANTS:
-            err = max(err, compare(f"kernel E 1024 turbo parallel {variant}",
-                                   (self.wave_launch(cfg, p, tail, kw, mode=mode).reshape(-1),),
-                                   (e_plain.reshape(-1),)))
+        err = compare("kernel E 1024 turbo parallel", (launch_e().reshape(-1),),
+                      (e_plain.reshape(-1),))
         self.err["whitted_wave"] = max(self.err["whitted_wave"], err)
+        lanes = torch.zeros((2,), dtype=torch.int64, device=self.dev)
+        launch_e(lanes_out=lanes)
+        warp_iters, lane_steps = lanes.tolist()
+        emit({"phase": "lane_utilisation_before", "kernel": "E",
+              "design": "one thread a queue position (recorded in PERF.md)",
+              "lane_utilisation": PREVIOUS_E["lane_utilisation"],
+              "device_ms": PREVIOUS_E["device_ms"]})
+        emit({"phase": "lane_utilisation_after", "kernel": "E",
+              "design": "persistent wave, half-warp refill", "warp_iterations": warp_iters,
+              "active_lane_steps": lane_steps,
+              "lane_utilisation": lane_steps / (32 * warp_iters), "device_ms": e_dev_ms})
         ck = self.wave_counters(p, r)
         self.wave_launch(cfg, p, tail, kw, **ck)
         torch.cuda.synchronize()
@@ -1227,9 +1224,8 @@ class Smoke:
                  + events["reflections"] * OPS_PER_REFLECTION_E)
         e_bound, e_by = bound(e_bytes, e_ops)
         segments = events["primaries"] + events["shadow_rays"] + events["mirror_rays"]
-        emit({"phase": "kernel_times_E", "positions": r, "kept": kept, "ms": e_ms,
-              "device_ms": e_dev_ms, "variants": variants,
-              "plain_ms": e_plain_ms, "ptxas": self.ptxas.get("whitted_wave"),
+        emit({"phase": "kernel_times_E", "positions": r, "ms": e_ms, "device_ms": e_dev_ms,
+              "previous": PREVIOUS_E, "plain_ms": e_plain_ms, "ptxas": self.ptxas.get("whitted_wave"),
               "events": events, "segments": segments,
               "segments_per_s_of_kernel": segments / ((e_dev_ms or e_ms) / 1e3),
               "rows_tested": rows_tested, "slot_tests": slot_tests, "passes": passes,

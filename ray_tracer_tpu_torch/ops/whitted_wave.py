@@ -388,13 +388,15 @@ def whitted_wave_cuda(
     shadow_scale: float = 0.5, bg=(0.0, 0.0, 0.0),
     cam: Optional[CameraLaunch] = None, consts: Optional[LaunchConsts] = None,
     rays_out=None, capped_out=None, passes_out=None, tested_out=None, touched_out=None,
-    slots_out=None, events_out=None, lanes_out=None, refill_at: int = 16,
+    slots_out=None, events_out=None, lanes_out=None,
 ) -> torch.Tensor:
     """Kernel E on CUDA tensors: the color of every queue position of
     `camera`'s H*W*spp^2 subsamples -> (R, 3) f32, the plain version's
-    bits for the rays of `camera_rays(camera, spp=spp)`.  The kernel
-    makes each position's camera ray itself; rays_out (R, 8) f32, when
-    given, receives them (orig, dirn, mint, maxt).
+    bits for the rays of `camera_rays(camera, spp=spp)`.  A persistent
+    wave of resident lanes pops the positions from a queue (a zeroed
+    counter allocated here) and makes each position's camera ray itself;
+    rays_out (R, 8) f32, when given, receives them (orig, dirn, mint,
+    maxt).
 
     cam (`camera_launch(camera, spp)`) and consts (`launch_consts(grid,
     light_pos, light_intensity)`) are the launch's host-held values:
@@ -459,14 +461,14 @@ def whitted_wave_cuda(
     fn = _build.library("whitted_wave").whitted_wave_launch
     fn.restype = ctypes.c_int
     p = ctypes.c_void_p
-    fn.argtypes = [_WaveParams, _CameraParams] + [p] * 16 + [ctypes.c_int, p]
+    fn.argtypes = [_WaveParams, _CameraParams] + [p] * 17
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(wave, cparams, table.data_ptr(), cell_info.data_ptr(), blocks.data_ptr(),
                  slot_tri.data_ptr(), tri9.data_ptr(), mat9.data_ptr(), color.data_ptr(),
                  ptr(rays_out), head.data_ptr(), ptr(capped_out), ptr(passes_out),
                  ptr(tested_out), ptr(touched_out), ptr(slots_out), ptr(events_out),
-                 ptr(lanes_out), int(refill_at), stream)
+                 ptr(lanes_out), stream)
     _build.check(err, "whitted_wave")
     whitted_wave_cuda.launches += 1
     return color
