@@ -176,10 +176,10 @@ def profiled_kernels(fn, n: int, attempts: int = 3):
     torch.cuda.synchronize()
     for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.01)  # let the tracer settle before the window's first launch
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(0.05)  # let the tracer take the window's last records
         kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
         if kernels:
             break
@@ -216,6 +216,8 @@ def profile_render(prep, median_s: float, config: str, windows: int = 8) -> dict
     from ray_tracer_tpu_torch.render.renderer import render
 
     seen = [profiled_kernels(lambda: render(prep), 1, attempts=1)[0] for _ in range(windows)]
+    many = 10
+    in_many = len(profiled_kernels(lambda: render(prep), many, attempts=1)[0])
     kernels = max(seen, key=len)
     busy_us = sum(e.time_range.end - e.time_range.start for e in kernels)
     by_name = {}
@@ -223,7 +225,8 @@ def profile_render(prep, median_s: float, config: str, windows: int = 8) -> dict
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"phase": "main_path_profile", "config": config, "device_kernels": len(kernels),
-            "kernels_per_window": [len(k) for k in seen], "device_busy_ms": busy_us / 1e3,
+            "kernels_per_window": [len(k) for k in seen],
+            f"kernels_in_a_window_of_{many}_frames": in_many, "device_busy_ms": busy_us / 1e3,
             "median_frame_ms": median_s * 1e3,
             "device_idle_share": 1.0 - busy_us / 1e3 / (median_s * 1e3),
             "top_device_ms": {k[:60]: v / 1e3 for k, v in top}}
