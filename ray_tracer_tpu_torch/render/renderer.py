@@ -193,6 +193,7 @@ class FrameSetup(NamedTuple):
 
 
 def frame_setup(cfg: SceneConfig, scene: Scene, packed: PackedGrid = None) -> FrameSetup:
+    """Settle cfg's frame facts: the only device reads, made once."""
     takes_wave = check_supported(cfg, scene)
     consts = cam = None
     if packed is not None:
