@@ -1163,7 +1163,8 @@ class Smoke:
     def wave_times(self, bound) -> dict:
         """Kernel E at the main path's shape, the turbo parallel 1024^2
         frame: events over n launches, the profiler's device time, the plain
-        version once (held bitwise), and the bound from a counted launch."""
+        version once (held bitwise), and the bound from a counted launch
+        whose six counters equal the plain version's."""
         from ray_tracer_tpu_torch.config import apply_turbo
         from ray_tracer_tpu_torch.models.scenes import parallel_scene_config
         from ray_tracer_tpu_torch.render.renderer import prepare
@@ -1196,9 +1197,15 @@ class Smoke:
               "design": "persistent wave, half-warp refill", "warp_iterations": warp_iters,
               "active_lane_steps": lane_steps,
               "lane_utilisation": lane_steps / (32 * warp_iters), "device_ms": e_dev_ms})
-        ck = self.wave_counters(p, r)
+        # E's counters on this frame against the plain version's, all six
+        ck, cp = self.wave_counters(p, r), self.wave_counters(p, r)
         self.wave_launch(cfg, p, tail, kw, **ck)
+        kE.whitted_wave_plain(rays, *tail, **kw, **cp)
         torch.cuda.synchronize()
+        for key in ck:
+            if not torch.equal(ck[key], cp[key]):
+                raise AssertionError(f"kernel E 1024: counter {key} differs from the plain "
+                                     "version's")
         if int(ck["capped_out"].item()):
             raise AssertionError(f"kernel E 1024: {int(ck['capped_out'])} lanes capped")
         meta, grid = p.packed.meta, p.packed.arrays
@@ -1237,7 +1244,8 @@ class Smoke:
               "materials_used": mats.numel(), "bytes": e_bytes, "ops": e_ops,
               "bound_ms": e_bound, "bound_by": e_by,
               "bound_bytes_ms": e_bytes / PEAK_BYTES * 1e3,
-              "bound_ops_ms": e_ops / PEAK_FP32_UNFUSED * 1e3, "max_abs_err": err})
+              "bound_ops_ms": e_ops / PEAK_FP32_UNFUSED * 1e3, "max_abs_err": err,
+              "counters_equal_plain": True})
         return dict(ms=e_ms, plain_ms=e_plain_ms, bound_ms=e_bound, bound_by=e_by)
 
     def kernels_line(self):
