@@ -205,31 +205,29 @@ def once_ms(fn):
     return a.elapsed_time(b), out
 
 
-def profile_render(prep, median_s: float, config: str, windows: int = 8) -> dict:
-    """One render under torch.profiler, `windows` times: a frame's device
+def profile_render(prep, median_s: float, config: str, frames: int = 10) -> dict:
+    """`frames` renders in one torch.profiler window: a frame's device
     kernels, its device busy time (the sum of kernel durations; kernels on
     one stream do not overlap), the idle share of the unprofiled median
     frame time that leaves, and the device time by kernel name.  The
-    profiler on the chip machine can drop a window's events, so the
-    window that saw the most kernels is reported, beside every window's
-    count."""
+    profiler on the chip machine can drop a few of a window's events, so
+    a kernel's launches a frame are the ceiling of its events over the
+    frames, each at its mean duration."""
     from ray_tracer_tpu_torch.render.renderer import render
 
-    seen = [profiled_kernels(lambda: render(prep), 1, attempts=1)[0] for _ in range(windows)]
-    many = 10
-    in_many = len(profiled_kernels(lambda: render(prep), many, attempts=1)[0])
-    kernels = max(seen, key=len)
-    busy_us = sum(e.time_range.end - e.time_range.start for e in kernels)
+    kernels, windows = profiled_kernels(lambda: render(prep), frames)
     by_name = {}
     for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"phase": "main_path_profile", "config": config, "device_kernels": len(kernels),
-            "kernels_per_window": [len(k) for k in seen],
-            f"kernels_in_a_window_of_{many}_frames": in_many, "device_busy_ms": busy_us / 1e3,
-            "median_frame_ms": median_s * 1e3,
+        by_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+    per_frame = {k: (-(-len(v) // frames), sum(v) / len(v)) for k, v in by_name.items()}
+    busy_us = sum(n * us for n, us in per_frame.values())
+    top = sorted(per_frame.items(), key=lambda kv: -kv[1][0] * kv[1][1])[:6]
+    return {"phase": "main_path_profile", "config": config,
+            "device_kernels": sum(n for n, _ in per_frame.values()), "frames": frames,
+            "kernel_events_seen": len(kernels), "profile_windows": windows,
+            "device_busy_ms": busy_us / 1e3, "median_frame_ms": median_s * 1e3,
             "device_idle_share": 1.0 - busy_us / 1e3 / (median_s * 1e3),
-            "top_device_ms": {k[:60]: v / 1e3 for k, v in top}}
+            "top_device_ms": {k[:60]: n * us / 1e3 for k, (n, us) in top}}
 
 
 def compare(label: str, got, want) -> float:
