@@ -54,13 +54,29 @@ each printing one JSON line:
      both devices (the plain wave on the card with pow on the CPU gives
      the CPU's colors);
   9. kernel D (csrc/gather_row_test.cu) against its plain version through
-     the port's gather tool, and the tool's step-loop time.
+     the port's gather tool, and the tool's step-loop time;
+ 10. kernel F (csrc/gi_wave.cu, the cross-depth GI wave) against its plain
+     version on the card: the turbo serial scene at 128x128 with S = 4,
+     D = 2, the turbo parallel scene (the mirror mix) at 128x128 with
+     S = 2, D = 3, the escape-only plane and D = 0: the radiance bitwise
+     equal and every counter equal, no lane capped.  In phase 7 (main) the
+     path-traced render: the official GI row (turbo serial, 1024x1024,
+     S = 4, D = 2) through prepare + render, one launch of F a frame and
+     nothing else, each frame under torch.cuda.set_sync_debug_mode("error"),
+     Mpaths/s and F's segments a second, the ten-frame profile; the GI
+     wave against the segment integrator at 256x256 (the serial and
+     parallel scenes, the JAX package's statistical rule); the command
+     line's GI PPM; and the turbo nefertiti scene at 1024x1024 (kernel C,
+     the tuned knobs) against its csr image (kernel B) by the 2-count rule.
+     In phase 8 the 64x64 GI renders, card against CPU, bitwise.
 
 Then the kernel times at the main path's shapes (each launch held
 bitwise to the plain version; B's, C's and E's barycentric passes, and
 E's camera rays, vertices and reflections, counted for their operation
 bounds; C's device time against its time before the shared header; E's
-lane utilisation before and after its redesign, on lines of their own),
+lane utilisation before and after its redesign, on lines of their own;
+F's events over launches, its plain version once and its bound from its
+counters, with ptxas's registers and spills),
 a `kernels` line, the card line, and last {"ok": true, "device": {...}}.  Any
 failure raises and exits non-zero; without a CUDA device it exits
 non-zero before any phase.
@@ -124,7 +140,23 @@ OPS_PER_REFLECTION_E = 79
 # component: 18), its normalize (10), and the primary's reciprocal
 # direction (3) and slab entry (30).
 OPS_PER_CAMERA_RAY_E = 68
-ALL_PHASES = ("build", "A", "B", "C", "E", "main", "card_vs_cpu", "D", "times")
+# FP32 operations of kernel F beyond its slot tests, counted from
+# csrc/gi_wave.cu as for E (a normalize at 10, a hash at 14 integer
+# operations, float64 cos and sin at one each): per vertex the recomputed t
+# (32), the two hit points (12), the oriented face normal (33), the NEE
+# terms (31), the branch draw (14), the shadow direction (12) and its slab
+# entry (30), the banked NEE (3): 167; per bounce or restart the key and
+# two draws (30), the basis (16), the cosine sample (24), the mirror
+# (12), the slab entry (30) and the throughput and reciprocal direction
+# (6): 118, counted for the bounces that entered the grid; per escape the
+# background term (6) alone; per pixel the camera ray (68, as for E), its
+# key (11) and the sum of its S samples (3 each).
+OPS_PER_VERTEX_F = 167
+OPS_PER_BOUNCE_F = 118
+OPS_PER_ESCAPE_F = 6
+OPS_PER_PIXEL_F = 79
+OPS_PER_SAMPLE_F = 3
+ALL_PHASES = ("build", "A", "B", "C", "E", "F", "main", "card_vs_cpu", "D", "times")
 # The kernels' device times on the 1024^2 main path before this version
 # of the sources (B and C as redesigned, before C's march step moved into
 # csrc/packed_step.cuh), NVIDIA H100 80GB HBM3 at 700 W, as recorded in
@@ -292,25 +324,28 @@ class Smoke:
         from ray_tracer_tpu_torch.ops import brute_intersect as kA
         from ray_tracer_tpu_torch.ops import traverse as kB
         from ray_tracer_tpu_torch.ops import traverse_packed as kC
+        from ray_tracer_tpu_torch.ops import gi_wave as kF
         from ray_tracer_tpu_torch.ops import whitted_wave as kE
         from ray_tracer_tpu_torch.tools import gather_bench as kD
 
-        self.kA, self.kB, self.kC, self.kD, self.kE = kA, kB, kC, kD, kE
+        self.kA, self.kB, self.kC, self.kD, self.kE, self.kF = kA, kB, kC, kD, kE, kF
         self.counters = {"brute_intersect": kA.brute_intersect_cuda,
                          "traverse_grid": kB.traverse_grid_cuda,
                          "packed_march": kC.march_cuda,
                          "gather_row_test": kD.gather_row_test_cuda,
-                         "whitted_wave": kE.whitted_wave_cuda}
+                         "whitted_wave": kE.whitted_wave_cuda,
+                         "gi_wave": kF.gi_wave_cuda}
         self.dev = torch.device("cuda")
         self.root = os.path.dirname(os.path.abspath(__file__))
         self.launches = {}
         self.err = {"brute_intersect": 0.0, "traverse_grid": 0.0, "packed_march": 0.0,
-                    "gather_row_test": 0.0, "whitted_wave": 0.0}
+                    "gather_row_test": 0.0, "whitted_wave": 0.0, "gi_wave": 0.0}
         self.times = {}
         self.images = {}
         self.libs = {}
         self.ptxas = {}
         self.wave_frame = None  # (cfg, prepared) of the turbo parallel 1024^2 frame
+        self.gi_frame = None  # the prepared official GI row (turbo serial 1024^2, S 4, D 2)
 
     def zero_counts(self):
         for fn in self.counters.values():
@@ -608,6 +643,288 @@ class Smoke:
               "tolerance": "bitwise (colors, every counter and E's camera rays)",
               "equal": True})
 
+    # ---- 10. kernel F vs its plain version --------------------------------
+    def gi_config(self, make, size, family, S, D, **kw):
+        """A path-traced turbo config (gi_samples set before apply_turbo, as
+        the command line sets it)."""
+        from ray_tracer_tpu_torch.config import apply_turbo
+
+        cfg = make(size, size)
+        cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, gi_samples=S))
+        cfg = apply_turbo(cfg, family)
+        return dataclasses.replace(cfg, render=dataclasses.replace(
+            cfg.render, faithful=False, gi_samples=S, gi_depth=D, **kw))
+
+    def gi_inputs(self, prep):
+        """Kernel F's arguments for a prepared GI wave config after the
+        camera, and the plain version's rays (the CPU camera batch on the
+        card)."""
+        from ray_tracer_tpu_torch.core.rays import RayBatch
+        from ray_tracer_tpu_torch.ops.camera import camera_rays
+
+        cfg = prep.cfg
+        rc = cfg.render
+        tri9, albedo, km = prep.gi
+        pg = rc.primary_gate()
+        kw = dict(S=rc.gi_samples, D=rc.gi_depth, gate0=0.0 if pg is None else pg,
+                  gate_b=rc.bounce_gate(), eps=rc.shadow_eps, smint=rc.shadow_mint(),
+                  quirk=rc.shadow_dir_away_from_light(), bg=tuple(rc.background))
+        tail = (prep.scene.light_pos, prep.scene.light_intensity, albedo, tri9,
+                prep.packed.arrays, prep.packed.meta, km)
+        rays = RayBatch(*(x.to(self.dev) for x in camera_rays(cfg.camera, device="cpu")))
+        return tail, kw, rays
+
+    def gi_launch(self, prep, tail, kw, **extra):
+        """One launch of kernel F on a prepared GI wave config."""
+        return self.kF.gi_wave_cuda(prep.cfg.camera, *tail, **kw, cam=prep.setup.cam,
+                                    consts=prep.setup.consts, **extra)
+
+    def gi_counters(self):
+        return dict(capped_out=torch.zeros((1,), dtype=torch.int32, device=self.dev),
+                    passes_out=torch.zeros((1,), dtype=torch.int32, device=self.dev),
+                    events_out=torch.zeros((len(self.kF.EVENTS),), dtype=torch.int64,
+                                           device=self.dev))
+
+    def gi_check(self, label, prep):
+        """F against its plain version on prep's frame: radiance bitwise,
+        every counter equal, no lane capped.  Returns (max |err|, events,
+        passes)."""
+        tail, kw, rays = self.gi_inputs(prep)
+        cp, ck = self.gi_counters(), self.gi_counters()
+        want = self.kF.gi_wave_plain(rays, *tail, **kw, **cp)
+        got = self.gi_launch(prep, tail, kw, **ck)
+        torch.cuda.synchronize()
+        err = compare(label, (got.reshape(-1),), (want.reshape(-1),))
+        for key in ck:
+            if not torch.equal(ck[key], cp[key]):
+                raise AssertionError(f"{label}: counter {key} differs from the plain "
+                                     f"version's: {ck[key].tolist()} vs {cp[key].tolist()}")
+        if int(ck["capped_out"].item()):
+            raise AssertionError(f"{label}: {int(ck['capped_out'])} lanes capped")
+        return err, dict(zip(self.kF.EVENTS, ck["events_out"].tolist())), int(ck["passes_out"])
+
+    def plane_gi_config(self, size):
+        """The escape-only plane (tests/test_torch_gi_wave.py): every bounce
+        escapes to the background, so radiance is direction-independent."""
+        from ray_tracer_tpu_torch.config import (CameraConfig, LightConfig, MaterialConfig,
+                                                 SceneConfig)
+        from ray_tracer_tpu_torch.models import meshes
+        from ray_tracer_tpu_torch.models.scenes import scene_from_meshes
+
+        mats = (MaterialConfig(base_color=(140.0, 90.0, 200.0)),)
+        light = LightConfig(position=(0.5, 6.0, 0.3), intensity=60.0)
+        scene = scene_from_meshes([(meshes.make_plane(extent=8.0, y=-1.0, density=2), 0)],
+                                  mats, light, device=self.dev)
+        cfg = SceneConfig(materials=mats, light=light, camera=CameraConfig(
+            position=(0.0, 3.0, 0.0), target=(0.1, -1.0, 0.1), width=size, height=size))
+        cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+            cfg.render, faithful=False, det_dtype="float32", traversal="packed",
+            scheduler="persistent", gi_samples=3, gi_depth=2, background=(30.0, 20.0, 10.0),
+            gi_wave="on"))
+        return cfg, scene
+
+    def kernel_f(self):
+        from ray_tracer_tpu_torch.models.scenes import parallel_scene_config, serial_scene_config
+        from ray_tracer_tpu_torch.render.renderer import prepare
+
+        plane_cfg, plane_scene = self.plane_gi_config(64)
+        cases = [
+            ("serial_128_s4d2", self.gi_config(serial_scene_config, 128, "serial", 4, 2), None),
+            ("parallel_128_s2d3", self.gi_config(parallel_scene_config, 128, "parallel", 2, 3),
+             None),
+            ("escape_plane_64_s3d2", plane_cfg, plane_scene),
+            ("serial_128_s4d0", self.gi_config(serial_scene_config, 128, "serial", 4, 0), None),
+        ]
+        err = 0.0
+        out = []
+        for name, cfg, scene in cases:
+            prep = prepare(cfg, scene=scene)
+            if not prep.setup.gi_wave:
+                raise AssertionError(f"kernel F {name}: the config should take the GI wave")
+            e, events, passes = self.gi_check(f"kernel F {name}", prep)
+            err = max(err, e)
+            out.append({"case": name, "pixels": cfg.camera.width * cfg.camera.height,
+                        "S": cfg.render.gi_samples, "D": cfg.render.gi_depth,
+                        "mirror_mix": prep.gi[2] is not None, "events": events,
+                        "passes": passes, "capped": 0})
+        self.err["gi_wave"] = max(self.err["gi_wave"], err)
+        emit({"phase": "kernel_F_vs_plain", "cases": out, "max_abs_err": err,
+              "tolerance": "bitwise (radiance and every counter)", "equal": True})
+
+    # ---- 7. (continued) the path-traced render and the nefertiti scene --
+    def main_gi(self):
+        """The official GI row (turbo serial 1024x1024, S = 4, D = 2) through
+        prepare + render: one launch of F a frame and nothing else."""
+        from ray_tracer_tpu_torch.core import vecmath as vm
+        from ray_tracer_tpu_torch.io.ppm import read_ppm, tonemap_u8
+        from ray_tracer_tpu_torch.models.scenes import serial_scene_config
+        from ray_tracer_tpu_torch.render.renderer import prepare, render
+
+        size, S, D = 1024, 4, 2
+        cfg = self.gi_config(serial_scene_config, size, "serial", S, D)
+        t0 = time.perf_counter()
+        p = prepare(cfg)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        self.zero_counts()
+        img = render(p)
+        torch.cuda.synchronize()
+        counts = self.counts()
+        if counts["gi_wave"] != 1 or sum(counts.values()) != 1:
+            raise AssertionError(f"the GI frame launched {counts}: F once and nothing else "
+                                 "expected")
+        self.launches["gi_wave"] = counts["gi_wave"]
+        if img.shape != (size, size, 3) or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"GI render: bad image {tuple(img.shape)}")
+        secs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                img = render(p)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        med = sorted(secs)[2]
+        gi_u8 = tonemap_u8(img.cpu().numpy())
+        # F's counters on this frame's inputs (a separate, counted launch)
+        tail, kw, _ = self.gi_inputs(p)
+        ck = self.gi_counters()
+        counted = self.gi_launch(p, tail, kw, **ck)
+        torch.cuda.synchronize()
+        if not torch.equal(vm.div_scalar(counted, float(S)).view(torch.int32),
+                           img.reshape(-1, 3).view(torch.int32)):
+            raise AssertionError("the counted launch of kernel F differs from the frame")
+        if int(ck["capped_out"].item()):
+            raise AssertionError(f"GI frame: {int(ck['capped_out'])} lanes capped")
+        events = dict(zip(self.kF.EVENTS, ck["events_out"].tolist()))
+        segments = events["primaries"] + events["bounce_segments"] + events["shadow_rays"]
+        self.gi_frame = p
+        emit({"phase": "main_path", "config": "turbo_spot_gi_s4d2", "size": size,
+              "S": S, "D": D, "pump": cfg.render.pump, "triangles": p.scene.num_faces,
+              "prepare_s": prep_s, "median_ms": med * 1e3,
+              "renders_ms": [x * 1e3 for x in secs],
+              "mpaths_per_s": size * size * S / med / 1e6,
+              "segments_marched": segments, "segments_marched_per_s_of_frame": segments / med,
+              "bench_py_gi_mrays_per_s": size * size * S * 2 * (D + 1) / med / 1e6,
+              "sync_debug_mode": "error", "events": events, "launches_per_frame": counts,
+              "lit_pixels": int((gi_u8.max(axis=-1) > 0).sum()),
+              "packed_grid": {"n_voxels": list(p.packed.meta.n_voxels),
+                              "rows": p.packed.meta.n_blocks, "inline": p.packed.meta.inline,
+                              "block_tris": p.packed.meta.block_tris}})
+        emit(profile_render(p, med, "turbo_spot_gi_s4d2"))
+
+        out_ppm = os.path.join(self.root, "build", "chip_smoke_cli_gi.ppm")
+        os.makedirs(os.path.dirname(out_ppm), exist_ok=True)
+        cli = subprocess.run(
+            [sys.executable, "-m", "ray_tracer_tpu_torch.cli", "render", "--scene", "serial",
+             "--width", str(size), "--turbo", "--gi", str(S), "--gi-depth", str(D),
+             "--out", out_ppm],
+            cwd=self.root, capture_output=True, text=True, timeout=600,
+        )
+        if cli.returncode != 0:
+            raise AssertionError(f"cli render gi failed:\n{cli.stderr[-3000:]}")
+        if not (read_ppm(out_ppm) == gi_u8).all():
+            raise AssertionError("cli render gi differs from the in-process render")
+        emit({"phase": "cli", "config": "turbo_spot_gi_s4d2", "size": size,
+              "same_bytes_as_render": True, "stderr": cli.stderr.strip().splitlines()[-1]})
+
+    def gi_wave_vs_segments(self):
+        """The GI wave (F) against the segment integrator (C, one fused march
+        a sample batch and depth) at 256x256: the JAX package's rule for its
+        own wave (tests/test_pathtrace.py:565-586), more than 97% of pixels
+        within 1e-5 and the means within 2%."""
+        from ray_tracer_tpu_torch.models.scenes import parallel_scene_config, serial_scene_config
+        from ray_tracer_tpu_torch.render.renderer import prepare, render
+
+        for name, cfg in (("serial_s4d2", self.gi_config(serial_scene_config, 256, "serial",
+                                                         4, 2)),
+                          ("parallel_s2d3", self.gi_config(parallel_scene_config, 256,
+                                                           "parallel", 2, 3))):
+            p = prepare(cfg)
+            self.zero_counts()
+            wave = render(p)
+            torch.cuda.synchronize()
+            wcounts = self.counts()
+            off = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render,
+                                                                      gi_wave="off"))
+            self.zero_counts()
+            seg = render(p._replace(cfg=off))
+            torch.cuda.synchronize()
+            scounts = self.counts()
+            if wcounts["gi_wave"] != 1 or scounts["gi_wave"] or scounts["packed_march"] <= 0:
+                raise AssertionError(f"GI {name}: wave launched {wcounts}, segments {scounts}")
+            same = float(((wave - seg).abs() <= 1e-5).all(dim=-1).float().mean())
+            means = (float(wave.mean()), float(seg.mean()))
+            rel = abs(means[0] - means[1]) / max(abs(means[1]), 1e-30)
+            emit({"phase": "gi_wave_vs_segments", "case": name, "size": 256,
+                  "pixels_within_1e-5": same, "means": means, "means_rel_diff": rel,
+                  "bitwise_pixels": float((wave.view(torch.int32) == seg.view(torch.int32))
+                                          .all(dim=-1).float().mean()),
+                  "segment_launches": scounts})
+            if same <= 0.97 or rel > 0.02:
+                raise AssertionError(f"GI wave vs segments {name}: {same:.4f} of pixels within "
+                                     f"1e-5, means {means}")
+
+    def main_nefertiti(self):
+        """The turbo nefertiti scene (about 262k faces) at 1024x1024: kernel C
+        with the tuned knobs, against its csr image (kernel B) by the
+        2-count rule."""
+        from ray_tracer_tpu_torch.config import apply_turbo
+        from ray_tracer_tpu_torch.io.ppm import tonemap_u8
+        from ray_tracer_tpu_torch.models.scenes import nefertiti_scene
+        from ray_tracer_tpu_torch.render.renderer import prepare, render
+
+        size = 1024
+        scene, base = nefertiti_scene(size, size, device=self.dev)
+        imgs = {}
+        for name, cfg, kernel in (
+                ("turbo_nefertiti", apply_turbo(base, "nefertiti"), "packed_march"),
+                ("csr_nefertiti", dataclasses.replace(base, render=dataclasses.replace(
+                    base.render, traversal="csr")), "traverse_grid")):
+            t0 = time.perf_counter()
+            p = prepare(cfg, scene=scene)
+            torch.cuda.synchronize()
+            prep_s = time.perf_counter() - t0
+            self.zero_counts()
+            img = render(p)
+            torch.cuda.synchronize()
+            counts = self.counts()
+            if counts[kernel] <= 0:
+                raise AssertionError(f"{name} launched {kernel} 0 times")
+            if not bool(torch.isfinite(img).all()):
+                raise AssertionError(f"{name}: non-finite pixels")
+            secs = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                img = render(p)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            med = sorted(secs)[2]
+            imgs[name] = tonemap_u8(img.cpu().numpy())
+            line = {"phase": "main_path", "config": name, "size": size,
+                    "triangles": p.scene.num_faces, "prepare_s": prep_s,
+                    "median_ms": med * 1e3, "renders_ms": [x * 1e3 for x in secs],
+                    "mrays_per_s": size * size * 2 / med / 1e6, "launches_per_frame": counts,
+                    "lit_pixels": int((imgs[name].max(axis=-1) > 0).sum())}
+            if p.packed is not None:
+                line["packed_grid"] = {"n_voxels": list(p.packed.meta.n_voxels),
+                                       "rows": p.packed.meta.n_blocks,
+                                       "inline": p.packed.meta.inline,
+                                       "block_tris": p.packed.meta.block_tris,
+                                       "max_blocks": p.packed.meta.max_blocks}
+            emit(line)
+            if name == "turbo_nefertiti":
+                self.launches["packed_march"] = max(self.launches.get("packed_march", 0),
+                                                    counts["packed_march"])
+                emit(profile_render(p, med, name))
+        frac = image_rule(imgs["turbo_nefertiti"], imgs["csr_nefertiti"])
+        emit({"phase": "nefertiti_agreement", "pixels_over_2_counts": frac,
+              "bytes_differing": int((imgs["turbo_nefertiti"] != imgs["csr_nefertiti"]).sum())})
+        if frac >= 0.01:
+            raise AssertionError(f"nefertiti turbo vs csr: {frac:.2%} of pixels differ by > 2")
+
     # ---- 7. the main path at full size -----------------------------------
     def main_path(self):
         from ray_tracer_tpu_torch.config import apply_turbo
@@ -688,6 +1005,9 @@ class Smoke:
                   "stderr": cli.stderr.strip().splitlines()[-1]})
 
         self.main_wave()
+        self.main_gi()
+        self.gi_wave_vs_segments()
+        self.main_nefertiti()
 
         base = parallel_scene_config(512, 512)
         turbo = apply_turbo(base, "parallel")
@@ -893,6 +1213,27 @@ class Smoke:
         if bool(diff.any()):
             line["pow"] = self.wave_pow_probe(wcfg, wprep, diff.reshape(-1).nonzero()[:, 0])
         emit(line)
+
+        # path-traced GI at 64x64 through the GI wave (F on the card, its
+        # plain version on the CPU): cos and sin are taken in float64 on
+        # both, so the radiance is held bitwise
+        for name, gcfg in (("turbo_spot_gi_s4d2",
+                            self.gi_config(serial_scene_config, 64, "serial", 4, 2)),
+                           ("turbo_parallel_gi_s2d3",
+                            self.gi_config(parallel_scene_config, 64, "parallel", 2, 3))):
+            self.zero_counts()
+            g_card = render(prepare(gcfg))
+            torch.cuda.synchronize()
+            if self.counts()["gi_wave"] != 1:
+                raise AssertionError(f"the 64x64 {name} render did not launch kernel F")
+            g_cpu = render(prepare(gcfg, device="cpu"))
+            n_bad = int((g_card.cpu().view(torch.int32) != g_cpu.view(torch.int32)).sum())
+            emit({"phase": "card_vs_cpu", "size": 64, "config": name,
+                  "tolerance": "bitwise (cos and sin in float64 on both)",
+                  "floats_differing": n_bad,
+                  "max_abs_diff": float((g_card.cpu() - g_cpu).abs().max())})
+            if n_bad:
+                raise AssertionError(f"GI 64 {name}: {n_bad} floats differ card vs CPU")
 
     def wave_pow_probe(self, cfg, prep, lanes):
         """The wave's plain version on the card over the differing pixels'
@@ -1117,9 +1458,10 @@ class Smoke:
         d_bound, d_by = bound(d_bytes, d_ops)
 
         e = self.wave_times(bound)
+        f = self.gi_times(bound)
 
         self.times.update(
-            E=e,
+            E=e, F=f,
             A=dict(ms=a_ms, plain_ms=a_plain_ms, bound_ms=a_bound, bound_by=a_by),
             B=dict(ms=b_ms, plain_ms=b_plain_ms, bound_ms=b_bound, bound_by=b_by),
             C=dict(ms=c_ms, plain_ms=c_plain_ms, bound_ms=c_bound, bound_by=c_by),
@@ -1246,6 +1588,69 @@ class Smoke:
               "counters_equal_plain": True})
         return dict(ms=e_ms, plain_ms=e_plain_ms, bound_ms=e_bound, bound_by=e_by)
 
+    def gi_times(self, bound) -> dict:
+        """Kernel F at the main path's shape, the official GI row (turbo
+        serial 1024^2, S = 4, D = 2): events over n launches, the profiler's
+        device time, the plain version once (held bitwise), and the bound
+        from a counted launch whose counters equal the plain version's."""
+        from ray_tracer_tpu_torch.models.scenes import serial_scene_config
+        from ray_tracer_tpu_torch.render.renderer import prepare
+
+        kF = self.kF
+        if self.gi_frame is None:
+            self.gi_frame = prepare(self.gi_config(serial_scene_config, 1024, "serial", 4, 2))
+        p = self.gi_frame
+        tail, kw, rays = self.gi_inputs(p)
+        r = rays.count
+
+        def launch_f(**extra):
+            return self.gi_launch(p, tail, kw, **extra)
+
+        f_ms = cuda_ms(launch_f, 20)
+        f_dev_ms = kernel_device_ms(launch_f, "gi_wave_kernel", 10)
+        cp, ck = self.gi_counters(), self.gi_counters()
+        f_plain_ms, f_plain = once_ms(lambda: kF.gi_wave_plain(rays, *tail, **kw, **cp))
+        err = compare("kernel F 1024 GI", (launch_f(**ck).reshape(-1),), (f_plain.reshape(-1),))
+        torch.cuda.synchronize()
+        for key in ck:
+            if not torch.equal(ck[key], cp[key]):
+                raise AssertionError(f"kernel F 1024: counter {key} differs from the plain "
+                                     "version's")
+        if int(ck["capped_out"].item()):
+            raise AssertionError(f"kernel F 1024: {int(ck['capped_out'])} lanes capped")
+        self.err["gi_wave"] = max(self.err["gi_wave"], err)
+        meta, grid = p.packed.meta, p.packed.arrays
+        events = dict(zip(kF.EVENTS, ck["events_out"].tolist()))
+        passes = int(ck["passes_out"].item())
+        slot_tests = events["slot_tests"]
+        if not 0 <= passes <= slot_tests:
+            raise AssertionError(f"kernel F counted {passes} passes of {slot_tests} tests")
+        tri9, albedo, km = p.gi
+        # every input read once and the radiance written once: the whole
+        # grid tables (an upper bound of the rows the frame reads: F keeps
+        # no per-row counter, and the bytes term does not bind), the
+        # triangle rows, the material tables, the camera table
+        f_bytes = (r * 12 + (grid.blocks.numel() + grid.slot_tri.numel()
+                             + grid.cell_info.numel()) * 4 + tri9.numel() * 4
+                   + albedo.numel() * 4 + (km.numel() * 4 if km is not None else 0)
+                   + p.setup.cam.table.numel() * 4)
+        f_ops = ((slot_tests - passes) * OPS_PER_FAILED_TEST + passes * OPS_PER_PASSED_TEST
+                 + r * OPS_PER_PIXEL_F + r * kw["S"] * OPS_PER_SAMPLE_F
+                 + events["vertices"] * OPS_PER_VERTEX_F
+                 + events["bounce_segments"] * OPS_PER_BOUNCE_F
+                 + events["escapes"] * OPS_PER_ESCAPE_F)
+        f_bound, f_by = bound(f_bytes, f_ops)
+        segments = events["primaries"] + events["bounce_segments"] + events["shadow_rays"]
+        emit({"phase": "kernel_times_F", "pixels": r, "S": kw["S"], "D": kw["D"], "ms": f_ms,
+              "device_ms": f_dev_ms, "plain_ms": f_plain_ms, "ptxas": self.ptxas.get("gi_wave"),
+              "events": events, "passes": passes, "segments": segments,
+              "segments_per_s_of_kernel": segments / ((f_dev_ms or f_ms) / 1e3),
+              "bytes": f_bytes, "ops": f_ops, "bound_ms": f_bound, "bound_by": f_by,
+              "bound_bytes_ms": f_bytes / PEAK_BYTES * 1e3,
+              "bound_ops_ms": f_ops / PEAK_FP32_UNFUSED * 1e3, "library_ms": None,
+              "max_abs_err": err, "counters_equal_plain": True})
+        return dict(ms=f_ms, plain_ms=f_plain_ms, bound_ms=f_bound, bound_by=f_by)
+
     def kernels_line(self):
         rows = []
         for name, key, source, replaces in (
@@ -1259,6 +1664,8 @@ class Smoke:
              "tools/pallas_gather_bench.py:98"),
             ("whitted_wave", "E", "ray_tracer_tpu_torch/csrc/whitted_wave.cu",
              "ray_tracer_tpu/ops/whitted_wave.py:79"),
+            ("gi_wave", "F", "ray_tracer_tpu_torch/csrc/gi_wave.cu",
+             "ray_tracer_tpu/ops/gi_wave.py:96"),
         ):
             t = self.times[key]
             rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1290,6 +1697,8 @@ def main(argv=None) -> int:
         smoke.kernel_c()
     if "E" in phases:
         smoke.kernel_e()
+    if "F" in phases:
+        smoke.kernel_f()
     if "main" in phases:
         smoke.main_path()
     if "card_vs_cpu" in phases:

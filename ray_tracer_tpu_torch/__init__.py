@@ -2,8 +2,8 @@
 
 A second package beside the JAX one: the same scenes, configuration and
 hit semantics, with plain PyTorch tensor code for the host-side stages and
-CUDA C++ kernels written for Hopper (sm_90a) for the traversals and the
-cross-depth Whitted wave.  It
+CUDA C++ kernels written for Hopper (sm_90a) for the traversals, the
+cross-depth Whitted wave and the path tracer's cross-depth GI wave.  It
 imports torch and numpy only, never jax or ray_tracer_tpu.
 
     from ray_tracer_tpu_torch.models.scenes import serial_scene_config

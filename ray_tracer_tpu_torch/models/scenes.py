@@ -1,6 +1,7 @@
 """Scene representation and the reference scene definitions.
 
-Counterpart of `ray_tracer_tpu/models/scenes.py`.  A Scene is a
+Counterpart of `ray_tracer_tpu/models/scenes.py` (the serial, parallel,
+gradcheck, flagship and nefertiti scenes).  A Scene is a
 NamedTuple of tensors on one device: indexed geometry (verts + faces), a
 per-face material index, the material table and the point light.
 Meshes are loaded and concatenated in numpy on the host, and
@@ -237,5 +238,49 @@ def gradcheck_scene(width: int = 64, height: int = 64, dtype=torch.float32,
         camera=CameraConfig(position=(3.0, 3.0, 4.0), target=(0, 0, 0), up=(0, 1, 0), fov_degrees=45.0, width=width, height=height),
         light=light,
         render=RenderConfig(shading="parallel", faithful=False, max_bounces=0, shadow_eps=1e-3, shadow_scale=0.5),
+    )
+    return scene, cfg
+
+
+def serial_scene(width: int = 512, height: int = 512, dtype=torch.float32, device=None):
+    cfg = serial_scene_config(width, height)
+    return build_scene(cfg, dtype=dtype, device=device), cfg
+
+
+def flagship_scene(width: int = 1024, height: int = 1024, dtype=torch.float32, device=None):
+    """The primary benchmark's scene: the serial scene at 1024x1024."""
+    return serial_scene(width, height, dtype=dtype, device=device)
+
+
+def nefertiti_mesh_parts(n_lat: int = 256, n_lon: int = 512, with_spot: bool = False):
+    """The nefertiti workload's (mesh, material_index) parts: the displaced
+    sphere of radius 1.2 standing in for the reference's missing scan
+    (about 262k faces at the default resolution), and with_spot the spot
+    mesh beside it at (2.6, 0, 0)."""
+    parts = [(mesh_gen.make_displaced_sphere(n_lat=n_lat, n_lon=n_lon, radius=1.2), 0)]
+    if with_spot:
+        parts.append((load_obj(asset("spot_triangulated.obj"), offset=(2.6, 0.0, 0.0)), 1))
+    return parts
+
+
+def nefertiti_scene(width: int = 1024, height: int = 1024, n_lat: int = 256, n_lon: int = 512,
+                    with_spot: bool = False, dtype=torch.float32, device=None):
+    """The dense workload scene (ray_tracer_tpu/models/scenes.py:445) ->
+    (scene, cfg): the displaced sphere (and with_spot the spot mesh), two
+    materials, one light, packed traversal."""
+    materials = (
+        MaterialConfig(base_color=(210.0, 180.0, 140.0), kd=2.0, ks=4.0, spec_alpha=6.0, ka=0.2),
+        MaterialConfig(base_color=(200.0, 60.0, 60.0), kd=2.0, ks=4.0, spec_alpha=4.0, ka=0.2),
+    )
+    light = LightConfig(position=(4.0, 5.0, 3.0), intensity=1.0)
+    scene = scene_from_meshes(nefertiti_mesh_parts(n_lat, n_lon, with_spot), materials, light,
+                              dtype=dtype, device=device)
+    cfg = SceneConfig(
+        materials=materials,
+        camera=CameraConfig(position=(0.0, 1.5, 4.5), target=(0.8 if with_spot else 0.0, 0, 0),
+                            up=(0, 1, 0), fov_degrees=45.0, width=width, height=height),
+        light=light,
+        render=RenderConfig(shading="parallel", faithful=False, traversal="packed",
+                            max_bounces=0, shadow_eps=1e-3, shadow_scale=0.5, ray_tile=512),
     )
     return scene, cfg

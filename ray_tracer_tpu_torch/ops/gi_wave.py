@@ -1,0 +1,534 @@
+"""The cross-depth GI wave: kernel F and its plain version.
+
+Counterpart of `ray_tracer_tpu/ops/gi_wave.py:gi_wave_trace`: a lane
+serves one pixel's whole path-traced estimate over the packed grid,
+
+    primary march -> NEE shadow -> bounce (sample 0) -> NEE -> ... ->
+    restart at the shared depth-0 vertex (sample 1) -> ... -> radiance
+
+and writes the radiance summed over the S samples (the caller divides by
+S).  The primary is marched once a pixel: every sample shares its depth-0
+vertex and the depth-0 NEE contribution d0.  A vertex resolves through
+`slot_tri` and its (F, 10) triangle row; the integrator's point uses the
+recomputed t (`cramer_t_safe`), the NEE shadow ray starts from the
+march's t.  A `reflective` material with km > 0 takes the mirror branch
+with probability km (one hash draw a vertex; the restarts draw with
+their own salts), and a mirror vertex skips NEE except at depth 0, whose
+shadow ray still settles d0.  Escapes take the flat background.  A
+segment that has stepped more than `_default_max_steps(meta)` times
+retires as it stands (the JAX loop's per-segment bound).
+
+The radiance does not depend on the schedule: the JAX loop's `wave`,
+`pump`, `refill_retries` and `max_iters` decide only how its W lanes take
+turns, so they are accepted and have no effect here
+(tests/test_torch_gi_wave.py pins that JAX's own image is the same at two
+settings).  `gi_wave_plain` is one lock-step lane per pixel running the
+JAX `transition` after every `_march_step`, one elementwise op at a
+time; `gi_wave_cuda` launches `csrc/gi_wave.cu` (kernel F), which makes
+each pixel's camera ray itself (`csrc/camera.cuh`) from host-held launch
+values, with the plain version's radiance and counters bit for bit.
+`gi_wave_trace` takes the kernel for a grid on the card and the plain
+version over the `camera_rays` batch for one on the CPU.
+
+Environment maps, textures, smooth normals and the sharded queue of the
+JAX wave are not served (the arguments raise NotImplementedError).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ray_tracer_tpu_torch.accel.packed import PackedGridArrays, PackedGridMeta
+from ray_tracer_tpu_torch.config import CameraConfig
+from ray_tracer_tpu_torch.core import vecmath as vm
+from ray_tracer_tpu_torch.core.rays import RayBatch
+from ray_tracer_tpu_torch.kernels import _build
+from ray_tracer_tpu_torch.ops.camera import CameraLaunch, camera_launch, camera_rays
+from ray_tracer_tpu_torch.ops.intersect import cramer_t_safe
+from ray_tracer_tpu_torch.ops.traverse_packed import (
+    LaunchConsts,
+    _default_max_steps,
+    _MarchParams,
+    _march_step,
+    _slab_entry,
+    launch_consts,
+    march_params,
+)
+from ray_tracer_tpu_torch.ops.whitted_wave import _CameraParams, _check_counter, _rearm
+from ray_tracer_tpu_torch.render.pathtrace import (
+    _INV_PI,
+    _M32,
+    _bg_acc,
+    _cosine_sample,
+    _hash_u01,
+    _mul32,
+    ray_sample_keys,
+    sample_key,
+)
+
+_INF = float("inf")
+# events_out entries (int64): primaries that entered the grid, bounce
+# segments marched, NEE shadow rays marched, vertices resolved, mirror
+# branches drawn, bounce rays that escaped to the background, and slots
+# tested (rows tested x block_tris)
+EVENTS = ("primaries", "bounce_segments", "shadow_rays", "vertices", "mirror_draws",
+          "escapes", "slot_tests")
+
+
+def gi_wave_plain(
+    rays: RayBatch, light_pos, light_intensity, albedo_table, tri9,
+    grid: PackedGridArrays, meta: PackedGridMeta, km_table=None, *,
+    S: int, D: int, gate0: float = 0.0, gate_b: float = 1e-4, eps: float = 1e-4,
+    smint: float = 1e-4, quirk: bool = False, bg=(0.0, 0.0, 0.0),
+    capped_out=None, passes_out=None, events_out=None,
+) -> torch.Tensor:
+    """Radiance summed over S samples of every pixel's camera ray -> (R, 3)
+    f32: the JAX wave's lane state machine with one lock-step lane a pixel.
+
+    Optional counters, overwritten: capped_out (1,) int32 lanes a segment
+    of which reached the step bound; passes_out (1,) int32 tested slots
+    that passed the barycentric test; events_out (7,) int64 the counts
+    named in EVENTS."""
+    f32 = torch.float32
+    o0 = rays.orig.to(f32)
+    d0 = rays.dirn.to(f32)
+    dev = o0.device
+    r = o0.shape[0]
+    for name, buf, shape in (("capped_out", capped_out, (1,)), ("passes_out", passes_out, (1,))):
+        _check_counter(name, buf, shape, dev)
+    if events_out is not None and (events_out.dtype != torch.int64
+                                   or tuple(events_out.shape) != (len(EVENTS),)
+                                   or events_out.device != dev):
+        raise ValueError(f"events_out must be a ({len(EVENTS)},) int64 tensor on {dev}")
+
+    def full(x):
+        return torch.full((r,), float(np.float32(x)), dtype=f32, device=dev)
+
+    zf = torch.zeros((r,), dtype=f32, device=dev)
+    zi = torch.zeros((r,), dtype=torch.int32, device=dev)
+    zb = torch.zeros((r,), dtype=torch.bool, device=dev)
+    z3 = torch.zeros((r, 3), dtype=f32, device=dev)
+    inf = torch.tensor(_INF, dtype=f32, device=dev)
+    maxt0 = rays.maxt.to(f32)
+    t0, entered = _slab_entry(grid, o0, d0, rays.mint.to(f32), maxt0)
+    s = dict(o=o0, d=d0, maxt=maxt0, gate=full(gate0), alive=entered, testing=zb, t_cur=t0,
+             t_exit_cell=zf, first_blk=zi, n_blk=zi, cursor=zi, best_t=zf + inf, best_blk=zi,
+             best_slot=zi, phase=zb, lsteps=zi, depth=zi, samp=zi,
+             key0=ray_sample_keys(rays.orig, rays.dirn), rad=z3, vcur=z3, tpt=z3 + 1.0,
+             pend=z3, nrm=z3, alb=z3, vpos=z3, idir=z3, vspec=zb, vkm=zf, idir0=z3, km0=zf,
+             d0=z3, poi0=z3, n0=z3, alb0=z3)
+    bg_acc = torch.tensor(_bg_acc(bg, S), dtype=f32, device=dev)
+    out = bg_acc.expand(r, 3).clone()
+    stats = dict(tested=zi.clone(), touched=None,
+                 passes=torch.zeros((), dtype=torch.int64, device=dev))
+    capped = zb
+    events = [int(entered.sum())] + [0] * (len(EVENTS) - 1)
+    c = dict(seg_bound=_default_max_steps(meta), bt=meta.block_tris,
+             n_slots=grid.slot_tri.shape[0], n_faces=tri9.shape[0],
+             n_mats=albedo_table.shape[0], light=light_pos.to(device=dev, dtype=f32),
+             li=light_intensity.to(device=dev, dtype=f32), bg3=torch.tensor(bg, dtype=f32,
+                                                                             device=dev),
+             bg_acc=bg_acc, quirk=quirk, S=S, D=D, eps=eps, gate_b=gate_b, smint=full(smint),
+             eps_v=full(eps), inf_v=zf + inf, alb_tab=albedo_table.to(device=dev, dtype=f32),
+             km_tab=(None if km_table is None else km_table.to(device=dev, dtype=f32)),
+             tri9=tri9.to(device=dev, dtype=f32))
+    while bool(s["alive"].any()):
+        pre_alive = s["alive"]
+        s = _march_step(s, o=s["o"], d=s["d"], invd=torch.reciprocal(s["d"]), gate=s["gate"],
+                        maxt=s["maxt"], grid=grid, meta=meta, stats=stats)
+        s["lsteps"] = s["lsteps"] + pre_alive.to(torch.int32)
+        s, aux = _transition(s, pre_alive, grid, c)
+        out = torch.where(aux["pix_done"][:, None], s["rad"], out)
+        capped = capped | aux["timeout"]
+        for k, n in aux["events"].items():
+            events[EVENTS.index(k)] += n
+
+    events[EVENTS.index("slot_tests")] = int(stats["tested"].sum()) * meta.block_tris
+    if capped_out is not None:
+        capped_out.fill_(int(capped.sum()))
+    if passes_out is not None:
+        passes_out.fill_(int(stats["passes"]))
+    if events_out is not None:
+        events_out.copy_(torch.tensor(events, dtype=torch.int64))
+    return out
+
+
+def _where3(mask, a, b):
+    return torch.where(mask[:, None], a, b)
+
+
+def _transition(s, pre_alive, grid, c):
+    """All retirement events of one step (ray_tracer_tpu/ops/gi_wave.py:
+    345-743 without the env, texture and smooth-normal branches, op for
+    op): segment retirements resolve their vertex and rearm as NEE
+    shadows, shadow retirements settle their contribution, and the
+    sample-end cascade restarts the next sample or retires the pixel.
+    Returns the new state and the step's masks and event counts."""
+    where = torch.where
+    alive, testing, phase = s["alive"], s["testing"], s["phase"]
+    best_t = s["best_t"]
+    o, d, tpt = s["o"], s["d"], s["tpt"]
+    hit_now = torch.isfinite(best_t)
+    walked = pre_alive & ~alive
+    timeout = alive & (s["lsteps"] > c["seg_bound"])
+    zf = torch.zeros_like(best_t)
+    z3 = torch.zeros_like(o)
+    zb = torch.zeros_like(alive)
+    has_spec = c["km_tab"] is not None
+    D, S = c["D"], c["S"]
+
+    # segment retirement (path phase)
+    limit = torch.minimum(s["maxt"], best_t)
+    seg_done = ~phase & ((alive & ~testing & (s["t_cur"] > limit)) | walked | timeout)
+    hit_p = seg_done & hit_now
+    miss_p = seg_done & ~hit_now
+
+    # vertex resolve: the recomputed-t point for the integrator, the
+    # march's point for the shadow ray
+    slotidx = torch.clamp(s["best_blk"] * c["bt"] + s["best_slot"], 0, c["n_slots"] - 1)
+    tri = grid.slot_tri[where(hit_p, slotidx, torch.zeros_like(slotidx)).long()]
+    row = c["tri9"][torch.clamp(tri, 0, c["n_faces"] - 1).long()]
+    tv0, tv1, tv2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
+    matid = torch.clamp(row[:, 9].to(torch.int32), 0, c["n_mats"] - 1).long()
+    t_re = cramer_t_safe(o, d, tv0, tv1, tv2, hit_p, det_dtype=torch.float32)
+    t_r = where(hit_p, t_re, zf)
+    o_safe = _where3(hit_p, o, z3)
+    poi_r = o_safe + d * t_r[:, None]
+    t_m = where(hit_now, best_t, zf)
+    poi_m = o + d * t_m[:, None]
+    gn = vm.normalize(vm.cross(tv1 - tv0, tv2 - tv0))
+    flip = vm.dot(gn, d) > 0.0
+    n = _where3(flip, -gn, gn)
+    alb = c["alb_tab"][matid]
+    # NEE geometry
+    tiny = torch.full_like(zf, float(np.float32(1e-20)))
+    to_l = c["light"] - poi_r
+    d2 = vm.dot(to_l, to_l)
+    wl = to_l / vm.sqrt(torch.maximum(d2, tiny))[:, None]
+    cos_i = torch.maximum(vm.dot(n, wl), zf)
+    direct = alb * torch.tensor(_INV_PI, dtype=o.dtype, device=o.device) * (
+        c["li"] * cos_i / torch.maximum(d2, tiny))[:, None]
+    pend_new = tpt * direct
+    # the Lambertian/mirror draw
+    depth_v = s["depth"]
+    key_v = sample_key(s["key0"], s["samp"].to(torch.int64))
+    if has_spec:
+        km_d = c["km_tab"][matid]
+        u3 = _hash_u01(key_v, (_mul32(depth_v.to(torch.int64) + 1, 0x85EBCA77) + 13) & _M32)
+        spec_new = hit_p & (u3 < km_d)
+    else:
+        km_d = zf
+        spec_new = zb
+    # the shadow direction from the march's point: a divide by the norm
+    to_l_m = c["light"] - poi_m
+    norm = vm.sqrt(vm.length2(to_l_m))[:, None]
+    sdir = to_l_m / where(norm > 0, norm, torch.ones_like(norm))
+    if c["quirk"]:  # Serial/raytracer.cpp:106: away from the light
+        sdir = -sdir
+    st0, s_entered = _slab_entry(grid, poi_m, sdir, c["smint"], c["inf_v"])
+    # cos_i == 0 makes the contribution an exact zero: no shadow march;
+    # a mirror vertex needs none, except at depth 0 (d0 is shared)
+    want_nee = hit_p & (cos_i > 0.0) & (~spec_new | (depth_v == 0))
+    shadow_go = want_nee & s_entered
+    imm = hit_p & ~shadow_go
+    vspec_v = where(hit_p, spec_new, s["vspec"])
+    vcur = s["vcur"] + _where3(imm & ~spec_new, pend_new, z3)
+    c_imm = _where3(imm, pend_new, z3)
+
+    # shadow retirement at the first accepted hit
+    sh_done = phase & ((alive & hit_now) | walked | timeout)
+    occ = sh_done & hit_now
+    nee_add = sh_done & ~occ
+    vcur = vcur + _where3(nee_add & ~s["vspec"], s["pend"], z3)
+    c_vtx = c_imm + _where3(nee_add, s["pend"], z3)
+
+    # the vertex after NEE: fresh on hit lanes, staged on shadow lanes
+    av = imm | sh_done
+    nrm_v = _where3(hit_p, n, s["nrm"])
+    alb_v = _where3(hit_p, alb, s["alb"])
+    vpos_v = _where3(hit_p, poi_r, s["vpos"])
+    idir_v = _where3(hit_p, d, s["idir"])
+    km_v = where(hit_p, km_d, s["vkm"]) if has_spec else zf
+    at0 = av & (depth_v == 0)
+    d0 = _where3(at0, c_vtx, s["d0"])
+    poi0 = _where3(at0, vpos_v, s["poi0"])
+    n0 = _where3(at0, nrm_v, s["n0"])
+    alb0 = _where3(at0, alb_v, s["alb0"])
+    idir0 = _where3(at0, idir_v, s["idir0"])
+    km0 = where(at0, km_v, s["km0"])
+
+    # the bounce (vertex depth < D)
+    saltd = depth_v.to(torch.int64) + 1
+    key_s = key_v
+    u1 = _hash_u01(key_s, _mul32(saltd, 0x1000193))
+    u2 = _hash_u01(key_s, (_mul32(saltd, 0x5BD1E995) + 7) & _M32)
+    ndir = _cosine_sample(nrm_v, u1, u2)
+    one3 = torch.ones_like(o)
+    if has_spec:
+        mdir = idir_v - 2.0 * vm.dot(idir_v, nrm_v)[:, None] * nrm_v
+        ndir = _where3(vspec_v, mdir, ndir)
+        tpt_b = tpt * _where3(vspec_v, one3, alb_v)
+    else:
+        tpt_b = tpt * alb_v
+    stb, entb = _slab_entry(grid, vpos_v, ndir, c["eps_v"], c["inf_v"])
+    bounce = av & (depth_v < D)
+    bounce_go = bounce & entb
+    bounce_esc = bounce & ~entb
+    esc = miss_p & (depth_v >= 1)
+    prim_miss = miss_p & (depth_v == 0)
+    bg3 = c["bg3"]
+    vcur = vcur + _where3(bounce_esc, tpt_b * bg3, z3)
+    vcur = vcur + _where3(esc, tpt * bg3, z3)
+    E = (av & (depth_v == D)) | bounce_esc | esc
+
+    new = dict(s, vcur=vcur, d0=d0, poi0=poi0, n0=n0, alb0=alb0, nrm=nrm_v, alb=alb_v,
+               vpos=vpos_v, idir=idir_v, vspec=vspec_v, vkm=km_v, idir0=idir0, km0=km0,
+               pend=_where3(shadow_go, pend_new, s["pend"]))
+    new = _rearm(new, shadow_go, poi_m, sdir, st0, c["eps"], True, depth_v)
+    new = _rearm(new, bounce_go, vpos_v, ndir, stb, c["gate_b"], False, depth_v + 1)
+    new["tpt"] = _where3(bounce_go, tpt_b, tpt)
+    ended = (seg_done | sh_done) & ~shadow_go & ~bounce_go
+    new["alive"] = new["alive"] & ~ended
+    new["testing"] = new["testing"] & ~ended
+    ev = dict(vertices=int(hit_p.sum()), shadow_rays=int(shadow_go.sum()),
+              bounce_segments=int(bounce_go.sum()), escapes=int((bounce_esc | esc).sum()),
+              mirror_draws=int(spec_new.sum()))
+
+    # the sample-end cascade: each turn banks a finished sample, then
+    # restarts the next one from the shared depth-0 vertex
+    pix_done = prim_miss
+    rad = _where3(prim_miss, c["bg_acc"].expand_as(o), new["rad"])
+    vcur = new["vcur"]
+    samp = new["samp"]
+    for _ in range(S):
+        rad = rad + _where3(E, vcur, z3)
+        samp_n = samp + E.to(torch.int32)
+        fin = E & (samp_n >= S)
+        pix_done = pix_done | fin
+        re = E & ~fin
+        key_r = sample_key(new["key0"], samp_n.to(torch.int64))
+        if D == 0:
+            # every diffuse sample's radiance is d0; a mirror draw has none
+            vnext = new["d0"]
+            if has_spec:
+                u3r = _hash_u01(key_r, 0x85EBCA77 + 13)
+                spec0 = u3r < new["km0"]
+                vnext = _where3(spec0, z3, vnext)
+                ev["mirror_draws"] += int((re & spec0).sum())
+            vcur = _where3(re, vnext, vcur)
+            E = re
+            samp = samp_n
+            continue
+        u1r = _hash_u01(key_r, 0x1000193)
+        u2r = _hash_u01(key_r, 0x5BD1E995 + 7)
+        ndir_r = _cosine_sample(new["n0"], u1r, u2r)
+        if has_spec:
+            # a mirror draw reflects the camera ray off the depth-0 normal
+            # and starts from 0 (the mirror vertex has no NEE)
+            u3r = _hash_u01(key_r, 0x85EBCA77 + 13)
+            spec_r = u3r < new["km0"]
+            mdir0 = new["idir0"] - 2.0 * vm.dot(new["idir0"], new["n0"])[:, None] * new["n0"]
+            ndir_r = _where3(spec_r, mdir0, ndir_r)
+            tpt_r = _where3(spec_r, one3, new["alb0"])
+            v0_r = _where3(spec_r, z3, new["d0"])
+            ev["mirror_draws"] += int((re & spec_r).sum())
+        else:
+            spec_r = zb
+            tpt_r = new["alb0"]
+            v0_r = new["d0"]
+        str_, entr = _slab_entry(grid, new["poi0"], ndir_r, c["eps_v"], c["inf_v"])
+        goes = re & entr
+        esc_r = re & ~entr
+        vcur = _where3(re, v0_r, vcur)
+        vcur = vcur + _where3(esc_r, tpt_r * bg3, z3)
+        E = esc_r
+        new = _rearm(new, goes, new["poi0"], ndir_r, str_, c["gate_b"], False,
+                     torch.ones_like(samp))
+        new["tpt"] = _where3(goes, tpt_r, new["tpt"])
+        new["vspec"] = where(goes, spec_r, new["vspec"])
+        new["idir"] = _where3(goes, ndir_r, new["idir"])
+        ev["bounce_segments"] += int(goes.sum())
+        ev["escapes"] += int(esc_r.sum())
+        samp = samp_n
+    new["rad"] = rad
+    new["vcur"] = vcur
+    new["samp"] = samp
+    new["alive"] = new["alive"] & ~pix_done
+    new["testing"] = new["testing"] & ~pix_done
+    return new, dict(pix_done=pix_done, timeout=timeout, events=ev)
+
+
+class _GiParams(ctypes.Structure):
+    """Mirror of `GiParams` in csrc/gi_wave.cu (passed by value)."""
+
+    _fields_ = [
+        ("m", _MarchParams),
+        ("li", ctypes.c_float), ("gate0", ctypes.c_float), ("gate_b", ctypes.c_float),
+        ("eps", ctypes.c_float), ("smint", ctypes.c_float),
+        ("bg", ctypes.c_float * 3), ("bg_acc", ctypes.c_float * 3),
+        ("quirk", ctypes.c_int), ("S", ctypes.c_int), ("D", ctypes.c_int),
+        ("seg_bound", ctypes.c_int), ("n_faces", ctypes.c_int), ("n_mats", ctypes.c_int),
+        ("has_spec", ctypes.c_int),
+    ]
+
+
+def _launch_params(cam: CameraLaunch, consts: LaunchConsts, meta: PackedGridMeta, *,
+                   n_slots: int, n_faces: int, n_mats: int, has_spec: bool, S: int, D: int,
+                   gate0: float, gate_b: float, eps: float, smint: float, quirk: bool,
+                   bg) -> "tuple[_GiParams, _CameraParams]":
+    """Kernel F's launch parameters, from host values only."""
+    n = cam.camera.width * cam.camera.height
+    seg_bound = _default_max_steps(meta)
+    march = march_params(
+        consts, meta, gate=gate0, shadow_gate=eps, shadow_mint=smint, n_slots=n_slots,
+        fused=0, stop_on_first_hit=0, skip_dead=0, shade_serial=0, serial_quirk=int(quirk),
+        probe_chain=1, max_steps=int(seg_bound), n_rays=n, n_work=n)
+    vec3 = ctypes.c_float * 3
+    gi = _GiParams(
+        m=march, li=consts.intensity, gate0=gate0, gate_b=gate_b, eps=eps, smint=smint,
+        bg=vec3(*(float(x) for x in bg)), bg_acc=vec3(*(float(x) for x in _bg_acc(bg, S))),
+        quirk=int(quirk), S=int(S), D=int(D), seg_bound=int(seg_bound), n_faces=n_faces,
+        n_mats=n_mats, has_spec=int(has_spec))
+    pos, u, v, w = (vec3(*b) for b in cam.basis)
+    fd, aspect, half_w, half_h, fw, fh, focus = cam.scalars
+    camera = _CameraParams(
+        pos=pos, u=u, v=v, w=w, fd=fd, aspect=aspect, half_w=half_w, half_h=half_h, fw=fw,
+        fh=fh, focus=focus, width=cam.camera.width, height=cam.camera.height, n_sub=1,
+        lens=int(cam.lens))
+    return gi, camera
+
+
+def gi_wave_cuda(
+    camera: CameraConfig, light_pos, light_intensity, albedo_table, tri9,
+    grid: PackedGridArrays, meta: PackedGridMeta, km_table=None, *,
+    S: int, D: int, gate0: float = 0.0, gate_b: float = 1e-4, eps: float = 1e-4,
+    smint: float = 1e-4, quirk: bool = False, bg=(0.0, 0.0, 0.0),
+    cam: Optional[CameraLaunch] = None, consts: Optional[LaunchConsts] = None,
+    capped_out=None, passes_out=None, events_out=None,
+) -> torch.Tensor:
+    """Kernel F on CUDA tensors: the radiance summed over S samples of
+    every pixel of `camera` -> (H*W, 3) f32, the plain version's bits for
+    the rays of `camera_rays(camera)`.  One thread a pixel makes its
+    camera ray and serves its whole estimate.
+
+    cam (`camera_launch(camera, 1)`) and consts (`launch_consts(grid,
+    light_pos, light_intensity)`) are the launch's host-held values:
+    given both, the call neither copies to nor from the device nor
+    synchronises; each one missing is made here.  The counters are the
+    plain version's (zeroed here, then filled by the launch)."""
+    if not grid.blocks.is_cuda:
+        raise ValueError("gi_wave_cuda takes CUDA tensors")
+    if S < 1 or D < 0:
+        raise ValueError(f"needs S >= 1 and D >= 0, got S={S}, D={D}")
+    dev = grid.blocks.device
+    if cam is None:
+        cam = camera_launch(camera, 1, device=dev)
+    elif cam.camera != camera or cam.spp != 1:
+        raise ValueError("cam was made for another camera or spp")
+    if consts is None:
+        consts = launch_consts(grid, light_pos, light_intensity)
+    r = camera.width * camera.height
+    blocks = grid.blocks.to(torch.float32).contiguous()
+    cell_info = grid.cell_info.to(torch.int32).contiguous()
+    slot_tri = grid.slot_tri.to(torch.int32).contiguous()
+    tri9 = tri9.to(device=dev, dtype=torch.float32).contiguous()
+    albedo = albedo_table.to(device=dev, dtype=torch.float32).contiguous()
+    km = (None if km_table is None
+          else km_table.to(device=dev, dtype=torch.float32).contiguous())
+    table = cam.table.to(device=dev, dtype=torch.float32).contiguous()
+    if blocks.shape != (meta.n_blocks, meta.row_lanes):
+        raise ValueError("blocks does not match the meta")
+    if tri9.ndim != 2 or tri9.shape[1] != 10 or albedo.ndim != 2 or albedo.shape[1] != 3:
+        raise ValueError("tri9 must be (F, 10) and albedo_table (M, 3)")
+    if km is not None and tuple(km.shape) != (albedo.shape[0],):
+        raise ValueError("km_table must be (M,)")
+    if slot_tri.shape[0] >= (1 << 30):
+        raise ValueError("slot index must fit in 30 bits")
+    if r >= (1 << 31):
+        raise ValueError("the pixels must fit in 31 bits")
+    for name, buf, shape in (("capped_out", capped_out, (1,)), ("passes_out", passes_out, (1,))):
+        _check_counter(name, buf, shape, dev)
+    if events_out is not None and (events_out.dtype != torch.int64 or not events_out.is_contiguous()
+                                   or tuple(events_out.shape) != (len(EVENTS),)
+                                   or events_out.device != dev):
+        raise ValueError(f"events_out must be a contiguous ({len(EVENTS)},) int64 tensor "
+                         f"on {dev}")
+    for buf in (capped_out, passes_out, events_out):
+        if buf is not None:
+            buf.zero_()
+    rad = torch.empty((r, 3), dtype=torch.float32, device=dev)
+    if r == 0:
+        return rad
+    gi, cparams = _launch_params(
+        cam, consts, meta, n_slots=slot_tri.shape[0], n_faces=tri9.shape[0],
+        n_mats=albedo.shape[0], has_spec=km is not None, S=S, D=D, gate0=gate0,
+        gate_b=gate_b, eps=eps, smint=smint, quirk=quirk, bg=bg)
+
+    def ptr(x):
+        return x.data_ptr() if x is not None else None
+
+    fn = _build.library("gi_wave").gi_wave_launch
+    fn.restype = ctypes.c_int
+    p = ctypes.c_void_p
+    fn.argtypes = [_GiParams, _CameraParams] + [p] * 12
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(gi, cparams, table.data_ptr(), cell_info.data_ptr(), blocks.data_ptr(),
+                 slot_tri.data_ptr(), tri9.data_ptr(), albedo.data_ptr(), ptr(km),
+                 rad.data_ptr(), ptr(capped_out), ptr(passes_out), ptr(events_out), stream)
+    _build.check(err, "gi_wave")
+    gi_wave_cuda.launches += 1
+    return rad
+
+
+gi_wave_cuda.launches = 0
+
+
+def gi_wave_trace(
+    light_pos, light_intensity, albedo_table, tri9, grid: PackedGridArrays,
+    meta: PackedGridMeta, env_image=None, fvn9=None, km_table=None, fuv7=None,
+    tex_image=None, bc255_table=None, *, camera, S: int, D: int, tex_scale: float = 1.0,
+    wave: int = 12288, pump: int = 1, gate0: float = 0.0, gate_b: float = 1e-4,
+    eps: float = 1e-4, smint: float = 1e-4, quirk: bool = False, bg=(0.0, 0.0, 0.0),
+    refill_retries: int = 3, max_iters=None, pix_offset=None, pix_stride: int = 1,
+    queue_len=None, tile: Optional[int] = None, cam: Optional[CameraLaunch] = None,
+    consts: Optional[LaunchConsts] = None,
+) -> torch.Tensor:
+    """Radiance summed over S samples per pixel -> (H*W, 3) f32 on grid's
+    device (the caller divides by S), with the JAX function's arguments.
+
+    On the card kernel F makes the camera rays itself (cam and consts,
+    when given, are its host-held launch values); on the CPU the plain
+    version traces the batch of `camera_rays`, `tile` pixels at a time
+    (each pixel is traced on its own, so the radiance does not depend on
+    it).  `wave`, `pump`, `refill_retries` and `max_iters` shape only the
+    JAX lock-step loop and change no bit."""
+    del wave, pump, refill_retries, max_iters, tex_scale
+    if pix_offset is not None or pix_stride != 1 or queue_len is not None:
+        raise NotImplementedError("not served by the PyTorch port yet: the sharded GI wave "
+                                  "queue (pix_offset, pix_stride, queue_len)")
+    extra = dict(env_image=env_image, fvn9=fvn9, fuv7=fuv7, tex_image=tex_image,
+                 bc255_table=bc255_table)
+    given = [k for k, v in extra.items() if v is not None]
+    if given:
+        raise NotImplementedError("not served by the PyTorch port yet: the GI wave's "
+                                  "environment maps, textures and smooth normals ("
+                                  + ", ".join(given) + ")")
+    kw = dict(S=S, D=D, gate0=gate0, gate_b=gate_b, eps=eps, smint=smint, quirk=quirk,
+              bg=tuple(bg))
+    args = (light_pos, light_intensity, albedo_table, tri9, grid, meta, km_table)
+    dev = grid.blocks.device
+    if grid.blocks.is_cuda:
+        return gi_wave_cuda(camera, *args, cam=cam, consts=consts, **kw)
+    if dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    rays = camera_rays(camera, device=dev)
+    return rays.map_tiles(lambda rb: gi_wave_plain(rb, *args, **kw),
+                          rays.count if tile is None else tile)
+
+
+__all__ = ["EVENTS", "gi_wave_cuda", "gi_wave_plain", "gi_wave_trace"]

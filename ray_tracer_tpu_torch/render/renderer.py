@@ -28,8 +28,10 @@ grid:
     colors fold deepest-first as the reference's recursion associates
     (Parallel/raytracer.cu:508-520).
 
-Options of `RenderConfig` outside this slice raise NotImplementedError
-(`check_supported`); none is silently ignored.
+gi_samples > 0 renders path-traced instead (`render/pathtrace.py`: the
+GI wave, kernel F, when `gi_wave_eligible`, else the segment
+integrator).  Options of `RenderConfig` outside this slice raise
+NotImplementedError (`check_supported`); none is silently ignored.
 """
 
 from __future__ import annotations
@@ -73,6 +75,13 @@ from ray_tracer_tpu_torch.ops.traverse_packed import (
     traverse_packed_fused_shadow,
 )
 from ray_tracer_tpu_torch.ops.whitted_wave import build_wave_tables, whitted_wave_trace
+from ray_tracer_tpu_torch.render.pathtrace import (
+    build_gi_wave_tables,
+    build_gi_wave_tri9,
+    gi_wave_eligible,
+    render_pt,
+    use_gi_wave_spec,
+)
 
 TRAVERSALS = ("csr", "brute", "brute_pallas", "packed")
 _DET_DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -120,7 +129,9 @@ def check_supported(cfg: SceneConfig, scene: Scene = None) -> bool:
     config renders through the cross-depth Whitted wave
     (`whitted_wave_eligible`: "auto" takes it when eligible, "on" with an
     ineligible config raises ValueError, as in the JAX package's render).
-    gi_wave matters only with gi_samples > 0."""
+    A path-traced config (gi_samples > 0) never takes the Whitted wave,
+    and its own wave is `pathtrace.gi_wave_eligible`'s to decide (gi_wave
+    "on" with an ineligible config raises ValueError there)."""
     r = cfg.render
     bad = []
     if r.traversal not in TRAVERSALS:
@@ -135,10 +146,10 @@ def check_supported(cfg: SceneConfig, scene: Scene = None) -> bool:
         bad.append("area-light soft shadows")
     if cfg.extra_lights:
         bad.append("extra lights")
-    if r.gi_samples > 0:
-        bad.append("path-traced GI")
     if any(m.transmissive for m in cfg.materials):
         bad.append("transmissive materials")
+    if r.gi_samples > 0 and r.gi_env_nee:
+        bad.append("gi_env_nee (environment maps)")
     if r.dtype != "float32":
         bad.append(f"dtype={r.dtype!r}")
     if bad:
@@ -149,7 +160,14 @@ def check_supported(cfg: SceneConfig, scene: Scene = None) -> bool:
         raise ValueError(f"unknown det_dtype {r.det_dtype!r}")
     if r.spp < 1:
         raise ValueError(f"spp must be >= 1, got {r.spp}")
-    wave = whitted_wave_eligible(cfg, scene)
+    if r.gi_samples > 0:
+        if r.faithful:
+            raise ValueError("path tracing requires faithful=False")
+        if r.gi_depth < 0:
+            raise ValueError(f"gi_depth must be >= 0, got {r.gi_depth}")
+        wave = False
+    else:
+        wave = whitted_wave_eligible(cfg, scene)
     if r.traversal == "brute_pallas" and r.faithful:
         raise ValueError("traversal='brute_pallas' has production semantics "
                          "only (faithful=False)")
@@ -180,27 +198,34 @@ def _persistent_as_packed(res) -> PackedTraceResult:
 
 class FrameSetup(NamedTuple):
     """The facts every frame of `cfg` reuses, settled once: whether it
-    renders through the Whitted wave (`check_supported`), and for the
-    packed grid the kernels' host-held launch values (the grid box, cell
-    widths and light) and the wave's camera launch (the basis and the
-    subsample table), so that a wave frame on the card neither reads the
-    device nor synchronises."""
+    renders through the Whitted wave (`check_supported`) or, path-traced,
+    through the GI wave (`pathtrace.gi_wave_eligible`) and with its mirror
+    mix (`use_gi_wave_spec`), and for the packed grid the kernels'
+    host-held launch values (the grid box, cell widths and light) and a
+    wave's camera launch (the basis and the subsample table), so that a
+    wave frame on the card neither reads the device nor synchronises."""
 
     cfg: SceneConfig
     wave: bool
     consts: LaunchConsts = None
     cam: CameraLaunch = None
+    gi_wave: bool = False
+    gi_spec: bool = False
 
 
 def frame_setup(cfg: SceneConfig, scene: Scene, packed: PackedGrid = None) -> FrameSetup:
     """Settle cfg's frame facts: the only device reads, made once."""
     takes_wave = check_supported(cfg, scene)
+    gi_wave = cfg.render.gi_samples > 0 and gi_wave_eligible(cfg)
     consts = cam = None
     if packed is not None:
         consts = launch_consts(packed.arrays, scene.light_pos, scene.light_intensity)
         if takes_wave:
             cam = camera_launch(cfg.camera, cfg.render.spp, device=scene.device)
-    return FrameSetup(cfg=cfg, wave=takes_wave, consts=consts, cam=cam)
+        elif gi_wave:
+            cam = camera_launch(cfg.camera, 1, device=scene.device)
+    return FrameSetup(cfg=cfg, wave=takes_wave, consts=consts, cam=cam, gi_wave=gi_wave,
+                      gi_spec=gi_wave and use_gi_wave_spec(scene, cfg.render))
 
 
 class Prepared(NamedTuple):
@@ -211,6 +236,7 @@ class Prepared(NamedTuple):
     dda: DdaTables = None  # kernel B's tables, built when traversal == "csr"
     wave: tuple = None  # kernel E's (mat9, tri9), built when the config takes the wave
     setup: FrameSetup = None  # the frame facts of cfg
+    gi: tuple = None  # kernel F's (tri9, albedo, km or None), built when it takes the GI wave
 
     @property
     def device(self) -> torch.device:
@@ -229,9 +255,10 @@ def prepare(cfg: SceneConfig, scene: Scene = None, device=None) -> Prepared:
     traversal="packed", the packed grid) in numpy, and put scene and grids
     on the device (cuda unless "cpu" is asked for; a given scene keeps its
     own device).  For traversal="csr", kernel B's tables (`dda_tables`),
-    and for a config that takes the Whitted wave, kernel E's
-    (`build_wave_tables`), are derived there once, and so are the frame
-    facts (`frame_setup`)."""
+    for a config that takes the Whitted wave, kernel E's
+    (`build_wave_tables`), and for one that takes the GI wave, kernel F's
+    (`build_gi_wave_tri9`, `build_gi_wave_tables`), are derived there
+    once, and so are the frame facts (`frame_setup`)."""
     check_supported(cfg, scene)  # raise before any work
     if scene is None:
         dev = resolve_device(device)
@@ -265,8 +292,12 @@ def prepare(cfg: SceneConfig, scene: Scene = None, device=None) -> Prepared:
         dda = dda_tables(grid.arrays, vertex_table(*scene.triangle_soa()))
     setup = frame_setup(cfg, scene, packed)
     wave = build_wave_tables(scene) if setup.wave else None
+    gi = None
+    if setup.gi_wave:
+        gi = (build_gi_wave_tri9(scene), *build_gi_wave_tables(scene, cfg.render,
+                                                                setup.gi_spec))
     return Prepared(scene=scene, grid=grid, cfg=cfg, packed=packed, dda=dda, wave=wave,
-                    setup=setup)
+                    setup=setup, gi=gi)
 
 
 def choose_inline_layout(grid: UniformGrid, block_tris: int,
@@ -533,11 +564,15 @@ def _render_whitted_wave(prep: Prepared, setup: FrameSetup) -> torch.Tensor:
 
 def render(prep: Prepared) -> torch.Tensor:
     """Render the prepared scene -> (H, W, 3) float32 linear color on the
-    scene's device.  Configs that `whitted_wave_eligible` admits take the
-    cross-depth Whitted wave, as in the JAX package's render; the others
-    the bounce loop, spp subsamples accumulated in turn."""
+    scene's device.  gi_samples > 0 renders path-traced
+    (`pathtrace.render_pt`: the GI wave when eligible, else the segment
+    integrator).  Otherwise configs that `whitted_wave_eligible` admits
+    take the cross-depth Whitted wave, as in the JAX package's render; the
+    others the bounce loop, spp subsamples accumulated in turn."""
     cfg = prep.cfg
     setup = prep.frame()
+    if cfg.render.gi_samples > 0:
+        return render_pt(prep, setup)
     if setup.wave:
         return _render_whitted_wave(prep, setup)
     rcfg = cfg.render

@@ -34,7 +34,21 @@ from ray_tracer_tpu_torch.models.scenes import parallel_scene_config
 img = render(prepare(apply_turbo(parallel_scene_config(8, 8), "parallel"), device="cpu"))
 assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 import ray_tracer_tpu_torch.ops.persistent, ray_tracer_tpu_torch.tools.gather_bench
-import ray_tracer_tpu_torch.ops.whitted_wave
+import ray_tracer_tpu_torch.ops.whitted_wave, ray_tracer_tpu_torch.ops.gi_wave
+import ray_tracer_tpu_torch.render.pathtrace
+import bench_torch  # the port's bench imports nothing of JAX either
+import dataclasses
+gi = apply_turbo(dataclasses.replace(serial_scene_config(8, 8), render=dataclasses.replace(
+    serial_scene_config(8, 8).render, gi_samples=2, gi_depth=1)), "serial")
+img = render(prepare(gi, device="cpu"))  # the GI wave's plain version
+assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+off = dataclasses.replace(gi, render=dataclasses.replace(gi.render, gi_wave="off"))
+img = render(prepare(off, device="cpu"))  # the segment integrator
+assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+from ray_tracer_tpu_torch.models.scenes import nefertiti_scene
+scene, ncfg = nefertiti_scene(8, 8, n_lat=8, n_lon=16, device="cpu")
+img = render(prepare(apply_turbo(ncfg, "nefertiti"), scene=scene))
+assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 loaded = [k for k, v in sys.modules.items()
           if v is not None and (k.split(".")[0] in ("jax", "jaxlib", "ray_tracer_tpu"))]
 assert not loaded, loaded
@@ -44,9 +58,11 @@ print("independent")
 
 def test_port_imports_nothing_of_jax():
     """Every module of the port (the packed grid, the packed march, the
-    persistent wave, the Whitted wave and the gather tool among them), and
-    chip_smoke.py, imports and renders 8x8 images (serial default and
-    turbo, and the turbo parallel scene through the Whitted wave) with
+    persistent wave, the Whitted and GI waves, the path tracer and the
+    gather tool among them), chip_smoke.py and bench_torch.py import, and
+    the port renders 8x8 images (serial default and turbo, the turbo
+    parallel scene through the Whitted wave, path-traced GI through the GI
+    wave and the segment integrator, and a small nefertiti scene) with
     `jax` and `ray_tracer_tpu` made unimportable."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _INDEPENDENCE], cwd=REPO,
@@ -81,15 +97,17 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     dict(normal_mode="smooth", faithful=False),
     dict(soft_visibility=0.1),
     dict(shadow_samples=4, light_radius=0.5, faithful=False),
-    dict(gi_samples=1, faithful=False),
+    dict(gi_samples=1, faithful=False, texture="checker"),
+    dict(gi_samples=1, faithful=False, transmissive=True),
     dict(extra_lights=True, traversal="packed", scheduler="persistent", faithful=False),
 ])
 def test_unsupported_options_raise(change):
     """Options outside the slice raise NotImplementedError; none is
-    silently ignored.  (The packed traversal, spp, depth of field and the
-    Whitted wave are served; the soft-visibility epilogue, float64
-    rendering and extra lights are not.)"""
-    from ray_tracer_tpu_torch.config import LightConfig
+    silently ignored.  (The packed traversal, spp, depth of field, the
+    Whitted wave and path-traced GI are served; the soft-visibility
+    epilogue, float64 rendering, textures, extra lights and, in the path
+    tracer, glass are not.)"""
+    from ray_tracer_tpu_torch.config import LightConfig, MaterialConfig
     from ray_tracer_tpu_torch.models.scenes import serial_scene_config
     from ray_tracer_tpu_torch.render.renderer import prepare
 
@@ -97,6 +115,8 @@ def test_unsupported_options_raise(change):
     change = dict(change)
     if change.pop("extra_lights", False):
         cfg = dataclasses.replace(cfg, extra_lights=(LightConfig((1.0, 2.0, 3.0), 1.0),))
+    if change.pop("transmissive", False):
+        cfg = dataclasses.replace(cfg, materials=(MaterialConfig(transmissive=True, ior=1.5),))
     cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, **change))
     with pytest.raises(NotImplementedError):
         prepare(cfg, device="cpu")
@@ -131,20 +151,21 @@ def test_failed_kernel_build_raises(monkeypatch, tmp_path):
 
 
 def test_every_kernel_is_built_by_default():
-    """build() with no names compiles all five sources, each into its own
+    """build() with no names compiles all six sources, each into its own
     library keyed by its sources and flags (the shared headers included:
-    packed_step.cuh serves kernels C and E)."""
+    packed_step.cuh serves kernels C, E and F)."""
     from ray_tracer_tpu_torch.kernels import _build
 
     assert _build.KERNELS == ("brute_intersect", "traverse_grid", "packed_march",
-                              "gather_row_test", "whitted_wave")
+                              "gather_row_test", "whitted_wave", "gi_wave")
     for name in _build.KERNELS:
         assert os.path.exists(os.path.join(_build.CSRC, name + ".cu"))
     paths = {_build.library_path(n) for n in _build.KERNELS}
     assert len(paths) == len(_build.KERNELS)
 
 
-@pytest.mark.parametrize("name", ["packed_march", "gather_row_test", "whitted_wave"])
+@pytest.mark.parametrize("name", ["packed_march", "gather_row_test", "whitted_wave",
+                                  "gi_wave"])
 def test_failed_build_of_new_kernels_raises(monkeypatch, tmp_path, name):
     from ray_tracer_tpu_torch.kernels import _build
 

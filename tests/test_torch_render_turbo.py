@@ -147,7 +147,9 @@ def test_parallel_turbo_needs_the_whitted_wave(monkeypatch, tmp_path):
 
 def test_whitted_wave_knob_follows_jax():
     """"on" with an ineligible config raises ValueError as the JAX render
-    does; "auto" with one renders through the bounce loop."""
+    does; "auto" with one renders through the bounce loop; a path-traced
+    config never takes the Whitted wave, even with "on" (the JAX render
+    sends gi_samples > 0 to the path tracer before the knob is read)."""
     base = scenes.parallel_scene_config(8, 8)
     with pytest.raises(ValueError, match="ineligible"):
         check_supported(_replace(base, whitted_wave="on"))
@@ -155,5 +157,7 @@ def test_whitted_wave_knob_follows_jax():
     assert tiled.render.whitted_wave == "auto" and not whitted_wave_eligible(tiled)
     img = render(prepare(tiled, device="cpu"))
     assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
-    with pytest.raises(NotImplementedError, match="path-traced"):
-        check_supported(_replace(apply_turbo(base, "serial"), gi_samples=1))
+    gi = _replace(apply_turbo(base, "parallel"), gi_samples=1, whitted_wave="on")
+    assert check_supported(gi) is False
+    with pytest.raises(NotImplementedError, match="texture"):
+        check_supported(_replace(gi, texture="checker"))
