@@ -60,19 +60,17 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
-def row_config(workload: str, size: int = None, device=None):
-    """(cfg, scene or None) of a suite row at its size (or `size`), with
-    bench.py's knobs from TUNED_KNOBS; scene is None where prepare loads
-    the meshes."""
+def row_config(workload: str, size: int = None):
+    """The config of a suite row at its size (or `size`), with bench.py's
+    knobs from TUNED_KNOBS."""
     from ray_tracer_tpu_torch.config import TUNED_KNOBS, GridConfig
     from ray_tracer_tpu_torch.models import scenes
 
     name, full, gi, gi_depth = SUITE[workload]
     size = full if size is None else size
     k = TUNED_KNOBS[{"spot": "serial"}.get(name, name)]
-    scene = None
     if name == "nefertiti":
-        scene, cfg = scenes.nefertiti_scene(size, size, device=device)
+        cfg = scenes.nefertiti_scene_config(size, size)
     elif name == "parallel":
         cfg = scenes.parallel_scene_config(size, size)
     else:
@@ -93,7 +91,7 @@ def row_config(workload: str, size: int = None, device=None):
     )
     if gi > 0:
         render = dataclasses.replace(render, gi_samples=gi, gi_depth=gi_depth, gi_wave="auto")
-    return dataclasses.replace(cfg, render=render), scene
+    return dataclasses.replace(cfg, render=render)
 
 
 def _kernel_counters():
@@ -126,8 +124,8 @@ def gi_segments(prep) -> dict:
 
 
 def bench_row(workload: str, prep, repeat: int, rounds: int) -> dict:
-    from chip_smoke import profile_render
     from ray_tracer_tpu_torch.render.renderer import render
+    from ray_tracer_tpu_torch.tools.profiling import profile_render
 
     name, size, gi, gi_depth = SUITE[workload]
     kernel = "gi_wave" if gi else ROW_KERNEL[name]
@@ -201,22 +199,24 @@ def main(argv=None) -> int:
         log("bench_torch: no CUDA device")
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from chip_smoke import card_line
+    from ray_tracer_tpu_torch.models.scenes import nefertiti_scene
     from ray_tracer_tpu_torch.render.renderer import frame_setup, prepare
+    from ray_tracer_tpu_torch.tools.profiling import card_line
 
     card = card_line()
     log(f"card: {card}")
     out = []
-    nef = None  # the nefertiti rows share one prepared grid; only the camera differs
+    nef = None  # the nefertiti rows share one scene and grid; only the camera differs
     for workload in rows:
-        cfg, scene = row_config(workload)
+        cfg = row_config(workload)
         t0 = time.perf_counter()
-        if SUITE[workload][0] == "nefertiti" and nef is not None:
-            prep = nef._replace(cfg=cfg, setup=frame_setup(cfg, nef.scene, nef.packed))
+        if SUITE[workload][0] != "nefertiti":
+            prep = prepare(cfg)
+        elif nef is None:
+            scene, _ = nefertiti_scene()
+            prep = nef = prepare(cfg, scene=scene)
         else:
-            prep = prepare(cfg, scene=scene)
-            if SUITE[workload][0] == "nefertiti":
-                nef = prep
+            prep = nef._replace(cfg=cfg, setup=frame_setup(cfg, nef.scene, nef.packed))
         torch.cuda.synchronize()
         prep_s = time.perf_counter() - t0
         row = bench_row(workload, prep, max(args.repeat, 2), max(args.rounds, 1))

@@ -68,7 +68,15 @@ each printing one JSON line:
      parallel scenes, the JAX package's statistical rule); the command
      line's GI PPM; and the turbo nefertiti scene at 1024x1024 (kernel C,
      the tuned knobs) against its csr image (kernel B) by the 2-count rule.
-     In phase 8 the 64x64 GI renders, card against CPU, bitwise.
+     Every launch of C that the segment integrator and the nefertiti
+     frame make is logged and held, at its own inputs, to the plain
+     version: records bitwise, the rows tested and touched, the capped
+     lanes and the most steps equal.  Each path's launch counts on a line
+     of their own.  In phase 8 the 64x64 GI wave renders, card against
+     CPU, bitwise; and the 64x64 segment integrator over the csr grid
+     (S = 2, D = 1, the command line's default GI): each launch of B held
+     to the plain version (records bitwise, rows tested equal) and the
+     image against the CPU's by the 2-count rule.
 
 Then the kernel times at the main path's shapes (each launch held
 bitwise to the plain version; B's, C's and E's barycentric passes, and
@@ -85,6 +93,7 @@ non-zero before any phase.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -173,14 +182,6 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def cuda_ms(fn, n: int) -> float:
     """CUDA-event time of n back-to-back fn() calls over n, after one
     warm-up: the host's work in the wrapper overlaps the device's."""
@@ -196,31 +197,11 @@ def cuda_ms(fn, n: int) -> float:
     return a.elapsed_time(b) / n
 
 
-def profiled_kernels(fn, n: int, attempts: int = 3):
-    """The device kernels of n calls of fn() under torch.profiler (CUDA
-    activity), after a warm-up.  A window in which the profiler saw no
-    kernel is taken again, up to `attempts` windows (on the chip machine
-    a window can come back empty or short).  Returns (kernel events,
-    windows taken)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for attempt in range(1, attempts + 1):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-            time.sleep(0.05)  # let the tracer take the window's last records
-        kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
-        if kernels:
-            break
-    return kernels, attempt
-
-
 def kernel_device_ms(fn, kernel: str, n: int):
     """Mean device time of the CUDA kernels whose name holds `kernel` over
     n calls of fn() under torch.profiler; None if the profiler saw none."""
+    from ray_tracer_tpu_torch.tools.profiling import profiled_kernels
+
     kernels, _ = profiled_kernels(fn, n)
     us = [e.time_range.end - e.time_range.start for e in kernels if kernel in e.name]
     return sum(us) / len(us) / 1e3 if us else None
@@ -235,31 +216,6 @@ def once_ms(fn):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b), out
-
-
-def profile_render(prep, median_s: float, config: str, frames: int = 10) -> dict:
-    """`frames` renders in one torch.profiler window: a frame's device
-    kernels, its device busy time (the sum of kernel durations; kernels on
-    one stream do not overlap), the idle share of the unprofiled median
-    frame time that leaves, and the device time by kernel name.  The
-    profiler on the chip machine can drop a few of a window's events, so
-    a kernel's launches a frame are the ceiling of its events over the
-    frames, each at its mean duration."""
-    from ray_tracer_tpu_torch.render.renderer import render
-
-    kernels, windows = profiled_kernels(lambda: render(prep), frames)
-    by_name = {}
-    for e in kernels:
-        by_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
-    per_frame = {k: (-(-len(v) // frames), sum(v) / len(v)) for k, v in by_name.items()}
-    busy_us = sum(n * us for n, us in per_frame.values())
-    top = sorted(per_frame.items(), key=lambda kv: -kv[1][0] * kv[1][1])[:6]
-    return {"phase": "main_path_profile", "config": config,
-            "device_kernels": sum(n for n, _ in per_frame.values()), "frames": frames,
-            "kernel_events_seen": len(kernels), "profile_windows": windows,
-            "device_busy_ms": busy_us / 1e3, "median_frame_ms": median_s * 1e3,
-            "device_idle_share": 1.0 - busy_us / 1e3 / (median_s * 1e3),
-            "top_device_ms": {k[:60]: n * us / 1e3 for k, (n, us) in top}}
 
 
 def compare(label: str, got, want) -> float:
@@ -315,12 +271,37 @@ def image_rule(a, b) -> float:
     return float((diff > 2).mean())
 
 
+class Logged:
+    """Stands in for a kernel's wrapper in the module that calls it: each
+    call's inputs and records (cloned, so that later frames cannot change
+    them) go to `log`; the launch count stays the wrapped function's."""
+
+    def __init__(self, fn, kernel: str, log: list):
+        self.fn, self.kernel, self.log = fn, kernel, log
+
+    @property
+    def launches(self):
+        return self.fn.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.launches = n
+
+    def __call__(self, rays, *args, **kw):
+        from ray_tracer_tpu_torch.core.rays import RayBatch
+
+        out = self.fn(rays, *args, **kw)
+        kept = {k: v.clone() if k == "queue" and v is not None else v for k, v in kw.items()}
+        self.log.append((self.kernel, RayBatch(*(x.clone() for x in rays)), args, kept,
+                         type(out)(*(x.clone() for x in out))))
+        return out
+
+
 class Smoke:
     """The phases share the card, the imports and what each phase measured
     for the `kernels` line."""
 
     def __init__(self):
-        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         from ray_tracer_tpu_torch.ops import brute_intersect as kA
         from ray_tracer_tpu_torch.ops import traverse as kB
         from ray_tracer_tpu_torch.ops import traverse_packed as kC
@@ -346,6 +327,7 @@ class Smoke:
         self.ptxas = {}
         self.wave_frame = None  # (cfg, prepared) of the turbo parallel 1024^2 frame
         self.gi_frame = None  # the prepared official GI row (turbo serial 1024^2, S 4, D 2)
+        self.path_launches = {}  # each main-path render's launch counts
 
     def zero_counts(self):
         for fn in self.counters.values():
@@ -353,6 +335,87 @@ class Smoke:
 
     def counts(self):
         return {k: fn.launches for k, fn in self.counters.items()}
+
+    @contextlib.contextmanager
+    def logging_launches(self):
+        """Log every launch of kernels B and C that the port makes inside
+        the block (through traverse.traverse_grid, traverse_packed.march
+        and persistent.persistent_trace)."""
+        from ray_tracer_tpu_torch.ops import persistent, traverse, traverse_packed
+
+        log = []
+        sites = ((traverse, "traverse_grid_cuda", "traverse_grid"),
+                 (traverse_packed, "march_cuda", "packed_march"),
+                 (persistent, "march_cuda", "packed_march"))
+        saved = [(module, name, getattr(module, name)) for module, name, _ in sites]
+        try:
+            for (module, name, kernel), (_, _, fn) in zip(sites, saved):
+                setattr(module, name, Logged(fn, kernel, log))
+            yield log
+        finally:
+            for module, name, fn in saved:
+                setattr(module, name, fn)
+
+    def hold_logged(self, label, log) -> dict:
+        """Each logged launch of B or C again, with its counters, and its
+        plain version on the same inputs: the new launch gives the logged
+        records' bits, the plain version's records bitwise, and each
+        counter the plain version keeps equal.  Returns, by kernel, the
+        launches, rays, hits and capped lanes held."""
+        from ray_tracer_tpu_torch.ops.persistent import _march_queued
+
+        i32 = dict(dtype=torch.int32, device=self.dev)
+        held = {}
+        for i, (kernel, rays, args, kw, logged) in enumerate(log):
+            r = rays.count
+            where = f"{label}: launch {i} of {kernel}"
+            if kernel == "traverse_grid":
+                grid, meta, tri9 = args
+                base = {k: v for k, v in kw.items()
+                        if k not in ("tested_out", "passes_out", "tables")}
+                tk, tp = torch.zeros((r,), **i32), torch.zeros((r,), **i32)
+                got = self.kB.traverse_grid_cuda(rays, grid, meta, tri9, tables=kw.get("tables"),
+                                                 tested_out=tk, **base)
+                want = self.kB.traverse_grid_plain(rays, grid, meta, tri9, tested_out=tp, **base)
+                counters = {"tested": (tk, tp)}
+                capped = 0
+            else:
+                grid, meta, light = args
+                base = {k: v for k, v in kw.items()
+                        if k not in ("queue", "n_work", "consts", "tested_out", "touched_out",
+                                     "capped_out", "iters_out", "passes_out")}
+                ck, cp = ({"tested_out": torch.zeros((r,), **i32),
+                           "touched_out": torch.zeros((meta.n_blocks,), **i32),
+                           "capped_out": torch.zeros((1,), **i32)} for _ in range(2))
+                iters = torch.zeros((1,), **i32)
+                queue, n_work = kw.get("queue"), kw.get("n_work")
+                got = self.kC.march_cuda(rays, grid, meta, light, queue=queue, n_work=n_work,
+                                         consts=kw.get("consts"), iters_out=iters, **ck, **base)
+                if queue is None:
+                    want = self.kC.march_plain(rays, grid, meta, light, **cp, **base)
+                else:
+                    n_work = queue.shape[0] if n_work is None else int(n_work)
+                    want = _march_queued(rays, grid, meta, light, (queue, n_work),
+                                         cp["tested_out"], dict(base,
+                                                                touched_out=cp["touched_out"],
+                                                                capped_out=cp["capped_out"]))
+                most = torch.full((1,), int(want.steps.max()) if r else 0, **i32)
+                counters = {k[:-4]: (ck[k], cp[k]) for k in ck}
+                counters["most_steps"] = (iters, most)
+                capped = int(ck["capped_out"].item())
+            torch.cuda.synchronize()
+            compare(f"{where} again", got, logged)
+            self.err[kernel] = max(self.err[kernel], compare(f"{where} vs plain", got, want))
+            for name, (k, p) in counters.items():
+                if not torch.equal(k, p):
+                    raise AssertionError(f"{where}: counter {name} differs from the plain "
+                                         "version's")
+            row = held.setdefault(kernel, {"launches": 0, "rays": 0, "hits": 0, "capped": 0})
+            row["launches"] += 1
+            row["rays"] += r
+            row["hits"] += int(want.hit.sum())
+            row["capped"] += capped
+        return held
 
     # ---- 2. build ----------------------------------------------------------
     def build(self):
@@ -759,6 +822,7 @@ class Smoke:
         from ray_tracer_tpu_torch.io.ppm import read_ppm, tonemap_u8
         from ray_tracer_tpu_torch.models.scenes import serial_scene_config
         from ray_tracer_tpu_torch.render.renderer import prepare, render
+        from ray_tracer_tpu_torch.tools.profiling import profile_render
 
         size, S, D = 1024, 4, 2
         cfg = self.gi_config(serial_scene_config, size, "serial", S, D)
@@ -774,6 +838,7 @@ class Smoke:
             raise AssertionError(f"the GI frame launched {counts}: F once and nothing else "
                                  "expected")
         self.launches["gi_wave"] = counts["gi_wave"]
+        self.path_launches["turbo_spot_gi_s4d2"] = counts
         if img.shape != (size, size, 3) or not bool(torch.isfinite(img).all()):
             raise AssertionError(f"GI render: bad image {tuple(img.shape)}")
         secs = []
@@ -834,7 +899,9 @@ class Smoke:
         """The GI wave (F) against the segment integrator (C, one fused march
         a sample batch and depth) at 256x256: the JAX package's rule for its
         own wave (tests/test_pathtrace.py:565-586), more than 97% of pixels
-        within 1e-5 and the means within 2%."""
+        within 1e-5 and the means within 2%.  Each of the segment
+        integrator's launches of C is held to the plain version at its own
+        inputs."""
         from ray_tracer_tpu_torch.models.scenes import parallel_scene_config, serial_scene_config
         from ray_tracer_tpu_torch.render.renderer import prepare, render
 
@@ -850,11 +917,15 @@ class Smoke:
             off = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render,
                                                                       gi_wave="off"))
             self.zero_counts()
-            seg = render(p._replace(cfg=off))
-            torch.cuda.synchronize()
+            with self.logging_launches() as log:
+                seg = render(p._replace(cfg=off))
+                torch.cuda.synchronize()
             scounts = self.counts()
+            self.path_launches[f"gi_wave_{name}_256"] = wcounts
+            self.path_launches[f"gi_segments_{name}_256"] = scounts
             if wcounts["gi_wave"] != 1 or scounts["gi_wave"] or scounts["packed_march"] <= 0:
                 raise AssertionError(f"GI {name}: wave launched {wcounts}, segments {scounts}")
+            held = self.hold_logged(f"GI segments {name}", log)
             same = float(((wave - seg).abs() <= 1e-5).all(dim=-1).float().mean())
             means = (float(wave.mean()), float(seg.mean()))
             rel = abs(means[0] - means[1]) / max(abs(means[1]), 1e-30)
@@ -862,19 +933,21 @@ class Smoke:
                   "pixels_within_1e-5": same, "means": means, "means_rel_diff": rel,
                   "bitwise_pixels": float((wave.view(torch.int32) == seg.view(torch.int32))
                                           .all(dim=-1).float().mean()),
-                  "segment_launches": scounts})
+                  "segment_launches": scounts, "segments_kernel_C_held": held})
             if same <= 0.97 or rel > 0.02:
                 raise AssertionError(f"GI wave vs segments {name}: {same:.4f} of pixels within "
                                      f"1e-5, means {means}")
 
     def main_nefertiti(self):
-        """The turbo nefertiti scene (about 262k faces) at 1024x1024: kernel C
-        with the tuned knobs, against its csr image (kernel B) by the
-        2-count rule."""
+        """The turbo nefertiti scene (261,120 faces) at 1024x1024: kernel C
+        with the tuned knobs, each of its launches held to the plain version
+        at the frame's own inputs, and its image against the csr image
+        (kernel B) by the 2-count rule."""
         from ray_tracer_tpu_torch.config import apply_turbo
         from ray_tracer_tpu_torch.io.ppm import tonemap_u8
         from ray_tracer_tpu_torch.models.scenes import nefertiti_scene
         from ray_tracer_tpu_torch.render.renderer import prepare, render
+        from ray_tracer_tpu_torch.tools.profiling import profile_render
 
         size = 1024
         scene, base = nefertiti_scene(size, size, device=self.dev)
@@ -888,11 +961,19 @@ class Smoke:
             torch.cuda.synchronize()
             prep_s = time.perf_counter() - t0
             self.zero_counts()
-            img = render(p)
-            torch.cuda.synchronize()
+            with self.logging_launches() as log:
+                img = render(p)
+                torch.cuda.synchronize()
             counts = self.counts()
+            self.path_launches[name] = counts
             if counts[kernel] <= 0:
                 raise AssertionError(f"{name} launched {kernel} 0 times")
+            if name == "turbo_nefertiti":
+                held = self.hold_logged(name, log)
+                emit({"phase": "kernel_C_on_path", "config": name, "size": size,
+                      "layout": "inline" if p.packed.meta.inline else "blocks",
+                      "held": held, "tolerance": "bitwise (records, rows tested and "
+                      "touched, capped lanes, most steps)", "equal": True})
             if not bool(torch.isfinite(img).all()):
                 raise AssertionError(f"{name}: non-finite pixels")
             secs = []
@@ -916,8 +997,6 @@ class Smoke:
                                        "max_blocks": p.packed.meta.max_blocks}
             emit(line)
             if name == "turbo_nefertiti":
-                self.launches["packed_march"] = max(self.launches.get("packed_march", 0),
-                                                    counts["packed_march"])
                 emit(profile_render(p, med, name))
         frac = image_rule(imgs["turbo_nefertiti"], imgs["csr_nefertiti"])
         emit({"phase": "nefertiti_agreement", "pixels_over_2_counts": frac,
@@ -931,6 +1010,7 @@ class Smoke:
         from ray_tracer_tpu_torch.io.ppm import read_ppm, tonemap_u8
         from ray_tracer_tpu_torch.models.scenes import parallel_scene_config, serial_scene_config
         from ray_tracer_tpu_torch.render.renderer import prepare, render
+        from ray_tracer_tpu_torch.tools.profiling import profile_render
 
         size = 1024
         main_cfg = serial_scene_config(size, size)
@@ -952,6 +1032,7 @@ class Smoke:
             if counts[kernel] <= 0:
                 raise AssertionError(f"render with config {name} launched {kernel} 0 times")
             self.launches[kernel] = counts[kernel]
+            self.path_launches[name] = counts
             if img.shape != (size, size, 3) or not bool(torch.isfinite(img).all()):
                 raise AssertionError(f"{name} render: bad image {tuple(img.shape)}")
             secs = []
@@ -1020,6 +1101,7 @@ class Smoke:
             render(pp)
             torch.cuda.synchronize()
             pcounts = self.counts()
+            self.path_launches[f"parallel_512_{name}"] = pcounts
             if pcounts[kernel] <= 0:
                 raise AssertionError(f"parallel render {name} launched {kernel} 0 times")
             t0 = time.perf_counter()
@@ -1036,6 +1118,10 @@ class Smoke:
         emit({"phase": "parallel_agreement", "pixels_over_2_counts": frac})
         if frac >= 0.01:
             raise AssertionError(f"parallel csr vs turbo: {frac:.2%} of pixels differ by > 2")
+        # each main-path render's own launches, counted from 0 (the
+        # `kernels` line gives each kernel's count on its first path:
+        # B csr, A brute_pallas, C turbo, E turbo_parallel_wave, F the GI row)
+        emit({"phase": "launches_by_path", "paths": self.path_launches})
 
     def main_wave(self):
         """The turbo parallel scene at 1024x1024 through prepare + render: the
@@ -1046,6 +1132,7 @@ class Smoke:
         from ray_tracer_tpu_torch.io.ppm import read_ppm, tonemap_u8
         from ray_tracer_tpu_torch.models.scenes import parallel_scene_config
         from ray_tracer_tpu_torch.render.renderer import prepare, render
+        from ray_tracer_tpu_torch.tools.profiling import profile_render
 
         kE = self.kE
         size = 1024
@@ -1062,6 +1149,7 @@ class Smoke:
             raise AssertionError(f"the turbo parallel frame launched {counts}: E once and C "
                                  "never expected")
         self.launches["whitted_wave"] = counts["whitted_wave"]
+        self.path_launches["turbo_parallel_wave"] = counts
         if img.shape != (size, size, 3) or not bool(torch.isfinite(img).all()):
             raise AssertionError(f"turbo parallel render: bad image {tuple(img.shape)}")
         # each frame under the sync debug mode: a device-to-host copy or a
@@ -1114,6 +1202,7 @@ class Smoke:
         loop = render(p._replace(cfg=off))
         torch.cuda.synchronize()
         lcounts = self.counts()
+        self.path_launches["turbo_parallel_bounce_loop"] = lcounts
         if lcounts["packed_march"] != cfg.render.max_bounces + 1 or lcounts["whitted_wave"]:
             raise AssertionError(f"the bounce-loop frame launched {lcounts}")
         frac = image_rule(wave_u8, tonemap_u8(loop.cpu().numpy()))
@@ -1234,6 +1323,33 @@ class Smoke:
                   "max_abs_diff": float((g_card.cpu() - g_cpu).abs().max())})
             if n_bad:
                 raise AssertionError(f"GI 64 {name}: {n_bad} floats differ card vs CPU")
+
+        # the segment integrator over the csr grid (kernel B), the command
+        # line's GI without --turbo: each launch of B held to the plain
+        # version, and the image against the CPU's by the 2-count rule
+        ccfg = serial_scene_config(64, 64)
+        ccfg = dataclasses.replace(ccfg, render=dataclasses.replace(
+            ccfg.render, faithful=False, gi_samples=2, gi_depth=1))
+        cprep = prepare(ccfg)
+        self.zero_counts()
+        with self.logging_launches() as log:
+            c_card = render(cprep)
+            torch.cuda.synchronize()
+        ccounts = self.counts()
+        if ccounts["traverse_grid"] <= 0 or ccounts["packed_march"] or ccounts["gi_wave"]:
+            raise AssertionError(f"the 64x64 csr GI render launched {ccounts}: B only expected")
+        held = self.hold_logged("csr GI 64", log)
+        c_cpu = render(prepare(ccfg, device="cpu"))
+        a, b = tonemap_u8(c_card.cpu().numpy()), tonemap_u8(c_cpu.numpy())
+        frac = image_rule(a, b)
+        emit({"phase": "card_vs_cpu", "size": 64, "config": "csr_spot_gi_s2d1",
+              "launches": ccounts, "kernel_B_held": held,
+              "tolerance": "launches of B bitwise; image by the 2-count rule",
+              "floats_differing": int((c_card.cpu().view(torch.int32)
+                                       != c_cpu.view(torch.int32)).sum()),
+              "bytes_differing": int((a != b).sum()), "pixels_over_2_counts": frac})
+        if frac >= 0.01:
+            raise AssertionError(f"csr GI 64 card vs CPU: {frac:.2%} of pixels differ by > 2")
 
     def wave_pow_probe(self, cfg, prep, lanes):
         """The wave's plain version on the card over the differing pixels'
@@ -1684,6 +1800,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ray_tracer_tpu_torch.tools.profiling import card_line
+
     card = card_line()
     emit({"phase": "device", "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0], "card": card,

@@ -5,6 +5,7 @@ from ray_tracer_tpu_torch.models.scenes import (  # noqa: F401
     flagship_scene,
     gradcheck_scene,
     nefertiti_scene,
+    nefertiti_scene_config,
     parallel_scene_config,
     scene_from_numpy,
     serial_scene_config,

@@ -255,7 +255,7 @@ def flagship_scene(width: int = 1024, height: int = 1024, dtype=torch.float32, d
 def nefertiti_mesh_parts(n_lat: int = 256, n_lon: int = 512, with_spot: bool = False):
     """The nefertiti workload's (mesh, material_index) parts: the displaced
     sphere of radius 1.2 standing in for the reference's missing scan
-    (about 262k faces at the default resolution), and with_spot the spot
+    (261,120 faces at the default resolution), and with_spot the spot
     mesh beside it at (2.6, 0, 0)."""
     parts = [(mesh_gen.make_displaced_sphere(n_lat=n_lat, n_lon=n_lon, radius=1.2), 0)]
     if with_spot:
@@ -263,19 +263,16 @@ def nefertiti_mesh_parts(n_lat: int = 256, n_lon: int = 512, with_spot: bool = F
     return parts
 
 
-def nefertiti_scene(width: int = 1024, height: int = 1024, n_lat: int = 256, n_lon: int = 512,
-                    with_spot: bool = False, dtype=torch.float32, device=None):
-    """The dense workload scene (ray_tracer_tpu/models/scenes.py:445) ->
-    (scene, cfg): the displaced sphere (and with_spot the spot mesh), two
-    materials, one light, packed traversal."""
+def nefertiti_scene_config(width: int = 1024, height: int = 1024,
+                           with_spot: bool = False) -> SceneConfig:
+    """The nefertiti scene's config: two materials, one light, the camera,
+    packed traversal."""
     materials = (
         MaterialConfig(base_color=(210.0, 180.0, 140.0), kd=2.0, ks=4.0, spec_alpha=6.0, ka=0.2),
         MaterialConfig(base_color=(200.0, 60.0, 60.0), kd=2.0, ks=4.0, spec_alpha=4.0, ka=0.2),
     )
     light = LightConfig(position=(4.0, 5.0, 3.0), intensity=1.0)
-    scene = scene_from_meshes(nefertiti_mesh_parts(n_lat, n_lon, with_spot), materials, light,
-                              dtype=dtype, device=device)
-    cfg = SceneConfig(
+    return SceneConfig(
         materials=materials,
         camera=CameraConfig(position=(0.0, 1.5, 4.5), target=(0.8 if with_spot else 0.0, 0, 0),
                             up=(0, 1, 0), fov_degrees=45.0, width=width, height=height),
@@ -283,4 +280,14 @@ def nefertiti_scene(width: int = 1024, height: int = 1024, n_lat: int = 256, n_l
         render=RenderConfig(shading="parallel", faithful=False, traversal="packed",
                             max_bounces=0, shadow_eps=1e-3, shadow_scale=0.5, ray_tile=512),
     )
+
+
+def nefertiti_scene(width: int = 1024, height: int = 1024, n_lat: int = 256, n_lon: int = 512,
+                    with_spot: bool = False, dtype=torch.float32, device=None):
+    """The dense workload scene (ray_tracer_tpu/models/scenes.py:445) ->
+    (scene, cfg): the displaced sphere (and with_spot the spot mesh) under
+    `nefertiti_scene_config`."""
+    cfg = nefertiti_scene_config(width, height, with_spot)
+    scene = scene_from_meshes(nefertiti_mesh_parts(n_lat, n_lon, with_spot), cfg.materials,
+                              cfg.light, dtype=dtype, device=device)
     return scene, cfg

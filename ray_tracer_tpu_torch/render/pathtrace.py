@@ -152,7 +152,7 @@ def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=N
     if tracer is not None:
         raise NotImplementedError("not served by the PyTorch port yet: tracer= (ring GI)")
     v0, v1, v2 = scene.triangle_soa()
-    tri9 = torch.cat([v0, v1, v2, scene.face_material.to(v0.dtype)[:, None]], dim=1)
+    tri9 = build_gi_wave_tri9(scene)
     dt = v0.dtype
     trav = make_traversal(rcfg, grid, meta, v0, v1, v2, dda=dda, consts=consts)
     persistent = rcfg.traversal == "packed" and rcfg.scheduler == "persistent"
@@ -161,9 +161,7 @@ def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=N
     ddt = {"float32": torch.float32, "float64": torch.float64}[rcfg.det_dtype]
     dev = v0.device
     background = torch.tensor(rcfg.background, dtype=dt, device=dev)
-    mats = scene.materials
-    albedo_table = torch.clamp(vm.div_scalar(mats.base_color, 255.0), 0.0, 1.0)
-    km_table = torch.clamp(mats.km, 0.0, 1.0) * mats.reflective.to(dt)
+    albedo_table, km_table = _material_tables(scene)
     n_mats = albedo_table.shape[0]
     lp, li = scene.light_pos, scene.light_intensity
     ray_ids = ray_sample_keys(rays.orig, rays.dirn)
@@ -320,10 +318,16 @@ def build_gi_wave_tables(scene, rcfg: RenderConfig, use_spec: bool):
     if rcfg.texture != "none" or rcfg.normal_mode == "smooth":
         raise NotImplementedError("not served by the PyTorch port yet: textures and smooth "
                                   "normals in the GI wave")
+    albedo, km = _material_tables(scene)
+    return albedo, km if use_spec else None
+
+
+def _material_tables(scene):
+    """(albedo (M, 3), km (M,)): the clipped base_color / 255, and the
+    clipped km gated by `reflective`."""
     mats = scene.materials
     albedo = torch.clamp(vm.div_scalar(mats.base_color, 255.0), 0.0, 1.0)
-    km = (torch.clamp(mats.km, 0.0, 1.0) * mats.reflective.to(torch.float32)
-          if use_spec else None)
+    km = torch.clamp(mats.km, 0.0, 1.0) * mats.reflective.to(mats.km.dtype)
     return albedo, km
 
 
