@@ -176,6 +176,11 @@ PREVIOUS_MS = {"B": {"device_ms": 0.4504}, "C": {"device_ms": 0.4288}}
 # memory), on the same card as recorded in PERF.md: device time and lane
 # utilisation (active lane-steps over 32 x warp loop iterations).
 PREVIOUS_E = {"device_ms": 1.8276, "lane_utilisation": 0.7347491342129305}
+# Kernel F on the official GI row (turbo serial 1024^2, S 4, D 2) before its
+# redesign (one thread a pixel serving all its samples, no queue), on the
+# same card as recorded in PERF.md: device time, lane utilisation and the
+# share of warp steps in which a lane ended a segment.
+PREVIOUS_F = {"device_ms": 1.1417, "lane_utilisation": None, "transition_share": None}
 
 
 def emit(obj) -> None:
@@ -205,6 +210,21 @@ def kernel_device_ms(fn, kernel: str, n: int):
     kernels, _ = profiled_kernels(fn, n)
     us = [e.time_range.end - e.time_range.start for e in kernels if kernel in e.name]
     return sum(us) / len(us) / 1e3 if us else None
+
+
+def calls_device_ms(fn, n: int):
+    """Device time of one fn() call, every kernel and memset it launches
+    summed, over n calls under torch.profiler, and the same by kernel name
+    (each over n); (None, {}) if the profiler saw nothing."""
+    from ray_tracer_tpu_torch.tools.profiling import profiled_kernels
+
+    kernels, _ = profiled_kernels(fn, n)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
+    if not by_name:
+        return None, {}
+    return sum(by_name.values()) / n / 1e3, {k: v / n / 1e3 for k, v in by_name.items()}
 
 
 def once_ms(fn):
@@ -707,12 +727,12 @@ class Smoke:
               "equal": True})
 
     # ---- 10. kernel F vs its plain version --------------------------------
-    def gi_config(self, make, size, family, S, D, **kw):
+    def gi_config(self, make, size, family, S, D, height=None, **kw):
         """A path-traced turbo config (gi_samples set before apply_turbo, as
-        the command line sets it)."""
+        the command line sets it), size x size or size x height pixels."""
         from ray_tracer_tpu_torch.config import apply_turbo
 
-        cfg = make(size, size)
+        cfg = make(size, height or size)
         cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, gi_samples=S))
         cfg = apply_turbo(cfg, family)
         return dataclasses.replace(cfg, render=dataclasses.replace(
@@ -748,22 +768,26 @@ class Smoke:
                     events_out=torch.zeros((len(self.kF.EVENTS),), dtype=torch.int64,
                                            device=self.dev))
 
-    def gi_check(self, label, prep):
-        """F against its plain version on prep's frame: radiance bitwise,
-        every counter equal, no lane capped.  Returns (max |err|, events,
-        passes)."""
+    def gi_check(self, label, prep, schedules=(None,)):
+        """F against its plain version on prep's frame, once a schedule:
+        radiance bitwise, every counter equal, no lane capped.  Returns (max
+        |err|, events, passes)."""
         tail, kw, rays = self.gi_inputs(prep)
-        cp, ck = self.gi_counters(), self.gi_counters()
+        cp = self.gi_counters()
         want = self.kF.gi_wave_plain(rays, *tail, **kw, **cp)
-        got = self.gi_launch(prep, tail, kw, **ck)
-        torch.cuda.synchronize()
-        err = compare(label, (got.reshape(-1),), (want.reshape(-1),))
-        for key in ck:
-            if not torch.equal(ck[key], cp[key]):
-                raise AssertionError(f"{label}: counter {key} differs from the plain "
-                                     f"version's: {ck[key].tolist()} vs {cp[key].tolist()}")
-        if int(ck["capped_out"].item()):
-            raise AssertionError(f"{label}: {int(ck['capped_out'])} lanes capped")
+        err = 0.0
+        for schedule in schedules:
+            ck = self.gi_counters()
+            got = self.gi_launch(prep, tail, kw, schedule=schedule, **ck)
+            torch.cuda.synchronize()
+            where = label if schedule is None else f"{label} schedule {schedule}"
+            err = max(err, compare(where, (got.reshape(-1),), (want.reshape(-1),)))
+            for key in ck:
+                if not torch.equal(ck[key], cp[key]):
+                    raise AssertionError(f"{where}: counter {key} differs from the plain "
+                                         f"version's: {ck[key].tolist()} vs {cp[key].tolist()}")
+            if int(ck["capped_out"].item()):
+                raise AssertionError(f"{where}: {int(ck['capped_out'])} pixels capped")
         return err, dict(zip(self.kF.EVENTS, ck["events_out"].tolist())), int(ck["passes_out"])
 
     def plane_gi_config(self, size):
@@ -797,6 +821,11 @@ class Smoke:
              None),
             ("escape_plane_64_s3d2", plane_cfg, plane_scene),
             ("serial_128_s4d0", self.gi_config(serial_scene_config, 128, "serial", 4, 0), None),
+            # 7,500 pixels: no multiple of 32 or of a chunk (the queues' tails)
+            ("serial_100x75_s3d2", self.gi_config(serial_scene_config, 100, "serial", 3, 2,
+                                                  height=75), None),
+            # eight items a queued pixel (the fold's order)
+            ("serial_128_s8d1", self.gi_config(serial_scene_config, 128, "serial", 8, 1), None),
         ]
         err = 0.0
         out = []
@@ -804,15 +833,63 @@ class Smoke:
             prep = prepare(cfg, scene=scene)
             if not prep.setup.gi_wave:
                 raise AssertionError(f"kernel F {name}: the config should take the GI wave")
-            e, events, passes = self.gi_check(f"kernel F {name}", prep)
+            e, events, passes = self.gi_check(f"kernel F {name}", prep,
+                                              schedules=self.kF.SCHEDULES)
             err = max(err, e)
             out.append({"case": name, "pixels": cfg.camera.width * cfg.camera.height,
                         "S": cfg.render.gi_samples, "D": cfg.render.gi_depth,
                         "mirror_mix": prep.gi[2] is not None, "events": events,
                         "passes": passes, "capped": 0})
         self.err["gi_wave"] = max(self.err["gi_wave"], err)
-        emit({"phase": "kernel_F_vs_plain", "cases": out, "max_abs_err": err,
-              "tolerance": "bitwise (radiance and every counter)", "equal": True})
+        emit({"phase": "kernel_F_vs_plain", "cases": out, "schedules": list(self.kF.SCHEDULES),
+              "max_abs_err": err, "tolerance": "bitwise (radiance and every counter)",
+              "equal": True})
+
+    def f_designs(self):
+        """Kernel F's schedules on the official GI row, timed in turns
+        (0..5, then 5..0) on one card: the device time of a call (every
+        kernel and memset summed, over 10 calls), CUDA-event time over 20
+        calls, the time by kernel; then each schedule's lane counters,
+        radiance bitwise against the plain version and counters equal."""
+        from ray_tracer_tpu_torch.models.scenes import serial_scene_config
+        from ray_tracer_tpu_torch.render.renderer import prepare
+
+        kF = self.kF
+        if self.gi_frame is None:
+            self.gi_frame = prepare(self.gi_config(serial_scene_config, 1024, "serial", 4, 2))
+        p = self.gi_frame
+        tail, kw, rays = self.gi_inputs(p)
+        order = list(kF.SCHEDULES) + list(reversed(kF.SCHEDULES))
+        turns = {sch: [] for sch in kF.SCHEDULES}
+        for sch in order:
+            def launch(sch=sch):
+                return self.gi_launch(p, tail, kw, schedule=sch)
+            dev_ms, by_name = calls_device_ms(launch, 10)
+            turns[sch].append({"device_ms": dev_ms, "ms": cuda_ms(launch, 20),
+                               "by_kernel_ms": {k[:70]: v for k, v in by_name.items()}})
+        cp = self.gi_counters()
+        want = kF.gi_wave_plain(rays, *tail, **kw, **cp)
+        for sch in kF.SCHEDULES:
+            ck = self.gi_counters()
+            lanes = torch.zeros((2, 3), dtype=torch.int64, device=self.dev)
+            got = self.gi_launch(p, tail, kw, schedule=sch, lanes_out=lanes, **ck)
+            torch.cuda.synchronize()
+            err = compare(f"kernel F 1024 schedule {sch}", (got.reshape(-1),),
+                          (want.reshape(-1),))
+            for key in ck:
+                if not torch.equal(ck[key], cp[key]):
+                    raise AssertionError(f"kernel F 1024 schedule {sch}: counter {key} differs")
+            ln = lanes.tolist()
+            it = ln[0][0] + ln[1][0]
+            emit({"phase": "F_design", "schedule": sch, "turns": turns[sch],
+                  "device_ms_mean": sum(t["device_ms"] for t in turns[sch]) / len(turns[sch]),
+                  "lanes": ln, "lane_utilisation": (ln[0][1] + ln[1][1]) / (32 * it),
+                  "lane_utilisation_by_stage": [x[1] / (32 * x[0]) if x[0] else None
+                                                for x in ln],
+                  "transition_share": (ln[0][2] + ln[1][2]) / it,
+                  "transition_share_by_stage": [x[2] / x[0] if x[0] else None for x in ln],
+                  "max_abs_err": err, "bitwise": True, "counters_equal_plain": True,
+                  "ptxas": self.ptxas.get("gi_wave")})
 
     # ---- 7. (continued) the path-traced render and the nefertiti scene --
     def main_gi(self):
@@ -838,7 +915,6 @@ class Smoke:
             raise AssertionError(f"the GI frame launched {counts}: F once and nothing else "
                                  "expected")
         self.launches["gi_wave"] = counts["gi_wave"]
-        self.path_launches["turbo_spot_gi_s4d2"] = counts
         if img.shape != (size, size, 3) or not bool(torch.isfinite(img).all()):
             raise AssertionError(f"GI render: bad image {tuple(img.shape)}")
         secs = []
@@ -878,7 +954,10 @@ class Smoke:
               "packed_grid": {"n_voxels": list(p.packed.meta.n_voxels),
                               "rows": p.packed.meta.n_blocks, "inline": p.packed.meta.inline,
                               "block_tris": p.packed.meta.block_tris}})
-        emit(profile_render(p, med, "turbo_spot_gi_s4d2"))
+        prof = profile_render(p, med, "turbo_spot_gi_s4d2")
+        self.path_launches["turbo_spot_gi_s4d2"] = dict(
+            counts, cuda_kernels_per_frame=prof["kernels_per_frame"])
+        emit(prof)
 
         out_ppm = os.path.join(self.root, "build", "chip_smoke_cli_gi.ppm")
         os.makedirs(os.path.dirname(out_ppm), exist_ok=True)
@@ -1723,7 +1802,22 @@ class Smoke:
             return self.gi_launch(p, tail, kw, **extra)
 
         f_ms = cuda_ms(launch_f, 20)
-        f_dev_ms = kernel_device_ms(launch_f, "gi_wave_kernel", 10)
+        # F is several kernels and a memset: its device time is their sum
+        f_dev_ms, f_by_kernel = calls_device_ms(launch_f, 10)
+        lanes = torch.zeros((2, 3), dtype=torch.int64, device=self.dev)
+        launch_f(lanes_out=lanes)
+        ln = lanes.tolist()
+        iters = ln[0][0] + ln[1][0]
+        emit({"phase": "lane_utilisation_before", "kernel": "F",
+              "design": "one thread a pixel serving all its samples, no queue (recorded in "
+                        "PERF.md)", **PREVIOUS_F})
+        emit({"phase": "lane_utilisation_after", "kernel": "F",
+              "design": "stage P, a persistent refilled stage S of sample items, the fold",
+              "lanes": {"stage_P": ln[0], "stage_S": ln[1],
+                        "keys": ["warp_iterations", "active_lane_steps", "transition_steps"]},
+              "lane_utilisation": (ln[0][1] + ln[1][1]) / (32 * iters),
+              "lane_utilisation_by_stage": [x[1] / (32 * x[0]) if x[0] else None for x in ln],
+              "transition_share": (ln[0][2] + ln[1][2]) / iters, "device_ms": f_dev_ms})
         cp, ck = self.gi_counters(), self.gi_counters()
         f_plain_ms, f_plain = once_ms(lambda: kF.gi_wave_plain(rays, *tail, **kw, **cp))
         err = compare("kernel F 1024 GI", (launch_f(**ck).reshape(-1),), (f_plain.reshape(-1),))
@@ -1758,7 +1852,8 @@ class Smoke:
         f_bound, f_by = bound(f_bytes, f_ops)
         segments = events["primaries"] + events["bounce_segments"] + events["shadow_rays"]
         emit({"phase": "kernel_times_F", "pixels": r, "S": kw["S"], "D": kw["D"], "ms": f_ms,
-              "device_ms": f_dev_ms, "plain_ms": f_plain_ms, "ptxas": self.ptxas.get("gi_wave"),
+              "device_ms": f_dev_ms, "device_ms_by_kernel": f_by_kernel,
+              "plain_ms": f_plain_ms, "ptxas": self.ptxas.get("gi_wave"),
               "events": events, "passes": passes, "segments": segments,
               "segments_per_s_of_kernel": segments / ((f_dev_ms or f_ms) / 1e3),
               "bytes": f_bytes, "ops": f_ops, "bound_ms": f_bound, "bound_by": f_by,
@@ -1818,6 +1913,8 @@ def main(argv=None) -> int:
         smoke.kernel_e()
     if "F" in phases:
         smoke.kernel_f()
+    if "F_designs" in phases:
+        smoke.f_designs()
     if "main" in phases:
         smoke.main_path()
     if "card_vs_cpu" in phases:

@@ -402,28 +402,103 @@ def _launch_params(cam: CameraLaunch, consts: LaunchConsts, meta: PackedGridMeta
     return gi, camera
 
 
+# Kernel F's schedules (csrc/gi_wave.cu): 0 one thread a pixel, 1 kernel
+# E's persistent wave over pixels, 2-5 the split (stage P, a persistent
+# stage S refilled at half a warp (2, 4) or every step (3, 5), at 6 (2, 3)
+# or 8 (4, 5) blocks an SM, and the fold).
+SCHEDULES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
+SCHEDULE = 2
+_BLOCK = 128  # threads a block of stage P and stage S (csrc/gi_wave.cu kBlock)
+_FOLD_BLOCK = 256
+_RECORD_BYTES = 80  # a depth-0 record: five float4
+_OCCUPANCY = {}  # (device index, schedule) -> (SMs, resident blocks an SM: pixel wave, stage S)
+
+
+def _scratch_layout(n_pixels: int, S: int) -> dict:
+    """Byte offsets of kernel F's scratch, sized for every pixel queued:
+    `heads` (4 int32: the queue's length and stage S's item head), a capped
+    flag (int32) and a depth-0 record (80 B) a queued pixel, and v_s (3
+    float32) an item (queued pixel, sample); each part 16-byte aligned.
+    `total` is the bytes to allocate."""
+    def up16(x):
+        return -(-x // 16) * 16
+
+    flags = 16
+    recs = flags + up16(4 * n_pixels)
+    v = recs + _RECORD_BYTES * n_pixels
+    return dict(heads=0, flags=flags, recs=recs, v=v, total=v + up16(12 * n_pixels * S))
+
+
+def _stage_launch(n_pixels: int, sms: int, per_sm_s: int,
+                  per_sm_p: int = 0) -> "tuple[int, int, int]":
+    """Blocks of stage P (one thread a pixel, or every SM's resident blocks
+    of a persistent stage P), of the persistent stage S (every SM's
+    resident blocks) and of the fold (a grid-stride loop over the queued
+    pixels, at most 8 blocks an SM)."""
+    grid_p = sms * per_sm_p if per_sm_p > 0 else -(-n_pixels // _BLOCK)
+    grid_s = sms * max(per_sm_s, 1)
+    grid_fold = max(1, min(-(-n_pixels // _FOLD_BLOCK), 8 * sms))
+    return grid_p, grid_s, grid_fold
+
+
+def _occupancy(lib, dev: torch.device, schedule: int) -> "tuple[int, int, int]":
+    """(SMs, resident blocks an SM of the persistent stage S, of a
+    persistent pixel kernel or 0) on dev, asked of the CUDA runtime once
+    (no device synchronisation)."""
+    key = (dev.index, schedule)
+    if key not in _OCCUPANCY:
+        sms, per_p, per_s = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+        fn = lib.gi_wave_occupancy
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+        with torch.cuda.device(dev):
+            err = fn(schedule, ctypes.byref(sms), ctypes.byref(per_p), ctypes.byref(per_s))
+        _build.check(err, "gi_wave occupancy")
+        _OCCUPANCY[key] = (sms.value, per_s.value, per_p.value)
+    return _OCCUPANCY[key]
+
+
+def _launch_fn(lib):
+    fn = lib.gi_wave_launch
+    fn.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = ([_GiParams, _CameraParams] + [p] * 12 + [i] * 3 + [p] * 4 + [i, p])
+    return fn
+
+
 def gi_wave_cuda(
     camera: CameraConfig, light_pos, light_intensity, albedo_table, tri9,
     grid: PackedGridArrays, meta: PackedGridMeta, km_table=None, *,
     S: int, D: int, gate0: float = 0.0, gate_b: float = 1e-4, eps: float = 1e-4,
     smint: float = 1e-4, quirk: bool = False, bg=(0.0, 0.0, 0.0),
     cam: Optional[CameraLaunch] = None, consts: Optional[LaunchConsts] = None,
-    capped_out=None, passes_out=None, events_out=None,
+    capped_out=None, passes_out=None, events_out=None, lanes_out=None,
+    schedule: Optional[int] = None,
 ) -> torch.Tensor:
     """Kernel F on CUDA tensors: the radiance summed over S samples of
     every pixel of `camera` -> (H*W, 3) f32, the plain version's bits for
-    the rays of `camera_rays(camera)`.  One thread a pixel makes its
-    camera ray and serves its whole estimate.
+    the rays of `camera_rays(camera)`.  Stage P marches each pixel's
+    camera ray and depth-0 shadow ray and queues the hits' depth-0
+    records; a persistent stage S serves the (queued pixel, sample) items;
+    the fold sums each pixel's samples in order.
 
     cam (`camera_launch(camera, 1)`) and consts (`launch_consts(grid,
     light_pos, light_intensity)`) are the launch's host-held values:
     given both, the call neither copies to nor from the device nor
-    synchronises; each one missing is made here.  The counters are the
-    plain version's (zeroed here, then filled by the launch)."""
+    synchronises (stage S reads the queue's length on the device); each
+    one missing is made here.  The counters are the plain version's
+    (zeroed here, then filled by the launch); lanes_out (2, 3) int64, the
+    kernel's own: for stage P (or the single kernel of schedules 0 and 1)
+    and stage S, the warp loop iterations, the active lane-steps in them
+    (lane utilisation = the second over 32 times the first) and the warp
+    steps in which a lane ended a segment."""
     if not grid.blocks.is_cuda:
         raise ValueError("gi_wave_cuda takes CUDA tensors")
     if S < 1 or D < 0:
         raise ValueError(f"needs S >= 1 and D >= 0, got S={S}, D={D}")
+    schedule = SCHEDULE if schedule is None else schedule
+    if schedule not in SCHEDULES:
+        raise ValueError(f"schedule must be one of {SCHEDULES}")
     dev = grid.blocks.device
     if cam is None:
         cam = camera_launch(camera, 1, device=dev)
@@ -448,16 +523,16 @@ def gi_wave_cuda(
         raise ValueError("km_table must be (M,)")
     if slot_tri.shape[0] >= (1 << 30):
         raise ValueError("slot index must fit in 30 bits")
-    if r >= (1 << 31):
-        raise ValueError("the pixels must fit in 31 bits")
+    if r * S >= (1 << 31):
+        raise ValueError("the (pixel, sample) items must fit in 31 bits")
     for name, buf, shape in (("capped_out", capped_out, (1,)), ("passes_out", passes_out, (1,))):
         _check_counter(name, buf, shape, dev)
-    if events_out is not None and (events_out.dtype != torch.int64 or not events_out.is_contiguous()
-                                   or tuple(events_out.shape) != (len(EVENTS),)
-                                   or events_out.device != dev):
-        raise ValueError(f"events_out must be a contiguous ({len(EVENTS)},) int64 tensor "
-                         f"on {dev}")
-    for buf in (capped_out, passes_out, events_out):
+    for name, buf, shape in (("events_out", events_out, (len(EVENTS),)),
+                             ("lanes_out", lanes_out, (2, 3))):
+        if buf is not None and (buf.dtype != torch.int64 or not buf.is_contiguous()
+                                or tuple(buf.shape) != shape or buf.device != dev):
+            raise ValueError(f"{name} must be a contiguous {shape} int64 tensor on {dev}")
+    for buf in (capped_out, passes_out, events_out, lanes_out):
         if buf is not None:
             buf.zero_()
     rad = torch.empty((r, 3), dtype=torch.float32, device=dev)
@@ -467,19 +542,22 @@ def gi_wave_cuda(
         cam, consts, meta, n_slots=slot_tri.shape[0], n_faces=tri9.shape[0],
         n_mats=albedo.shape[0], has_spec=km is not None, S=S, D=D, gate0=gate0,
         gate_b=gate_b, eps=eps, smint=smint, quirk=quirk, bg=bg)
+    layout = _scratch_layout(r, S)
+    scratch = torch.empty((layout["total"],), dtype=torch.uint8, device=dev)
+    lib = _build.library("gi_wave")
+    grids = _stage_launch(r, *_occupancy(lib, dev, schedule))
 
     def ptr(x):
         return x.data_ptr() if x is not None else None
 
-    fn = _build.library("gi_wave").gi_wave_launch
-    fn.restype = ctypes.c_int
-    p = ctypes.c_void_p
-    fn.argtypes = [_GiParams, _CameraParams] + [p] * 12
+    base = scratch.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(gi, cparams, table.data_ptr(), cell_info.data_ptr(), blocks.data_ptr(),
-                 slot_tri.data_ptr(), tri9.data_ptr(), albedo.data_ptr(), ptr(km),
-                 rad.data_ptr(), ptr(capped_out), ptr(passes_out), ptr(events_out), stream)
+        err = _launch_fn(lib)(
+            gi, cparams, table.data_ptr(), cell_info.data_ptr(), blocks.data_ptr(),
+            slot_tri.data_ptr(), tri9.data_ptr(), albedo.data_ptr(), ptr(km), rad.data_ptr(),
+            *(base + layout[k] for k in ("heads", "flags", "recs", "v")), *grids,
+            ptr(capped_out), ptr(passes_out), ptr(events_out), ptr(lanes_out), schedule, stream)
     _build.check(err, "gi_wave")
     gi_wave_cuda.launches += 1
     return rad

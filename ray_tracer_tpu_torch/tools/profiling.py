@@ -45,10 +45,10 @@ def profile_render(prep, median_s: float, config: str, frames: int = 10) -> dict
     """`frames` renders in one torch.profiler window: a frame's device
     kernels, its device busy time (the sum of kernel durations; kernels on
     one stream do not overlap), the idle share of the unprofiled median
-    frame time that leaves, and the device time by kernel name.  The
-    profiler can drop a few of a window's events, so a kernel's launches
-    a frame are the ceiling of its events over the frames, each at its
-    mean duration."""
+    frame time that leaves, the device time by kernel name, and each
+    kernel's launches a frame.  The profiler can drop a few of a window's
+    events, so a kernel's launches a frame are the ceiling of its events
+    over the frames, each at its mean duration."""
     from ray_tracer_tpu_torch.render.renderer import render
 
     kernels, windows = profiled_kernels(lambda: render(prep), frames)
@@ -63,4 +63,5 @@ def profile_render(prep, median_s: float, config: str, frames: int = 10) -> dict
             "kernel_events_seen": len(kernels), "profile_windows": windows,
             "device_busy_ms": busy_us / 1e3, "median_frame_ms": median_s * 1e3,
             "device_idle_share": 1.0 - busy_us / 1e3 / (median_s * 1e3),
-            "top_device_ms": {k[:60]: n * us / 1e3 for k, (n, us) in top}}
+            "top_device_ms": {k[:60]: n * us / 1e3 for k, (n, us) in top},
+            "kernels_per_frame": {k[:80]: n for k, (n, _) in per_frame.items()}}
