@@ -55,15 +55,18 @@ each printing one JSON line:
      the CPU's colors);
   9. kernel D (csrc/gather_row_test.cu) against its plain version through
      the port's gather tool, and the tool's step-loop time;
- 10. kernel F (csrc/gi_wave.cu, the cross-depth GI wave) against its plain
-     version on the card: the turbo serial scene at 128x128 with S = 4,
-     D = 2, the turbo parallel scene (the mirror mix) at 128x128 with
-     S = 2, D = 3, the escape-only plane and D = 0: the radiance bitwise
-     equal and every counter equal, no lane capped.  In phase 7 (main) the
-     path-traced render: the official GI row (turbo serial, 1024x1024,
-     S = 4, D = 2) through prepare + render, one launch of F a frame and
-     nothing else, each frame under torch.cuda.set_sync_debug_mode("error"),
-     Mpaths/s and F's segments a second, the ten-frame profile; the GI
+ 10. kernel F (csrc/gi_wave.cu, the cross-depth GI wave: stage P, the
+     persistent stage S and the fold) against its plain version on the
+     card: the turbo serial scene at 128x128 with S = 4, D = 2, the turbo
+     parallel scene (the mirror mix) at 128x128 with S = 2, D = 3, the
+     escape-only plane, D = 0, 100x75 pixels with S = 3, D = 2 (the
+     queues' tails) and S = 8, D = 1 (the fold's order): the radiance
+     bitwise equal and every counter equal, no pixel capped.  In phase 7
+     (main) the path-traced render: the official GI row (turbo serial,
+     1024x1024, S = 4, D = 2) through prepare + render, one call of F a
+     frame and nothing else, each frame under
+     torch.cuda.set_sync_debug_mode("error"), Mpaths/s and F's segments a
+     second, the ten-frame profile and the CUDA kernels a frame runs; the GI
      wave against the segment integrator at 256x256 (the serial and
      parallel scenes, the JAX package's statistical rule); the command
      line's GI PPM; and the turbo nefertiti scene at 1024x1024 (kernel C,
@@ -83,7 +86,9 @@ bitwise to the plain version; B's, C's and E's barycentric passes, and
 E's camera rays, vertices and reflections, counted for their operation
 bounds; C's device time against its time before the shared header; E's
 lane utilisation before and after its redesign, on lines of their own;
-F's events over launches, its plain version once and its bound from its
+F's device time as the sum of its kernels and memset, each stage's
+beside it, its lane utilisation before and after its redesign, its
+events over launches, its plain version once and its bound from its
 counters, with ptxas's registers and spills),
 a `kernels` line, the card line, and last {"ok": true, "device": {...}}.  Any
 failure raises and exits non-zero; without a CUDA device it exits
@@ -178,9 +183,11 @@ PREVIOUS_MS = {"B": {"device_ms": 0.4504}, "C": {"device_ms": 0.4288}}
 PREVIOUS_E = {"device_ms": 1.8276, "lane_utilisation": 0.7347491342129305}
 # Kernel F on the official GI row (turbo serial 1024^2, S 4, D 2) before its
 # redesign (one thread a pixel serving all its samples, no queue), on the
-# same card as recorded in PERF.md: device time, lane utilisation and the
-# share of warp steps in which a lane ended a segment.
-PREVIOUS_F = {"device_ms": 1.1417, "lane_utilisation": None, "transition_share": None}
+# same card as recorded in PERF.md: device time, lane utilisation (active
+# lane-steps over 32 x warp loop iterations) and the share of warp steps
+# in which a lane ended a segment.
+PREVIOUS_F = {"device_ms": 1.1417, "lane_utilisation": 0.5449485670180693,
+              "transition_share": 0.6849817278403751}
 
 
 def emit(obj) -> None:
@@ -768,26 +775,22 @@ class Smoke:
                     events_out=torch.zeros((len(self.kF.EVENTS),), dtype=torch.int64,
                                            device=self.dev))
 
-    def gi_check(self, label, prep, schedules=(None,)):
-        """F against its plain version on prep's frame, once a schedule:
-        radiance bitwise, every counter equal, no lane capped.  Returns (max
-        |err|, events, passes)."""
+    def gi_check(self, label, prep):
+        """F against its plain version on prep's frame: radiance bitwise,
+        every counter equal, no pixel capped.  Returns (max |err|, events,
+        passes)."""
         tail, kw, rays = self.gi_inputs(prep)
-        cp = self.gi_counters()
+        cp, ck = self.gi_counters(), self.gi_counters()
         want = self.kF.gi_wave_plain(rays, *tail, **kw, **cp)
-        err = 0.0
-        for schedule in schedules:
-            ck = self.gi_counters()
-            got = self.gi_launch(prep, tail, kw, schedule=schedule, **ck)
-            torch.cuda.synchronize()
-            where = label if schedule is None else f"{label} schedule {schedule}"
-            err = max(err, compare(where, (got.reshape(-1),), (want.reshape(-1),)))
-            for key in ck:
-                if not torch.equal(ck[key], cp[key]):
-                    raise AssertionError(f"{where}: counter {key} differs from the plain "
-                                         f"version's: {ck[key].tolist()} vs {cp[key].tolist()}")
-            if int(ck["capped_out"].item()):
-                raise AssertionError(f"{where}: {int(ck['capped_out'])} pixels capped")
+        got = self.gi_launch(prep, tail, kw, **ck)
+        torch.cuda.synchronize()
+        err = compare(label, (got.reshape(-1),), (want.reshape(-1),))
+        for key in ck:
+            if not torch.equal(ck[key], cp[key]):
+                raise AssertionError(f"{label}: counter {key} differs from the plain "
+                                     f"version's: {ck[key].tolist()} vs {cp[key].tolist()}")
+        if int(ck["capped_out"].item()):
+            raise AssertionError(f"{label}: {int(ck['capped_out'])} pixels capped")
         return err, dict(zip(self.kF.EVENTS, ck["events_out"].tolist())), int(ck["passes_out"])
 
     def plane_gi_config(self, size):
@@ -833,63 +836,15 @@ class Smoke:
             prep = prepare(cfg, scene=scene)
             if not prep.setup.gi_wave:
                 raise AssertionError(f"kernel F {name}: the config should take the GI wave")
-            e, events, passes = self.gi_check(f"kernel F {name}", prep,
-                                              schedules=self.kF.SCHEDULES)
+            e, events, passes = self.gi_check(f"kernel F {name}", prep)
             err = max(err, e)
             out.append({"case": name, "pixels": cfg.camera.width * cfg.camera.height,
                         "S": cfg.render.gi_samples, "D": cfg.render.gi_depth,
                         "mirror_mix": prep.gi[2] is not None, "events": events,
                         "passes": passes, "capped": 0})
         self.err["gi_wave"] = max(self.err["gi_wave"], err)
-        emit({"phase": "kernel_F_vs_plain", "cases": out, "schedules": list(self.kF.SCHEDULES),
-              "max_abs_err": err, "tolerance": "bitwise (radiance and every counter)",
-              "equal": True})
-
-    def f_designs(self):
-        """Kernel F's schedules on the official GI row, timed in turns
-        (0..5, then 5..0) on one card: the device time of a call (every
-        kernel and memset summed, over 10 calls), CUDA-event time over 20
-        calls, the time by kernel; then each schedule's lane counters,
-        radiance bitwise against the plain version and counters equal."""
-        from ray_tracer_tpu_torch.models.scenes import serial_scene_config
-        from ray_tracer_tpu_torch.render.renderer import prepare
-
-        kF = self.kF
-        if self.gi_frame is None:
-            self.gi_frame = prepare(self.gi_config(serial_scene_config, 1024, "serial", 4, 2))
-        p = self.gi_frame
-        tail, kw, rays = self.gi_inputs(p)
-        order = list(kF.SCHEDULES) + list(reversed(kF.SCHEDULES))
-        turns = {sch: [] for sch in kF.SCHEDULES}
-        for sch in order:
-            def launch(sch=sch):
-                return self.gi_launch(p, tail, kw, schedule=sch)
-            dev_ms, by_name = calls_device_ms(launch, 10)
-            turns[sch].append({"device_ms": dev_ms, "ms": cuda_ms(launch, 20),
-                               "by_kernel_ms": {k[:70]: v for k, v in by_name.items()}})
-        cp = self.gi_counters()
-        want = kF.gi_wave_plain(rays, *tail, **kw, **cp)
-        for sch in kF.SCHEDULES:
-            ck = self.gi_counters()
-            lanes = torch.zeros((2, 3), dtype=torch.int64, device=self.dev)
-            got = self.gi_launch(p, tail, kw, schedule=sch, lanes_out=lanes, **ck)
-            torch.cuda.synchronize()
-            err = compare(f"kernel F 1024 schedule {sch}", (got.reshape(-1),),
-                          (want.reshape(-1),))
-            for key in ck:
-                if not torch.equal(ck[key], cp[key]):
-                    raise AssertionError(f"kernel F 1024 schedule {sch}: counter {key} differs")
-            ln = lanes.tolist()
-            it = ln[0][0] + ln[1][0]
-            emit({"phase": "F_design", "schedule": sch, "turns": turns[sch],
-                  "device_ms_mean": sum(t["device_ms"] for t in turns[sch]) / len(turns[sch]),
-                  "lanes": ln, "lane_utilisation": (ln[0][1] + ln[1][1]) / (32 * it),
-                  "lane_utilisation_by_stage": [x[1] / (32 * x[0]) if x[0] else None
-                                                for x in ln],
-                  "transition_share": (ln[0][2] + ln[1][2]) / it,
-                  "transition_share_by_stage": [x[2] / x[0] if x[0] else None for x in ln],
-                  "max_abs_err": err, "bitwise": True, "counters_equal_plain": True,
-                  "ptxas": self.ptxas.get("gi_wave")})
+        emit({"phase": "kernel_F_vs_plain", "cases": out, "max_abs_err": err,
+              "tolerance": "bitwise (radiance and every counter)", "equal": True})
 
     # ---- 7. (continued) the path-traced render and the nefertiti scene --
     def main_gi(self):
@@ -938,7 +893,7 @@ class Smoke:
                            img.reshape(-1, 3).view(torch.int32)):
             raise AssertionError("the counted launch of kernel F differs from the frame")
         if int(ck["capped_out"].item()):
-            raise AssertionError(f"GI frame: {int(ck['capped_out'])} lanes capped")
+            raise AssertionError(f"GI frame: {int(ck['capped_out'])} pixels capped")
         events = dict(zip(self.kF.EVENTS, ck["events_out"].tolist()))
         segments = events["primaries"] + events["bounce_segments"] + events["shadow_rays"]
         self.gi_frame = p
@@ -1785,9 +1740,11 @@ class Smoke:
 
     def gi_times(self, bound) -> dict:
         """Kernel F at the main path's shape, the official GI row (turbo
-        serial 1024^2, S = 4, D = 2): events over n launches, the profiler's
-        device time, the plain version once (held bitwise), and the bound
-        from a counted launch whose counters equal the plain version's."""
+        serial 1024^2, S = 4, D = 2): events over n calls, the profiler's
+        device time of a call (its three kernels and memset summed, and each
+        beside the sum), the lane utilisation, the plain version once (held
+        bitwise), and the bound from a counted call whose counters equal the
+        plain version's."""
         from ray_tracer_tpu_torch.models.scenes import serial_scene_config
         from ray_tracer_tpu_torch.render.renderer import prepare
 
@@ -1803,7 +1760,12 @@ class Smoke:
 
         f_ms = cuda_ms(launch_f, 20)
         # F is several kernels and a memset: its device time is their sum
-        f_dev_ms, f_by_kernel = calls_device_ms(launch_f, 10)
+        f_dev_ms, by_name = calls_device_ms(launch_f, 10)
+        f_by_kernel = {}
+        for name, ms in by_name.items():
+            short = re.search(r"gi_\w+_kernel|Memset", name)
+            key = short.group(0) if short else name[:60]
+            f_by_kernel[key] = f_by_kernel.get(key, 0.0) + ms
         lanes = torch.zeros((2, 3), dtype=torch.int64, device=self.dev)
         launch_f(lanes_out=lanes)
         ln = lanes.tolist()
@@ -1827,7 +1789,7 @@ class Smoke:
                 raise AssertionError(f"kernel F 1024: counter {key} differs from the plain "
                                      "version's")
         if int(ck["capped_out"].item()):
-            raise AssertionError(f"kernel F 1024: {int(ck['capped_out'])} lanes capped")
+            raise AssertionError(f"kernel F 1024: {int(ck['capped_out'])} pixels capped")
         self.err["gi_wave"] = max(self.err["gi_wave"], err)
         meta, grid = p.packed.meta, p.packed.arrays
         events = dict(zip(kF.EVENTS, ck["events_out"].tolist()))
@@ -1913,8 +1875,6 @@ def main(argv=None) -> int:
         smoke.kernel_e()
     if "F" in phases:
         smoke.kernel_f()
-    if "F_designs" in phases:
-        smoke.f_designs()
     if "main" in phases:
         smoke.main_path()
     if "card_vs_cpu" in phases:

@@ -24,9 +24,14 @@ turns, so they are accepted and have no effect here
 (tests/test_torch_gi_wave.py pins that JAX's own image is the same at two
 settings).  `gi_wave_plain` is one lock-step lane per pixel running the
 JAX `transition` after every `_march_step`, one elementwise op at a
-time; `gi_wave_cuda` launches `csrc/gi_wave.cu` (kernel F), which makes
-each pixel's camera ray itself (`csrc/camera.cuh`) from host-held launch
-values, with the plain version's radiance and counters bit for bit.
+time; `gi_wave_cuda` launches `csrc/gi_wave.cu` (kernel F), with the
+plain version's radiance and counters bit for bit: stage P makes each
+pixel's camera ray itself (`csrc/camera.cuh`) from host-held launch
+values, marches the primary and the depth-0 shadow ray and queues each
+hit's depth-0 record; a persistent stage S serves the (queued pixel,
+sample) items, each from its first bounce, since a pixel's samples are
+independent once d0 is settled; a fold sums each pixel's samples in
+order.
 `gi_wave_trace` takes the kernel for a grid on the card and the plain
 version over the `camera_rays` batch for one on the CPU.
 
@@ -402,16 +407,10 @@ def _launch_params(cam: CameraLaunch, consts: LaunchConsts, meta: PackedGridMeta
     return gi, camera
 
 
-# Kernel F's schedules (csrc/gi_wave.cu): 0 one thread a pixel, 1 kernel
-# E's persistent wave over pixels, 2-5 the split (stage P, a persistent
-# stage S refilled at half a warp (2, 4) or every step (3, 5), at 6 (2, 3)
-# or 8 (4, 5) blocks an SM, and the fold).
-SCHEDULES = (0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10)
-SCHEDULE = 2
 _BLOCK = 128  # threads a block of stage P and stage S (csrc/gi_wave.cu kBlock)
-_FOLD_BLOCK = 256
-_RECORD_BYTES = 80  # a depth-0 record: five float4
-_OCCUPANCY = {}  # (device index, schedule) -> (SMs, resident blocks an SM: pixel wave, stage S)
+_FOLD_BLOCK = 256  # threads a block of the fold (kFoldBlock)
+_RECORD_BYTES = 80  # a depth-0 record: five float4 (kRecord)
+_OCCUPANCY = {}  # device index -> (SMs, stage S's resident blocks an SM)
 
 
 def _scratch_layout(n_pixels: int, S: int) -> dict:
@@ -429,40 +428,36 @@ def _scratch_layout(n_pixels: int, S: int) -> dict:
     return dict(heads=0, flags=flags, recs=recs, v=v, total=v + up16(12 * n_pixels * S))
 
 
-def _stage_launch(n_pixels: int, sms: int, per_sm_s: int,
-                  per_sm_p: int = 0) -> "tuple[int, int, int]":
-    """Blocks of stage P (one thread a pixel, or every SM's resident blocks
-    of a persistent stage P), of the persistent stage S (every SM's
-    resident blocks) and of the fold (a grid-stride loop over the queued
-    pixels, at most 8 blocks an SM)."""
-    grid_p = sms * per_sm_p if per_sm_p > 0 else -(-n_pixels // _BLOCK)
-    grid_s = sms * max(per_sm_s, 1)
+def _stage_launch(n_pixels: int, sms: int, per_sm: int) -> "tuple[int, int, int]":
+    """Blocks of stage P (one thread a pixel), of the persistent stage S
+    (every SM's resident blocks) and of the fold (a grid-stride loop over
+    the queued pixels, at most 8 blocks an SM)."""
+    grid_p = -(-n_pixels // _BLOCK)
+    grid_s = sms * max(per_sm, 1)
     grid_fold = max(1, min(-(-n_pixels // _FOLD_BLOCK), 8 * sms))
     return grid_p, grid_s, grid_fold
 
 
-def _occupancy(lib, dev: torch.device, schedule: int) -> "tuple[int, int, int]":
-    """(SMs, resident blocks an SM of the persistent stage S, of a
-    persistent pixel kernel or 0) on dev, asked of the CUDA runtime once
-    (no device synchronisation)."""
-    key = (dev.index, schedule)
-    if key not in _OCCUPANCY:
-        sms, per_p, per_s = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+def _occupancy(lib, dev: torch.device) -> "tuple[int, int]":
+    """(SMs, stage S's resident blocks an SM) on dev, asked of the CUDA
+    runtime once (no device synchronisation)."""
+    if dev.index not in _OCCUPANCY:
+        sms, per_sm = ctypes.c_int(0), ctypes.c_int(0)
         fn = lib.gi_wave_occupancy
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         with torch.cuda.device(dev):
-            err = fn(schedule, ctypes.byref(sms), ctypes.byref(per_p), ctypes.byref(per_s))
+            err = fn(ctypes.byref(sms), ctypes.byref(per_sm))
         _build.check(err, "gi_wave occupancy")
-        _OCCUPANCY[key] = (sms.value, per_s.value, per_p.value)
-    return _OCCUPANCY[key]
+        _OCCUPANCY[dev.index] = (sms.value, per_sm.value)
+    return _OCCUPANCY[dev.index]
 
 
 def _launch_fn(lib):
     fn = lib.gi_wave_launch
     fn.restype = ctypes.c_int
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = ([_GiParams, _CameraParams] + [p] * 12 + [i] * 3 + [p] * 4 + [i, p])
+    fn.argtypes = [_GiParams, _CameraParams] + [p] * 12 + [i] * 3 + [p] * 5
     return fn
 
 
@@ -473,7 +468,6 @@ def gi_wave_cuda(
     smint: float = 1e-4, quirk: bool = False, bg=(0.0, 0.0, 0.0),
     cam: Optional[CameraLaunch] = None, consts: Optional[LaunchConsts] = None,
     capped_out=None, passes_out=None, events_out=None, lanes_out=None,
-    schedule: Optional[int] = None,
 ) -> torch.Tensor:
     """Kernel F on CUDA tensors: the radiance summed over S samples of
     every pixel of `camera` -> (H*W, 3) f32, the plain version's bits for
@@ -488,17 +482,14 @@ def gi_wave_cuda(
     synchronises (stage S reads the queue's length on the device); each
     one missing is made here.  The counters are the plain version's
     (zeroed here, then filled by the launch); lanes_out (2, 3) int64, the
-    kernel's own: for stage P (or the single kernel of schedules 0 and 1)
-    and stage S, the warp loop iterations, the active lane-steps in them
+    kernel's own: for stage P and stage S, the warp loop iterations, the active lane-steps in them
     (lane utilisation = the second over 32 times the first) and the warp
-    steps in which a lane ended a segment."""
+    steps in which a lane ended a segment.  The scratch (`_scratch_layout`,
+    sized for every pixel queued) is allocated here."""
     if not grid.blocks.is_cuda:
         raise ValueError("gi_wave_cuda takes CUDA tensors")
     if S < 1 or D < 0:
         raise ValueError(f"needs S >= 1 and D >= 0, got S={S}, D={D}")
-    schedule = SCHEDULE if schedule is None else schedule
-    if schedule not in SCHEDULES:
-        raise ValueError(f"schedule must be one of {SCHEDULES}")
     dev = grid.blocks.device
     if cam is None:
         cam = camera_launch(camera, 1, device=dev)
@@ -545,7 +536,7 @@ def gi_wave_cuda(
     layout = _scratch_layout(r, S)
     scratch = torch.empty((layout["total"],), dtype=torch.uint8, device=dev)
     lib = _build.library("gi_wave")
-    grids = _stage_launch(r, *_occupancy(lib, dev, schedule))
+    grids = _stage_launch(r, *_occupancy(lib, dev))
 
     def ptr(x):
         return x.data_ptr() if x is not None else None
@@ -557,7 +548,7 @@ def gi_wave_cuda(
             gi, cparams, table.data_ptr(), cell_info.data_ptr(), blocks.data_ptr(),
             slot_tri.data_ptr(), tri9.data_ptr(), albedo.data_ptr(), ptr(km), rad.data_ptr(),
             *(base + layout[k] for k in ("heads", "flags", "recs", "v")), *grids,
-            ptr(capped_out), ptr(passes_out), ptr(events_out), ptr(lanes_out), schedule, stream)
+            ptr(capped_out), ptr(passes_out), ptr(events_out), ptr(lanes_out), stream)
     _build.check(err, "gi_wave")
     gi_wave_cuda.launches += 1
     return rad

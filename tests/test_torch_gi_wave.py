@@ -20,9 +20,16 @@ version on the CPU) against the JAX package's `gi_wave_trace`.
 * The port's wave against the port's segment loop: the JAX package's
   statistical rule (tests/test_pathtrace.py:565-586).
 * `build_gi_wave_tables` and `build_gi_wave_tri9` equal JAX's.
+* Kernel F's host side (the kernel itself runs on the card only): its
+  scratch layout and stage launch values, its parameter struct and C
+  signature against the ctypes mirrors, and its refusal of CPU tensors.
 """
 
+import ctypes
 import dataclasses
+import os
+import re
+import types
 
 import jax
 import jax.numpy as jnp
@@ -273,3 +280,102 @@ def test_unserved_wave_arguments_raise(parallel_turbo):
         gi_wave.gi_wave_trace(*args, camera=prep.cfg.camera, pix_stride=2, **kw)
     with pytest.raises(ValueError, match="CUDA"):
         gi_wave.gi_wave_cuda(prep.cfg.camera, *args, **kw)
+
+
+@pytest.mark.parametrize("n,S", [(1, 1), (7500, 3), (16384, 8), (1 << 20, 4)])
+def test_scratch_layout_is_sized_for_every_pixel_queued(n, S):
+    """heads (4 int32), a flag (int32) and an 80-byte record a pixel, v_s
+    (3 float32) a (pixel, sample) item: in order, 16-byte aligned (the
+    records are read as float4), disjoint, and no larger than alignment
+    needs."""
+    layout = gi_wave._scratch_layout(n, S)
+    end = 0
+    for name, size in (("heads", 16), ("flags", 4 * n), ("recs", 80 * n), ("v", 12 * n * S)):
+        assert layout[name] % 16 == 0 and layout[name] >= end, name
+        assert layout[name] - end < 16, name
+        end = layout[name] + size
+    assert end <= layout["total"] < end + 16
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 7500, 1 << 20])
+def test_stage_launch_values(n):
+    """Stage P has a thread for every pixel and no block without one;
+    stage S takes every SM's resident blocks (one an SM if none was
+    reported); the fold's grid-stride loop has at most 8 blocks an SM and
+    no more blocks than 256 pixels need."""
+    grid_p, grid_s, grid_fold = gi_wave._stage_launch(n, 132, 8)
+    assert (grid_p - 1) * 128 < n <= grid_p * 128
+    assert grid_s == 132 * 8
+    assert gi_wave._stage_launch(n, 132, 0)[1] == 132
+    assert 1 <= grid_fold <= min(8 * 132, -(-n // 256))
+    assert grid_fold == 8 * 132 or grid_fold * 256 >= n
+
+
+_CSRC = os.path.join(os.path.dirname(gi_wave.__file__), os.pardir, "csrc")
+
+
+def _source(name):
+    with open(os.path.join(_CSRC, name)) as fh:
+        return re.sub(r"//[^\n]*", "", fh.read())
+
+
+def _c_fields(src, struct):
+    """[(name, C type, count)] of `struct <struct> { ... };` in src."""
+    body = re.search(r"struct %s \{(.*?)\};" % struct, src, re.S).group(1)
+    out = []
+    for decl in filter(None, (d.strip() for d in body.split(";"))):
+        ctype, names = decl.split(None, 1)
+        for name in names.split(","):
+            m = re.fullmatch(r"(\w+)(?:\[(\d+)\])?", name.strip())
+            out.append((m.group(1), ctype, int(m.group(2) or 1)))
+    return out
+
+
+def test_gi_params_mirror_the_c_struct():
+    """_GiParams, passed by value, has GiParams's fields in its order and
+    types, so every offset agrees (and its MarchParams is the march's)."""
+    from ray_tracer_tpu_torch.ops.traverse_packed import _MarchParams
+
+    scalar = {"float": ctypes.c_float, "int": ctypes.c_int}
+    mirrors = {"MarchParams": _MarchParams}
+    fields = _c_fields(_source("gi_wave.cu"), "GiParams")
+    assert [f[0] for f in fields] == [f[0] for f in gi_wave._GiParams._fields_]
+    for (name, ctype, count), (_, mirror) in zip(fields, gi_wave._GiParams._fields_):
+        want = mirrors.get(ctype) or scalar[ctype]
+        assert mirror == (want if count == 1 else want * count), name
+    march = _c_fields(_source("packed_step.cuh"), "MarchParams")
+    assert [f[0] for f in march] == [f[0] for f in _MarchParams._fields_]
+    assert ctypes.sizeof(gi_wave._GiParams) == ctypes.sizeof(_MarchParams) + 4 * (5 + 6 + 7)
+
+
+def test_launch_argtypes_mirror_the_c_signature():
+    """The ctypes argument list of gi_wave_launch: a pointer for each
+    pointer, c_int for each int, the two structs by value."""
+    src = _source("gi_wave.cu")
+    params = re.search(r'extern "C" int gi_wave_launch\((.*?)\)\s*\{', src, re.S).group(1)
+    want = []
+    for param in (p.strip() for p in params.split(",")):
+        if "*" in param:
+            want.append(ctypes.c_void_p)
+        elif param.startswith("GiParams "):
+            want.append(gi_wave._GiParams)
+        elif param.startswith("CameraParams "):
+            want.append(gi_wave._CameraParams)
+        else:
+            assert param.startswith("int "), param
+            want.append(ctypes.c_int)
+    lib = types.SimpleNamespace(gi_wave_launch=types.SimpleNamespace())
+    assert gi_wave._launch_fn(lib).argtypes == want
+    assert len(want) == 22
+
+
+def test_gi_wave_cuda_refuses_cpu_tensors(parallel_turbo):
+    """Kernel F's wrapper takes CUDA tensors only; it never falls back to
+    the plain version, and counts no launch."""
+    prep = parallel_turbo[0]
+    tail, kw = _plain_inputs(prep)
+    before = gi_wave.gi_wave_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gi_wave.gi_wave_cuda(prep.cfg.camera, *tail, **kw,
+                             lanes_out=torch.zeros((2, 3), dtype=torch.int64))
+    assert gi_wave.gi_wave_cuda.launches == before
