@@ -209,29 +209,23 @@ def cuda_ms(fn, n: int) -> float:
     return a.elapsed_time(b) / n
 
 
-def kernel_device_ms(fn, kernel: str, n: int):
-    """Mean device time of the CUDA kernels whose name holds `kernel` over
-    n calls of fn() under torch.profiler; None if the profiler saw none."""
-    from ray_tracer_tpu_torch.tools.profiling import profiled_kernels
-
-    kernels, _ = profiled_kernels(fn, n)
-    us = [e.time_range.end - e.time_range.start for e in kernels if kernel in e.name]
-    return sum(us) / len(us) / 1e3 if us else None
-
-
-def calls_device_ms(fn, n: int):
-    """Device time of one fn() call, every kernel and memset it launches
-    summed, over n calls under torch.profiler, and the same by kernel name
-    (each over n); (None, {}) if the profiler saw nothing."""
+def calls_device_ms(fn, n: int, kernel: str = ""):
+    """Device time of one fn() call from n calls under torch.profiler: the
+    kernels and memsets whose name holds `kernel` summed, and the same by
+    name; (None, {}) if the profiler saw none.  The profiler can drop a
+    few of a window's events, so a name's launches a call are the ceiling
+    of its events over n, each at its mean duration."""
     from ray_tracer_tpu_torch.tools.profiling import profiled_kernels
 
     kernels, _ = profiled_kernels(fn, n)
     by_name = {}
     for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end - e.time_range.start)
-    if not by_name:
+        if kernel in e.name:
+            by_name.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
+    per_call = {k: -(-len(v) // n) * sum(v) / len(v) / 1e3 for k, v in by_name.items()}
+    if not per_call:
         return None, {}
-    return sum(by_name.values()) / n / 1e3, {k: v / n / 1e3 for k, v in by_name.items()}
+    return sum(per_call.values()), per_call
 
 
 def once_ms(fn):
@@ -1484,7 +1478,7 @@ class Smoke:
             return kA.brute_intersect_cuda(rays.orig, rays.dirn, tri9_soa, 0.0)
 
         a_ms = cuda_ms(launch_a, 5)
-        a_dev_ms = kernel_device_ms(launch_a, "brute_intersect_kernel", 3)
+        a_dev_ms = calls_device_ms(launch_a, 3, "brute_intersect_kernel")[0]
         a_out = launch_a()
         a_plain_ms, a_plain = once_ms(
             lambda: kA.brute_intersect_plain(rays.orig, rays.dirn, tri9_soa, 0.0))
@@ -1502,7 +1496,7 @@ class Smoke:
             return kB.traverse_grid_cuda(rays, grid, meta, tri9_rows, **kw, **extra)
 
         b_ms = cuda_ms(launch_b, 50)
-        b_dev_ms = kernel_device_ms(launch_b, "traverse_grid_kernel", 20)
+        b_dev_ms = calls_device_ms(launch_b, 20, "traverse_grid_kernel")[0]
         tested = torch.zeros((r,), dtype=torch.int32, device=dev)
         b_passes = torch.zeros((1,), dtype=torch.int32, device=dev)
         b_out = launch_b(tested_out=tested, passes_out=b_passes)
@@ -1524,7 +1518,7 @@ class Smoke:
                 tables=p.dda, **extra)
 
         b_shadow_ms = cuda_ms(launch_b_shadow, 50)
-        b_shadow_dev_ms = kernel_device_ms(launch_b_shadow, "traverse_grid_kernel", 20)
+        b_shadow_dev_ms = calls_device_ms(launch_b_shadow, 20, "traverse_grid_kernel")[0]
         self.err["traverse_grid"] = max(self.err["traverse_grid"], b_err)
         n_tests = int(tested.sum())
         n_passes = int(b_passes.item())
@@ -1555,7 +1549,7 @@ class Smoke:
             return persistent_trace(rays, pgrid, pmeta, light, **ckw)
 
         c_ms = cuda_ms(launch_c, 20)
-        c_dev_ms = kernel_device_ms(launch_c, "packed_march", 10)
+        c_dev_ms = calls_device_ms(launch_c, 10, "packed_march")[0]
         pkw = dict(fused=True, t_gate=0.0, shadow_gate=trc.shadow_eps,
                    shadow_mint=trc.shadow_mint(), serial_quirk=True, skip_dead_shadow=True,
                    shade_serial=True)
@@ -1597,7 +1591,7 @@ class Smoke:
             return kD.gather_row_test_cuda(blocks, o, d, idx0)
 
         d_ms = cuda_ms(launch_d, 200)
-        d_dev_ms = kernel_device_ms(launch_d, "gather_row_test_kernel", 50)
+        d_dev_ms = calls_device_ms(launch_d, 50, "gather_row_test_kernel")[0]
         d_plain_ms, d_plain = once_ms(lambda: kD.gather_row_test_plain(blocks, o, d, idx0))
         self.err["gather_row_test"] = max(self.err["gather_row_test"],
                                           compare("kernel D", (launch_d(),), (d_plain,)))
@@ -1671,7 +1665,7 @@ class Smoke:
             return self.wave_launch(cfg, p, tail, kw, **extra)
 
         e_ms = cuda_ms(launch_e, 20)
-        e_dev_ms = kernel_device_ms(launch_e, "whitted_wave_kernel", 10)
+        e_dev_ms = calls_device_ms(launch_e, 10, "whitted_wave_kernel")[0]
         e_plain_ms, e_plain = once_ms(lambda: kE.whitted_wave_plain(rays, *tail, **kw))
         err = compare("kernel E 1024 turbo parallel", (launch_e().reshape(-1),),
                       (e_plain.reshape(-1),))
