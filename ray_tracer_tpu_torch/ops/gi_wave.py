@@ -415,7 +415,7 @@ _OCCUPANCY = {}  # device index -> (SMs, stage S's resident blocks an SM)
 
 def _scratch_layout(n_pixels: int, S: int) -> dict:
     """Byte offsets of kernel F's scratch, sized for every pixel queued:
-    `heads` (4 int32: the queue's length and stage S's item head), a capped
+    `heads` (16 B: the queue's length and stage S's item head), a capped
     flag (int32) and a depth-0 record (80 B) a queued pixel, and v_s (3
     float32) an item (queued pixel, sample); each part 16-byte aligned.
     `total` is the bytes to allocate."""
@@ -482,10 +482,11 @@ def gi_wave_cuda(
     synchronises (stage S reads the queue's length on the device); each
     one missing is made here.  The counters are the plain version's
     (zeroed here, then filled by the launch); lanes_out (2, 3) int64, the
-    kernel's own: for stage P and stage S, the warp loop iterations, the active lane-steps in them
-    (lane utilisation = the second over 32 times the first) and the warp
-    steps in which a lane ended a segment.  The scratch (`_scratch_layout`,
-    sized for every pixel queued) is allocated here."""
+    kernel's own: for stage P and stage S, the warp loop iterations, the
+    active lane-steps in them (lane utilisation = the second over 32 times
+    the first) and the warp steps in which a lane ended a segment.  The
+    scratch (`_scratch_layout`, sized for every pixel queued) is allocated
+    here."""
     if not grid.blocks.is_cuda:
         raise ValueError("gi_wave_cuda takes CUDA tensors")
     if S < 1 or D < 0:

@@ -348,6 +348,18 @@ def test_gi_params_mirror_the_c_struct():
     assert ctypes.sizeof(gi_wave._GiParams) == ctypes.sizeof(_MarchParams) + 4 * (5 + 6 + 7)
 
 
+def test_launch_constants_mirror_the_c_source():
+    """The wrapper's block sizes and record size are the kernel's."""
+    src = _source("gi_wave.cu")
+
+    def const(name):
+        return int(re.search(r"constexpr int %s = (\d+);" % name, src).group(1))
+
+    assert gi_wave._BLOCK == const("kBlock")
+    assert gi_wave._FOLD_BLOCK == const("kFoldBlock")
+    assert gi_wave._RECORD_BYTES == 16 * const("kRecord")
+
+
 def test_launch_argtypes_mirror_the_c_signature():
     """The ctypes argument list of gi_wave_launch: a pointer for each
     pointer, c_int for each int, the two structs by value."""
