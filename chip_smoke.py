@@ -769,26 +769,22 @@ class Smoke:
                     events_out=torch.zeros((len(self.kF.EVENTS),), dtype=torch.int64,
                                            device=self.dev))
 
-    def gi_check(self, label, prep, schedules=(None,)):
-        """F against its plain version on prep's frame, once a schedule:
-        radiance bitwise, every counter equal, no pixel capped.  Returns (max
-        |err|, events, passes)."""
+    def gi_check(self, label, prep):
+        """F against its plain version on prep's frame: radiance bitwise,
+        every counter equal, no pixel capped.  Returns (max |err|, events,
+        passes)."""
         tail, kw, rays = self.gi_inputs(prep)
-        cp = self.gi_counters()
+        cp, ck = self.gi_counters(), self.gi_counters()
         want = self.kF.gi_wave_plain(rays, *tail, **kw, **cp)
-        err = 0.0
-        for schedule in schedules:
-            ck = self.gi_counters()
-            got = self.gi_launch(prep, tail, kw, schedule=schedule, **ck)
-            torch.cuda.synchronize()
-            where = label if schedule is None else f"{label} schedule {schedule}"
-            err = max(err, compare(where, (got.reshape(-1),), (want.reshape(-1),)))
-            for key in ck:
-                if not torch.equal(ck[key], cp[key]):
-                    raise AssertionError(f"{where}: counter {key} differs from the plain "
-                                         f"version's: {ck[key].tolist()} vs {cp[key].tolist()}")
-            if int(ck["capped_out"].item()):
-                raise AssertionError(f"{where}: {int(ck['capped_out'])} pixels capped")
+        got = self.gi_launch(prep, tail, kw, **ck)
+        torch.cuda.synchronize()
+        err = compare(label, (got.reshape(-1),), (want.reshape(-1),))
+        for key in ck:
+            if not torch.equal(ck[key], cp[key]):
+                raise AssertionError(f"{label}: counter {key} differs from the plain "
+                                     f"version's: {ck[key].tolist()} vs {cp[key].tolist()}")
+        if int(ck["capped_out"].item()):
+            raise AssertionError(f"{label}: {int(ck['capped_out'])} pixels capped")
         return err, dict(zip(self.kF.EVENTS, ck["events_out"].tolist())), int(ck["passes_out"])
 
     def plane_gi_config(self, size):
@@ -834,7 +830,7 @@ class Smoke:
             prep = prepare(cfg, scene=scene)
             if not prep.setup.gi_wave:
                 raise AssertionError(f"kernel F {name}: the config should take the GI wave")
-            e, events, passes = self.gi_check(f"kernel F {name}", prep, schedules=(0, 1))
+            e, events, passes = self.gi_check(f"kernel F {name}", prep)
             err = max(err, e)
             out.append({"case": name, "pixels": cfg.camera.width * cfg.camera.height,
                         "S": cfg.render.gi_samples, "D": cfg.render.gi_depth,
@@ -843,50 +839,6 @@ class Smoke:
         self.err["gi_wave"] = max(self.err["gi_wave"], err)
         emit({"phase": "kernel_F_vs_plain", "cases": out, "max_abs_err": err,
               "tolerance": "bitwise (radiance and every counter)", "equal": True})
-
-    def f_designs(self):
-        """Kernel F's two schedules on the official GI row, timed in turns
-        (0, 1, 1, 0, 0, 1) on one card: the device time of a call (every
-        kernel and memset summed, over 10 calls), CUDA-event time over 20
-        calls, the time by kernel; then each schedule's lane counters,
-        radiance bitwise against the plain version and counters equal."""
-        from ray_tracer_tpu_torch.models.scenes import serial_scene_config
-        from ray_tracer_tpu_torch.render.renderer import prepare
-
-        kF = self.kF
-        if self.gi_frame is None:
-            self.gi_frame = prepare(self.gi_config(serial_scene_config, 1024, "serial", 4, 2))
-        p = self.gi_frame
-        tail, kw, rays = self.gi_inputs(p)
-        turns = {0: [], 1: []}
-        for sch in (0, 1, 1, 0, 0, 1):
-            def launch(sch=sch):
-                return self.gi_launch(p, tail, kw, schedule=sch)
-            dev_ms, by_name = calls_device_ms(launch, 10)
-            turns[sch].append({"device_ms": dev_ms, "ms": cuda_ms(launch, 20),
-                               "by_kernel_ms": {k[:70]: v for k, v in by_name.items()}})
-        cp = self.gi_counters()
-        want = kF.gi_wave_plain(rays, *tail, **kw, **cp)
-        for sch in (0, 1):
-            ck = self.gi_counters()
-            lanes = torch.zeros((2, 3), dtype=torch.int64, device=self.dev)
-            got = self.gi_launch(p, tail, kw, schedule=sch, lanes_out=lanes, **ck)
-            torch.cuda.synchronize()
-            err = compare(f"kernel F 1024 schedule {sch}", (got.reshape(-1),),
-                          (want.reshape(-1),))
-            for key in ck:
-                if not torch.equal(ck[key], cp[key]):
-                    raise AssertionError(f"kernel F 1024 schedule {sch}: counter {key} differs")
-            ln = lanes.tolist()
-            it = ln[0][0] + ln[1][0]
-            emit({"phase": "F_design", "schedule": sch, "turns": turns[sch],
-                  "device_ms_mean": sum(t["device_ms"] for t in turns[sch]) / len(turns[sch]),
-                  "ms_mean": sum(t["ms"] for t in turns[sch]) / len(turns[sch]),
-                  "lanes": ln, "lane_utilisation": (ln[0][1] + ln[1][1]) / (32 * it),
-                  "lane_utilisation_by_stage": [x[1] / (32 * x[0]) if x[0] else None
-                                                for x in ln],
-                  "max_abs_err": err, "bitwise": True, "counters_equal_plain": True,
-                  "ptxas": self.ptxas.get("gi_wave")})
 
     # ---- 7. (continued) the path-traced render and the nefertiti scene --
     def main_gi(self):
@@ -1917,8 +1869,6 @@ def main(argv=None) -> int:
         smoke.kernel_e()
     if "F" in phases:
         smoke.kernel_f()
-    if "F_designs" in phases:
-        smoke.f_designs()
     if "main" in phases:
         smoke.main_path()
     if "card_vs_cpu" in phases:

@@ -410,8 +410,7 @@ def _launch_params(cam: CameraLaunch, consts: LaunchConsts, meta: PackedGridMeta
 _BLOCK = 128  # threads a block of stage P and stage S (csrc/gi_wave.cu kBlock)
 _FOLD_BLOCK = 256  # threads a block of the fold (kFoldBlock)
 _RECORD_BYTES = 80  # a depth-0 record: five float4 (kRecord)
-_OCCUPANCY = {}  # device index -> (SMs, resident blocks an SM: stage S, the fused kernel)
-SCHEDULE = 0  # 0 the three kernels, 1 the fused kernel and the fold
+_OCCUPANCY = {}  # device index -> (SMs, stage S's resident blocks an SM)
 
 
 def _scratch_layout(n_pixels: int, S: int) -> dict:
@@ -439,18 +438,18 @@ def _stage_launch(n_pixels: int, sms: int, per_sm: int) -> "tuple[int, int, int]
     return grid_p, grid_s, grid_fold
 
 
-def _occupancy(lib, dev: torch.device) -> "tuple[int, int, int]":
-    """(SMs, stage S's resident blocks an SM, the fused kernel's) on dev,
-    asked of the CUDA runtime once (no device synchronisation)."""
+def _occupancy(lib, dev: torch.device) -> "tuple[int, int]":
+    """(SMs, stage S's resident blocks an SM) on dev, asked of the CUDA
+    runtime once (no device synchronisation)."""
     if dev.index not in _OCCUPANCY:
-        sms, per_sm, per_sm_f = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+        sms, per_sm = ctypes.c_int(0), ctypes.c_int(0)
         fn = lib.gi_wave_occupancy
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
         with torch.cuda.device(dev):
-            err = fn(ctypes.byref(sms), ctypes.byref(per_sm), ctypes.byref(per_sm_f))
+            err = fn(ctypes.byref(sms), ctypes.byref(per_sm))
         _build.check(err, "gi_wave occupancy")
-        _OCCUPANCY[dev.index] = (sms.value, per_sm.value, per_sm_f.value)
+        _OCCUPANCY[dev.index] = (sms.value, per_sm.value)
     return _OCCUPANCY[dev.index]
 
 
@@ -458,7 +457,7 @@ def _launch_fn(lib):
     fn = lib.gi_wave_launch
     fn.restype = ctypes.c_int
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [_GiParams, _CameraParams] + [p] * 12 + [i] * 3 + [p] * 4 + [i, p]
+    fn.argtypes = [_GiParams, _CameraParams] + [p] * 12 + [i] * 3 + [p] * 5
     return fn
 
 
@@ -469,7 +468,6 @@ def gi_wave_cuda(
     smint: float = 1e-4, quirk: bool = False, bg=(0.0, 0.0, 0.0),
     cam: Optional[CameraLaunch] = None, consts: Optional[LaunchConsts] = None,
     capped_out=None, passes_out=None, events_out=None, lanes_out=None,
-    schedule: Optional[int] = None,
 ) -> torch.Tensor:
     """Kernel F on CUDA tensors: the radiance summed over S samples of
     every pixel of `camera` -> (H*W, 3) f32, the plain version's bits for
@@ -539,9 +537,7 @@ def gi_wave_cuda(
     layout = _scratch_layout(r, S)
     scratch = torch.empty((layout["total"],), dtype=torch.uint8, device=dev)
     lib = _build.library("gi_wave")
-    schedule = SCHEDULE if schedule is None else schedule
-    sms, per_sm, per_sm_f = _occupancy(lib, dev)
-    grids = _stage_launch(r, sms, per_sm if schedule == 0 else per_sm_f)
+    grids = _stage_launch(r, *_occupancy(lib, dev))
 
     def ptr(x):
         return x.data_ptr() if x is not None else None
@@ -553,7 +549,7 @@ def gi_wave_cuda(
             gi, cparams, table.data_ptr(), cell_info.data_ptr(), blocks.data_ptr(),
             slot_tri.data_ptr(), tri9.data_ptr(), albedo.data_ptr(), ptr(km), rad.data_ptr(),
             *(base + layout[k] for k in ("heads", "flags", "recs", "v")), *grids,
-            ptr(capped_out), ptr(passes_out), ptr(events_out), ptr(lanes_out), schedule, stream)
+            ptr(capped_out), ptr(passes_out), ptr(events_out), ptr(lanes_out), stream)
     _build.check(err, "gi_wave")
     gi_wave_cuda.launches += 1
     return rad
