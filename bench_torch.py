@@ -106,18 +106,10 @@ def gi_segments(prep) -> dict:
     launch): its EVENTS, and the segments it marched."""
     from ray_tracer_tpu_torch.ops import gi_wave
 
-    cfg = prep.cfg
-    rc = cfg.render
-    tri9, albedo, km = prep.gi
-    pg = rc.primary_gate()
+    args, kw = gi_wave.launch_inputs(prep)
     events = torch.zeros((len(gi_wave.EVENTS),), dtype=torch.int64, device=prep.device)
-    gi_wave.gi_wave_cuda(
-        cfg.camera, prep.scene.light_pos, prep.scene.light_intensity, albedo, tri9,
-        prep.packed.arrays, prep.packed.meta, km, S=rc.gi_samples, D=rc.gi_depth,
-        gate0=0.0 if pg is None else pg, gate_b=rc.bounce_gate(), eps=rc.shadow_eps,
-        smint=rc.shadow_mint(), quirk=rc.shadow_dir_away_from_light(),
-        bg=tuple(rc.background), cam=prep.setup.cam, consts=prep.setup.consts,
-        events_out=events)
+    gi_wave.gi_wave_cuda(prep.cfg.camera, *args, **kw, cam=prep.setup.cam,
+                         consts=prep.setup.consts, events_out=events)
     ev = dict(zip(gi_wave.EVENTS, events.tolist()))
     ev["segments"] = ev["primaries"] + ev["bounce_segments"] + ev["shadow_rays"]
     return ev

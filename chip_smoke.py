@@ -80,6 +80,21 @@ each printing one JSON line:
      (S = 2, D = 1, the command line's default GI): each launch of B held
      to the plain version (records bitwise, rows tested equal) and the
      image against the CPU's by the 2-count rule.
+ 11. the appearance epilogues (phase appearance): kernel F's feature
+     instantiations (csrc/texture.cuh; environment map, smooth normals,
+     checker or image texture) against the plain version on ten cases at
+     64x64 to 128x128 (the env furnace, a non-constant map, smooth normals
+     on the plane and the gradcheck scene, both textures at depth 0 and 1,
+     every feature with the mirror mix on a quad and on the parallel
+     scene), radiance and every counter bitwise; the official GI row with
+     smooth normals, a 256x256 image texture and a 256x512 environment
+     map (numpy, fixed seed) through prepare + render, one call of F a
+     frame, held bitwise to the plain version, timed beside the
+     featureless row (median of 5 frames under the sync debug mode, the
+     profile's busy time, F's device time) with ptxas's registers of every
+     instantiation (the featureless stages must not spill); and the turbo
+     serial Whitted bounce loop with all three at 1024x1024 (kernel C, not
+     E), card against CPU at 64x64 by the 2-count rule.
 
 Then the kernel times at the main path's shapes (each launch held
 bitwise to the plain version; B's, C's and E's barycentric passes, and
@@ -170,7 +185,8 @@ OPS_PER_BOUNCE_F = 118
 OPS_PER_ESCAPE_F = 6
 OPS_PER_PIXEL_F = 79
 OPS_PER_SAMPLE_F = 3
-ALL_PHASES = ("build", "A", "B", "C", "E", "F", "main", "card_vs_cpu", "D", "times")
+ALL_PHASES = ("build", "A", "B", "C", "E", "F", "main", "card_vs_cpu", "appearance", "D",
+              "times")
 # The kernels' device times on the 1024^2 main path before this version
 # of the sources (B and C as redesigned, before C's march step moved into
 # csrc/packed_step.cuh), NVIDIA H100 80GB HBM3 at 700 W, as recorded in
@@ -746,16 +762,8 @@ class Smoke:
         from ray_tracer_tpu_torch.core.rays import RayBatch
         from ray_tracer_tpu_torch.ops.camera import camera_rays
 
-        cfg = prep.cfg
-        rc = cfg.render
-        tri9, albedo, km = prep.gi
-        pg = rc.primary_gate()
-        kw = dict(S=rc.gi_samples, D=rc.gi_depth, gate0=0.0 if pg is None else pg,
-                  gate_b=rc.bounce_gate(), eps=rc.shadow_eps, smint=rc.shadow_mint(),
-                  quirk=rc.shadow_dir_away_from_light(), bg=tuple(rc.background))
-        tail = (prep.scene.light_pos, prep.scene.light_intensity, albedo, tri9,
-                prep.packed.arrays, prep.packed.meta, km)
-        rays = RayBatch(*(x.to(self.dev) for x in camera_rays(cfg.camera, device="cpu")))
+        tail, kw = self.kF.launch_inputs(prep)
+        rays = RayBatch(*(x.to(self.dev) for x in camera_rays(prep.cfg.camera, device="cpu")))
         return tail, kw, rays
 
     def gi_launch(self, prep, tail, kw, **extra):
@@ -834,7 +842,7 @@ class Smoke:
             err = max(err, e)
             out.append({"case": name, "pixels": cfg.camera.width * cfg.camera.height,
                         "S": cfg.render.gi_samples, "D": cfg.render.gi_depth,
-                        "mirror_mix": prep.gi[2] is not None, "events": events,
+                        "mirror_mix": prep.gi.km is not None, "events": events,
                         "passes": passes, "capped": 0})
         self.err["gi_wave"] = max(self.err["gi_wave"], err)
         emit({"phase": "kernel_F_vs_plain", "cases": out, "max_abs_err": err,
@@ -1379,6 +1387,238 @@ class Smoke:
         if frac >= 0.01:
             raise AssertionError(f"csr GI 64 card vs CPU: {frac:.2%} of pixels differ by > 2")
 
+    # ---- 11. the appearance epilogues ------------------------------------
+    def appearance_images(self):
+        """The full-width renders' image texture (256 x 256 x 3, in [0, 1])
+        and environment map (256 x 512 x 3, color units), made in numpy from
+        a fixed seed: gradients with noise, on the card."""
+        import numpy as np
+
+        rng = np.random.default_rng(20261017)
+        yy, xx = np.meshgrid(np.linspace(0.0, 1.0, 256), np.linspace(0.0, 1.0, 256),
+                             indexing="ij")
+        tex = np.stack([xx, yy, 1.0 - xx * yy], axis=-1) * 0.7 + 0.3 * rng.random((256, 256, 3))
+        pol, azi = np.meshgrid(np.linspace(0.0, 1.0, 256), np.linspace(0.0, 1.0, 512),
+                               indexing="ij")
+        sky = np.stack([60.0 + 150.0 * (1.0 - pol), 90.0 + 120.0 * (1.0 - pol),
+                        120.0 + 60.0 * np.cos(2.0 * np.pi * azi)], axis=-1)
+        env = sky + 40.0 * rng.random((256, 512, 3))
+        return (torch.from_numpy(tex.astype(np.float32)).to(self.dev),
+                torch.from_numpy(env.astype(np.float32)).to(self.dev))
+
+    def quad_gi_config(self, size, S, D, texture, **kw):
+        """The uv-mapped quad under a point light (tests/test_torch_appearance.py,
+        after tests/test_pathtrace.py's textured scene), prepared for the GI
+        wave: (cfg, scene)."""
+        import numpy as np
+
+        from ray_tracer_tpu_torch.config import (CameraConfig, LightConfig, MaterialConfig,
+                                                 SceneConfig)
+        from ray_tracer_tpu_torch.io.obj import MeshArrays
+        from ray_tracer_tpu_torch.models.scenes import scene_from_meshes
+
+        quad = MeshArrays(
+            verts=np.array([[-2, 0, -2], [2, 0, -2], [2, 0, 2], [-2, 0, 2]], np.float32),
+            faces=np.array([[0, 1, 2], [0, 2, 3]], np.int32),
+            uvs=np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32),
+            uv_faces=np.array([[0, 1, 2], [0, 2, 3]], np.int32))
+        mat = MaterialConfig(base_color=(200.0, 120.0, 60.0), kd=2.0, ks=0.0, spec_alpha=4.0,
+                             ka=0.3, **kw.pop("material", {}))
+        light = LightConfig(position=(0.0, 8.0, 0.0), intensity=50.0)
+        scene = scene_from_meshes([(quad, 0)], [mat], light, device=self.dev)
+        cfg = SceneConfig(materials=(mat,), light=light, camera=CameraConfig(
+            position=(0.0, 5.0, 0.01), target=(0, 0, 0), up=(0, 0, 1), fov_degrees=45.0,
+            width=size, height=size))
+        cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+            cfg.render, shading="parallel", faithful=False, det_dtype="float32",
+            traversal="packed", scheduler="persistent", shadow_eps=1e-3, texture=texture,
+            texture_scale=4.0, gi_samples=S, gi_depth=D, gi_wave="on", **kw))
+        return cfg, scene
+
+    def appearance_cases(self):
+        """Kernel F's feature cases, 64^2 to 128^2, after the JAX package's
+        tests (tests/test_pathtrace.py:695-1000): (name, cfg, scene)."""
+        import numpy as np
+
+        from ray_tracer_tpu_torch.models.scenes import (build_scene, gradcheck_scene,
+                                                        parallel_scene_config)
+
+        def rep(cfg, **kw):
+            return dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, **kw))
+
+        def img(a):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(self.dev)
+
+        flat = img(np.broadcast_to(np.float32(100.0), (4, 8, 3)))
+        ramp = img(np.linspace(5.0, 90.0, 4 * 8 * 3).reshape(4, 8, 3))
+        tex = img(np.linspace(0.1, 1.0, 4 * 4 * 3).reshape(4, 4, 3))
+        cases = []
+        plane_cfg, plane_scene = self.plane_gi_config(64)
+        furnace = plane_scene._replace(
+            env_image=flat, materials=plane_scene.materials._replace(
+                base_color=torch.full_like(plane_scene.materials.base_color, 127.5)),
+            light_intensity=torch.zeros_like(plane_scene.light_intensity))
+        cases.append(("env_furnace_plane_64_s3d1", rep(plane_cfg, gi_samples=3, gi_depth=1),
+                      furnace))
+        gscene, gcfg = gradcheck_scene(128, 128, device=self.dev)
+        gscene = gscene._replace(light_intensity=torch.full_like(gscene.light_intensity, 40.0))
+        gcfg = rep(gcfg, faithful=False, det_dtype="float32", traversal="packed",
+                   scheduler="persistent", gi_wave="on")
+        cases.append(("env_gradcheck_128_s2d2", rep(gcfg, gi_samples=2, gi_depth=2),
+                      gscene._replace(env_image=ramp)))
+        cases.append(("smooth_plane_64_s2d1",
+                      rep(plane_cfg, gi_samples=2, gi_depth=1, normal_mode="smooth"),
+                      plane_scene))
+        cases.append(("smooth_gradcheck_128_s2d1",
+                      rep(gcfg, gi_samples=2, gi_depth=1, normal_mode="smooth"), gscene))
+        for texture in ("checker", "image"):
+            for D in (0, 1):
+                cfg, scene = self.quad_gi_config(64, 2, D, texture,
+                                                 background=(12.0, 8.0, 4.0))
+                if texture == "image":
+                    scene = scene._replace(texture_image=tex)
+                cases.append((f"{texture}_quad_64_s2d{D}", cfg, scene))
+        cfg, scene = self.quad_gi_config(64, 2, 0, "checker", normal_mode="smooth",
+                                         material=dict(km=0.3, reflective=True))
+        cases.append(("all_quad_mirror_64_s2d0", cfg, scene._replace(
+            env_image=img(np.broadcast_to(np.array([40.0, 30.0, 20.0], np.float32),
+                                          (4, 8, 3))))))
+        pcfg = rep(self.gi_config(parallel_scene_config, 128, "parallel", 2, 3),
+                   normal_mode="smooth", texture="image", gi_wave="on")
+        cases.append(("all_parallel_mirror_128_s2d3", pcfg, build_scene(pcfg)._replace(
+            env_image=ramp, texture_image=tex)))
+        return cases
+
+    def appearance(self):
+        """The appearance epilogues on the card: kernel F's feature
+        instantiations against the plain wave on their cases; the GI row's
+        configuration with smooth normals, an image texture and an
+        environment map at 1024^2 through render() (F once a frame), held
+        bitwise to the plain wave and timed beside the featureless row; and
+        the Whitted bounce loop with all three at 1024^2, card against CPU
+        at 64^2 by the 2-count rule."""
+        from ray_tracer_tpu_torch.config import apply_turbo
+        from ray_tracer_tpu_torch.io.ppm import tonemap_u8
+        from ray_tracer_tpu_torch.models.scenes import build_scene, serial_scene_config
+        from ray_tracer_tpu_torch.render.renderer import prepare, render
+        from ray_tracer_tpu_torch.tools.profiling import profile_render
+
+        # 1. kernel F against its plain version on every feature case
+        err = 0.0
+        out = []
+        for name, cfg, scene in self.appearance_cases():
+            prep = prepare(cfg, scene=scene)
+            if not prep.setup.gi_wave:
+                raise AssertionError(f"appearance {name}: the config should take the GI wave")
+            e, events, passes = self.gi_check(f"kernel F {name}", prep)
+            err = max(err, e)
+            g = prep.gi
+            out.append({"case": name, "pixels": cfg.camera.width * cfg.camera.height,
+                        "S": cfg.render.gi_samples, "D": cfg.render.gi_depth,
+                        "env": prep.scene.env_image is not None, "smooth": g.fvn9 is not None,
+                        "texture": (None if g.fuv7 is None
+                                    else "image" if g.tex_image is not None else "checker"),
+                        "mirror_mix": g.km is not None, "events": events, "passes": passes})
+        self.err["gi_wave"] = max(self.err["gi_wave"], err)
+        emit({"phase": "appearance_kernel_F_vs_plain", "cases": out, "max_abs_err": err,
+              "tolerance": "bitwise (radiance and every counter)", "equal": True})
+
+        # 2. the GI row's configuration with all three features, and without
+        tex, env = self.appearance_images()
+        size, S, D = 1024, 4, 2
+        rows = {}
+        for name, feats in (("gi_spot_1024_s4d2", {}),
+                            ("gi_spot_1024_s4d2_appearance",
+                             dict(normal_mode="smooth", texture="image"))):
+            cfg = self.gi_config(serial_scene_config, size, "serial", S, D, **feats)
+            scene = None
+            if feats:
+                scene = build_scene(cfg)._replace(texture_image=tex, env_image=env)
+            p = prepare(cfg, scene=scene)
+            self.zero_counts()
+            img = render(p)
+            torch.cuda.synchronize()
+            counts = self.counts()
+            if counts["gi_wave"] != 1 or sum(counts.values()) != 1:
+                raise AssertionError(f"{name} launched {counts}: F once and nothing else "
+                                     "expected")
+            self.path_launches[name] = counts
+            if img.shape != (size, size, 3) or not bool(torch.isfinite(img).all()):
+                raise AssertionError(f"{name}: bad image {tuple(img.shape)}")
+            secs = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    render(p)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+            med = sorted(secs)[2]
+            prof = profile_render(p, med, name)
+            tail, kw, _ = self.gi_inputs(p)
+            f_dev_ms, _ = calls_device_ms(lambda: self.gi_launch(p, tail, kw), 10)
+            rows[name] = {"median_ms": med * 1e3, "renders_ms": [x * 1e3 for x in secs],
+                          "device_busy_ms": prof["device_busy_ms"],
+                          "device_idle_share": prof["device_idle_share"],
+                          "kernel_F_device_ms": f_dev_ms, "launches": counts}
+            if feats:
+                e, events, passes = self.gi_check(f"kernel F {name}", p)
+                self.err["gi_wave"] = max(self.err["gi_wave"], e)
+                rows[name].update(events=events, passes=passes, max_abs_err=e,
+                                  bitwise_vs_plain=True,
+                                  images={"texture": list(tex.shape), "env": list(env.shape)})
+        regs = {k: v for k, v in self.ptxas.get("gi_wave", {}).items()
+                if k.startswith(("gi_primary_kernel", "gi_sample_kernel"))}
+        for k in ("gi_primary_kernelILb0ELb0ELi0EE", "gi_sample_kernelILb0ELb0ELi0EE"):
+            if k not in regs or regs[k].get("spill_stores", 0) or regs[k].get("spill_loads", 0):
+                raise AssertionError(f"the featureless stage {k} spills or is missing: "
+                                     f"{regs.get(k)}")
+        emit({"phase": "appearance_gi", "size": size, "S": S, "D": D, "rows": rows,
+              "ptxas_by_instantiation": regs,
+              "instantiation_keys": "gi_<stage>_kernelILb<env>ELb<smooth>ELi<texture: 0 none, "
+                                    "1 checker, 2 image>EE"})
+
+        # 3. the Whitted bounce loop with all three features
+        def whitted(n, device):
+            cfg = apply_turbo(serial_scene_config(n, n), "serial")
+            cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+                cfg.render, normal_mode="smooth", texture="image"))
+            scene = build_scene(cfg, device=device)._replace(
+                texture_image=tex.to(device), env_image=env.to(device))
+            return prepare(cfg, scene=scene)
+
+        p = whitted(1024, "cuda")
+        self.zero_counts()
+        img = render(p)
+        torch.cuda.synchronize()
+        counts = self.counts()
+        if counts["packed_march"] < 1 or counts["whitted_wave"] or counts["gi_wave"]:
+            raise AssertionError(f"the Whitted appearance frame launched {counts}: C, not E "
+                                 "or F, expected")
+        self.path_launches["turbo_spot_whitted_appearance"] = counts
+        if not bool(torch.isfinite(img).all()):
+            raise AssertionError("the Whitted appearance frame has non-finite colors")
+        secs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            render(p)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        a = tonemap_u8(render(whitted(64, "cuda")).cpu().numpy())
+        b = tonemap_u8(render(whitted(64, "cpu")).numpy())
+        frac = image_rule(a, b)
+        emit({"phase": "appearance_whitted", "size": 1024, "config": "turbo serial, smooth, "
+              "image texture 256x256, env 256x512", "launches": counts,
+              "median_ms": sorted(secs)[2] * 1e3, "renders_ms": [x * 1e3 for x in secs],
+              "card_vs_cpu_64": {"bytes_differing": int((a != b).sum()),
+                                 "pixels_over_2_counts": frac,
+                                 "tolerance": "under 1% of pixels over 2 counts"}})
+        if frac >= 0.01:
+            raise AssertionError(f"Whitted appearance 64 card vs CPU: {frac:.2%} of pixels "
+                                 "differ by > 2")
+
     def wave_pow_probe(self, cfg, prep, lanes):
         """The wave's plain version on the card over the differing pixels'
         CPU camera rays, twice: with torch.pow on the card, and with each
@@ -1791,7 +2031,7 @@ class Smoke:
         slot_tests = events["slot_tests"]
         if not 0 <= passes <= slot_tests:
             raise AssertionError(f"kernel F counted {passes} passes of {slot_tests} tests")
-        tri9, albedo, km = p.gi
+        tri9, albedo, km = p.gi.tri9, p.gi.albedo, p.gi.km
         # every input read once and the radiance written once: the whole
         # grid tables (an upper bound of the rows the frame reads: F keeps
         # no per-row counter, and the bytes term does not bind), the
@@ -1873,6 +2113,8 @@ def main(argv=None) -> int:
         smoke.main_path()
     if "card_vs_cpu" in phases:
         smoke.card_vs_cpu()
+    if "appearance" in phases:
+        smoke.appearance()
     if "D" in phases:
         smoke.kernel_d()
     if "times" in phases:

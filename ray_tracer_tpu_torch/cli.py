@@ -17,6 +17,9 @@
         --gi 2 --gi-depth 1 --out gi_csr.ppm      # the segment integrator on kernel B
     python -m ray_tracer_tpu_torch.cli render --scene nefertiti --width 1024 \\
         --turbo --out nef.ppm
+    python -m ray_tracer_tpu_torch.cli render --scene serial --width 1024 \\
+        --turbo --smooth-normals --texture image --texture-file tex.ppm \\
+        --env-file sky.png --out app.png   # the appearance epilogues
 
 The counterpart of `ray_tracer_tpu/cli.py render` for the options this
 port serves.  It runs on the card unless `--device cpu` is given.
@@ -78,12 +81,41 @@ def _build_cfg(args):
             cfg.camera, aperture=args.aperture, focus_distance=args.focus_distance or 0.0))
     if cfg.camera.aperture > 0 and cfg.render.spp <= 1:
         raise SystemExit("depth of field needs render.spp > 1 (one lens point per subsample)")
+    if args.smooth_normals:
+        cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+            cfg.render, normal_mode="smooth", faithful=False))
+    if args.texture:
+        cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+            cfg.render, texture=args.texture,
+            texture_scale=args.texture_scale or cfg.render.texture_scale))
+    if args.texture_file or args.env_file:
+        import numpy as np
+        import torch
+
+        from ray_tracer_tpu_torch.device import resolve_device
+        from ray_tracer_tpu_torch.io.png import read_png
+        from ray_tracer_tpu_torch.io.ppm import read_ppm
+
+        images = {}
+        if args.texture_file:  # a PPM sampled bilinearly in [0, 1] when --texture image
+            images["texture_image"] = (read_ppm(args.texture_file).astype(np.float32)
+                                       / np.float32(255.0))
+        if args.env_file:  # a lat-long map in color units (u8 values pass through)
+            rd = read_png if args.env_file.lower().endswith(".png") else read_ppm
+            images["env_image"] = rd(args.env_file).astype(np.float32)
+            cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render,
+                                                                      faithful=False))
+        if scene is None:
+            scene = scenes.build_scene(cfg, device=args.device)
+        dev = resolve_device(args.device)
+        scene = scene._replace(**{k: torch.from_numpy(v).to(dev) for k, v in images.items()})
     return cfg, scene
 
 
 def cmd_render(args) -> None:
     import torch
 
+    from ray_tracer_tpu_torch.io.png import write_png
     from ray_tracer_tpu_torch.io.ppm import write_ppm
     from ray_tracer_tpu_torch.render.renderer import prepare, render
 
@@ -94,7 +126,8 @@ def cmd_render(args) -> None:
     if prep.device.type == "cuda":
         torch.cuda.synchronize(prep.device)
     dt = time.perf_counter() - t0
-    write_ppm(args.out, img.cpu().numpy())
+    (write_png if args.out.lower().endswith(".png") else write_ppm)(args.out,
+                                                                     img.cpu().numpy())
     pixels = cfg.camera.width * cfg.camera.height
     if cfg.render.gi_samples > 0:
         paths = pixels * cfg.render.gi_samples
@@ -116,7 +149,7 @@ def cmd_render(args) -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="ray_tracer_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    r = sub.add_parser("render", help="render a scene to PPM")
+    r = sub.add_parser("render", help="render a scene to PPM (or PNG: --out x.png)")
     r.add_argument("--scene", default="serial",
                    choices=["serial", "parallel", "nefertiti", "nefertiti_spot"])
     r.add_argument("--width", type=int, default=256)
@@ -143,6 +176,16 @@ def main(argv=None) -> None:
                    help="path-traced GI with this many samples a pixel (0: Whitted)")
     r.add_argument("--gi-depth", type=int, default=2,
                    help="GI bounces after the primary vertex")
+    r.add_argument("--smooth-normals", action="store_true",
+                   help="Phong-interpolated vertex normals (implies --fast)")
+    r.add_argument("--texture", default=None, choices=["none", "checker", "image"],
+                   help="modulate base_color from the meshes' uvs")
+    r.add_argument("--texture-scale", type=float, default=None,
+                   help="checker cells / image repeats per uv unit")
+    r.add_argument("--texture-file", default=None,
+                   help="PPM image sampled bilinearly when --texture image")
+    r.add_argument("--env-file", default=None,
+                   help="lat-long environment map (PNG or PPM) for misses (implies --fast)")
     r.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     r.set_defaults(fn=cmd_render)
     args = ap.parse_args(argv)

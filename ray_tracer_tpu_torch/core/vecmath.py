@@ -53,6 +53,10 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x)
 
 
+def length(a: torch.Tensor) -> torch.Tensor:
+    return sqrt(length2(a))
+
+
 def normalize(a: torch.Tensor) -> torch.Tensor:
     """Safe normalize: zero vectors stay zero (Vec3::normalize's
     `if (nor2 > 0)` guard, Serial/geometry.h:23-30)."""

@@ -11,26 +11,41 @@
 // caller divides by S).
 //
 // Per segment: the slab entry, then march steps through packed_step.cuh
-// and, after every step, the JAX loop's transition (gi_wave.py:345-743,
-// without its environment, texture and smooth-normal branches):
+// and, after every step, the JAX loop's transition (gi_wave.py:345-743):
 //   * a path segment retires when it walks past min(maxt, best_t) between
 //     cells, walks off the grid, or has stepped more than seg_bound times.
 //     On a hit the vertex resolves through slot_tri and its (F, 10)
 //     triangle row: t recomputed (cramer_t_safe) for the integrator's
-//     point, the face normal oriented against the ray, the albedo row, the
-//     NEE term tpt * albedo/pi * I*cos/d^2 and, with the mirror mix, the
-//     branch draw u3 < km.  A diffuse vertex with cos > 0 (and any vertex
+//     point, the face normal oriented against the ray (with smooth normals
+//     the face's corner normals interpolated at the hit's barycentrics,
+//     cramer_bg_safe, and normalized twice), the albedo row (with a
+//     texture the raw base color times the texture factor, clipped to
+//     [0, 1]), the NEE term tpt * albedo/pi * I*cos/d^2 and, with the
+//     mirror mix, the branch draw u3 < km.  A diffuse vertex with cos > 0 (and any vertex
 //     at depth 0, whose NEE settles d0, shared by every sample) rearms as
 //     its NEE shadow ray from the march's own hit point; else its NEE is
-//     banked at once.  On a miss a bounce's radiance takes the background.
+//     banked at once.  On a miss a bounce's radiance takes the background,
+//     or the environment map by the normalized direction.
 //   * a shadow segment retires at its first accepted hit, off the grid or
 //     at the step bound, and banks its staged NEE when unoccluded.
 //   * a vertex below depth D bounces: a cosine-weighted direction (or the
 //     mirror direction) from the hash of (pixel, sample, depth); a bounce
-//     that misses the grid takes the background at once.
+//     that misses the grid takes the background (or the environment) at
+//     once.
 // Contribution order is the JAX wave's: rad = ((0 + v_0) + v_1) + ..., each
 // v_s built escape/NEE-in-depth-order; a pixel whose primary misses sums
-// the background S times (bg_acc, made on the host).
+// the background S times (bg_acc, made on the host), or its environment
+// lookup S times.  The JAX wave stages an environment escape and resolves
+// it in one merged lookup a round later (a device for the TPU's gathers);
+// here the escape looks its radiance up at once, the same value added in
+// the same order, since an escape is its sample's last term.
+//
+// The appearance features (environment map, smooth normals, texture:
+// none, checker or image; texture.cuh) are template parameters of stages P
+// and S, one instantiation a combination, chosen at launch from which
+// tables are given: the featureless instantiation is the code without
+// them.  Stage S reads the depth-0 vertex, its smooth normal and textured
+// albedo among it, from stage P's record.
 //
 // Design.  A pixel's work ranges from nothing (its primary misses the
 // grid) to S * D bounces with their shadow rays, and a warp that serves
@@ -89,6 +104,7 @@
 #include "camera.cuh"
 #include "hash.cuh"
 #include "packed_step.cuh"
+#include "texture.cuh"
 
 // The launch's scalars, passed by value from ctypes (the layout of
 // ops/gi_wave._GiParams).  m holds the grid, the light and the layout (its
@@ -235,13 +251,16 @@ __device__ __forceinline__ bool segment_ended(const Lane& L, bool timeout) {
 
 // The vertex of a path segment that retired on a hit: the recomputed-t
 // point poi_r for the integrator, the march's point poi_m for the shadow
-// ray, the face normal n oriented against the ray, the albedo row, direct =
-// albedo/pi * I*cos/d^2 (the NEE term before the throughput), cos_i, and
-// the material's km (0 without the mirror mix).
-__device__ void resolve_vertex(const GiParams& G, const Lane& L, const int* slot_tri,
-                               const float* tri9, const float* albedo, const float* km_tab,
-                               float poi_r[3], float poi_m[3], float n[3], float alb[3],
-                               float direct[3], float& cos_i, float& km) {
+// ray, the normal n oriented against the ray (the face's, or its corner
+// normals interpolated), the albedo (the material's row, or the textured
+// raw base color clipped), direct = albedo/pi * I*cos/d^2 (the NEE term
+// before the throughput), cos_i, and the material's km (0 without the
+// mirror mix).
+template <bool kSmooth, int kTex>
+__device__ void resolve_vertex(const GiParams& G, const AppearParams& AP, const Lane& L,
+                               const int* slot_tri, const float* tri9, const float* albedo,
+                               const float* km_tab, float poi_r[3], float poi_m[3], float n[3],
+                               float alb[3], float direct[3], float& cos_i, float& km) {
   const MarchParams& P = G.m;
   const int slot = clampi(L.best_blk * P.block_tris + L.best_slot, 0, P.n_slots - 1);
   const int tri = clampi(slot_tri[slot], 0, G.n_faces - 1);
@@ -270,6 +289,24 @@ __device__ void resolve_vertex(const GiParams& G, const Lane& L, const int* slot
   }
   cross3(a, b, cr);
   normalize3(cr, gn);
+  float hb = 0.0f, hg = 0.0f, alpha = 0.0f;
+  if constexpr (kSmooth || kTex != kTexNone) {
+    // cramer_bg_safe on a valid lane: the numerators over A, or 0 where A == 0
+    const float bn = det3(sc[0], e2[0], L.d[0], sc[1], e2[1], L.d[1], sc[2], e2[2], L.d[2]);
+    const float gm = det3(e1[0], sc[0], L.d[0], e1[1], sc[1], L.d[1], e1[2], sc[2], L.d[2]);
+    hb = (guard ? bn : 0.0f) / (guard ? A : 1.0f);
+    hg = (guard ? gm : 0.0f) / (guard ? A : 1.0f);
+    alpha = 1.0f - hb - hg;
+  }
+  if constexpr (kSmooth) {
+    const float* c = AP.fvn9 + (size_t)tri * 9;
+    float sn[3], un[3];
+    for (int k = 0; k < 3; ++k) {
+      sn[k] = alpha * __ldg(c + k) + hb * __ldg(c + 3 + k) + hg * __ldg(c + 6 + k);
+    }
+    normalize3(sn, un);
+    normalize3(un, gn);
+  }
   const bool flip = dot3(gn, L.d) > 0.0f;
   for (int k = 0; k < 3; ++k) {
     n[k] = flip ? -gn[k] : gn[k];
@@ -280,10 +317,20 @@ __device__ void resolve_vertex(const GiParams& G, const Lane& L, const int* slot
   for (int k = 0; k < 3; ++k) wl[k] = to_l[k] / den;
   cos_i = nan_max(dot3(n, wl), 0.0f);
   const float q = G.li * cos_i / tiny_max(d2);
-  for (int c = 0; c < 3; ++c) {
-    alb[c] = albedo[3 * mat + c];
-    direct[c] = alb[c] * kInvPi * q;
+  if constexpr (kTex != kTexNone) {
+    const float* u = AP.fuv7 + (size_t)tri * 7;
+    float uv[2], f[3];
+    for (int k = 0; k < 2; ++k) {
+      uv[k] = alpha * __ldg(u + k) + hb * __ldg(u + 2 + k) + hg * __ldg(u + 4 + k);
+    }
+    texture_factor<kTex>(AP, uv, __ldg(u + 6) > 0.5f, f);
+    for (int c = 0; c < 3; ++c) {
+      alb[c] = nan_min(nan_max(__ldg(AP.bc255 + 3 * mat + c) * f[c], 0.0f), 1.0f);
+    }
+  } else {
+    for (int c = 0; c < 3; ++c) alb[c] = albedo[3 * mat + c];
   }
+  for (int c = 0; c < 3; ++c) direct[c] = alb[c] * kInvPi * q;
   km = G.has_spec ? km_tab[mat] : 0.0f;
 }
 
@@ -300,6 +347,36 @@ __device__ __forceinline__ void shadow_ray(const GiParams& G, const float poi_m[
     if (G.quirk) sdir[k] = -sdir[k];  // Serial/raytracer.cpp:106
   }
   slab_entry(G.m, poi_m, sdir, G.smint, INFINITY, st0, entered);
+}
+
+// The radiance an escape in direction dir sees: the environment map by the
+// normalized direction, or the flat background.
+template <bool kEnv>
+__device__ __forceinline__ void escape(const GiParams& G, const AppearParams& AP,
+                                       const float dir[3], float out[3]) {
+  if constexpr (kEnv) {
+    sample_env(AP, dir, out);
+  } else {
+    for (int c = 0; c < 3; ++c) out[c] = G.bg[c];
+  }
+}
+
+// A pixel whose primary misses: every sample sees the same escape, summed S
+// times from 0 (bg_acc, made on the host, for the flat background).
+template <bool kEnv>
+__device__ __forceinline__ void write_miss(const GiParams& G, const AppearParams& AP,
+                                           const float dir[3], float* rad_out, int pixel) {
+  if constexpr (kEnv) {
+    float e[3];
+    sample_env(AP, dir, e);
+    for (int c = 0; c < 3; ++c) {
+      float acc = 0.0f;
+      for (int s = 0; s < G.S; ++s) acc = acc + e[c];
+      rad_out[3 * pixel + c] = acc;
+    }
+  } else {
+    for (int c = 0; c < 3; ++c) rad_out[3 * pixel + c] = G.bg_acc[c];
+  }
 }
 
 // The bounce direction of a vertex at depth saltd - 1: the mirror of idir
@@ -339,11 +416,12 @@ constexpr int kStage = 16;
 enum Step { kGoOn, kDone, kQueue };
 
 // Stage P's transition of a lane that ran this step: kDone when the primary
-// missed (bg_acc written), kQueue when d0 is settled and staged.
-__device__ int primary_transition(const GiParams& G, Prim& S, const int* slot_tri,
-                                  const float* tri9, const float* albedo, const float* km_tab,
-                                  float* stage, const Tally& ev, float* rad_out, int pixel,
-                                  bool& ran) {
+// missed (its escape written), kQueue when d0 is settled and staged.
+template <bool kEnv, bool kSmooth, int kTex>
+__device__ int primary_transition(const GiParams& G, const AppearParams& AP, Prim& S,
+                                  const int* slot_tri, const float* tri9, const float* albedo,
+                                  const float* km_tab, float* stage, const Tally& ev,
+                                  float* rad_out, int pixel, bool& ran) {
   Lane& L = S.L;
   const bool hit_now = finite(L.best_t);
   const bool timeout = L.alive && S.lsteps > G.seg_bound;
@@ -356,13 +434,14 @@ __device__ int primary_transition(const GiParams& G, Prim& S, const int* slot_tr
     }
     return kQueue;
   }
-  if (!hit_now) {  // the primary missed: every sample sees the background
-    for (int c = 0; c < 3; ++c) rad_out[3 * pixel + c] = G.bg_acc[c];
+  if (!hit_now) {  // the primary missed: every sample sees its escape
+    write_miss<kEnv>(G, AP, L.d, rad_out, pixel);
     return kDone;
   }
   ev.add(kVertices, 1);
   float poi_r[3], poi_m[3], n[3], alb[3], direct[3], cos_i, km;
-  resolve_vertex(G, L, slot_tri, tri9, albedo, km_tab, poi_r, poi_m, n, alb, direct, cos_i, km);
+  resolve_vertex<kSmooth, kTex>(G, AP, L, slot_tri, tri9, albedo, km_tab, poi_r, poi_m, n, alb,
+                                direct, cos_i, km);
   for (int k = 0; k < 3; ++k) {
     stage[k * kBlock] = poi_r[k];
     stage[(3 + k) * kBlock] = n[k];
@@ -385,17 +464,19 @@ __device__ int primary_transition(const GiParams& G, Prim& S, const int* slot_tr
 }
 
 // Take pixel `pixel`: its camera ray, key and slab entry.  Returns whether
-// the primary entered the grid; else the pixel's radiance is bg_acc.
-__device__ __forceinline__ bool start_primary(const GiParams& G, const CameraParams& CP,
-                                              const float4* subs, int pixel, Prim& S,
-                                              float* rad_out, const Tally& ev) {
+// the primary entered the grid; else the pixel's radiance is its escape's.
+template <bool kEnv>
+__device__ __forceinline__ bool start_primary(const GiParams& G, const AppearParams& AP,
+                                              const CameraParams& CP, const float4* subs,
+                                              int pixel, Prim& S, float* rad_out,
+                                              const Tally& ev) {
   Lane& L = S.L;
   camera_ray_at(CP, subs, pixel, L.o, L.d);
   float t0;
   bool entered;
   slab_entry(G.m, L.o, L.d, 0.0f, INFINITY, t0, entered);
   if (!entered) {
-    for (int c = 0; c < 3; ++c) rad_out[3 * pixel + c] = G.bg_acc[c];
+    write_miss<kEnv>(G, AP, L.d, rad_out, pixel);
     return false;
   }
   S.key0 = ray_sample_key(L.o, L.d);
@@ -433,8 +514,9 @@ __device__ __forceinline__ void enqueue(const Queue& Q, bool enq, const Prim& S,
 }
 
 // Stage P: one thread a pixel.  A hit's depth-0 record goes to the queue.
+template <bool kEnv, bool kSmooth, int kTex>
 __global__ void __launch_bounds__(kBlock, kMinBlocksP)
-gi_primary_kernel(GiParams G, CameraParams CP, const float4* __restrict__ subs,
+gi_primary_kernel(GiParams G, AppearParams AP, CameraParams CP, const float4* __restrict__ subs,
                   const int* __restrict__ cell_info, const float* __restrict__ blocks,
                   const int* __restrict__ slot_tri, const float* __restrict__ tri9,
                   const float* __restrict__ albedo, const float* __restrict__ km_tab,
@@ -448,7 +530,8 @@ gi_primary_kernel(GiParams G, CameraParams CP, const float4* __restrict__ subs,
   for (int e = 0; e < kSlotTests; ++e) ev.col[e * kBlock] = 0u;
   Prim S;
   Lane& L = S.L;
-  bool active = pixel < P.n_rays && start_primary(G, CP, subs, pixel, S, rad_out, ev);
+  bool active =
+      pixel < P.n_rays && start_primary<kEnv>(G, AP, CP, subs, pixel, S, rad_out, ev);
   int capped = 0;
   unsigned tested = 0;
   unsigned long long iters = 0, steps = 0, trans = 0;
@@ -467,8 +550,8 @@ gi_primary_kernel(GiParams G, CameraParams CP, const float4* __restrict__ subs,
       step_finish(P, L, blk, m, slot, cell_info, blocks, nullptr, t);
       tested += t;
       ++S.lsteps;
-      const int r = primary_transition(G, S, slot_tri, tri9, albedo, km_tab, stage, ev,
-                                       rad_out, pixel, ran);
+      const int r = primary_transition<kEnv, kSmooth, kTex>(
+          G, AP, S, slot_tri, tri9, albedo, km_tab, stage, ev, rad_out, pixel, ran);
       if (r != kGoOn) {
         active = false;
         enq = r == kQueue;
@@ -510,8 +593,9 @@ __device__ __forceinline__ void finish_item(const GiParams& G, const Queue& Q, i
 // Take item idx: its sample's branch draw and first bounce from the
 // depth-0 record.  Returns whether the bounce entered the grid; else the
 // item is done (its radiance written).
-__device__ bool start_item(const GiParams& G, const Queue& Q, int idx, Item& I,
-                           const Tally& ev) {
+template <bool kEnv>
+__device__ bool start_item(const GiParams& G, const AppearParams& AP, const Queue& Q, int idx,
+                           Item& I, const Tally& ev) {
   const int q = idx / G.S;
   const int s = idx - q * G.S;
   const float4* rec = Q.recs + (size_t)q * kRecord;
@@ -547,7 +631,9 @@ __device__ bool start_item(const GiParams& G, const Queue& Q, int idx, Item& I,
   slab_entry(G.m, poi0, ndir, G.eps, INFINITY, st, ent);
   if (!ent) {
     ev.add(kEscapes, 1);
-    for (int c = 0; c < 3; ++c) v[c] = v[c] + tpt[c] * G.bg[c];
+    float e[3];
+    escape<kEnv>(G, AP, ndir, e);
+    for (int c = 0; c < 3; ++c) v[c] = v[c] + tpt[c] * e[c];
     finish_item(G, Q, idx, v, false);
     return false;
   }
@@ -567,9 +653,11 @@ __device__ bool start_item(const GiParams& G, const Queue& Q, int idx, Item& I,
 
 // Stage S's transition of a lane that ran this step (every vertex is at
 // depth 1 or more).  Returns true when the item is done.
-__device__ bool item_transition(const GiParams& G, const Queue& Q, Item& I, const int* slot_tri,
-                                const float* tri9, const float* albedo, const float* km_tab,
-                                float* stage, const Tally& ev, bool& ran) {
+template <bool kEnv, bool kSmooth, int kTex>
+__device__ bool item_transition(const GiParams& G, const AppearParams& AP, const Queue& Q,
+                                Item& I, const int* slot_tri, const float* tri9,
+                                const float* albedo, const float* km_tab, float* stage,
+                                const Tally& ev, bool& ran) {
   Lane& L = I.L;
   const bool hit_now = finite(L.best_t);
   const bool timeout = L.alive && I.lsteps > G.seg_bound;
@@ -587,16 +675,18 @@ __device__ bool item_transition(const GiParams& G, const Queue& Q, Item& I, cons
       idir[c] = 0.0f;
       w[c] = I.w[c];
     }
-  } else if (!hit_now) {  // the bounce missed: the background
+  } else if (!hit_now) {  // the bounce missed: its escape
     ev.add(kEscapes, 1);
-    for (int c = 0; c < 3; ++c) I.vcur[c] = I.vcur[c] + I.w[c] * G.bg[c];
+    float e[3];
+    escape<kEnv>(G, AP, L.d, e);
+    for (int c = 0; c < 3; ++c) I.vcur[c] = I.vcur[c] + I.w[c] * e[c];
     finish_item(G, Q, I.idx, I.vcur, I.capped);
     return true;
   } else {  // resolve the vertex
     ev.add(kVertices, 1);
     float poi_m[3], alb[3], direct[3], cos_i, km;
-    resolve_vertex(G, L, slot_tri, tri9, albedo, km_tab, vpos, poi_m, nrm, alb, direct, cos_i,
-                   km);
+    resolve_vertex<kSmooth, kTex>(G, AP, L, slot_tri, tri9, albedo, km_tab, vpos, poi_m, nrm,
+                                  alb, direct, cos_i, km);
     if (G.has_spec) {
       const float u3 = hash_u01(I.key, 0x85EBCA77u * (uint32_t)(depth_v + 1) + 13u);
       spec = u3 < km;
@@ -640,7 +730,9 @@ __device__ bool item_transition(const GiParams& G, const Queue& Q, Item& I, cons
       return false;
     }
     ev.add(kEscapes, 1);  // the bounce misses the grid
-    for (int c = 0; c < 3; ++c) I.vcur[c] = I.vcur[c] + w[c] * G.bg[c];
+    float e[3];
+    escape<kEnv>(G, AP, ndir, e);
+    for (int c = 0; c < 3; ++c) I.vcur[c] = I.vcur[c] + w[c] * e[c];
   }
   finish_item(G, Q, I.idx, I.vcur, I.capped);
   return true;
@@ -649,8 +741,10 @@ __device__ bool item_transition(const GiParams& G, const Queue& Q, Item& I, cons
 // Stage S: a persistent wave over the queue's items (q * S + s); idle lanes
 // take the next items of a warp-local chunk when kRefillAt lanes or more
 // are idle, until the queue is drained.
+template <bool kEnv, bool kSmooth, int kTex>
 __global__ void __launch_bounds__(kBlock, kMinBlocksS)
-gi_sample_kernel(GiParams G, const int* __restrict__ cell_info, const float* __restrict__ blocks,
+gi_sample_kernel(GiParams G, AppearParams AP, const int* __restrict__ cell_info,
+                 const float* __restrict__ blocks,
                  const int* __restrict__ slot_tri, const float* __restrict__ tri9,
                  const float* __restrict__ albedo, const float* __restrict__ km_tab, Queue Q,
                  Counters C) {
@@ -691,7 +785,7 @@ gi_sample_kernel(GiParams G, const int* __restrict__ cell_info, const float* __r
         end = base + kChunk < n ? base + kChunk : n;
       }
       const int rank = __popc(idle & below);
-      if (!active && rank < end - pool) active = start_item(G, Q, pool + rank, I, ev);
+      if (!active && rank < end - pool) active = start_item<kEnv>(G, AP, Q, pool + rank, I, ev);
       const int took = __popc(idle) < end - pool ? __popc(idle) : end - pool;
       __syncwarp();
       if (lane == 0) {
@@ -714,7 +808,8 @@ gi_sample_kernel(GiParams G, const int* __restrict__ cell_info, const float* __r
       step_finish(P, I.L, blk, m, slot, cell_info, blocks, nullptr, t);
       tested += t;
       ++I.lsteps;
-      if (item_transition(G, Q, I, slot_tri, tri9, albedo, km_tab, stage, ev, ran)) {
+      if (item_transition<kEnv, kSmooth, kTex>(G, AP, Q, I, slot_tri, tri9, albedo, km_tab,
+                                               stage, ev, ran)) {
         active = false;
       }
     }
@@ -752,16 +847,58 @@ gi_fold_kernel(int S, Queue Q, float* __restrict__ rad_out, int* __restrict__ ca
   }
 }
 
+// Stages P and S of one feature combination.
+template <bool kEnv, bool kSmooth, int kTex>
+cudaError_t launch_stages(const GiParams& G, const AppearParams& AP, const CameraParams& CP,
+                          const float* subs, const int* cell_info, const float* blocks,
+                          const int* slot_tri, const float* tri9, const float* albedo,
+                          const float* km, float* rad, const Queue& Q, const Counters& C,
+                          int grid_p, int grid_s, cudaStream_t st) {
+  gi_primary_kernel<kEnv, kSmooth, kTex><<<(unsigned)grid_p, kBlock, 0, st>>>(
+      G, AP, CP, reinterpret_cast<const float4*>(subs), cell_info, blocks, slot_tri, tri9,
+      albedo, km, rad, Q, C);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gi_sample_kernel<kEnv, kSmooth, kTex><<<(unsigned)grid_s, kBlock, 0, st>>>(
+      G, AP, cell_info, blocks, slot_tri, tri9, albedo, km, Q, C);
+  return cudaGetLastError();
+}
+
+// The instantiation that AP's tables select: the environment map, smooth
+// normals, and no texture, the checker or the image.
+template <bool kEnv, bool kSmooth>
+cudaError_t launch_textured(const GiParams& G, const AppearParams& AP, const CameraParams& CP,
+                            const float* subs, const int* cell_info, const float* blocks,
+                            const int* slot_tri, const float* tri9, const float* albedo,
+                            const float* km, float* rad, const Queue& Q, const Counters& C,
+                            int grid_p, int grid_s, cudaStream_t st) {
+  if (AP.fuv7 == nullptr) {
+    return launch_stages<kEnv, kSmooth, kTexNone>(G, AP, CP, subs, cell_info, blocks, slot_tri,
+                                                  tri9, albedo, km, rad, Q, C, grid_p, grid_s,
+                                                  st);
+  }
+  if (AP.tex == nullptr) {
+    return launch_stages<kEnv, kSmooth, kTexChecker>(G, AP, CP, subs, cell_info, blocks,
+                                                     slot_tri, tri9, albedo, km, rad, Q, C,
+                                                     grid_p, grid_s, st);
+  }
+  return launch_stages<kEnv, kSmooth, kTexImage>(G, AP, CP, subs, cell_info, blocks, slot_tri,
+                                                 tri9, albedo, km, rad, Q, C, grid_p, grid_s,
+                                                 st);
+}
+
 }  // namespace
 
-// The SMs, and the blocks of stage S that stay resident on an SM.  Returns
-// the first CUDA error.
+// The SMs, and the blocks of stage S that stay resident on an SM (the
+// featureless instantiation's; every instantiation has the same launch
+// bounds).  Returns the first CUDA error.
 extern "C" int gi_wave_occupancy(int* sms, int* per_sm) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, gi_sample_kernel, kBlock, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, gi_sample_kernel<false, false, kTexNone>, kBlock, 0);
   }
   return (int)err;
 }
@@ -770,12 +907,13 @@ extern "C" int gi_wave_occupancy(int* sms, int* per_sm) {
 // (1, 4) f32 [ox, oy, lx, ly]; cell_info (n_cells,) or (1,) i32, blocks
 // (n_blocks, row_lanes) f32, slot_tri (n_slots,) i32, tri9 (n_faces, 10)
 // f32, albedo (n_mats, 3) f32, km (n_mats,) f32 or null (no mirror mix);
+// AP the appearance tables (null ones off; a texture needs fuv7 and bc255);
 // rad (n_rays, 3) f32 out, every row written.  heads, flags, recs and v are
 // the scratch of ops/gi_wave._scratch_layout (heads zeroed here); grid_p,
 // grid_s and grid_fold the stages' blocks (ops/gi_wave._stage_launch).  The
 // counters are null when not wanted, else zeroed by the caller; lanes is
 // (2, 3).  Returns the first CUDA error.
-extern "C" int gi_wave_launch(GiParams G, CameraParams CP, const float* subs,
+extern "C" int gi_wave_launch(GiParams G, CameraParams CP, AppearParams AP, const float* subs,
                               const int* cell_info, const float* blocks, const int* slot_tri,
                               const float* tri9, const float* albedo, const float* km,
                               float* rad, int* heads, int* flags, float* recs, float* v,
@@ -783,20 +921,29 @@ extern "C" int gi_wave_launch(GiParams G, CameraParams CP, const float* subs,
                               unsigned long long* events, unsigned long long* lanes,
                               void* stream) {
   if (G.has_spec && km == nullptr) return (int)cudaErrorInvalidValue;
+  if ((AP.fuv7 == nullptr) != (AP.bc255 == nullptr)) return (int)cudaErrorInvalidValue;
+  if (AP.env != nullptr && (AP.env_h < 1 || AP.env_w < 1)) return (int)cudaErrorInvalidValue;
+  if (AP.tex != nullptr && (AP.tex_h < 1 || AP.tex_w < 1)) return (int)cudaErrorInvalidValue;
   if (G.m.n_rays == 0) return 0;
   const Counters C{capped, passes, events, lanes};
   const Queue Q{heads, flags, reinterpret_cast<float4*>(recs), v};
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(heads, 0, 2 * sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
-  gi_primary_kernel<<<(unsigned)grid_p, kBlock, 0, st>>>(
-      G, CP, reinterpret_cast<const float4*>(subs), cell_info, blocks, slot_tri, tri9, albedo,
-      km, rad, Q, C);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  gi_sample_kernel<<<(unsigned)grid_s, kBlock, 0, st>>>(G, cell_info, blocks, slot_tri, tri9,
-                                                        albedo, km, Q, C);
-  err = cudaGetLastError();
+  const bool env = AP.env != nullptr, smooth = AP.fvn9 != nullptr;
+  if (env && smooth) {
+    err = launch_textured<true, true>(G, AP, CP, subs, cell_info, blocks, slot_tri, tri9, albedo,
+                                      km, rad, Q, C, grid_p, grid_s, st);
+  } else if (env) {
+    err = launch_textured<true, false>(G, AP, CP, subs, cell_info, blocks, slot_tri, tri9,
+                                       albedo, km, rad, Q, C, grid_p, grid_s, st);
+  } else if (smooth) {
+    err = launch_textured<false, true>(G, AP, CP, subs, cell_info, blocks, slot_tri, tri9,
+                                       albedo, km, rad, Q, C, grid_p, grid_s, st);
+  } else {
+    err = launch_textured<false, false>(G, AP, CP, subs, cell_info, blocks, slot_tri, tri9,
+                                        albedo, km, rad, Q, C, grid_p, grid_s, st);
+  }
   if (err != cudaSuccess) return (int)err;
   gi_fold_kernel<<<(unsigned)grid_fold, kFoldBlock, 0, st>>>(G.S, Q, rad, capped);
   return (int)cudaGetLastError();

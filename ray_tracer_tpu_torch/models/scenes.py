@@ -1,9 +1,12 @@
 """Scene representation and the reference scene definitions.
 
 Counterpart of `ray_tracer_tpu/models/scenes.py` (the serial, parallel,
-gradcheck, flagship and nefertiti scenes).  A Scene is a
-NamedTuple of tensors on one device: indexed geometry (verts + faces), a
-per-face material index, the material table and the point light.
+gradcheck, flagship and nefertiti scenes, and the texture and
+environment lookups `sample_texture_image`, `texture_factor` and
+`sample_env_image`).  A Scene is a NamedTuple of tensors on one device:
+indexed geometry (verts + faces), a per-face material index, the
+material table, the point light, the OBJ's uvs, and optionally a texture
+image and a lat-long environment map.
 Meshes are loaded and concatenated in numpy on the host, and
 `scene_from_numpy` takes the same arrays the JAX package's
 `scene_from_numpy` takes, so one set of arrays gives both packages the
@@ -26,6 +29,7 @@ from ray_tracer_tpu_torch.config import (
     RenderConfig,
     SceneConfig,
 )
+from ray_tracer_tpu_torch.core.vecmath import div_scalar
 from ray_tracer_tpu_torch.device import resolve_device
 from ray_tracer_tpu_torch.io.obj import MeshArrays, load_obj
 from ray_tracer_tpu_torch.models import meshes as mesh_gen
@@ -45,7 +49,11 @@ def asset(name: str) -> str:
 class Scene(NamedTuple):
     """Scene tensors on one device: float geometry, integer topology,
     materials and the light.  uvs/uv_faces carry the OBJ's `vt` data
-    (None when absent); the port's renderer does not sample them yet."""
+    (None when absent), which RenderConfig.texture samples;
+    texture_image is the (Th, Tw, 3) f32 texel grid in [0, 1] of
+    texture="image", env_image the (Eh, Ew, 3) f32 lat-long environment
+    map in color units (0..255) that misses see instead of the flat
+    background (None: the background)."""
 
     verts: torch.Tensor  # (V,3) f32
     faces: torch.Tensor  # (F,3) i64
@@ -55,6 +63,32 @@ class Scene(NamedTuple):
     light_intensity: torch.Tensor  # ()
     uvs: Optional[torch.Tensor] = None  # (VT,2) f32
     uv_faces: Optional[torch.Tensor] = None  # (F,3) i64, -1 where absent
+    texture_image: Optional[torch.Tensor] = None  # (Th,Tw,3) f32
+    env_image: Optional[torch.Tensor] = None  # (Eh,Ew,3) f32
+
+    def sample_texture(self, uv: torch.Tensor) -> torch.Tensor:
+        """Bilinear wrap-mode sample of this scene's texture: (R,2) uv ->
+        (R,3) rgb."""
+        if self.texture_image is None:
+            raise ValueError("scene has no texture_image")
+        return sample_texture_image(self.texture_image, uv)
+
+    def sample_env(self, dirn: torch.Tensor) -> torch.Tensor:
+        """Lat-long lookup of this scene's environment map: (R,3) unit
+        directions -> (R,3) color."""
+        if self.env_image is None:
+            raise ValueError("scene has no env_image")
+        return sample_env_image(self.env_image, dirn)
+
+    def interpolate_uv(self, tri: torch.Tensor, beta: torch.Tensor,
+                       gamma: torch.Tensor) -> torch.Tensor:
+        """Barycentric uv at hits: (R,) tri ids + (R,) beta/gamma -> (R,2)."""
+        if self.uvs is None or self.uv_faces is None:
+            raise ValueError("scene has no uv data")
+        f = torch.clamp(self.uv_faces[tri], min=0)
+        u0, u1, u2 = self.uvs[f[:, 0]], self.uvs[f[:, 1]], self.uvs[f[:, 2]]
+        alpha = 1.0 - beta - gamma
+        return alpha[:, None] * u0 + beta[:, None] * u1 + gamma[:, None] * u2
 
     @property
     def device(self) -> torch.device:
@@ -71,6 +105,80 @@ class Scene(NamedTuple):
             self.verts[self.faces[:, 1]],
             self.verts[self.faces[:, 2]],
         )
+
+
+_I32_LIMIT = 2147483648.0  # 2^31, exact in float32
+
+
+def _to_i32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> int32 as XLA's convert gives it: NaN -> 0, out-of-range
+    values saturate, truncation toward zero (in an int64 tensor)."""
+    x = torch.where(torch.isnan(x), torch.zeros_like(x), x)
+    x = torch.clamp(x, -_I32_LIMIT, _I32_LIMIT).to(torch.int64)
+    return torch.clamp(x, -(1 << 31), (1 << 31) - 1)
+
+
+def _bilinear(img: torch.Tensor, iv0, iu0, iv1, iu1, fu, fv) -> torch.Tensor:
+    """The four texels' blend, u first: top + (bot - top) * fv."""
+    c00, c01 = img[iv0, iu0], img[iv0, iu1]
+    c10, c11 = img[iv1, iu0], img[iv1, iu1]
+    top = c00 + (c01 - c00) * fu[:, None]
+    bot = c10 + (c11 - c10) * fu[:, None]
+    return top + (bot - top) * fv[:, None]
+
+
+def sample_texture_image(tex: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear wrap-mode sample of an (H,W,3) texture at (R,2) uv -> (R,3):
+    v = 0 is the image's bottom row (the OBJ convention), texels are
+    centred at (i + 0.5) / size, and coordinates wrap (repeat tiling)
+    through a floor-mod of the saturating int32 cast."""
+    th, tw = tex.shape[0], tex.shape[1]
+    u = uv[:, 0] * tw - 0.5
+    v = (1.0 - uv[:, 1]) * th - 0.5
+    u0f, v0f = torch.floor(u), torch.floor(v)
+    iu0 = torch.remainder(_to_i32(u0f), tw)
+    iv0 = torch.remainder(_to_i32(v0f), th)
+    return _bilinear(tex, iv0, iu0, torch.remainder(iv0 + 1, th),
+                     torch.remainder(iu0 + 1, tw), u - u0f, v - v0f)
+
+
+def texture_factor(uv, has_uv, hit, mode: str, scale, tex_image, rgb_dtype):
+    """The one texture-factor expression, shared by the bounce loop, the
+    segment integrator and the GI wave's plain version (kernel F has it
+    in csrc/texture.cuh): the checker pattern or the bilinear image
+    sample, 1 where a lane has no uv or no hit.  Returns the (R,1) or
+    (R,3) factor that multiplies base_color."""
+    n = torch.tensor(scale, dtype=uv.dtype, device=uv.device)
+    keep = has_uv & hit
+    if mode == "checker":
+        checker = torch.remainder(torch.floor(uv[:, 0] * n) + torch.floor(uv[:, 1] * n), 2.0)
+        return torch.where(keep, 1.0 - 0.5 * checker, torch.ones_like(checker))[:, None]
+    if mode == "image":
+        if tex_image is None:
+            raise ValueError('cfg.render.texture == "image" but the scene has no '
+                             "texture_image")
+        uv_s = torch.where(hit[:, None], uv, torch.zeros_like(uv)) * n
+        rgb = sample_texture_image(tex_image, uv_s).to(rgb_dtype)
+        return torch.where(keep[:, None], rgb, torch.ones_like(rgb))
+    raise ValueError(f"unknown texture mode {mode!r}")
+
+
+def sample_env_image(env: torch.Tensor, dirn: torch.Tensor) -> torch.Tensor:
+    """Lat-long (equirectangular) lookup: (R,3) unit directions -> (R,3)
+    color.  u = azimuth around +y (wraps), v = polar angle from +y,
+    clamped at the pole texel centres; bilinear.  The divides by 2pi and
+    pi are true divides (vecmath.div_scalar).  A constant map returns its
+    constant exactly."""
+    th, tw = env.shape[0], env.shape[1]
+    u = div_scalar(torch.atan2(dirn[:, 2], dirn[:, 0]), 2.0 * np.pi) + 0.5
+    v = div_scalar(torch.acos(torch.clamp(dirn[:, 1], -1.0, 1.0)), np.pi)
+    uu = u * tw - 0.5
+    vv = torch.clamp(v * th - 0.5, 0.0, th - 1.0)
+    u0f, v0f = torch.floor(uu), torch.floor(vv)
+    iu0 = torch.remainder(_to_i32(u0f), tw)
+    iv0 = torch.clamp(_to_i32(v0f), 0, th - 1)
+    return _bilinear(env, iv0, iu0, torch.clamp(iv0 + 1, 0, th - 1),
+                     torch.remainder(iu0 + 1, tw), uu - u0f, vv - v0f)
 
 
 def concat_mesh_arrays(parts: Sequence[Tuple[MeshArrays, int]]):
@@ -125,13 +233,21 @@ def scene_from_numpy(
     uv_faces: Optional[np.ndarray] = None,
     dtype=torch.float32,
     device=None,
+    texture_image: Optional[np.ndarray] = None,
+    env_image: Optional[np.ndarray] = None,
 ) -> Scene:
     """The same arguments as the JAX package's `scene_from_numpy`, plus
-    the device (cuda unless "cpu" is asked for)."""
+    the device (cuda unless "cpu" is asked for) and the scene's optional
+    texture image and environment map as (H, W, 3) arrays (the JAX scene
+    takes them by `_replace`)."""
     dev = resolve_device(device)
 
     def idx(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
+
+    def image(a):
+        return (None if a is None
+                else torch.as_tensor(np.asarray(a, dtype=np.float32), device=dev))
 
     return Scene(
         verts=torch.as_tensor(np.asarray(verts), device=dev).to(dtype),
@@ -143,6 +259,8 @@ def scene_from_numpy(
         uvs=(torch.as_tensor(np.asarray(uvs), device=dev).to(dtype)
              if uvs is not None else None),
         uv_faces=idx(uv_faces) if uv_faces is not None else None,
+        texture_image=image(texture_image),
+        env_image=image(env_image),
     )
 
 

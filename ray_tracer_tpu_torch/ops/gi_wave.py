@@ -14,9 +14,21 @@ recomputed t (`cramer_t_safe`), the NEE shadow ray starts from the
 march's t.  A `reflective` material with km > 0 takes the mirror branch
 with probability km (one hash draw a vertex; the restarts draw with
 their own salts), and a mirror vertex skips NEE except at depth 0, whose
-shadow ray still settles d0.  Escapes take the flat background.  A
-segment that has stepped more than `_default_max_steps(meta)` times
+shadow ray still settles d0.  Escapes take the flat background, or the
+environment map (`env_image`) by the escaping direction.  With smooth
+normals (`fvn9`, the (F, 9) corner normals) the vertex's normal is the
+corner normals interpolated at the hit's barycentrics and normalized
+twice; with a texture (`fuv7`, the (F, 7) corner uvs and has-uv flag;
+checker mode, or image mode with `tex_image`) the albedo is the raw
+base color (`bc255_table`) times the texture factor, clipped to [0, 1].
+A segment that has stepped more than `_default_max_steps(meta)` times
 retires as it stands (the JAX loop's per-segment bound).
+
+The JAX wave stages an environment escape and resolves it in one merged
+lookup a round later, a device for the TPU's gathers; here an escape
+looks its radiance up at once.  The value and the order of the sums are
+the same: the escape is the last term of its sample, and a pixel whose
+primary misses sums its lookup S times from zero.
 
 The radiance does not depend on the schedule: the JAX loop's `wave`,
 `pump`, `refill_retries` and `max_iters` decide only how its W lanes take
@@ -35,8 +47,8 @@ order.
 `gi_wave_trace` takes the kernel for a grid on the card and the plain
 version over the `camera_rays` batch for one on the CPU.
 
-Environment maps, textures, smooth normals and the sharded queue of the
-JAX wave are not served (the arguments raise NotImplementedError).
+The sharded queue of the JAX wave is not served (its arguments raise
+NotImplementedError).
 """
 
 from __future__ import annotations
@@ -52,8 +64,9 @@ from ray_tracer_tpu_torch.config import CameraConfig
 from ray_tracer_tpu_torch.core import vecmath as vm
 from ray_tracer_tpu_torch.core.rays import RayBatch
 from ray_tracer_tpu_torch.kernels import _build
+from ray_tracer_tpu_torch.models.scenes import sample_env_image, texture_factor
 from ray_tracer_tpu_torch.ops.camera import CameraLaunch, camera_launch, camera_rays
-from ray_tracer_tpu_torch.ops.intersect import cramer_t_safe
+from ray_tracer_tpu_torch.ops.intersect import cramer_bg_safe, cramer_t_safe
 from ray_tracer_tpu_torch.ops.traverse_packed import (
     LaunchConsts,
     _default_max_steps,
@@ -89,10 +102,13 @@ def gi_wave_plain(
     grid: PackedGridArrays, meta: PackedGridMeta, km_table=None, *,
     S: int, D: int, gate0: float = 0.0, gate_b: float = 1e-4, eps: float = 1e-4,
     smint: float = 1e-4, quirk: bool = False, bg=(0.0, 0.0, 0.0),
-    capped_out=None, passes_out=None, events_out=None,
+    env_image=None, fvn9=None, fuv7=None, tex_image=None, bc255_table=None,
+    tex_scale: float = 1.0, capped_out=None, passes_out=None, events_out=None,
 ) -> torch.Tensor:
     """Radiance summed over S samples of every pixel's camera ray -> (R, 3)
     f32: the JAX wave's lane state machine with one lock-step lane a pixel.
+    env_image, fvn9, fuv7, tex_image, bc255_table and tex_scale are the
+    appearance tables (`_appearance`).
 
     Optional counters, overwritten: capped_out (1,) int32 lanes a segment
     of which reached the step bound; passes_out (1,) int32 tested slots
@@ -119,6 +135,7 @@ def gi_wave_plain(
     z3 = torch.zeros((r, 3), dtype=f32, device=dev)
     inf = torch.tensor(_INF, dtype=f32, device=dev)
     maxt0 = rays.maxt.to(f32)
+    app = _appearance(dev, env_image, fvn9, fuv7, tex_image, bc255_table, tex_scale)
     t0, entered = _slab_entry(grid, o0, d0, rays.mint.to(f32), maxt0)
     s = dict(o=o0, d=d0, maxt=maxt0, gate=full(gate0), alive=entered, testing=zb, t_cur=t0,
              t_exit_cell=zf, first_blk=zi, n_blk=zi, cursor=zi, best_t=zf + inf, best_blk=zi,
@@ -127,7 +144,11 @@ def gi_wave_plain(
              pend=z3, nrm=z3, alb=z3, vpos=z3, idir=z3, vspec=zb, vkm=zf, idir0=z3, km0=zf,
              d0=z3, poi0=z3, n0=z3, alb0=z3)
     bg_acc = torch.tensor(_bg_acc(bg, S), dtype=f32, device=dev)
-    out = bg_acc.expand(r, 3).clone()
+    bg3 = torch.tensor(bg, dtype=f32, device=dev)
+    if app["env"] is None:
+        out = bg_acc.expand(r, 3).clone()
+    else:  # a pixel that misses the grid sums its lookup S times
+        out = _s_fold(sample_env_image(app["env"], vm.normalize(d0)), S)
     stats = dict(tested=zi.clone(), touched=None,
                  passes=torch.zeros((), dtype=torch.int64, device=dev))
     capped = zb
@@ -135,12 +156,11 @@ def gi_wave_plain(
     c = dict(seg_bound=_default_max_steps(meta), bt=meta.block_tris,
              n_slots=grid.slot_tri.shape[0], n_faces=tri9.shape[0],
              n_mats=albedo_table.shape[0], light=light_pos.to(device=dev, dtype=f32),
-             li=light_intensity.to(device=dev, dtype=f32), bg3=torch.tensor(bg, dtype=f32,
-                                                                             device=dev),
-             bg_acc=bg_acc, quirk=quirk, S=S, D=D, eps=eps, gate_b=gate_b, smint=full(smint),
+             li=light_intensity.to(device=dev, dtype=f32), bg3=bg3, bg_acc=bg_acc,
+             quirk=quirk, S=S, D=D, eps=eps, gate_b=gate_b, smint=full(smint),
              eps_v=full(eps), inf_v=zf + inf, alb_tab=albedo_table.to(device=dev, dtype=f32),
              km_tab=(None if km_table is None else km_table.to(device=dev, dtype=f32)),
-             tri9=tri9.to(device=dev, dtype=f32))
+             tri9=tri9.to(device=dev, dtype=f32), **app)
     while bool(s["alive"].any()):
         pre_alive = s["alive"]
         s = _march_step(s, o=s["o"], d=s["d"], invd=torch.reciprocal(s["d"]), gate=s["gate"],
@@ -166,10 +186,52 @@ def _where3(mask, a, b):
     return torch.where(mask[:, None], a, b)
 
 
+def _appearance(dev, env_image, fvn9, fuv7, tex_image, bc255_table, tex_scale) -> dict:
+    """The appearance tables as float32 on dev (None where not given):
+    env (Eh, Ew, 3), fvn9 (F, 9), fuv7 (F, 7), tex (Th, Tw, 3) for the
+    image mode, bc255 (M, 3) the raw base color / 255, and tex_scale.  A
+    texture needs fuv7 and bc255 together; tex_image without fuv7 has no
+    effect."""
+    if (fuv7 is None) != (bc255_table is None):
+        raise ValueError("a textured wave needs fuv7 and bc255_table together")
+
+    def f32(x, cols=None):
+        if x is None:
+            return None
+        x = x.to(device=dev, dtype=torch.float32).contiguous()
+        if cols is not None and (x.ndim != 2 or x.shape[1] != cols):
+            raise ValueError(f"expected (N, {cols}) rows, got {tuple(x.shape)}")
+        if cols is None and (x.ndim != 3 or x.shape[2] != 3 or x.shape[0] < 1
+                             or x.shape[1] < 1):
+            raise ValueError(f"expected an (H, W, 3) image, got {tuple(x.shape)}")
+        return x
+
+    return dict(env=f32(env_image), fvn9=f32(fvn9, 9), fuv7=f32(fuv7, 7),
+                tex=None if fuv7 is None else f32(tex_image), bc255=f32(bc255_table, 3),
+                tex_scale=float(tex_scale))
+
+
+def _s_fold(x: torch.Tensor, S: int) -> torch.Tensor:
+    """((0 + x) + x) + ... S times, in float32: every sample of a pixel
+    whose primary misses sees the same escape."""
+    acc = torch.zeros_like(x)
+    for _ in range(S):
+        acc = acc + x
+    return acc
+
+
+def _escape(c, dirs: torch.Tensor) -> torch.Tensor:
+    """The radiance an escape in direction dirs sees: the environment map
+    by the normalized direction, or the flat background."""
+    if c["env"] is None:
+        return c["bg3"]
+    return sample_env_image(c["env"], vm.normalize(dirs))
+
+
 def _transition(s, pre_alive, grid, c):
     """All retirement events of one step (ray_tracer_tpu/ops/gi_wave.py:
-    345-743 without the env, texture and smooth-normal branches, op for
-    op): segment retirements resolve their vertex and rearm as NEE
+    345-743, op for op, each environment escape looked up where it
+    happens): segment retirements resolve their vertex and rearm as NEE
     shadows, shadow retirements settle their contribution, and the
     sample-end cascade restarts the next sample or retires the pixel.
     Returns the new state and the step's masks and event counts."""
@@ -206,9 +268,29 @@ def _transition(s, pre_alive, grid, c):
     t_m = where(hit_now, best_t, zf)
     poi_m = o + d * t_m[:, None]
     gn = vm.normalize(vm.cross(tv1 - tv0, tv2 - tv0))
+    fvn9, fuv7 = c["fvn9"], c["fuv7"]
+    if fvn9 is not None or fuv7 is not None:
+        # the hit barycentrics, shared by smooth normals and textures
+        hb, hg = cramer_bg_safe(o, d, tv0, tv1, tv2, hit_p, det_dtype=torch.float32)
+        alpha = 1.0 - hb - hg
+        face = torch.clamp(tri, 0, c["n_faces"] - 1).long()
+    if fvn9 is not None:
+        crow = fvn9[face]
+        sn = (alpha[:, None] * crow[:, 0:3] + hb[:, None] * crow[:, 3:6]
+              + hg[:, None] * crow[:, 6:9])
+        gn = vm.normalize(vm.normalize(sn))
     flip = vm.dot(gn, d) > 0.0
     n = _where3(flip, -gn, gn)
-    alb = c["alb_tab"][matid]
+    if fuv7 is not None:
+        urow = fuv7[face]
+        uv = (alpha[:, None] * urow[:, 0:2] + hb[:, None] * urow[:, 2:4]
+              + hg[:, None] * urow[:, 4:6])
+        tex = texture_factor(uv, urow[:, 6] > 0.5, hit_p,
+                             "checker" if c["tex"] is None else "image", c["tex_scale"],
+                             c["tex"], torch.float32)
+        alb = torch.clamp(c["bc255"][matid] * tex, 0.0, 1.0)
+    else:
+        alb = c["alb_tab"][matid]
     # NEE geometry
     tiny = torch.full_like(zf, float(np.float32(1e-20)))
     to_l = c["light"] - poi_r
@@ -285,9 +367,8 @@ def _transition(s, pre_alive, grid, c):
     bounce_esc = bounce & ~entb
     esc = miss_p & (depth_v >= 1)
     prim_miss = miss_p & (depth_v == 0)
-    bg3 = c["bg3"]
-    vcur = vcur + _where3(bounce_esc, tpt_b * bg3, z3)
-    vcur = vcur + _where3(esc, tpt * bg3, z3)
+    vcur = vcur + _where3(bounce_esc, tpt_b * _escape(c, ndir), z3)
+    vcur = vcur + _where3(esc, tpt * _escape(c, d), z3)
     E = (av & (depth_v == D)) | bounce_esc | esc
 
     new = dict(s, vcur=vcur, d0=d0, poi0=poi0, n0=n0, alb0=alb0, nrm=nrm_v, alb=alb_v,
@@ -306,7 +387,9 @@ def _transition(s, pre_alive, grid, c):
     # the sample-end cascade: each turn banks a finished sample, then
     # restarts the next one from the shared depth-0 vertex
     pix_done = prim_miss
-    rad = _where3(prim_miss, c["bg_acc"].expand_as(o), new["rad"])
+    miss_rad = (c["bg_acc"].expand_as(o) if c["env"] is None
+                else _s_fold(_escape(c, d), S))
+    rad = _where3(prim_miss, miss_rad, new["rad"])
     vcur = new["vcur"]
     samp = new["samp"]
     for _ in range(S):
@@ -349,7 +432,7 @@ def _transition(s, pre_alive, grid, c):
         goes = re & entr
         esc_r = re & ~entr
         vcur = _where3(re, v0_r, vcur)
-        vcur = vcur + _where3(esc_r, tpt_r * bg3, z3)
+        vcur = vcur + _where3(esc_r, tpt_r * _escape(c, ndir_r), z3)
         E = esc_r
         new = _rearm(new, goes, new["poi0"], ndir_r, str_, c["gate_b"], False,
                      torch.ones_like(samp))
@@ -379,6 +462,31 @@ class _GiParams(ctypes.Structure):
         ("seg_bound", ctypes.c_int), ("n_faces", ctypes.c_int), ("n_mats", ctypes.c_int),
         ("has_spec", ctypes.c_int),
     ]
+
+
+class _AppearParams(ctypes.Structure):
+    """Mirror of `AppearParams` in csrc/texture.cuh (passed by value)."""
+
+    _fields_ = [
+        ("env", ctypes.c_void_p), ("fvn9", ctypes.c_void_p), ("fuv7", ctypes.c_void_p),
+        ("tex", ctypes.c_void_p), ("bc255", ctypes.c_void_p), ("tex_scale", ctypes.c_float),
+        ("env_h", ctypes.c_int), ("env_w", ctypes.c_int), ("tex_h", ctypes.c_int),
+        ("tex_w", ctypes.c_int),
+    ]
+
+
+def _appear_params(app: dict) -> _AppearParams:
+    """Kernel F's appearance tables (`_appearance`'s, on the card) by
+    pointer; a null pointer turns a feature off."""
+    def ptr(x):
+        return x.data_ptr() if x is not None else None
+
+    env, tex = app["env"], app["tex"]
+    return _AppearParams(
+        env=ptr(env), fvn9=ptr(app["fvn9"]), fuv7=ptr(app["fuv7"]), tex=ptr(tex),
+        bc255=ptr(app["bc255"]), tex_scale=app["tex_scale"],
+        env_h=0 if env is None else env.shape[0], env_w=0 if env is None else env.shape[1],
+        tex_h=0 if tex is None else tex.shape[0], tex_w=0 if tex is None else tex.shape[1])
 
 
 def _launch_params(cam: CameraLaunch, consts: LaunchConsts, meta: PackedGridMeta, *,
@@ -457,7 +565,7 @@ def _launch_fn(lib):
     fn = lib.gi_wave_launch
     fn.restype = ctypes.c_int
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [_GiParams, _CameraParams] + [p] * 12 + [i] * 3 + [p] * 5
+    fn.argtypes = [_GiParams, _CameraParams, _AppearParams] + [p] * 12 + [i] * 3 + [p] * 5
     return fn
 
 
@@ -466,15 +574,18 @@ def gi_wave_cuda(
     grid: PackedGridArrays, meta: PackedGridMeta, km_table=None, *,
     S: int, D: int, gate0: float = 0.0, gate_b: float = 1e-4, eps: float = 1e-4,
     smint: float = 1e-4, quirk: bool = False, bg=(0.0, 0.0, 0.0),
-    cam: Optional[CameraLaunch] = None, consts: Optional[LaunchConsts] = None,
-    capped_out=None, passes_out=None, events_out=None, lanes_out=None,
+    env_image=None, fvn9=None, fuv7=None, tex_image=None, bc255_table=None,
+    tex_scale: float = 1.0, cam: Optional[CameraLaunch] = None,
+    consts: Optional[LaunchConsts] = None, capped_out=None, passes_out=None,
+    events_out=None, lanes_out=None,
 ) -> torch.Tensor:
     """Kernel F on CUDA tensors: the radiance summed over S samples of
     every pixel of `camera` -> (H*W, 3) f32, the plain version's bits for
     the rays of `camera_rays(camera)`.  Stage P marches each pixel's
     camera ray and depth-0 shadow ray and queues the hits' depth-0
     records; a persistent stage S serves the (queued pixel, sample) items;
-    the fold sums each pixel's samples in order.
+    the fold sums each pixel's samples in order.  The appearance tables
+    (as `gi_wave_plain` takes them) select the kernels' instantiation.
 
     cam (`camera_launch(camera, 1)`) and consts (`launch_consts(grid,
     light_pos, light_intensity)`) are the launch's host-held values:
@@ -506,6 +617,12 @@ def gi_wave_cuda(
     albedo = albedo_table.to(device=dev, dtype=torch.float32).contiguous()
     km = (None if km_table is None
           else km_table.to(device=dev, dtype=torch.float32).contiguous())
+    app = _appearance(dev, env_image, fvn9, fuv7, tex_image, bc255_table, tex_scale)
+    if app["fvn9"] is not None and app["fvn9"].shape[0] != tri9.shape[0]:
+        raise ValueError("fvn9 must have a row a triangle")
+    if app["fuv7"] is not None and (app["fuv7"].shape[0] != tri9.shape[0]
+                                    or app["bc255"].shape[0] != albedo.shape[0]):
+        raise ValueError("fuv7 must have a row a triangle and bc255_table one a material")
     table = cam.table.to(device=dev, dtype=torch.float32).contiguous()
     if blocks.shape != (meta.n_blocks, meta.row_lanes):
         raise ValueError("blocks does not match the meta")
@@ -546,7 +663,8 @@ def gi_wave_cuda(
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _launch_fn(lib)(
-            gi, cparams, table.data_ptr(), cell_info.data_ptr(), blocks.data_ptr(),
+            gi, cparams, _appear_params(app), table.data_ptr(), cell_info.data_ptr(),
+            blocks.data_ptr(),
             slot_tri.data_ptr(), tri9.data_ptr(), albedo.data_ptr(), ptr(km), rad.data_ptr(),
             *(base + layout[k] for k in ("heads", "flags", "recs", "v")), *grids,
             ptr(capped_out), ptr(passes_out), ptr(events_out), ptr(lanes_out), stream)
@@ -556,6 +674,25 @@ def gi_wave_cuda(
 
 
 gi_wave_cuda.launches = 0
+
+
+def launch_inputs(prep) -> "tuple[tuple, dict]":
+    """(args, kw) of `gi_wave_plain` after its rays, and of `gi_wave_cuda`
+    after its camera, for a Prepared that takes the GI wave: the light,
+    the tables `prepare` built (`pathtrace.GiTables`), the grid and the
+    config's scalars, the scene's environment map and texture among
+    them."""
+    rc = prep.cfg.render
+    g = prep.gi
+    pg = rc.primary_gate()
+    args = (prep.scene.light_pos, prep.scene.light_intensity, g.albedo, g.tri9,
+            prep.packed.arrays, prep.packed.meta, g.km)
+    kw = dict(S=rc.gi_samples, D=rc.gi_depth, gate0=0.0 if pg is None else pg,
+              gate_b=rc.bounce_gate(), eps=rc.shadow_eps, smint=rc.shadow_mint(),
+              quirk=rc.shadow_dir_away_from_light(), bg=tuple(rc.background),
+              env_image=prep.scene.env_image, fvn9=g.fvn9, fuv7=g.fuv7,
+              tex_image=g.tex_image, bc255_table=g.bc255, tex_scale=float(rc.texture_scale))
+    return args, kw
 
 
 def gi_wave_trace(
@@ -569,7 +706,10 @@ def gi_wave_trace(
     consts: Optional[LaunchConsts] = None,
 ) -> torch.Tensor:
     """Radiance summed over S samples per pixel -> (H*W, 3) f32 on grid's
-    device (the caller divides by S), with the JAX function's arguments.
+    device (the caller divides by S), with the JAX function's arguments:
+    env_image (the environment map), fvn9 (smooth normals), fuv7 with
+    bc255_table and, in image mode, tex_image (a texture) as
+    `gi_wave_plain` takes them.
 
     On the card kernel F makes the camera rays itself (cam and consts,
     when given, are its host-held launch values); on the CPU the plain
@@ -577,19 +717,13 @@ def gi_wave_trace(
     (each pixel is traced on its own, so the radiance does not depend on
     it).  `wave`, `pump`, `refill_retries` and `max_iters` shape only the
     JAX lock-step loop and change no bit."""
-    del wave, pump, refill_retries, max_iters, tex_scale
+    del wave, pump, refill_retries, max_iters
     if pix_offset is not None or pix_stride != 1 or queue_len is not None:
         raise NotImplementedError("not served by the PyTorch port yet: the sharded GI wave "
                                   "queue (pix_offset, pix_stride, queue_len)")
-    extra = dict(env_image=env_image, fvn9=fvn9, fuv7=fuv7, tex_image=tex_image,
-                 bc255_table=bc255_table)
-    given = [k for k, v in extra.items() if v is not None]
-    if given:
-        raise NotImplementedError("not served by the PyTorch port yet: the GI wave's "
-                                  "environment maps, textures and smooth normals ("
-                                  + ", ".join(given) + ")")
     kw = dict(S=S, D=D, gate0=gate0, gate_b=gate_b, eps=eps, smint=smint, quirk=quirk,
-              bg=tuple(bg))
+              bg=tuple(bg), env_image=env_image, fvn9=fvn9, fuv7=fuv7, tex_image=tex_image,
+              bc255_table=bc255_table, tex_scale=tex_scale)
     args = (light_pos, light_intensity, albedo_table, tri9, grid, meta, km_table)
     dev = grid.blocks.device
     if grid.blocks.is_cuda:
@@ -601,4 +735,4 @@ def gi_wave_trace(
                           rays.count if tile is None else tile)
 
 
-__all__ = ["EVENTS", "gi_wave_cuda", "gi_wave_plain", "gi_wave_trace"]
+__all__ = ["EVENTS", "gi_wave_cuda", "gi_wave_plain", "gi_wave_trace", "launch_inputs"]

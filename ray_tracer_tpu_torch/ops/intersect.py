@@ -1,7 +1,7 @@
 """Ray-triangle intersection: the reference's Cramer solve.
 
 Counterpart of `ray_tracer_tpu/ops/intersect.py` (`cramer_tbg`,
-`cramer_t_safe`, `_safe_cramer_columns`, `barycentric_pass`,
+`cramer_t_safe`, `cramer_bg_safe`, `_safe_cramer_columns`, `barycentric_pass`,
 `intersect_brute`).  Every determinant is `vecmath.det3` in the
 reference's expansion order (Serial/raytracer.cpp:203-211), each
 numerator divided by the determinant A, over any broadcastable batch of
@@ -93,6 +93,19 @@ def cramer_t_safe(orig, dirn, v0, v1, v2, valid, det_dtype=torch.float32
     )
     tn = _det_t(e1, e2, s)
     return torch.where(guard, tn, torch.zeros_like(tn)) / A_safe
+
+
+def cramer_bg_safe(orig, dirn, v0, v1, v2, valid, det_dtype=torch.float32
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(beta, gamma) only, with the inputs sanitized on invalid lanes as in
+    `cramer_t_safe` (the same columns and guard): the hit barycentrics
+    that textures and smooth normals read."""
+    e1, e2, s, d, A_safe, guard = _safe_cramer_columns(
+        orig, dirn, v0, v1, v2, valid, det_dtype
+    )
+    bn, gn = _det_beta(e2, s, d), _det_gamma(e1, s, d)
+    return (torch.where(guard, bn, torch.zeros_like(bn)) / A_safe,
+            torch.where(guard, gn, torch.zeros_like(gn)) / A_safe)
 
 
 def barycentric_pass(beta: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,9 @@ Counterpart of `ray_tracer_tpu/ops/shade.py`:
   * `shade_parallel` — Parallel/raytracer.cu:468-506: per-hit material
     table, normal (v2-v1) x (v0-v1) (Parallel/geometry.cuh:160),
     normalized half-vector, shadow scaling the whole local color.
+  * `vertex_normals` and `interpolate_normal` — the smooth-normal mode
+    (RenderConfig.normal_mode="smooth"): area-weighted vertex normals,
+    Phong-interpolated at the hits.
 
 Plain elementwise tensor code, one op at a time.
 """
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ray_tracer_tpu_torch.core import vecmath as vm
@@ -40,6 +44,45 @@ def _pow_safe(base: torch.Tensor, exponent: torch.Tensor) -> torch.Tensor:
     zero_pow = torch.where(exponent == 0, torch.ones_like(exponent),
                            torch.zeros_like(exponent))
     return torch.where(pos, torch.pow(safe, exponent), zero_pow)
+
+
+def _cross_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """vecmath.cross on float32 arrays, one rounding an op."""
+    return np.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                     a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                     a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], axis=-1)
+
+
+def vertex_normals(verts: torch.Tensor, faces: torch.Tensor, serial: bool) -> torch.Tensor:
+    """Area-weighted vertex normals -> (V,3) on verts' device, UNNORMALIZED:
+    each face's unnormalized normal, in the shading variant's convention
+    (serial: (v0-v1) x (v2-v0); parallel: (v2-v1) x (v0-v1)), added to
+    its three vertices.
+
+    Built once, on the host, in numpy: the sum of a vertex's faces is
+    taken in face order, corner by corner (np.add.at over faces.ravel()),
+    the order of the JAX package's `.at[faces].add` on the CPU, which sets
+    the bits.  (A scatter-add with atomics on the card would sum in
+    another order from run to run.)"""
+    v = verts.detach().cpu().numpy().astype(np.float32)
+    f = faces.detach().cpu().numpy().astype(np.int64)
+    fv0, fv1, fv2 = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
+    fn = _cross_np(fv0 - fv1, fv2 - fv0) if serial else _cross_np(fv2 - fv1, fv0 - fv1)
+    vn = np.zeros_like(v)
+    np.add.at(vn, f.ravel(), np.repeat(fn, 3, axis=0))
+    return torch.from_numpy(vn).to(verts.device)
+
+
+def interpolate_normal(vn: torch.Tensor, faces: torch.Tensor, tri: torch.Tensor,
+                       beta: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+    """Barycentric (Phong) normal interpolation at hits -> UNIT normals.
+    The bounce loop rescales them by the facet normal's length, whose
+    magnitude the shading constants of both variants are tuned to."""
+    f = faces[tri]
+    alpha = 1.0 - beta - gamma
+    n = (alpha[:, None] * vn[f[:, 0]] + beta[:, None] * vn[f[:, 1]]
+         + gamma[:, None] * vn[f[:, 2]])
+    return vm.normalize(n)
 
 
 class HitGeometry(NamedTuple):

@@ -8,8 +8,12 @@ Counterpart of `ray_tracer_tpu/render/pathtrace.py` (`_hash_u01`,
 the port serves: Lambertian surfaces with the Lambertian/mirror mix of
 `reflective` materials (gi_specular), one point light through next-event
 estimation (fused into the persistent march, gi_fuse_nee, or a separate
-shadow traversal), the flat background as escape radiance, and sample
-batching (gi_sample_batch, which changes no bit).
+shadow traversal), the flat background or the scene's environment map
+(by the escaping segment's direction) as escape radiance, textures
+(checker or image, modulating the raw base color before the clip to
+[0, 1]), smooth normals (the parallel convention's vertex normals,
+interpolated and normalized twice), and sample batching
+(gi_sample_batch, which changes no bit).
 
 Sampling is a pure function of each ray's own bits, the sample and the
 depth (the lowbias32 hash), so images are deterministic and independent
@@ -26,13 +30,14 @@ about 1.3% of draws, so images agree bitwise only where radiance does not
 depend on the sampled directions, and statistically elsewhere
 (tests/test_torch_pathtrace.py).
 
-Environment maps, env NEE, textures, smooth normals, extra lights,
-transmissive materials and the ring `tracer=` are not served
-(`render.renderer.check_supported` and `pathtrace_rays` raise
+Env NEE, extra lights, transmissive materials and the ring `tracer=` are
+not served (`render.renderer.check_supported` and `pathtrace_rays` raise
 NotImplementedError naming each).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -40,8 +45,10 @@ import torch
 from ray_tracer_tpu_torch.config import RenderConfig, SceneConfig
 from ray_tracer_tpu_torch.core import vecmath as vm
 from ray_tracer_tpu_torch.core.rays import RayBatch
+from ray_tracer_tpu_torch.models.scenes import texture_factor
 from ray_tracer_tpu_torch.ops.camera import camera_rays
-from ray_tracer_tpu_torch.ops.intersect import cramer_t_safe
+from ray_tracer_tpu_torch.ops.intersect import cramer_bg_safe, cramer_t_safe
+from ray_tracer_tpu_torch.ops.shade import interpolate_normal, vertex_normals
 
 _INV_PI = 0.3183098861837907
 _TWO_PI = 2.0 * np.pi
@@ -136,11 +143,12 @@ def _bg_acc(bg, S: int) -> np.ndarray:
 
 @torch.no_grad()
 def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=None,
-                   dda=None, consts=None) -> torch.Tensor:
+                   dda=None, consts=None, vn=None) -> torch.Tensor:
     """gi_samples Lambertian/mirror paths per input ray -> (R, 3) linear
     radiance (the segment integrator: one traversal per sample batch and
     depth, kernel B or C on the card).  dda: kernel B's tables; consts:
-    kernel C's host-held launch values."""
+    kernel C's host-held launch values; vn: smooth normals' vertex-normal
+    table in the parallel convention (built here when not given)."""
     from ray_tracer_tpu_torch.ops.persistent import persistent_trace
     from ray_tracer_tpu_torch.render.renderer import make_traversal, shadow_rays_for
 
@@ -163,6 +171,13 @@ def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=N
     background = torch.tensor(rcfg.background, dtype=dt, device=dev)
     albedo_table, km_table = _material_tables(scene)
     n_mats = albedo_table.shape[0]
+    smooth = rcfg.normal_mode == "smooth"
+    if smooth and vn is None:
+        vn = vertex_normals(scene.verts, scene.faces, serial=False)
+    # texture silently off without uv data, as in the bounce loop; it
+    # modulates the raw base color, clipped to [0, 1] after
+    textured = rcfg.texture != "none" and scene.uvs is not None
+    bc255_table = vm.div_scalar(scene.materials.base_color, 255.0) if textured else None
     lp, li = scene.light_pos, scene.light_intensity
     ray_ids = ray_sample_keys(rays.orig, rays.dirn)
     fuse_nee = persistent and rcfg.gi_fuse_nee
@@ -190,9 +205,13 @@ def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=N
                 res = trav(cur, t_gate=gate, **tkw)
             res_hit = res.hit
             hit = res_hit & path_alive
-            # escape: the background, then the path ends
+            # escape: the environment by this segment's direction (or the
+            # background), then the path ends
             escaped = path_alive & ~res_hit
-            env = background.expand(rr, 3)
+            if scene.env_image is not None:
+                env = scene.sample_env(vm.normalize(cur.dirn)).to(dt)
+            else:
+                env = background.expand(rr, 3)
             radiance = radiance + torch.where(escaped[:, None], throughput * env, z3)
 
             tri = torch.clamp(res.tri_id, min=0).long()
@@ -204,10 +223,23 @@ def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=N
             orig_safe = torch.where(res_hit[:, None], cur.orig, torch.zeros_like(cur.orig))
             poi = orig_safe + cur.dirn * t[:, None]
             n = vm.normalize(vm.cross(tv1 - tv0, tv2 - tv0))
+            if smooth or textured:
+                hb, hg = cramer_bg_safe(orig_safe, cur.dirn, tv0, tv1, tv2, res_hit,
+                                        det_dtype=ddt)
+            if smooth:
+                n = vm.normalize(interpolate_normal(vn, scene.faces, tri, hb.to(dt),
+                                                    hg.to(dt)))
             flip = vm.dot(n, cur.dirn) > 0.0
             n = torch.where(flip[:, None], -n, n)
             mat_c = torch.clamp(mat, 0, n_mats - 1).long()
-            albedo = albedo_table[mat_c]
+            if textured:
+                uv = scene.interpolate_uv(tri, hb.to(dt), hg.to(dt))
+                has_uv = scene.uv_faces[tri][:, 0] >= 0
+                tex = texture_factor(uv, has_uv, hit, rcfg.texture, rcfg.texture_scale,
+                                     scene.texture_image, dt)
+                albedo = torch.clamp(bc255_table[mat_c] * tex, 0.0, 1.0)
+            else:
+                albedo = albedo_table[mat_c]
 
             # the Lambertian/mirror branch: one draw a (pixel, sample,
             # depth) takes the mirror with probability km; both branch
@@ -275,12 +307,14 @@ def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=N
     return vm.div_scalar(acc, float(S))
 
 
-def gi_wave_eligible(cfg: SceneConfig) -> bool:
+def gi_wave_eligible(cfg: SceneConfig, scene=None) -> bool:
     """Would the JAX package render this GI config through the cross-depth
     GI wave (ray_tracer_tpu/render/pathtrace.py:705-740)?  gi_wave "off"
     never, "auto" when eligible, "on" requires it (ValueError when
-    ineligible).  The JAX test on the scene's env map, extra lights and
-    dielectrics always passes here: the port serves none of them."""
+    ineligible).  Environment maps, textures and smooth normals are
+    eligible; an environment map with gi_env_nee is not (the scene, when
+    given, says whether it has one).  The JAX test on extra lights and
+    dielectrics always passes here: the port serves neither."""
     rcfg = cfg.render
     knob = rcfg.gi_wave
     if knob == "off":
@@ -292,6 +326,7 @@ def gi_wave_eligible(cfg: SceneConfig) -> bool:
         and not rcfg.faithful
         and rcfg.det_dtype == "float32"
         and rcfg.dtype == "float32"
+        and not (scene is not None and scene.env_image is not None and rcfg.gi_env_nee)
     )
     if knob == "on" and not ok:
         raise ValueError(
@@ -310,16 +345,49 @@ def use_gi_wave_spec(scene, rcfg: RenderConfig) -> bool:
     return bool(rcfg.gi_specular and ((km * refl) > 0.0).any())
 
 
-def build_gi_wave_tables(scene, rcfg: RenderConfig, use_spec: bool):
-    """(albedo_table (M, 3), km_table (M,) or None) for the GI wave: the
-    clipped base_color / 255, and with the mirror mix the clipped km
-    gated by `reflective`.  (The JAX builder's texture and smooth-normal
-    tables are not served.)"""
-    if rcfg.texture != "none" or rcfg.normal_mode == "smooth":
-        raise NotImplementedError("not served by the PyTorch port yet: textures and smooth "
-                                  "normals in the GI wave")
+class GiTables(NamedTuple):
+    """Kernel F's tables (`prepare` builds them once): the six of the JAX
+    package's `build_gi_wave_tables`, in its order, then the (F, 10)
+    triangle rows."""
+
+    albedo: torch.Tensor
+    km: Optional[torch.Tensor]
+    fuv7: Optional[torch.Tensor]
+    tex_image: Optional[torch.Tensor]
+    bc255: Optional[torch.Tensor]
+    fvn9: Optional[torch.Tensor]
+    tri9: torch.Tensor
+
+
+def build_gi_wave_tables(scene, rcfg: RenderConfig, use_spec: bool, vn=None) -> GiTables:
+    """The GI wave's tables, as the JAX package's function makes them
+    (ray_tracer_tpu/render/pathtrace.py:755-791), with the triangle rows
+    after them: the clipped base_color / 255; with the mirror mix the
+    clipped km gated by `reflective`; with a texture and uv data the (F, 7)
+    rows of corner uvs and the has-uv flag, the texture image (image mode)
+    and the raw base_color / 255; with smooth normals the (F, 9) rows of
+    corner normals (the parallel convention's vertex normals; vn when
+    given)."""
     albedo, km = _material_tables(scene)
-    return albedo, km if use_spec else None
+    fuv7 = tex_image = bc255 = fvn9 = None
+    if rcfg.texture != "none" and scene.uvs is not None:
+        if rcfg.texture == "image":
+            if scene.texture_image is None:
+                raise ValueError('cfg.render.texture == "image" but the scene has no '
+                                 "texture_image")
+            tex_image = scene.texture_image
+        elif rcfg.texture != "checker":
+            raise ValueError(f"unknown texture mode {rcfg.texture!r}")
+        fuv = scene.uvs[torch.clamp(scene.uv_faces, min=0)].reshape(-1, 6)
+        fhuv = (scene.uv_faces[:, 0] >= 0).to(torch.float32)[:, None]
+        fuv7 = torch.cat([fuv.to(torch.float32), fhuv], dim=1)
+        bc255 = vm.div_scalar(scene.materials.base_color, 255.0)
+    if rcfg.normal_mode == "smooth":
+        if vn is None:
+            vn = vertex_normals(scene.verts, scene.faces, serial=False)
+        fvn9 = vn[scene.faces].reshape(-1, 9).to(torch.float32)
+    return GiTables(albedo, km if use_spec else None, fuv7, tex_image, bc255, fvn9,
+                    build_gi_wave_tri9(scene))
 
 
 def _material_tables(scene):
@@ -347,14 +415,14 @@ def _render_pt_wave(prep, setup) -> torch.Tensor:
     rcfg = cfg.render
     scene = prep.scene
     if prep.gi is not None and setup is prep.setup:
-        tri9, albedo, km = prep.gi
+        tab = prep.gi
     else:
-        tri9 = build_gi_wave_tri9(scene)
-        albedo, km = build_gi_wave_tables(scene, rcfg, setup.gi_spec)
+        tab = build_gi_wave_tables(scene, rcfg, setup.gi_spec, vn=setup.vn)
     pg = rcfg.primary_gate()
     rad = gi_wave_trace(
-        scene.light_pos, scene.light_intensity, albedo, tri9,
-        prep.packed.arrays, prep.packed.meta, km_table=km,
+        scene.light_pos, scene.light_intensity, tab.albedo, tab.tri9,
+        prep.packed.arrays, prep.packed.meta, scene.env_image, tab.fvn9, tab.km, tab.fuv7,
+        tab.tex_image, tab.bc255, tex_scale=float(rcfg.texture_scale),
         camera=cfg.camera, S=rcfg.gi_samples, D=rcfg.gi_depth,
         wave=rcfg.wave, pump=rcfg.pump,
         gate0=0.0 if pg is None else pg, gate_b=rcfg.bounce_gate(),
@@ -383,11 +451,12 @@ def render_pt(prep, setup=None) -> torch.Tensor:
     tile = rays.count if prep.device.type == "cuda" else max(1, rcfg.ray_tile)
     colors = rays.map_tiles(
         lambda rb: pathtrace_rays(rb, prep.scene, grid, meta, cfg, dda=prep.dda,
-                                  consts=setup.consts), tile)
+                                  consts=setup.consts, vn=setup.vn), tile)
     return colors.reshape(cfg.camera.height, cfg.camera.width, 3)
 
 
 __all__ = [
-    "build_gi_wave_tables", "build_gi_wave_tri9", "gi_wave_eligible", "pathtrace_rays",
+    "GiTables", "build_gi_wave_tables", "build_gi_wave_tri9", "gi_wave_eligible",
+    "pathtrace_rays",
     "ray_sample_keys", "render_pt", "sample_key", "use_gi_wave_spec",
 ]

@@ -26,7 +26,12 @@ grid:
   * mirror bounces run up to `max_bounces`, retired lanes get +inf
     origins so the traversal drops them at entry, and the per-depth
     colors fold deepest-first as the reference's recursion associates
-    (Parallel/raytracer.cu:508-520).
+    (Parallel/raytracer.cu:508-520);
+  * the appearance epilogues: a texture (checker or image) modulates the
+    hit's base color, smooth normals replace the facet normal's direction
+    (vertex normals built once by `frame_setup`), and misses see the
+    scene's environment map by this depth's ray direction instead of the
+    flat background.
 
 gi_samples > 0 renders path-traced instead (`render/pathtrace.py`: the
 GI wave, kernel F, when `gi_wave_eligible`, else the segment
@@ -48,7 +53,12 @@ from ray_tracer_tpu_torch.config import RenderConfig, SceneConfig
 from ray_tracer_tpu_torch.core import vecmath as vm
 from ray_tracer_tpu_torch.core.rays import RayBatch
 from ray_tracer_tpu_torch.device import resolve_device
-from ray_tracer_tpu_torch.models.scenes import Scene, scene_from_numpy, scene_numpy_arrays
+from ray_tracer_tpu_torch.models.scenes import (
+    Scene,
+    scene_from_numpy,
+    scene_numpy_arrays,
+    texture_factor,
+)
 from ray_tracer_tpu_torch.ops.brute_intersect import intersect_brute_kernel, triangle_table
 from ray_tracer_tpu_torch.ops.camera import (
     CameraLaunch,
@@ -57,12 +67,14 @@ from ray_tracer_tpu_torch.ops.camera import (
     camera_rays_subsample,
     fold_subsamples,
 )
-from ray_tracer_tpu_torch.ops.intersect import cramer_t_safe, intersect_brute
+from ray_tracer_tpu_torch.ops.intersect import cramer_bg_safe, cramer_t_safe, intersect_brute
 from ray_tracer_tpu_torch.ops.shade import (
     hit_geometry_parallel,
     hit_geometry_serial,
+    interpolate_normal,
     shade_parallel,
     shade_serial,
+    vertex_normals,
 )
 from ray_tracer_tpu_torch.ops.persistent import persistent_trace
 from ray_tracer_tpu_torch.ops.traverse import DdaTables, dda_tables, traverse_grid, vertex_table
@@ -77,7 +89,6 @@ from ray_tracer_tpu_torch.ops.traverse_packed import (
 from ray_tracer_tpu_torch.ops.whitted_wave import build_wave_tables, whitted_wave_trace
 from ray_tracer_tpu_torch.render.pathtrace import (
     build_gi_wave_tables,
-    build_gi_wave_tri9,
     gi_wave_eligible,
     render_pt,
     use_gi_wave_spec,
@@ -91,8 +102,8 @@ def whitted_wave_eligible(cfg: SceneConfig, scene: Scene = None) -> bool:
     """Would the JAX package render this config through the cross-depth
     Whitted wave (ray_tracer_tpu/render/renderer.py:836-872)?
     whitted_wave "off" never, "auto" when eligible, "on" requires it
-    (ValueError when ineligible).  Environment maps do not exist in the
-    port; the texture test reads the scene's uvs when one is given."""
+    (ValueError when ineligible).  The texture and environment-map tests
+    read the scene when one is given."""
     rcfg = cfg.render
     knob = rcfg.whitted_wave
     if knob == "off":
@@ -106,6 +117,7 @@ def whitted_wave_eligible(cfg: SceneConfig, scene: Scene = None) -> bool:
         and rcfg.dtype == "float32"
         and rcfg.normal_mode != "smooth"
         and (rcfg.texture == "none" or (scene is not None and scene.uvs is None))
+        and (scene is None or scene.env_image is None)
         and not cfg.extra_lights
         and rcfg.soft_visibility <= 0.0
         and rcfg.soft_primary <= 0.0
@@ -136,10 +148,6 @@ def check_supported(cfg: SceneConfig, scene: Scene = None) -> bool:
     bad = []
     if r.traversal not in TRAVERSALS:
         bad.append(f"traversal={r.traversal!r}")
-    if r.texture != "none":
-        bad.append(f"texture={r.texture!r}")
-    if r.normal_mode != "face":
-        bad.append(f"normal_mode={r.normal_mode!r}")
     if r.soft_visibility > 0.0 or r.soft_primary > 0.0:
         bad.append("soft visibility / soft primary")
     if r.shadow_samples != 1 or r.light_radius != 0.0:
@@ -158,6 +166,12 @@ def check_supported(cfg: SceneConfig, scene: Scene = None) -> bool:
         )
     if r.det_dtype not in _DET_DTYPES:
         raise ValueError(f"unknown det_dtype {r.det_dtype!r}")
+    if r.texture not in ("none", "checker", "image"):
+        raise ValueError(f"unknown texture mode {r.texture!r}")
+    env = scene is not None and scene.env_image is not None
+    if r.faithful and (r.normal_mode == "smooth" or env):
+        raise ValueError("smooth normals / area-light soft shadows / environment maps "
+                         "require faithful=False")
     if r.spp < 1:
         raise ValueError(f"spp must be >= 1, got {r.spp}")
     if r.gi_samples > 0:
@@ -211,12 +225,20 @@ class FrameSetup(NamedTuple):
     cam: CameraLaunch = None
     gi_wave: bool = False
     gi_spec: bool = False
+    vn: torch.Tensor = None  # smooth normals' vertex-normal table (V, 3)
 
 
 def frame_setup(cfg: SceneConfig, scene: Scene, packed: PackedGrid = None) -> FrameSetup:
-    """Settle cfg's frame facts: the only device reads, made once."""
+    """Settle cfg's frame facts: the only device reads, made once.  With
+    smooth normals the vertex-normal table is built here, in the bounce
+    loop's shading convention (the path tracer's is the parallel one)."""
     takes_wave = check_supported(cfg, scene)
-    gi_wave = cfg.render.gi_samples > 0 and gi_wave_eligible(cfg)
+    rcfg = cfg.render
+    gi_wave = rcfg.gi_samples > 0 and gi_wave_eligible(cfg, scene)
+    vn = None
+    if rcfg.normal_mode == "smooth":
+        vn = vertex_normals(scene.verts, scene.faces,
+                            rcfg.serial_shading and rcfg.gi_samples == 0)
     consts = cam = None
     if packed is not None:
         consts = launch_consts(packed.arrays, scene.light_pos, scene.light_intensity)
@@ -225,7 +247,7 @@ def frame_setup(cfg: SceneConfig, scene: Scene, packed: PackedGrid = None) -> Fr
         elif gi_wave:
             cam = camera_launch(cfg.camera, 1, device=scene.device)
     return FrameSetup(cfg=cfg, wave=takes_wave, consts=consts, cam=cam, gi_wave=gi_wave,
-                      gi_spec=gi_wave and use_gi_wave_spec(scene, cfg.render))
+                      gi_spec=gi_wave and use_gi_wave_spec(scene, cfg.render), vn=vn)
 
 
 class Prepared(NamedTuple):
@@ -236,7 +258,7 @@ class Prepared(NamedTuple):
     dda: DdaTables = None  # kernel B's tables, built when traversal == "csr"
     wave: tuple = None  # kernel E's (mat9, tri9), built when the config takes the wave
     setup: FrameSetup = None  # the frame facts of cfg
-    gi: tuple = None  # kernel F's (tri9, albedo, km or None), built when it takes the GI wave
+    gi: tuple = None  # kernel F's tables (pathtrace.GiTables), built when it takes the GI wave
 
     @property
     def device(self) -> torch.device:
@@ -257,8 +279,8 @@ def prepare(cfg: SceneConfig, scene: Scene = None, device=None) -> Prepared:
     own device).  For traversal="csr", kernel B's tables (`dda_tables`),
     for a config that takes the Whitted wave, kernel E's
     (`build_wave_tables`), and for one that takes the GI wave, kernel F's
-    (`build_gi_wave_tri9`, `build_gi_wave_tables`), are derived there
-    once, and so are the frame facts (`frame_setup`)."""
+    (`build_gi_wave_tables`), are derived there once, and so are the frame
+    facts (`frame_setup`, the smooth normals' vertex normals among them)."""
     check_supported(cfg, scene)  # raise before any work
     if scene is None:
         dev = resolve_device(device)
@@ -294,8 +316,7 @@ def prepare(cfg: SceneConfig, scene: Scene = None, device=None) -> Prepared:
     wave = build_wave_tables(scene) if setup.wave else None
     gi = None
     if setup.gi_wave:
-        gi = (build_gi_wave_tri9(scene), *build_gi_wave_tables(scene, cfg.render,
-                                                                setup.gi_spec))
+        gi = build_gi_wave_tables(scene, cfg.render, setup.gi_spec, vn=setup.vn)
     return Prepared(scene=scene, grid=grid, cfg=cfg, packed=packed, dda=dda, wave=wave,
                     setup=setup, gi=gi)
 
@@ -390,13 +411,22 @@ def make_traversal(rcfg: RenderConfig, grid, meta, v0, v1, v2, dda=None, consts=
 @torch.no_grad()
 def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
                 camera_cfg=None, dda: DdaTables = None,
-                consts: LaunchConsts = None) -> torch.Tensor:
+                consts: LaunchConsts = None, vn: torch.Tensor = None) -> torch.Tensor:
     """Trace + shade one ray batch -> (R,3) linear color.  camera_cfg is
     given only when `rays` is that camera's whole batch in pixel order
     (the persistent wave's camera refill); dda are kernel B's tables,
-    consts kernel C's host-held launch values."""
+    consts kernel C's host-held launch values, vn the smooth normals'
+    vertex-normal table (`vertex_normals`, built here when not given)."""
     serial = rcfg.serial_shading
     eps = rcfg.shadow_eps
+    smooth = rcfg.normal_mode == "smooth"
+    # texture is silently off without uv data, as in the JAX package
+    textured = rcfg.texture != "none" and scene.uvs is not None
+    if rcfg.faithful and (smooth or scene.env_image is not None):
+        raise ValueError("smooth normals / area-light soft shadows / environment maps "
+                         "require faithful=False")
+    if smooth and vn is None:
+        vn = vertex_normals(scene.verts, scene.faces, serial)
     v0, v1, v2 = scene.triangle_soa()
     # one (F,10) row per triangle: vertices and the material index
     tri10 = torch.cat([v0, v1, v2, scene.face_material.to(v0.dtype)[:, None]], dim=1)
@@ -473,6 +503,19 @@ def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
         t = torch.where(res.hit, t_re.to(res.t.dtype), torch.zeros_like(res.t))
         mat = scene.materials.gather(tv[:, 9].long())
 
+        # the hit barycentrics, shared by the texture and smooth normals
+        hb = hg = None
+        if smooth or textured:
+            hb, hg = cramer_bg_safe(cur.orig, cur.dirn, tv0, tv1, tv2, res.hit,
+                                    det_dtype=ddt)
+        if textured:
+            # the barycentric uv's texture factor modulates base_color
+            uv = scene.interpolate_uv(tri, hb.to(v0.dtype), hg.to(v0.dtype))
+            has_uv = scene.uv_faces[tri][:, 0] >= 0
+            tex = texture_factor(uv, has_uv, hit, rcfg.texture, rcfg.texture_scale,
+                                 scene.texture_image, mat.base_color.dtype)
+            mat = mat._replace(base_color=mat.base_color * tex.to(mat.base_color.dtype))
+
         # retired bounce lanes carry inf origins: zero them first
         orig_safe = torch.where(res.hit[:, None], cur.orig, torch.zeros_like(cur.orig))
         if serial:
@@ -482,6 +525,11 @@ def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
         geom = geom._replace(
             poi=torch.where(hit[:, None], geom.poi, torch.zeros_like(geom.poi))
         )
+        if smooth:
+            # the interpolated direction at the facet normal's length:
+            # shading and the mirror bounce follow it
+            unit = interpolate_normal(vn, scene.faces, tri, hb.to(v0.dtype), hg.to(v0.dtype))
+            geom = geom._replace(normal=unit * vm.length(geom.normal)[:, None])
 
         if fres is not None:
             in_shadow = fres.in_shadow & hit
@@ -498,13 +546,18 @@ def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
             color = shade_parallel(geom, mat, scene.light_pos, in_shadow,
                                    rcfg.shadow_scale)
 
+        if scene.env_image is not None:
+            # misses see the environment by this depth's ray direction
+            bg = scene.sample_env(vm.normalize(cur.dirn)).to(color.dtype)
+        else:
+            bg = background
         reflecting = hit & mat.reflective & (depth < rcfg.max_bounces)
         # reflective surfaces blend local*base*(1-km) + bounced*km
         # (raytracer.cu:519-520)
         local = torch.where(
             reflecting[:, None],
             color * mat.base_color * (1.0 - mat.km)[:, None],
-            torch.where(hit[:, None], color, background),
+            torch.where(hit[:, None], color, bg),
         )
         locals_.append((local, torch.where(reflecting, mat.km,
                                            torch.zeros_like(mat.km))[:, None]))
@@ -586,7 +639,7 @@ def render(prep: Prepared) -> torch.Tensor:
         # the camera refill needs the camera's whole batch in one trace
         cam = cfg.camera if camera_ok and tile >= rays.count else None
         return rays.map_tiles(lambda rb: render_rays(rb, *args, camera_cfg=cam, dda=prep.dda,
-                                                     consts=setup.consts), tile)
+                                                     consts=setup.consts, vn=setup.vn), tile)
 
     colors = accumulate_spp(one, cfg.camera, rcfg.spp, _DET_DTYPES[rcfg.dtype], prep.device)
     return colors.reshape(cfg.camera.height, cfg.camera.width, 3)

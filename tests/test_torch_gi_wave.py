@@ -197,15 +197,7 @@ def test_jax_wave_does_not_depend_on_wave_or_pump():
 
 
 def _plain_inputs(prep):
-    rc = prep.cfg.render
-    tri9, albedo, km = prep.gi
-    pg = rc.primary_gate()
-    kw = dict(S=rc.gi_samples, D=rc.gi_depth, gate0=0.0 if pg is None else pg,
-              gate_b=rc.bounce_gate(), eps=rc.shadow_eps, smint=rc.shadow_mint(),
-              quirk=rc.shadow_dir_away_from_light(), bg=tuple(rc.background))
-    tail = (prep.scene.light_pos, prep.scene.light_intensity, albedo, tri9,
-            prep.packed.arrays, prep.packed.meta, km)
-    return tail, kw
+    return gi_wave.launch_inputs(prep)
 
 
 def _counters():
@@ -258,9 +250,12 @@ def test_wave_tables_equal_jax(name):
     spec = pt.use_gi_wave_spec(scene, rc)
     assert spec == jax_pt.use_gi_wave_spec(jscene, jrc) == (name == "parallel")
     _bitwise(pt.build_gi_wave_tri9(scene).numpy(), jax_pt.build_gi_wave_tri9(jscene))
-    albedo, km = pt.build_gi_wave_tables(scene, rc, spec)
+    tab = pt.build_gi_wave_tables(scene, rc, spec)
+    albedo, km = tab.albedo, tab.km
     jtab = jax_pt.build_gi_wave_tables(jscene, jrc, spec)
     _bitwise(albedo.numpy(), jtab[0])
+    _bitwise(tab.tri9.numpy(), jax_pt.build_gi_wave_tri9(jscene))
+    assert all(x is None for x in tab[2:6])
     if spec:
         _bitwise(km.numpy(), jtab[1])
     else:
@@ -269,13 +264,18 @@ def test_wave_tables_equal_jax(name):
 
 
 def test_unserved_wave_arguments_raise(parallel_turbo):
+    """The sharded queue raises; an environment map, served since, is the
+    plain version's: a constant map gives what the same constant as the
+    flat background gives, bitwise."""
     prep = parallel_turbo[0]
     tail, kw = _plain_inputs(prep)
     args = tail[:6]
     kw = {k: v for k, v in kw.items() if k in ("S", "D")}
-    with pytest.raises(NotImplementedError, match="env_image"):
-        gi_wave.gi_wave_trace(*args, env_image=torch.zeros(4, 8, 3), camera=prep.cfg.camera,
-                              **kw)
+    sky = (7.0, 5.0, 3.0)
+    with_env = gi_wave.gi_wave_trace(*args, env_image=torch.tensor(sky).expand(4, 8, 3),
+                                     camera=prep.cfg.camera, **kw)
+    _bitwise(with_env.numpy(),
+             gi_wave.gi_wave_trace(*args, camera=prep.cfg.camera, bg=sky, **kw).numpy())
     with pytest.raises(NotImplementedError, match="sharded"):
         gi_wave.gi_wave_trace(*args, camera=prep.cfg.camera, pix_stride=2, **kw)
     with pytest.raises(ValueError, match="CUDA"):
@@ -348,6 +348,21 @@ def test_gi_params_mirror_the_c_struct():
     assert ctypes.sizeof(gi_wave._GiParams) == ctypes.sizeof(_MarchParams) + 4 * (5 + 6 + 7)
 
 
+def test_appear_params_mirror_the_c_struct():
+    """_AppearParams, passed by value, has AppearParams's fields in its
+    order and types (csrc/texture.cuh): five table pointers, the texture
+    scale and four image extents."""
+    body = re.search(r"struct AppearParams \{(.*?)\};", _source("texture.cuh"), re.S).group(1)
+    fields = []
+    for decl in filter(None, (d.strip() for d in body.split(";"))):
+        ctype = ctypes.c_void_p if "*" in decl else {"float": ctypes.c_float,
+                                                     "int": ctypes.c_int}[decl.split()[0]]
+        for name in decl.replace("*", " ").split()[-1 if "*" in decl else 1:]:
+            fields += [(n.strip(), ctype) for n in name.split(",") if n.strip()]
+    assert fields == list(gi_wave._AppearParams._fields_)
+    assert ctypes.sizeof(gi_wave._AppearParams) == 5 * 8 + 4 + 4 * 4 + 4  # padded to 8
+
+
 def test_launch_constants_mirror_the_c_source():
     """The wrapper's block sizes and record size are the kernel's."""
     src = _source("gi_wave.cu")
@@ -373,12 +388,14 @@ def test_launch_argtypes_mirror_the_c_signature():
             want.append(gi_wave._GiParams)
         elif param.startswith("CameraParams "):
             want.append(gi_wave._CameraParams)
+        elif param.startswith("AppearParams "):
+            want.append(gi_wave._AppearParams)
         else:
             assert param.startswith("int "), param
             want.append(ctypes.c_int)
     lib = types.SimpleNamespace(gi_wave_launch=types.SimpleNamespace())
     assert gi_wave._launch_fn(lib).argtypes == want
-    assert len(want) == 22
+    assert len(want) == 23
 
 
 def test_gi_wave_cuda_refuses_cpu_tensors(parallel_turbo):

@@ -296,8 +296,8 @@ def test_gi_wave_eligibility_and_spec_follow_jax(case):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(texture="checker"), "texture"),
-    (dict(normal_mode="smooth"), "normal_mode"),
+    (dict(dtype="float64"), "dtype"),
+    (dict(soft_visibility=0.1), "soft visibility"),
     (dict(gi_env_nee=True), "gi_env_nee"),
     ("extra_lights", "extra lights"),
     ("transmissive", "transmissive"),
@@ -312,6 +312,29 @@ def test_refused_gi_features_raise(change, match):
         cfg = _replace(cfg, **change)
     with pytest.raises(NotImplementedError, match=match):
         prepare(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change", [dict(texture="checker"), dict(normal_mode="smooth")])
+def test_gi_appearance_options_render(change):
+    """Textures and smooth normals, refused before the port served them,
+    render path-traced on the turbo serial scene through the GI wave: its
+    plain version against op-by-op JAX's wave by the statistical rule (more
+    than 90% of pixels within 1e-3; bounces sample directions), and against
+    the port's segment integrator likewise."""
+    cfg = apply_turbo(_replace(scenes.serial_scene_config(8, 8), gi_samples=2), "serial")
+    jcfg = jax_apply_turbo(_replace(jax_scenes.serial_scene_config(8, 8), gi_samples=2),
+                           "serial")
+    kw = dict(gi_depth=1, background=(40.0, 30.0, 20.0), **change)
+    prep = prepare(_replace(cfg, **kw), device="cpu")
+    jprep = jax_renderer.prepare(_replace(jcfg, **kw))
+    assert prep.setup.gi_wave
+    img = render(prep).numpy()
+    with jax.disable_jit():
+        want = np.asarray(jax_pt._render_pt_wave(jprep))
+    seg = render(prep._replace(cfg=_replace(prep.cfg, gi_wave="off"))).numpy()
+    assert np.isfinite(img).all() and img.max() > 0
+    for other in (want, seg):
+        assert ((np.abs(img - other) <= 1e-3).all(axis=-1)).mean() > 0.9
 
 
 def test_ring_tracer_and_faithful_refused():

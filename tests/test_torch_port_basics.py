@@ -45,6 +45,17 @@ assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 off = dataclasses.replace(gi, render=dataclasses.replace(gi.render, gi_wave="off"))
 img = render(prepare(off, device="cpu"))  # the segment integrator
 assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+from ray_tracer_tpu_torch.models.scenes import build_scene
+app = dataclasses.replace(gi, render=dataclasses.replace(gi.render, normal_mode="smooth",
+                                                         texture="image"))
+sc = build_scene(app, device="cpu")._replace(texture_image=torch.rand(4, 4, 3),
+                                             env_image=torch.full((4, 8, 3), 30.0))
+img = render(prepare(app, scene=sc))  # the GI wave with every appearance feature
+assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+wapp = apply_turbo(dataclasses.replace(serial_scene_config(8, 8), render=dataclasses.replace(
+    serial_scene_config(8, 8).render, normal_mode="smooth", texture="image")), "serial")
+img = render(prepare(wapp, scene=sc))  # the bounce loop with them
+assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 from ray_tracer_tpu_torch.models.scenes import nefertiti_scene
 scene, ncfg = nefertiti_scene(8, 8, n_lat=8, n_lon=16, device="cpu")
 img = render(prepare(apply_turbo(ncfg, "nefertiti"), scene=scene))
@@ -62,8 +73,9 @@ def test_port_imports_nothing_of_jax():
     gather tool among them), chip_smoke.py and bench_torch.py import, and
     the port renders 8x8 images (serial default and turbo, the turbo
     parallel scene through the Whitted wave, path-traced GI through the GI
-    wave and the segment integrator, and a small nefertiti scene) with
-    `jax` and `ray_tracer_tpu` made unimportable."""
+    wave and the segment integrator, the GI wave and the bounce loop with
+    every appearance feature, and a small nefertiti scene) with `jax` and
+    `ray_tracer_tpu` made unimportable."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _INDEPENDENCE], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)
@@ -93,20 +105,21 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 @pytest.mark.parametrize("change", [
     dict(traversal="packed", faithful=False, soft_visibility=0.1),
     dict(dtype="float64"),
-    dict(texture="checker"),
-    dict(normal_mode="smooth", faithful=False),
+    dict(soft_primary=0.1, faithful=False),
+    dict(shadow_samples=4, light_radius=0.5, traversal="packed", faithful=False),
     dict(soft_visibility=0.1),
     dict(shadow_samples=4, light_radius=0.5, faithful=False),
-    dict(gi_samples=1, faithful=False, texture="checker"),
+    dict(gi_samples=1, faithful=False, gi_env_nee=True),
     dict(gi_samples=1, faithful=False, transmissive=True),
     dict(extra_lights=True, traversal="packed", scheduler="persistent", faithful=False),
 ])
 def test_unsupported_options_raise(change):
     """Options outside the slice raise NotImplementedError; none is
     silently ignored.  (The packed traversal, spp, depth of field, the
-    Whitted wave and path-traced GI are served; the soft-visibility
-    epilogue, float64 rendering, textures, extra lights and, in the path
-    tracer, glass are not.)"""
+    Whitted wave, path-traced GI, textures, smooth normals and environment
+    maps are served; the soft-visibility and soft-primary epilogues,
+    area-light soft shadows, float64 rendering, extra lights and, in the
+    path tracer, env NEE and glass are not.)"""
     from ray_tracer_tpu_torch.config import LightConfig, MaterialConfig
     from ray_tracer_tpu_torch.models.scenes import serial_scene_config
     from ray_tracer_tpu_torch.render.renderer import prepare
@@ -120,6 +133,40 @@ def test_unsupported_options_raise(change):
     cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, **change))
     with pytest.raises(NotImplementedError):
         prepare(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(texture="checker"),
+    dict(normal_mode="smooth", faithful=False),
+    dict(gi_samples=1, faithful=False, texture="checker", background=(40.0, 30.0, 20.0)),
+])
+def test_appearance_options_render(change):
+    """Textures and smooth normals, refused before the port served them,
+    render: the 8x8 serial image equals its bytes under the JAX package's
+    jitted render within the 2-count rule (under 1% of pixels more than 2
+    counts apart; the path-traced case against op-by-op JAX)."""
+    import jax
+    import numpy as np
+
+    from ray_tracer_tpu.models import scenes as jax_scenes
+    from ray_tracer_tpu.render import renderer as jax_renderer
+    from ray_tracer_tpu_torch.io.ppm import tonemap_u8
+    from ray_tracer_tpu_torch.models.scenes import serial_scene_config
+    from ray_tracer_tpu_torch.render.renderer import prepare, render
+
+    cfg = serial_scene_config(8, 8)
+    jcfg = jax_scenes.serial_scene_config(8, 8)
+    cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, **change))
+    jcfg = dataclasses.replace(jcfg, render=dataclasses.replace(jcfg.render, **change))
+    img = render(prepare(cfg, device="cpu")).numpy()
+    if cfg.render.gi_samples:
+        with jax.disable_jit():
+            want = np.asarray(jax_renderer.render(jax_renderer.prepare(jcfg)))
+    else:
+        want = np.asarray(jax_renderer.render(jax_renderer.prepare(jcfg)))
+    a, b = tonemap_u8(img).astype(int), tonemap_u8(want).astype(int)
+    assert img.shape == (8, 8, 3) and np.isfinite(img).all() and img.max() > 0
+    assert (np.abs(a - b).max(axis=-1) > 2).mean() < 0.01
 
 
 def test_kernel_wrappers_take_cuda_tensors_only():

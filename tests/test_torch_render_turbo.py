@@ -159,5 +159,6 @@ def test_whitted_wave_knob_follows_jax():
     assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
     gi = _replace(apply_turbo(base, "parallel"), gi_samples=1, whitted_wave="on")
     assert check_supported(gi) is False
-    with pytest.raises(NotImplementedError, match="texture"):
-        check_supported(_replace(gi, texture="checker"))
+    assert check_supported(_replace(gi, texture="checker")) is False
+    with pytest.raises(NotImplementedError, match="extra lights"):
+        check_supported(dataclasses.replace(gi, extra_lights=(gi.light,)))

@@ -269,6 +269,7 @@ def _eligibility_table():
         ("parallel", dict(turbo, texture="checker"), None, {}),
         ("parallel", dict(turbo, texture="checker"), None, dict(uvs=True)),
         ("parallel", turbo, None, dict(extra_light=True)),
+        ("parallel", turbo, None, dict(env=True)),
         ("serial", turbo, None, {}),
         ("serial", dict(turbo, whitted_wave="off"), None, {}),
     ]
@@ -276,7 +277,8 @@ def _eligibility_table():
 
 def test_eligibility_follows_jax():
     """whitted_wave_eligible over a table of configs, against JAX's (which
-    reads the uvs and the extra lights from the prepared scene)."""
+    reads the uvs, the environment map and the extra lights from the
+    prepared scene)."""
     for name, rkw, camera, skw in _eligibility_table():
         mk = f"{name}_scene_config"
         cfg = _replace(getattr(scenes, mk)(8, 8), camera, **rkw)
@@ -285,10 +287,12 @@ def test_eligibility_follows_jax():
         if skw.get("extra_light"):
             cfg = dataclasses.replace(cfg, extra_lights=(LightConfig((1.0, 2.0, 3.0), 1.0),))
             jcfg = dataclasses.replace(jcfg, extra_lights=(JaxLightConfig((1.0, 2.0, 3.0), 1.0),))
+        env = np.ones((2, 4, 3), np.float32) if skw.get("env") else None
         jscene = types.SimpleNamespace(
-            uvs=uvs, env_image=None,
+            uvs=uvs, env_image=env,
             extra_light_pos=np.ones((1, 3), np.float32) if skw.get("extra_light") else None)
-        pscene = types.SimpleNamespace(uvs=None if uvs is None else torch.from_numpy(uvs))
+        pscene = types.SimpleNamespace(uvs=None if uvs is None else torch.from_numpy(uvs),
+                                       env_image=None if env is None else torch.from_numpy(env))
         want = jax_renderer.whitted_wave_eligible(types.SimpleNamespace(cfg=jcfg, scene=jscene))
         assert whitted_wave_eligible(cfg, pscene) == want, (name, rkw, camera, skw)
     with pytest.raises(ValueError, match="ineligible"):
