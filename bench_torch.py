@@ -1,8 +1,9 @@
 """The PyTorch/CUDA port's benchmark: the rows of BENCH_SUITE_r05.json on
 one NVIDIA card.
 
-    python3 bench_torch.py                      # all six rows
+    python3 bench_torch.py                      # all seven rows
     python3 bench_torch.py --rows gi_spot_1024_s4d2,parallel_1024
+    python3 bench_torch.py --rows train_nefertiti_1024
 
 Run from the repository root on a machine with a CUDA device; without one
 it exits non-zero before any row.  Each row is the JAX package's bench.py
@@ -28,6 +29,16 @@ of its kernels' durations) and the idle share of the median frame that
 leaves.  Each row checks that its frame launched its kernel (C, E or F)
 and is finite.  One JSON line a row; the last line holds all the rows,
 the card's name and power limit and the PyTorch and CUDA versions.
+
+The training row, train_nefertiti_1024 (BASELINE config 4), is bench.py
+--grad on the nefertiti_1024 row's config with verts trainable beside
+base_color, kd, ks, ka and light_pos: `opt.fit.make_train_step` (the
+render under autograd, the L2 loss against a zero target, the backward,
+Adam at lr 1e-3) with the grid held fixed, as fit does between rebuilds.
+`--rounds` chains of 4 steps, each chain from the same parameters and a
+fresh optimizer; seconds a step (best and median), Mrays/s forward +
+backward at 2 rays a pixel (bench.py:100), a three-step profiler window's
+busy time and idle share, and the peak device memory.
 """
 
 from __future__ import annotations
@@ -42,7 +53,7 @@ import time
 import torch
 
 ROWS = ("spot_1024", "spot_2048", "nefertiti_1024", "nefertiti_2048", "parallel_1024",
-        "gi_spot_1024_s4d2")
+        "gi_spot_1024_s4d2", "train_nefertiti_1024")
 # workload -> (scene, size, gi samples, gi depth), as bench.py's SUITE
 SUITE = {
     "spot_1024": ("spot", 1024, 0, 2),
@@ -51,7 +62,10 @@ SUITE = {
     "nefertiti_2048": ("nefertiti", 2048, 0, 2),
     "parallel_1024": ("parallel", 1024, 0, 2),
     "gi_spot_1024_s4d2": ("spot", 1024, 4, 2),
+    "train_nefertiti_1024": ("nefertiti", 1024, 0, 2),
 }
+TRAINABLE = ("base_color", "kd", "ks", "ka", "light_pos", "verts")
+TRAIN_STEPS = 4  # a timed chain of the training row
 # the kernel each row's frame must launch (ops wrappers' launch counters)
 ROW_KERNEL = {"spot": "packed_march", "nefertiti": "packed_march", "parallel": "whitted_wave"}
 
@@ -177,6 +191,59 @@ def bench_row(workload: str, prep, repeat: int, rounds: int) -> dict:
     return row
 
 
+def bench_train(workload: str, prep, rounds: int) -> dict:
+    from ray_tracer_tpu_torch.opt.fit import make_train_step, split_scene
+    from ray_tracer_tpu_torch.tools.profiling import profile_calls
+
+    size = SUITE[workload][1]
+    step, init = make_train_step(prep.packed.meta, prep.cfg, lr=1e-3, trainable=TRAINABLE)
+    start = split_scene(prep.scene)
+    target = torch.zeros((size, size, 3), device=prep.device)
+    consts = prep.frame().consts
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = init(start)
+    t0 = time.perf_counter()
+    params, opt, loss = step(params, opt, prep.scene, prep.packed.arrays, target, consts=consts)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if launches["packed_march"] <= 0:
+        raise AssertionError(f"{workload}: the step launched packed_march 0 times")
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"{workload}: non-finite loss")
+    chains = []
+    for _ in range(rounds):
+        params, opt = init(start)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(TRAIN_STEPS):
+            params, opt, loss = step(params, opt, prep.scene, prep.packed.arrays, target,
+                                     consts=consts)
+        b.record()
+        torch.cuda.synchronize()
+        chains.append(a.elapsed_time(b) / TRAIN_STEPS / 1e3)
+    sec = min(chains)
+    med = sorted(chains)[len(chains) // 2]
+    rays = size * size * 2
+    prof = profile_calls(lambda: step(params, opt, prep.scene, prep.packed.arrays, target,
+                                      consts=consts), med, workload, 3)
+    return {"workload": workload, "size": size, "triangles": prep.scene.num_faces,
+            "metric": "train_step_mrays_per_s_nefertiti", "value": rays / sec / 1e6,
+            "value_median": rays / med / 1e6, "unit": "Mrays/s (fwd+bwd, 2 rays a pixel)",
+            "seconds_per_step": sec, "seconds_per_step_median": med, "secs_chains": chains,
+            "steps_per_chain": TRAIN_STEPS, "first_step_s": first_s,
+            "trainable": list(TRAINABLE), "launches_per_step": launches,
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "device_kernels_per_step": prof["device_kernels"],
+            "device_busy_ms": prof["device_busy_ms"],
+            "device_idle_share": prof["device_idle_share"],
+            "top_device_ms": prof["top_device_ms"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", default=",".join(ROWS), help="comma list of " + ",".join(ROWS))
@@ -211,7 +278,10 @@ def main(argv=None) -> int:
             prep = nef._replace(cfg=cfg, setup=frame_setup(cfg, nef.scene, nef.packed))
         torch.cuda.synchronize()
         prep_s = time.perf_counter() - t0
-        row = bench_row(workload, prep, max(args.repeat, 2), max(args.rounds, 1))
+        if workload == "train_nefertiti_1024":
+            row = bench_train(workload, prep, max(args.rounds, 1))
+        else:
+            row = bench_row(workload, prep, max(args.repeat, 2), max(args.rounds, 1))
         row.update(prepare_s=prep_s, card=card, device=torch.cuda.get_device_name(0))
         print(json.dumps(row), flush=True)
         out.append(row)

@@ -95,6 +95,22 @@ each printing one JSON line:
      instantiation (the featureless stages must not spill); and the turbo
      serial Whitted bounce loop with all three at 1024x1024 (kernel C, not
      E), card against CPU at 64x64 by the 2-count rule.
+ 12. the train step (phase train): BASELINE config 4, the turbo nefertiti
+     scene at 1024x1024 with verts, base_color, kd, ks, ka and light_pos
+     trainable, 6 steps of opt.fit.fit (Adam, lr 1e-2) against the
+     self-demo target (kd x 1.5, base_color x 0.6) with a grid rebuild
+     after step 3: launch counts zeroed before the fit and read after it
+     (C launched), the losses finite and falling, each step's CUDA-event
+     time (the median of the steps after the first), Mrays/s forward +
+     backward at 2 rays a pixel, the rebuild's seconds, the peak device
+     memory, a three-step profiler window's busy time and idle share;
+     kernel C's launch on the first step held to its plain version
+     bitwise; the forward under autograd bitwise render()'s image (the
+     nefertiti scene, and the gradcheck scene at 64x64 with soft
+     visibility and soft primary); on that gradcheck scene the loss card
+     against CPU to rtol 1e-6 and every gradient leaf to rtol 1e-4, atol
+     1e-6 max|g|; the soft-primary silhouette gradient of one triangle at
+     16x16 against central differences (rtol 5e-2).
 
 Then the kernel times at the main path's shapes (each launch held
 bitwise to the plain version; B's, C's and E's barycentric passes, and
@@ -116,6 +132,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -185,8 +202,8 @@ OPS_PER_BOUNCE_F = 118
 OPS_PER_ESCAPE_F = 6
 OPS_PER_PIXEL_F = 79
 OPS_PER_SAMPLE_F = 3
-ALL_PHASES = ("build", "A", "B", "C", "E", "F", "main", "card_vs_cpu", "appearance", "D",
-              "times")
+ALL_PHASES = ("build", "A", "B", "C", "E", "F", "main", "card_vs_cpu", "appearance", "train",
+              "D", "times")
 # The kernels' device times on the 1024^2 main path before this version
 # of the sources (B and C as redesigned, before C's march step moved into
 # csrc/packed_step.cuh), NVIDIA H100 80GB HBM3 at 700 W, as recorded in
@@ -310,8 +327,9 @@ def image_rule(a, b) -> float:
 
 class Logged:
     """Stands in for a kernel's wrapper in the module that calls it: each
-    call's inputs and records (cloned, so that later frames cannot change
-    them) go to `log`; the launch count stays the wrapped function's."""
+    call's inputs and records (cloned, so that later frames, or a fit's
+    in-place updates of the light, cannot change them) go to `log`; the
+    launch count stays the wrapped function's."""
 
     def __init__(self, fn, kernel: str, log: list):
         self.fn, self.kernel, self.log = fn, kernel, log
@@ -329,6 +347,7 @@ class Logged:
 
         out = self.fn(rays, *args, **kw)
         kept = {k: v.clone() if k == "queue" and v is not None else v for k, v in kw.items()}
+        args = tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args)
         self.log.append((self.kernel, RayBatch(*(x.clone() for x in rays)), args, kept,
                          type(out)(*(x.clone() for x in out))))
         return out
@@ -365,6 +384,7 @@ class Smoke:
         self.wave_frame = None  # (cfg, prepared) of the turbo parallel 1024^2 frame
         self.gi_frame = None  # the prepared official GI row (turbo serial 1024^2, S 4, D 2)
         self.path_launches = {}  # each main-path render's launch counts
+        self.nef_prep = None  # the prepared turbo nefertiti 1024^2 scene (BASELINE config 4)
 
     def zero_counts(self):
         for fn in self.counters.values():
@@ -1005,6 +1025,7 @@ class Smoke:
             if counts[kernel] <= 0:
                 raise AssertionError(f"{name} launched {kernel} 0 times")
             if name == "turbo_nefertiti":
+                self.nef_prep = p  # the train phase fits this prepared scene
                 held = self.hold_logged(name, log)
                 emit({"phase": "kernel_C_on_path", "config": name, "size": size,
                       "layout": "inline" if p.packed.meta.inline else "blocks",
@@ -1488,6 +1509,229 @@ class Smoke:
         cases.append(("all_parallel_mirror_128_s2d3", pcfg, build_scene(pcfg)._replace(
             env_image=ramp, texture_image=tex)))
         return cases
+
+    # ---- 12. the train step: differentiate and fit ----------------------
+    def train(self):
+        """BASELINE config 4 on the card: nefertiti at 1024x1024 under the
+        turbo knobs, verts and the materials and light trainable, 6 steps
+        of fit() against the self-demo target with a rebuild after step 3;
+        the forward under autograd bitwise render()'s image; card against
+        CPU on the gradcheck scene with soft visibility and soft primary;
+        kernel C's first launch held to its plain version."""
+        from ray_tracer_tpu_torch.config import apply_turbo
+        from ray_tracer_tpu_torch.models.scenes import nefertiti_scene
+        from ray_tracer_tpu_torch.opt import fit as fitmod
+        from ray_tracer_tpu_torch.render.renderer import prepare, render
+        from ray_tracer_tpu_torch.tools.profiling import profile_calls
+
+        size, steps = 1024, 6
+        trainable = ("verts", "base_color", "kd", "ks", "ka", "light_pos")
+        prep = self.nef_prep
+        prep_s = None
+        if prep is None:
+            scene, base = nefertiti_scene(size, size, device=self.dev)
+            t0 = time.perf_counter()
+            prep = prepare(apply_turbo(base, "nefertiti"), scene=scene)
+            torch.cuda.synchronize()
+            prep_s = time.perf_counter() - t0
+        target = render(prep)
+        p = fitmod.split_scene(prep.scene)
+        demo = prep._replace(scene=fitmod.merge_scene(
+            p._replace(kd=p.kd * 1.5, base_color=p.base_color * 0.6), prep.scene))
+        self.forward_under_autograd("nefertiti_1024", demo, trainable)
+
+        # the fit, its steps timed with CUDA events and its rebuild on the host
+        step_events, rebuild_s = [], []
+        make_step, rebuild = fitmod.make_train_step, fitmod._rebuild
+
+        def timed_make_step(*a, **kw):
+            step, init = make_step(*a, **kw)
+
+            def timed(*sa, **skw):
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                out = step(*sa, **skw)
+                ev[1].record()
+                step_events.append(ev)
+                return out
+            return timed, init
+
+        def timed_rebuild(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = rebuild(*a, **kw)
+            torch.cuda.synchronize()
+            rebuild_s.append(time.perf_counter() - t0)
+            return out
+
+        torch.cuda.reset_peak_memory_stats()
+        fitmod.make_train_step, fitmod._rebuild = timed_make_step, timed_rebuild
+        try:
+            self.zero_counts()
+            with self.logging_launches() as log:
+                t0 = time.perf_counter()
+                params, losses = fitmod.fit(demo, target, steps=steps, lr=1e-2,
+                                            trainable=trainable, rebuild_grid_every=3, log_every=0)
+                torch.cuda.synchronize()
+                fit_s = time.perf_counter() - t0
+            counts = self.counts()
+        finally:
+            fitmod.make_train_step, fitmod._rebuild = make_step, rebuild
+        self.path_launches["train_nefertiti"] = counts
+        peak = torch.cuda.max_memory_allocated()
+        if counts["packed_march"] <= 0:
+            raise AssertionError("the fit launched packed_march 0 times")
+        if len(log) != steps or len(rebuild_s) != 1:
+            raise AssertionError(f"expected one launch of C a step and one rebuild, got "
+                                 f"{len(log)} launches, {len(rebuild_s)} rebuilds")
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"the fit's losses do not fall: {losses}")
+        if not all(bool(torch.isfinite(x).all()) for x in params if x is not None):
+            raise AssertionError("non-finite parameters after the fit")
+        held = self.hold_logged("train step 0", log[:1])
+        step_ms = [a.elapsed_time(b) for a, b in step_events]
+        med_s = sorted(step_ms[1:])[len(step_ms[1:]) // 2] / 1e3
+
+        # a three-step profiler window of the train step at the fitted params
+        step, init = fitmod.make_train_step(prep.packed.meta, prep.cfg, lr=1e-2,
+                                            trainable=trainable)
+        tp, opt = init(params)
+        consts = prep.frame().consts
+        prof = profile_calls(lambda: step(tp, opt, prep.scene, prep.packed.arrays, target,
+                                          consts=consts), med_s, "train_nefertiti_1024", 3)
+        emit({"phase": "train", "config": "nefertiti_1024 (BASELINE config 4)", "size": size,
+              "triangles": prep.scene.num_faces, "trainable": list(trainable), "steps": steps,
+              "rebuild_grid_every": 3, "optimizer": "adam", "lr": 1e-2,
+              "losses": losses, "step_ms": step_ms, "median_step_ms": med_s * 1e3,
+              "mrays_per_s_fwd_bwd": size * size * 2 / med_s / 1e6,
+              "rebuild_s": rebuild_s, "fit_s": fit_s, "prepare_s": prep_s,
+              "max_memory_allocated_gib": peak / 2 ** 30, "launches": counts,
+              "kernel_C_first_step": held,
+              "device_busy_ms_per_step": prof["device_busy_ms"],
+              "device_idle_share": prof["device_idle_share"],
+              "device_kernels_per_step": prof["device_kernels"],
+              "top_device_ms": prof["top_device_ms"]})
+        self.train_card_vs_cpu()
+
+    def forward_under_autograd(self, label, prep, trainable):
+        """The colors the loss sees, every trainable leaf requiring grad,
+        are render()'s image bit for bit."""
+        from ray_tracer_tpu_torch.opt import fit as fitmod
+        from ray_tracer_tpu_torch.render.renderer import render
+
+        img = render(prep)
+        params = fitmod.split_scene(prep.scene)
+        params = params._replace(**{f: getattr(params, f).clone().requires_grad_(True)
+                                    for f in trainable})
+        grid, meta = fitmod._grid_of(prep)
+        colors = fitmod._colors(params, prep.scene, grid, meta, prep.cfg, prep.dda,
+                                prep.frame().consts)
+        if not colors.requires_grad:
+            raise AssertionError(f"{label}: the loss's colors are not under autograd")
+        n = int((colors.detach().reshape(img.shape).view(torch.int32)
+                 != img.view(torch.int32)).sum())
+        emit({"phase": "train_forward_bitwise", "config": label, "floats_differing": n})
+        if n:
+            raise AssertionError(f"{label}: the forward under autograd differs from render() "
+                                 f"in {n} floats")
+
+    def train_card_vs_cpu(self):
+        """The gradcheck scene at 64x64 with soft visibility and soft primary
+        (csr, kernel B): the forward under autograd bitwise render()'s on the
+        card; the loss on the card against the CPU's to rtol 1e-6, every
+        gradient leaf to rtol 1e-4 with atol 1e-6 max|g| (the CPU tests'
+        tolerance against JAX)."""
+        from ray_tracer_tpu_torch.models.scenes import gradcheck_scene
+        from ray_tracer_tpu_torch.opt import fit as fitmod
+        from ray_tracer_tpu_torch.render.renderer import prepare
+
+        fields = ("verts", "base_color", "kd", "ka", "light_pos")
+        out = {}
+        for dev in ("cuda", "cpu"):
+            scene, cfg = gradcheck_scene(64, 64, device=dev)
+            cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+                cfg.render, soft_visibility=0.1, soft_primary=0.08))
+            prep = prepare(cfg, scene=scene)
+            if dev == "cuda":
+                self.forward_under_autograd("gradcheck_64_soft", prep, fields)
+            target = torch.full((64, 64, 3), 40.0, device=dev)
+            params = fitmod.split_scene(prep.scene)
+            leaves = {f: getattr(params, f).clone().requires_grad_(True) for f in fields}
+            self.zero_counts()
+            loss = fitmod.image_loss(params._replace(**leaves), prep.scene, prep.grid.arrays,
+                                     prep.grid.meta, cfg, target, dda=prep.dda)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            if dev == "cuda" and self.counts()["traverse_grid"] <= 0:
+                raise AssertionError("the gradcheck loss launched traverse_grid 0 times")
+            out[dev] = (float(loss.detach()), [g.cpu() for g in grads])
+        rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+        worst = {}
+        for f, g, w in zip(fields, out["cuda"][1], out["cpu"][1]):
+            atol = 1e-6 * float(w.abs().max())
+            excess = (g - w).abs() - (atol + 1e-4 * w.abs())
+            worst[f] = float((g - w).abs().max())
+            if bool((excess > 0).any()) or not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"gradcheck 64x64: gradient {f} card vs CPU beyond "
+                                     f"rtol 1e-4, atol {atol:.3g}")
+        emit({"phase": "train_card_vs_cpu", "config": "gradcheck_64 soft_visibility 0.1 "
+              "soft_primary 0.08", "loss_cuda": out["cuda"][0], "loss_cpu": out["cpu"][0],
+              "loss_rel_err": rel, "grad_max_abs_err": worst,
+              "tolerance": "loss rtol 1e-6; gradients rtol 1e-4, atol 1e-6 max|g|"})
+        if rel > 1e-6:
+            raise AssertionError(f"gradcheck 64x64: loss card vs CPU rel err {rel:.3g}")
+        self.silhouette_fd()
+
+    def silhouette_fd(self):
+        """soft_primary 0.08 on one triangle at 16x16 on the card: the
+        vertex gradients that drag its silhouette across pixel centres
+        against central differences (rtol 5e-2, as the CPU test)."""
+        import numpy as np
+
+        from ray_tracer_tpu_torch.config import (
+            CameraConfig, LightConfig, MaterialConfig, RenderConfig, SceneConfig,
+        )
+        from ray_tracer_tpu_torch.io.obj import MeshArrays
+        from ray_tracer_tpu_torch.models.scenes import scene_from_meshes
+        from ray_tracer_tpu_torch.opt import fit as fitmod
+        from ray_tracer_tpu_torch.render.renderer import prepare
+
+        tri = MeshArrays(verts=np.array([[-1.2, -1.0, 0.0], [1.2, -1.0, 0.0], [0.0, 1.2, 0.0]],
+                                        np.float32),
+                         faces=np.array([[0, 1, 2]], np.int32),
+                         uvs=np.zeros((1, 2), np.float32), uv_faces=np.zeros((1, 3), np.int32))
+        mat = MaterialConfig(base_color=(220.0, 160.0, 40.0), kd=2.0, ks=1.0, spec_alpha=4.0,
+                             ka=0.3)
+        light = LightConfig(position=(0.0, 0.0, 6.0), intensity=1.0)
+        cfg = SceneConfig(
+            materials=(mat,), light=light,
+            camera=CameraConfig(position=(0.0, 0.0, 4.0), target=(0, 0, 0), up=(0, 1, 0),
+                                fov_degrees=45.0, width=16, height=16),
+            render=RenderConfig(shading="parallel", faithful=False, max_bounces=0,
+                                shadow_eps=1e-3, shadow_scale=0.5, soft_primary=0.08))
+        prep = prepare(cfg, scene=scene_from_meshes([(tri, 0)], [mat], light, device=self.dev))
+        target = torch.zeros((16, 16, 3), device=self.dev)
+        params = fitmod.split_scene(prep.scene)
+
+        def loss_of(verts):
+            return fitmod.image_loss(params._replace(verts=verts), prep.scene, prep.grid.arrays,
+                                     prep.grid.meta, cfg, target, dda=prep.dda)
+
+        verts = params.verts.clone().requires_grad_(True)
+        (g,) = torch.autograd.grad(loss_of(verts), verts)
+        out, eps = [], 2e-3
+        for idx in ((0, 0), (2, 1)):
+            with torch.no_grad():
+                up, down = params.verts.clone(), params.verts.clone()
+                up[idx] += eps
+                down[idx] -= eps
+                fd = (float(loss_of(up)) - float(loss_of(down))) / (2 * eps)
+            analytic = float(g[idx])
+            out.append({"vertex": list(idx), "autodiff": analytic, "fd": fd})
+            if not abs(analytic - fd) <= 1e-7 + 5e-2 * abs(fd):
+                raise AssertionError(f"silhouette gradient {idx}: autodiff {analytic} vs "
+                                     f"finite differences {fd}")
+        emit({"phase": "train_silhouette_fd", "size": 16, "soft_primary": 0.08,
+              "checks": out, "tolerance": "rtol 5e-2, atol 1e-7"})
 
     def appearance(self):
         """The appearance epilogues on the card: kernel F's feature
@@ -2115,6 +2359,8 @@ def main(argv=None) -> int:
         smoke.card_vs_cpu()
     if "appearance" in phases:
         smoke.appearance()
+    if "train" in phases:
+        smoke.train()
     if "D" in phases:
         smoke.kernel_d()
     if "times" in phases:

@@ -20,15 +20,19 @@
     python -m ray_tracer_tpu_torch.cli render --scene serial --width 1024 \\
         --turbo --smooth-normals --texture image --texture-file tex.ppm \\
         --env-file sky.png --out app.png   # the appearance epilogues
+    python -m ray_tracer_tpu_torch.cli fit --scene gradcheck --width 64 \\
+        --steps 100 --out-dir ckpt   # inverse rendering (self-demo target)
 
-The counterpart of `ray_tracer_tpu/cli.py render` for the options this
-port serves.  It runs on the card unless `--device cpu` is given.
+The counterpart of `ray_tracer_tpu/cli.py render` and `fit` for the
+options this port serves.  It runs on the card unless `--device cpu` is
+given.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import logging
 import sys
 import time
 
@@ -37,8 +41,13 @@ def _build_cfg(args):
     """(cfg, scene): scene is None where prepare loads the meshes itself."""
     from ray_tracer_tpu_torch.models import scenes
 
+    if getattr(args, "config", None) or getattr(args, "extra_light", None):
+        raise NotImplementedError("--config and --extra-light are not served by the "
+                                  "PyTorch port yet")
     scene = None
-    if args.scene == "serial":
+    if args.scene == "gradcheck":
+        scene, cfg = scenes.gradcheck_scene(args.width, args.height, device=args.device)
+    elif args.scene == "serial":
         cfg = scenes.serial_scene_config(args.width, args.height)
     elif args.scene == "parallel":
         cfg = scenes.parallel_scene_config(args.width, args.height)
@@ -49,15 +58,15 @@ def _build_cfg(args):
     rkw = {}
     if args.fast:
         rkw["faithful"] = False
-    if args.traversal:
+    if getattr(args, "traversal", None):
         rkw["traversal"] = args.traversal
         if args.traversal == "brute_pallas":
             rkw["faithful"] = False  # the all-pairs kernel is production-only
-    if args.det_dtype:
+    if getattr(args, "det_dtype", None):
         rkw["det_dtype"] = args.det_dtype
     if rkw:
         cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, **rkw))
-    if args.turbo:
+    if getattr(args, "turbo", False):
         # the tuned production pipeline, from the per-scene knob table
         # (config.TUNED_KNOBS, the JAX package's): packed rows, the
         # persistent wave, auto grid layout, SAT-exact grid insertion.
@@ -71,12 +80,12 @@ def _build_cfg(args):
         family = {"serial": "serial", "parallel": "parallel", "nefertiti": "nefertiti",
                   "nefertiti_spot": "nefertiti"}.get(args.scene)
         cfg = apply_turbo(cfg, family)
-    if args.spp > 1:
+    if getattr(args, "spp", 1) > 1:
         cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, spp=args.spp))
-    if args.gi > 0:
+    if getattr(args, "gi", 0) > 0:
         cfg = dataclasses.replace(cfg, render=dataclasses.replace(
             cfg.render, faithful=False, gi_samples=args.gi, gi_depth=args.gi_depth))
-    if args.aperture:
+    if getattr(args, "aperture", 0.0):
         cfg = dataclasses.replace(cfg, camera=dataclasses.replace(
             cfg.camera, aperture=args.aperture, focus_distance=args.focus_distance or 0.0))
     if cfg.camera.aperture > 0 and cfg.render.spp <= 1:
@@ -146,6 +155,37 @@ def cmd_render(args) -> None:
           f"bounces, incl. first-use kernel build)", file=sys.stderr)
 
 
+def cmd_fit(args) -> None:
+    """Fit the scene's parameters to a target PPM, or (no --target) the
+    self-demo: render the scene, perturb kd by 1.5 and base_color by 0.6,
+    and recover them.  Prints {"first_loss", "last_loss"}."""
+    import json
+
+    import numpy as np
+    import torch
+
+    from ray_tracer_tpu_torch.opt.fit import fit, merge_scene, split_scene
+    from ray_tracer_tpu_torch.render.renderer import prepare, render
+
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr, format="%(name)s: %(message)s")
+    cfg, scene = _build_cfg(args)
+    prep = prepare(cfg, scene=scene, device=args.device)
+    if args.target:
+        from ray_tracer_tpu_torch.io.ppm import read_ppm
+
+        target = torch.from_numpy(read_ppm(args.target).astype(np.float32)).to(prep.device)
+    else:
+        target = render(prep)
+        p = split_scene(prep.scene)
+        prep = prep._replace(scene=merge_scene(
+            p._replace(kd=p.kd * 1.5, base_color=p.base_color * 0.6), prep.scene))
+    trainable = (tuple(f.strip() for f in args.trainable.split(",") if f.strip())
+                 if args.trainable else None)
+    _, losses = fit(prep, target, steps=args.steps, lr=args.lr, trainable=trainable,
+                    checkpoint_dir=args.out_dir, log_every=max(1, args.steps // 10))
+    print(json.dumps({"first_loss": losses[0], "last_loss": losses[-1]}))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="ray_tracer_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -188,6 +228,32 @@ def main(argv=None) -> None:
                    help="lat-long environment map (PNG or PPM) for misses (implies --fast)")
     r.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     r.set_defaults(fn=cmd_render)
+    f = sub.add_parser("fit", help="inverse rendering: fit scene parameters to a target")
+    f.add_argument("--scene", default="gradcheck", choices=["gradcheck", "serial", "parallel"])
+    f.add_argument("--config", help="not served by the port yet")
+    f.add_argument("--width", type=int, default=64)
+    f.add_argument("--height", type=int, default=0, help="0 = width")
+    f.add_argument("--steps", type=int, default=100)
+    f.add_argument("--lr", type=float, default=2e-2)
+    f.add_argument("--target", help="target PPM image (default: the self-demo)")
+    f.add_argument("--texture", default=None, choices=["none", "checker", "image"])
+    f.add_argument("--texture-file", default=None,
+                   help="PPM sampled bilinearly when --texture image (also the init for "
+                        "--trainable texture_image)")
+    f.add_argument("--texture-scale", type=float, default=None)
+    f.add_argument("--smooth-normals", action="store_true",
+                   help="Phong-interpolated vertex normals")
+    f.add_argument("--env-file", default=None,
+                   help="lat-long environment map (PNG or PPM; also the init for "
+                        "--trainable env_image)")
+    f.add_argument("--extra-light", action="append", default=None, metavar="X,Y,Z[,I]",
+                   help="not served by the port yet")
+    f.add_argument("--trainable", default="base_color,kd,ks,ka,light_pos",
+                   help="comma-separated SceneParams fields")
+    f.add_argument("--out-dir", default=None, help="checkpoint directory")
+    f.add_argument("--fast", action="store_true", help="production semantics")
+    f.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    f.set_defaults(fn=cmd_fit)
     args = ap.parse_args(argv)
     if args.height == 0:
         args.height = args.width

@@ -17,6 +17,15 @@ import numpy as np
 import torch
 
 
+def take(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """x's rows at a 1-D index (x[index]) as an index_select: the same
+    values, and under autograd a backward that is an index_add_ (atomic
+    on the card) instead of advanced indexing's sorted accumulate, which
+    walks each run of one repeated index serially (every missed lane
+    gathers row 0)."""
+    return x.index_select(0, index)
+
+
 def div_scalar(x: torch.Tensor, s: float) -> torch.Tensor:
     """x / s as a true IEEE division.  PyTorch's CUDA `x / python_scalar`
     multiplies by the scalar's reciprocal instead, which can differ by
@@ -43,14 +52,97 @@ def length2(a: torch.Tensor) -> torch.Tensor:
     return a[..., 0] * a[..., 0] + a[..., 1] * a[..., 1] + a[..., 2] * a[..., 2]
 
 
+def _with_grad(forward, backward, doc: str):
+    """y = forward(x), made differentiable by the rule backward(g, y) when
+    x requires grad (an autograd Function); otherwise forward itself."""
+
+    class Fn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            y = forward(x)
+            ctx.save_for_backward(y)
+            return y
+
+        @staticmethod
+        def backward(ctx, g):
+            (y,) = ctx.saved_tensors
+            return backward(g, y)
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        if x.requires_grad and torch.is_grad_enabled():
+            return Fn.apply(x)
+        return forward(x)
+
+    fn.__doc__ = doc
+    return fn
+
+
+def _numpy_sqrt(x: torch.Tensor) -> torch.Tensor:
+    with np.errstate(invalid="ignore"):
+        return torch.from_numpy(np.asarray(np.sqrt(x.detach().numpy())))
+
+
+# numpy's root of a CPU tensor, with the JAX package's sqrt rule g * (0.5 / ans)
+_cpu_sqrt = _with_grad(_numpy_sqrt, lambda g, y: g * (0.5 / y), "")
+
+
 def sqrt(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded square root.  PyTorch's CPU sqrt (float32 and
     float64) is a vectorized approximation that misses the IEEE root by
-    one ulp on just under 1% of inputs; numpy's is IEEE, as CUDA's is."""
-    if x.device.type == "cpu":
-        with np.errstate(invalid="ignore"):
-            return torch.from_numpy(np.asarray(np.sqrt(x.numpy())))
-    return torch.sqrt(x)
+    one ulp on just under 1% of inputs; numpy's is IEEE, as CUDA's is.
+    Differentiable on both devices."""
+    return _cpu_sqrt(x) if x.device.type == "cpu" else torch.sqrt(x)
+
+
+def _f32(c: float) -> float:
+    return float(np.float32(c))
+
+
+# XLA's f32 tanh on the CPU (its EmitFastTanh with FMA, after Eigen's): a
+# clamp, an odd rational polynomial in x^2 by Horner, x itself near 0.
+_TANH_CLAMP = _f32(7.99881172180175781)
+_TANH_NUM = tuple(_f32(c) for c in (
+    -2.76076847742355e-16, 2.00018790482477e-13, -8.60467152213735e-11,
+    5.12229709037114e-08, 1.48572235717979e-05, 6.37261928875436e-04,
+    4.89352455891786e-03))
+_TANH_DEN = tuple(_f32(c) for c in (
+    1.19825839466702e-06, 1.18534705686654e-04, 2.26843463243900e-03,
+    4.89352518554385e-03))
+_TANH_SMALL = _f32(0.0004)
+
+
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: float) -> torch.Tensor:
+    """a*b + c for f32 tensors with one rounding, as a fused multiply-add:
+    the f64 product of two f32 values is exact, the f64 sum is rounded
+    to f32."""
+    return (a.double() * b.double() + c).float()
+
+
+def _tanh_xla(x: torch.Tensor) -> torch.Tensor:
+    xc = torch.clamp(x, -_TANH_CLAMP, _TANH_CLAMP)
+    x2 = xc * xc
+    num = torch.full_like(x2, _TANH_NUM[0])
+    for c in _TANH_NUM[1:]:
+        num = _fma_f32(x2, num, c)
+    num = xc * num
+    den = torch.full_like(x2, _TANH_DEN[0])
+    for c in _TANH_DEN[1:]:
+        den = _fma_f32(x2, den, c)
+    return torch.where(torch.abs(x) < _TANH_SMALL, x, num / den)
+
+
+tanh = _with_grad(_tanh_xla, lambda g, y: (g + g * y) * (1.0 - y), """\
+f32 tanh with the bits of XLA's on the CPU, the same on the card (single
+elementwise ops, each FMA written as an f64 multiply-add rounded to f32);
+torch.tanh and the float64 tanh rounded differ from jnp.tanh on many
+inputs.  The backward is JAX's rule, (g + g*ans) * (1 - ans).""")
+
+sigmoid = _with_grad(lambda x: 1.0 / (1.0 + torch.exp(-x)),
+                     lambda g, y: g * (y * (1.0 - y)), """\
+1 / (1 + exp(-x)), jax.nn.sigmoid's formula and order, with torch's exp
+(XLA's f32 exp is its own approximation: the last bits differ from JAX's
+on some inputs, tests/test_torch_soft_visibility.py counts them).  The
+backward is JAX's rule, g * (ans * (1 - ans)).""")
 
 
 def length(a: torch.Tensor) -> torch.Tensor:

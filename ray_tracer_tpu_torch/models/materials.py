@@ -13,6 +13,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from ray_tracer_tpu_torch.config import MaterialConfig
+from ray_tracer_tpu_torch.core.vecmath import take
 
 
 class MaterialTable(NamedTuple):
@@ -42,7 +43,7 @@ class MaterialTable(NamedTuple):
 
     def gather(self, index: torch.Tensor) -> "MaterialTable":
         """Per-hit material lookup: (R,) indices -> per-ray material tensors."""
-        return MaterialTable(*(f[index] for f in self))
+        return MaterialTable(*(take(f, index) for f in self))
 
 
 # The reference's 4-entry palette (Parallel/raytracer.cu:449-453):

@@ -29,7 +29,7 @@ from ray_tracer_tpu_torch.config import (
     RenderConfig,
     SceneConfig,
 )
-from ray_tracer_tpu_torch.core.vecmath import div_scalar
+from ray_tracer_tpu_torch.core.vecmath import div_scalar, take
 from ray_tracer_tpu_torch.device import resolve_device
 from ray_tracer_tpu_torch.io.obj import MeshArrays, load_obj
 from ray_tracer_tpu_torch.models import meshes as mesh_gen
@@ -100,11 +100,7 @@ class Scene(NamedTuple):
 
     def triangle_soa(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Gathered per-triangle vertices (F,3) x3."""
-        return (
-            self.verts[self.faces[:, 0]],
-            self.verts[self.faces[:, 1]],
-            self.verts[self.faces[:, 2]],
-        )
+        return tuple(take(self.verts, self.faces[:, k]) for k in range(3))
 
 
 _I32_LIMIT = 2147483648.0  # 2^31, exact in float32
@@ -119,9 +115,11 @@ def _to_i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _bilinear(img: torch.Tensor, iv0, iu0, iv1, iu1, fu, fv) -> torch.Tensor:
-    """The four texels' blend, u first: top + (bot - top) * fv."""
-    c00, c01 = img[iv0, iu0], img[iv0, iu1]
-    c10, c11 = img[iv1, iu0], img[iv1, iu1]
+    """The four texels' blend, u first: top + (bot - top) * fv (texels
+    gathered as rows of the flat image, `take`)."""
+    flat, w = img.reshape(-1, img.shape[-1]), img.shape[1]
+    c00, c01 = take(flat, iv0 * w + iu0), take(flat, iv0 * w + iu1)
+    c10, c11 = take(flat, iv1 * w + iu0), take(flat, iv1 * w + iu1)
     top = c00 + (c01 - c00) * fu[:, None]
     bot = c10 + (c11 - c10) * fu[:, None]
     return top + (bot - top) * fv[:, None]

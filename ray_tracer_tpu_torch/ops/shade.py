@@ -29,11 +29,12 @@ from ray_tracer_tpu_torch.models.materials import MaterialTable
 
 
 def apply_shadow(color: torch.Tensor, shadow: torch.Tensor, scale: float) -> torch.Tensor:
-    """Shadow attenuation: color * scale where the bool mask is set
-    (the reference's exact branch)."""
-    if shadow.dtype != torch.bool:
-        raise NotImplementedError("soft (float) visibility is not ported yet")
-    return torch.where(shadow[:, None], color * scale, color)
+    """Shadow attenuation: a bool mask takes the reference's exact branch
+    (color * scale where set); a float factor f in [0, 1] (soft
+    visibility) blends continuously, color * (1 - f * (1 - scale))."""
+    if shadow.dtype == torch.bool:
+        return torch.where(shadow[:, None], color * scale, color)
+    return color * (1.0 - shadow * (1.0 - scale))[:, None]
 
 
 def _pow_safe(base: torch.Tensor, exponent: torch.Tensor) -> torch.Tensor:
@@ -53,17 +54,37 @@ def _cross_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
                      a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], axis=-1)
 
 
-def vertex_normals(verts: torch.Tensor, faces: torch.Tensor, serial: bool) -> torch.Tensor:
-    """Area-weighted vertex normals -> (V,3) on verts' device, UNNORMALIZED:
-    each face's unnormalized normal, in the shading variant's convention
-    (serial: (v0-v1) x (v2-v0); parallel: (v2-v1) x (v0-v1)), added to
-    its three vertices.
+def _face_normals(v0, v1, v2, serial: bool):
+    """Each face's unnormalized normal in the shading variant's convention
+    (serial: (v0-v1) x (v2-v0); parallel: (v2-v1) x (v0-v1))."""
+    return vm.cross(v0 - v1, v2 - v0) if serial else vm.cross(v2 - v1, v0 - v1)
 
-    Built once, on the host, in numpy: the sum of a vertex's faces is
-    taken in face order, corner by corner (np.add.at over faces.ravel()),
-    the order of the JAX package's `.at[faces].add` on the CPU, which sets
-    the bits.  (A scatter-add with atomics on the card would sum in
-    another order from run to run.)"""
+
+class _VertexNormals(torch.autograd.Function):
+    """The numpy table forward; the backward is the transpose of the JAX
+    package's scatter-add: the output gradient gathered by faces, then
+    back through the face-normal cross product into verts (autograd over
+    the same ops in torch, recomputed)."""
+
+    @staticmethod
+    def forward(ctx, verts, faces, serial):
+        ctx.save_for_backward(verts, faces)
+        ctx.serial = serial
+        return _vertex_normals_np(verts, faces, serial)
+
+    @staticmethod
+    def backward(ctx, g):
+        verts, faces = ctx.saved_tensors
+        with torch.enable_grad():
+            v = verts.detach().requires_grad_(True)
+            fv = [vm.take(v, faces[:, k]) for k in range(3)]
+            fn = _face_normals(*fv, ctx.serial)
+            gf = vm.take(g, faces[:, 0]) + vm.take(g, faces[:, 1]) + vm.take(g, faces[:, 2])
+            (gv,) = torch.autograd.grad(fn, v, gf)
+        return gv, None, None
+
+
+def _vertex_normals_np(verts: torch.Tensor, faces: torch.Tensor, serial: bool) -> torch.Tensor:
     v = verts.detach().cpu().numpy().astype(np.float32)
     f = faces.detach().cpu().numpy().astype(np.int64)
     fv0, fv1, fv2 = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
@@ -73,6 +94,22 @@ def vertex_normals(verts: torch.Tensor, faces: torch.Tensor, serial: bool) -> to
     return torch.from_numpy(vn).to(verts.device)
 
 
+def vertex_normals(verts: torch.Tensor, faces: torch.Tensor, serial: bool) -> torch.Tensor:
+    """Area-weighted vertex normals -> (V,3) on verts' device, UNNORMALIZED:
+    each face's unnormalized normal, in the shading variant's convention
+    (`_face_normals`), added to its three vertices.
+
+    Built on the host, in numpy: the sum of a vertex's faces is taken in
+    face order, corner by corner (np.add.at over faces.ravel()), the
+    order of the JAX package's `.at[faces].add` on the CPU, which sets
+    the bits.  (A scatter-add with atomics on the card would sum in
+    another order from run to run.)  Differentiable in verts
+    (`_VertexNormals`) when they require grad."""
+    if verts.requires_grad and torch.is_grad_enabled():
+        return _VertexNormals.apply(verts, faces, serial)
+    return _vertex_normals_np(verts, faces, serial)
+
+
 def interpolate_normal(vn: torch.Tensor, faces: torch.Tensor, tri: torch.Tensor,
                        beta: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
     """Barycentric (Phong) normal interpolation at hits -> UNIT normals.
@@ -80,8 +117,8 @@ def interpolate_normal(vn: torch.Tensor, faces: torch.Tensor, tri: torch.Tensor,
     magnitude the shading constants of both variants are tuned to."""
     f = faces[tri]
     alpha = 1.0 - beta - gamma
-    n = (alpha[:, None] * vn[f[:, 0]] + beta[:, None] * vn[f[:, 1]]
-         + gamma[:, None] * vn[f[:, 2]])
+    n = (alpha[:, None] * vm.take(vn, f[:, 0]) + beta[:, None] * vm.take(vn, f[:, 1])
+         + gamma[:, None] * vm.take(vn, f[:, 2]))
     return vm.normalize(n)
 
 

@@ -148,8 +148,6 @@ def check_supported(cfg: SceneConfig, scene: Scene = None) -> bool:
     bad = []
     if r.traversal not in TRAVERSALS:
         bad.append(f"traversal={r.traversal!r}")
-    if r.soft_visibility > 0.0 or r.soft_primary > 0.0:
-        bad.append("soft visibility / soft primary")
     if r.shadow_samples != 1 or r.light_radius != 0.0:
         bad.append("area-light soft shadows")
     if cfg.extra_lights:
@@ -201,6 +199,26 @@ def shadow_rays_for(rcfg: RenderConfig, light_pos, poi, hit) -> RayBatch:
     sdir = -nsd if rcfg.shadow_dir_away_from_light() else nsd
     sorig = torch.where(hit[:, None], poi, torch.full_like(poi, math.inf))
     return RayBatch.make(sorig, sdir, mint=rcfg.shadow_mint())
+
+
+def _detached(rays: RayBatch) -> RayBatch:
+    """The batch cut from autograd: what a trace takes (the JAX package's
+    stop_gradient before each traversal)."""
+    return RayBatch(*(x.detach() for x in rays))
+
+
+def _soften(srays: RayBatch, occ, tri10, shadow_tri, shadow_hit_rec, ddt, s: float):
+    """Soft visibility (JAX renderer.py:542-562): the recorded blocker's
+    barycentric margin, recomputed from the differentiable vertices,
+    squashed to sigmoid(margin / s): 1 deep inside the blocker, 0.5 at
+    its silhouette, 0 where no shadow ray was occluded.  Hard occlusion
+    has zero-measure gradients."""
+    stv = vm.take(tri10, torch.clamp(shadow_tri, min=0).long())
+    sbeta, sgamma = cramer_bg_safe(srays.orig, srays.dirn, stv[:, 0:3], stv[:, 3:6],
+                                   stv[:, 6:9], shadow_hit_rec, det_dtype=ddt)
+    margin = torch.minimum(torch.minimum(sbeta, sgamma), 1.0 - sbeta - sgamma).to(torch.float32)
+    f = vm.sigmoid(vm.div_scalar(margin, s))
+    return torch.where(occ, f, torch.zeros_like(f))
 
 
 def _persistent_as_packed(res) -> PackedTraceResult:
@@ -408,7 +426,6 @@ def make_traversal(rcfg: RenderConfig, grid, meta, v0, v1, v2, dda=None, consts=
     return trav
 
 
-@torch.no_grad()
 def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
                 camera_cfg=None, dda: DdaTables = None,
                 consts: LaunchConsts = None, vn: torch.Tensor = None) -> torch.Tensor:
@@ -416,7 +433,13 @@ def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
     given only when `rays` is that camera's whole batch in pixel order
     (the persistent wave's camera refill); dda are kernel B's tables,
     consts kernel C's host-held launch values, vn the smooth normals'
-    vertex-normal table (`vertex_normals`, built here when not given)."""
+    vertex-normal table (`vertex_normals`, built here when not given).
+
+    Differentiable in the scene's vertices, materials, light and images:
+    every trace takes detached inputs and finds the hit topology only (a
+    no-grad island, as in the JAX package); t, the normals and the
+    shading are recomputed from the gathered vertices under autograd.
+    `render` runs it under torch.no_grad()."""
     serial = rcfg.serial_shading
     eps = rcfg.shadow_eps
     smooth = rcfg.normal_mode == "smooth"
@@ -434,7 +457,9 @@ def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
     ddt = _DET_DTYPES[rcfg.det_dtype]
     primary_gate = rcfg.primary_gate()
     early = not rcfg.faithful
-    trav = make_traversal(rcfg, grid, meta, v0, v1, v2, dda=dda, consts=consts)
+    trav = make_traversal(rcfg, grid, meta, v0.detach(), v1.detach(), v2.detach(), dda=dda,
+                          consts=consts)
+    light_sg = scene.light_pos.detach()
     persistent = rcfg.traversal == "packed" and rcfg.scheduler == "persistent"
     # one march for primary + shadow (soft shadows, which need several
     # shadow rays, raise in check_supported)
@@ -447,10 +472,11 @@ def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
     for depth in range(rcfg.max_bounces + 1):
         # bounce depths gate t >= eps (RenderConfig.bounce_gate)
         gate_d = primary_gate if depth == 0 else rcfg.bounce_gate()
+        cur_sg = _detached(cur)
         # difficulty-ordered queue for the depth-0 batch
         okeys = None
         if depth == 0 and rcfg.queue_order == "chord" and persistent:
-            okeys = chord_keys(cur, grid)
+            okeys = chord_keys(cur_sg, grid)
         fres = None
         if fused and (depth == 0 or persistent):
             # the lane rearms as its own shadow ray when its primary
@@ -460,7 +486,7 @@ def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
                        serial_quirk=rcfg.shadow_dir_away_from_light())
             if persistent:
                 fres = persistent_trace(
-                    cur, grid, meta, scene.light_pos, wave=rcfg.wave, pump=rcfg.pump,
+                    cur_sg, grid, meta, light_sg, wave=rcfg.wave, pump=rcfg.pump,
                     fuse_shadow=True, probe_chain=1 if meta.inline else rcfg.probe_chain,
                     need_t=False,  # t is recomputed from tri_id below
                     # zero-direct hits skip their shadow ray: the serial
@@ -478,7 +504,7 @@ def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
                 )
             else:
                 fres = traverse_packed_fused_shadow(
-                    cur, grid, meta, scene.light_pos,
+                    cur_sg, grid, meta, light_sg,
                     primary_gate=0.0 if primary_gate is None else primary_gate,
                     consts=consts, **fkw,
                 )
@@ -491,11 +517,11 @@ def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
                 tkw["compact"] = depth > 0  # bounce batches are mostly dead
                 if okeys is not None:
                     tkw["order_keys"] = okeys
-            res = trav(cur, t_gate=gate_d, **tkw)
+            res = trav(cur_sg, t_gate=gate_d, **tkw)
         hit = rcfg.accepted_hit(res)
         tri = torch.clamp(res.tri_id, min=0).long()
 
-        tv = tri10[tri]
+        tv = vm.take(tri10, tri)
         tv0, tv1, tv2 = tv[:, 0:3], tv[:, 3:6], tv[:, 6:9]
         # recompute t from the hit topology (bit-identical to the
         # traversal's own t), guarded on missed lanes
@@ -531,13 +557,18 @@ def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
             unit = interpolate_normal(vn, scene.faces, tri, hb.to(v0.dtype), hg.to(v0.dtype))
             geom = geom._replace(normal=unit * vm.length(geom.normal)[:, None])
 
+        soft = rcfg.soft_visibility > 0.0
+        srays = None
+        if fres is None or soft:
+            srays = _detached(shadow_rays_for(rcfg, scene.light_pos, geom.poi, hit))
         if fres is not None:
-            in_shadow = fres.in_shadow & hit
+            in_shadow, stri, srec = fres.in_shadow & hit, fres.shadow_tri_id, fres.in_shadow
         else:
-            srays = shadow_rays_for(rcfg, scene.light_pos, geom.poi, hit)
             skw = {"compact": depth > 0} if persistent else {}
             sres = trav(srays, t_gate=eps, stop_on_first_hit=early, **skw)
-            in_shadow = rcfg.accepted_hit(sres) & hit
+            in_shadow, stri, srec = rcfg.accepted_hit(sres) & hit, sres.tri_id, sres.hit
+        if soft:
+            in_shadow = _soften(srays, in_shadow, tri10, stri, srec, ddt, rcfg.soft_visibility)
 
         if serial:
             color = shade_serial(geom, mat, scene.light_pos, scene.light_intensity,
@@ -551,6 +582,18 @@ def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
             bg = scene.sample_env(vm.normalize(cur.dirn)).to(color.dtype)
         else:
             bg = background
+
+        if rcfg.soft_primary > 0.0:
+            # fade the surface into the background by tanh(margin / s),
+            # 0 exactly at the silhouette (JAX renderer.py:655-677), so a
+            # pixel crossing it changes continuously
+            if hb is None:
+                hb, hg = cramer_bg_safe(orig_safe, cur.dirn, tv0, tv1, tv2, res.hit,
+                                        det_dtype=ddt)
+            hm = torch.minimum(torch.minimum(hb, hg), 1.0 - hb - hg)
+            hmargin = torch.maximum(hm, torch.zeros_like(hm)).to(color.dtype)
+            fh = vm.tanh(vm.div_scalar(hmargin, rcfg.soft_primary))[:, None]
+            color = fh * color + (1.0 - fh) * bg
         reflecting = hit & mat.reflective & (depth < rcfg.max_bounces)
         # reflective surfaces blend local*base*(1-km) + bounced*km
         # (raytracer.cu:519-520)
@@ -615,13 +658,15 @@ def _render_whitted_wave(prep: Prepared, setup: FrameSetup) -> torch.Tensor:
     return col.reshape(cfg.camera.height, cfg.camera.width, 3)
 
 
+@torch.no_grad()
 def render(prep: Prepared) -> torch.Tensor:
     """Render the prepared scene -> (H, W, 3) float32 linear color on the
     scene's device.  gi_samples > 0 renders path-traced
     (`pathtrace.render_pt`: the GI wave when eligible, else the segment
     integrator).  Otherwise configs that `whitted_wave_eligible` admits
     take the cross-depth Whitted wave, as in the JAX package's render; the
-    others the bounce loop, spp subsamples accumulated in turn."""
+    others the bounce loop, spp subsamples accumulated in turn.  Forward
+    only: it runs under torch.no_grad()."""
     cfg = prep.cfg
     setup = prep.frame()
     if cfg.render.gi_samples > 0:

@@ -297,7 +297,7 @@ def test_gi_wave_eligibility_and_spec_follow_jax(case):
 
 @pytest.mark.parametrize("change,match", [
     (dict(dtype="float64"), "dtype"),
-    (dict(soft_visibility=0.1), "soft visibility"),
+    (dict(shadow_samples=4, light_radius=0.5), "area-light soft shadows"),
     (dict(gi_env_nee=True), "gi_env_nee"),
     ("extra_lights", "extra lights"),
     ("transmissive", "transmissive"),

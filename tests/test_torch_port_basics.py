@@ -60,6 +60,20 @@ from ray_tracer_tpu_torch.models.scenes import nefertiti_scene
 scene, ncfg = nefertiti_scene(8, 8, n_lat=8, n_lon=16, device="cpu")
 img = render(prepare(apply_turbo(ncfg, "nefertiti"), scene=scene))
 assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+from ray_tracer_tpu_torch.models.scenes import gradcheck_scene
+from ray_tracer_tpu_torch.opt.checkpoint import latest_step, save_checkpoint
+from ray_tracer_tpu_torch.opt.fit import fit, merge_scene, split_scene
+import tempfile
+gscene, gcfg = gradcheck_scene(8, 8, device="cpu")
+gcfg = dataclasses.replace(gcfg, render=dataclasses.replace(gcfg.render, soft_visibility=0.1,
+                                                            soft_primary=0.05))
+gprep = prepare(gcfg, scene=gscene)
+p = split_scene(gprep.scene)
+with tempfile.TemporaryDirectory() as d:  # the fit loop and its checkpoints
+    _, losses = fit(gprep._replace(scene=merge_scene(p._replace(kd=p.kd * 1.5), gprep.scene)),
+                    render(gprep), steps=2, lr=5e-2, trainable=("kd", "verts"),
+                    rebuild_grid_every=1, checkpoint_dir=d, checkpoint_every=1, log_every=0)
+    assert len(losses) == 2 and latest_step(d) == 2
 loaded = [k for k, v in sys.modules.items()
           if v is not None and (k.split(".")[0] in ("jax", "jaxlib", "ray_tracer_tpu"))]
 assert not loaded, loaded
@@ -74,7 +88,9 @@ def test_port_imports_nothing_of_jax():
     the port renders 8x8 images (serial default and turbo, the turbo
     parallel scene through the Whitted wave, path-traced GI through the GI
     wave and the segment integrator, the GI wave and the bounce loop with
-    every appearance feature, and a small nefertiti scene) with `jax` and
+    every appearance feature, and a small nefertiti scene), and a fit of
+    two steps with soft visibility, soft primary, a grid rebuild and
+    checkpoints (opt.fit, opt.checkpoint) runs, with `jax` and
     `ray_tracer_tpu` made unimportable."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _INDEPENDENCE], cwd=REPO,
@@ -103,11 +119,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("change", [
-    dict(traversal="packed", faithful=False, soft_visibility=0.1),
+    dict(traversal="packed", faithful=False, dtype="float64"),
     dict(dtype="float64"),
-    dict(soft_primary=0.1, faithful=False),
+    dict(extra_lights=True),
     dict(shadow_samples=4, light_radius=0.5, traversal="packed", faithful=False),
-    dict(soft_visibility=0.1),
+    dict(light_radius=0.5, faithful=False),
     dict(shadow_samples=4, light_radius=0.5, faithful=False),
     dict(gi_samples=1, faithful=False, gi_env_nee=True),
     dict(gi_samples=1, faithful=False, transmissive=True),
@@ -116,10 +132,10 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
 def test_unsupported_options_raise(change):
     """Options outside the slice raise NotImplementedError; none is
     silently ignored.  (The packed traversal, spp, depth of field, the
-    Whitted wave, path-traced GI, textures, smooth normals and environment
-    maps are served; the soft-visibility and soft-primary epilogues,
-    area-light soft shadows, float64 rendering, extra lights and, in the
-    path tracer, env NEE and glass are not.)"""
+    Whitted wave, path-traced GI, textures, smooth normals, environment
+    maps, soft visibility and soft primary are served; area-light soft
+    shadows, float64 rendering, extra lights and, in the path tracer, env
+    NEE and glass are not.)"""
     from ray_tracer_tpu_torch.config import LightConfig, MaterialConfig
     from ray_tracer_tpu_torch.models.scenes import serial_scene_config
     from ray_tracer_tpu_torch.render.renderer import prepare
@@ -133,6 +149,36 @@ def test_unsupported_options_raise(change):
     cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, **change))
     with pytest.raises(NotImplementedError):
         prepare(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(traversal="packed", scheduler="persistent", faithful=False, soft_visibility=0.1),
+    dict(soft_primary=0.1, faithful=False),
+    dict(soft_visibility=0.1),
+])
+def test_soft_options_render(change):
+    """Soft visibility and soft primary, refused before the port served
+    them, render finite 8x8 images that keep to jitted JAX's by the 2-count
+    rule, and never through the Whitted wave."""
+    import numpy as np
+
+    from ray_tracer_tpu.models import scenes as jax_scenes
+    from ray_tracer_tpu.render import renderer as jax_renderer
+    from ray_tracer_tpu_torch.io.ppm import tonemap_u8
+    from ray_tracer_tpu_torch.models.scenes import serial_scene_config
+    from ray_tracer_tpu_torch.render.renderer import prepare, render, whitted_wave_eligible
+
+    cfg = serial_scene_config(8, 8)
+    cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, whitted_wave="auto",
+                                                              **change))
+    jcfg = jax_scenes.serial_scene_config(8, 8)
+    jcfg = dataclasses.replace(jcfg, render=dataclasses.replace(jcfg.render, **change))
+    assert not whitted_wave_eligible(cfg)
+    img = render(prepare(cfg, device="cpu")).numpy()
+    want = np.asarray(jax_renderer.render(jax_renderer.prepare(jcfg)))
+    a, b = tonemap_u8(img).astype(int), tonemap_u8(want).astype(int)
+    assert np.isfinite(img).all() and img.max() > 0
+    assert (np.abs(a - b).max(axis=-1) > 2).mean() < 0.01
 
 
 @pytest.mark.parametrize("change", [
