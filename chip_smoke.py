@@ -111,6 +111,25 @@ each printing one JSON line:
      against CPU to rtol 1e-6 and every gradient leaf to rtol 1e-4, atol
      1e-6 max|g|; the soft-primary silhouette gradient of one triangle at
      16x16 against central differences (rtol 5e-2).
+ 13. every light and material (phase lights), at 1024x1024 through
+     prepare + render, each frame launching kernel C and neither wave:
+     (a) the turbo serial scene with two extra lights and a 16-sample area
+     light of radius 0.5, byte-equal at shadow_sample_batch 1 and 4; (b)
+     the turbo parallel scene (3 bounces) with one extra light; (c) the
+     path-traced serial scene (S 4, D 2) with one extra light, blub made
+     glass (ior 1.5) and env NEE under a 64 x 128 sky (the segment
+     integrator); each frame's CUDA-event time (median of 5), kernels,
+     busy time and idle share beside its featureless frames (the bounce
+     loop and the waves); every launch of C that (a) makes at batch 4 (the
+     4R shadow rays of four samples, queued live rays only) and (c) makes
+     held to the plain version at its own inputs, records and counters
+     bitwise; (d) five Adam steps of opt.fit.fit on the gradcheck scene at
+     256x256 with one extra light, extra_light_pos, extra_light_intensity
+     and light_pos trainable (kernel B), each timed, the losses finite and
+     falling; at 64x64 card against CPU, (a) to (c) and (a) over the csr
+     grid by the 2-count rule, (d)'s loss to rtol 1e-6 and gradients to
+     rtol 1e-4, atol 1e-6 max|g|.  The lights' positions are LIGHTS_A,
+     LIGHTS_B, LIGHTS_C and LIGHTS_FIT below.
 
 Then the kernel times at the main path's shapes (each launch held
 bitwise to the plain version; B's, C's and E's barycentric passes, and
@@ -202,8 +221,8 @@ OPS_PER_BOUNCE_F = 118
 OPS_PER_ESCAPE_F = 6
 OPS_PER_PIXEL_F = 79
 OPS_PER_SAMPLE_F = 3
-ALL_PHASES = ("build", "A", "B", "C", "E", "F", "main", "card_vs_cpu", "appearance", "train",
-              "D", "times")
+ALL_PHASES = ("build", "A", "B", "C", "E", "F", "main", "card_vs_cpu", "appearance", "lights",
+              "train", "D", "times")
 # The kernels' device times on the 1024^2 main path before this version
 # of the sources (B and C as redesigned, before C's march step moved into
 # csrc/packed_step.cuh), NVIDIA H100 80GB HBM3 at 700 W, as recorded in
@@ -221,6 +240,23 @@ PREVIOUS_E = {"device_ms": 1.8276, "lane_utilisation": 0.7347491342129305}
 # in which a lane ended a segment.
 PREVIOUS_F = {"device_ms": 1.1417, "lane_utilisation": 0.5449485670180693,
               "transition_share": 0.6849817278403751}
+
+
+# Phase lights: the extra point lights, (x, y, z, intensity): (a) two on the
+# turbo serial scene, (b) one on the turbo parallel scene, (c) one on the
+# path-traced serial scene, and one on the gradcheck scene of the fit (d);
+# and the area light of (a).
+LIGHTS_A = ((-5.0, -5.0, 2.0, 128.0), (0.0, 5.0, 5.0, 96.0))
+LIGHTS_B = ((-6.0, 8.0, 4.0, 0.6),)
+LIGHTS_C = ((0.0, 5.0, 5.0, 96.0),)
+LIGHTS_FIT = ((-4.0, 6.0, -2.0, 1.0),)
+AREA_LIGHT = dict(light_radius=0.5, shadow_samples=16)
+
+
+def extra_lights(raw):
+    from ray_tracer_tpu_torch.config import LightConfig
+
+    return tuple(LightConfig(position=e[:3], intensity=e[3]) for e in raw)
 
 
 def emit(obj) -> None:
@@ -1863,6 +1899,267 @@ class Smoke:
             raise AssertionError(f"Whitted appearance 64 card vs CPU: {frac:.2%} of pixels "
                                  "differ by > 2")
 
+    # ---- 13. the lights and materials of the JAX package ------------------
+    def lights_configs(self, size, device):
+        """This phase's frames at size x size, each with its featureless
+        counterparts: {name: (cfg, scene or None, [(base name, cfg, scene)])}.
+        (a) the turbo serial scene with two extra lights and a 16-sample
+        area light; (b) the turbo parallel scene, 3 bounces, one extra
+        light (the Whitted wave is then ineligible: the bounce loop on C);
+        (c) the path-traced serial scene (S 4, D 2) with one extra light,
+        blub made glass (ior 1.5) and env NEE under a 64 x 128 sky (the
+        segment integrator on C)."""
+        import numpy as np
+
+        from ray_tracer_tpu_torch.config import apply_turbo
+        from ray_tracer_tpu_torch.models.scenes import (build_scene, parallel_scene_config,
+                                                        serial_scene_config)
+
+        def rep(cfg, **kw):
+            return dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, **kw))
+
+        serial = apply_turbo(serial_scene_config(size, size), "serial")
+        a = dataclasses.replace(rep(serial, **AREA_LIGHT), extra_lights=extra_lights(LIGHTS_A))
+        parallel = apply_turbo(parallel_scene_config(size, size), "parallel")
+        b = dataclasses.replace(parallel, extra_lights=extra_lights(LIGHTS_B))
+        gi = self.gi_config(serial_scene_config, size, "serial", 4, 2)
+        glass = dataclasses.replace(gi.materials[0], transmissive=True, ior=1.5)
+        c = dataclasses.replace(
+            rep(gi, gi_env_nee=True), extra_lights=extra_lights(LIGHTS_C),
+            materials=(gi.materials[0], glass),
+            meshes=(gi.meshes[0], dataclasses.replace(gi.meshes[1], material_index=1)))
+        # the sky: blue above, a warm horizon, a bright sun patch (numpy,
+        # fixed seed)
+        rng = np.random.default_rng(20261018)
+        pol, azi = np.meshgrid(np.linspace(0.0, 1.0, 64), np.linspace(0.0, 1.0, 128),
+                               indexing="ij")
+        sky = np.stack([50.0 + 140.0 * pol, 80.0 + 90.0 * pol, 200.0 - 120.0 * pol], axis=-1)
+        sky = sky * (0.9 + 0.1 * np.cos(2.0 * np.pi * azi))[..., None]
+        sky[10:14, 40:46] = 4000.0
+        sky = torch.from_numpy((sky + 8.0 * rng.random(sky.shape)).astype(np.float32))
+        c_scene = build_scene(c, device=device)._replace(env_image=sky.to(device))
+        return {
+            "a_serial_extras_area": (a, None, [("a_serial_featureless", serial, None)]),
+            "b_parallel_extra_light": (b, None, [
+                ("b_parallel_featureless_bounce_loop", rep(parallel, whitted_wave="off"), None),
+                ("b_parallel_featureless_wave", parallel, None)]),
+            "c_gi_extra_light_glass_env_nee": (c, c_scene, [
+                ("c_gi_featureless_segments", rep(gi, gi_wave="off"), None),
+                ("c_gi_featureless_wave", gi, None)]),
+        }
+
+    def frame_times(self, p, name) -> dict:
+        """A frame's CUDA-event time (median of 5 after a warm-up, each
+        frame timed alone), and the ten-frame profile's kernels, busy time
+        and idle share against it."""
+        from ray_tracer_tpu_torch.render.renderer import render
+        from ray_tracer_tpu_torch.tools.profiling import profile_render
+
+        render(p)
+        ms = [once_ms(lambda: render(p))[0] for _ in range(5)]
+        med = sorted(ms)[2]
+        prof = profile_render(p, med / 1e3, name)
+        return {"median_ms": med, "frames_ms": ms, "device_kernels": prof["device_kernels"],
+                "device_busy_ms": prof["device_busy_ms"],
+                "device_idle_share": prof["device_idle_share"],
+                "top_device_ms": prof["top_device_ms"]}
+
+    def lights(self, size=1024):
+        """Extra point lights, area-light soft shadows, glass and env NEE
+        on the card at 1024^2: frames (a) to (c) of `lights_configs` through
+        prepare + render, each launching C and neither wave, timed beside
+        their featureless counterparts; (a) byte-equal at shadow_sample_batch
+        1 and 4, and every launch of C that (a) at batch 4 and (c) make held
+        bitwise to the plain version at its own inputs; (d) five fit steps on
+        the gradcheck scene at 256^2 with one extra light; each of (a) to
+        (c), a csr (a) and (d)'s gradients at 64^2, card against CPU."""
+        from ray_tracer_tpu_torch.io.ppm import tonemap_u8
+        from ray_tracer_tpu_torch.render.renderer import prepare, render
+
+        rows = {}
+        for name, (cfg, scene, bases) in self.lights_configs(size, self.dev).items():
+            p = prepare(cfg, scene=scene)
+            if p.setup.wave or p.setup.gi_wave:
+                raise AssertionError(f"{name} should take neither wave")
+            # every launch of C that (c) makes is logged, to be held below
+            logging = name.startswith("c_")
+            self.zero_counts()
+            with (self.logging_launches() if logging else contextlib.nullcontext()) as log:
+                img = render(p)
+                torch.cuda.synchronize()
+            counts = self.counts()
+            self.path_launches[name] = counts
+            if (counts["packed_march"] < 1 or counts["whitted_wave"] or counts["gi_wave"]
+                    or counts["traverse_grid"]):
+                raise AssertionError(f"{name} launched {counts}: C alone expected")
+            if img.shape != (size, size, 3) or not bool(torch.isfinite(img).all()):
+                raise AssertionError(f"{name}: bad image")
+            row = {"launches": counts, **self.frame_times(p, name)}
+            if name.startswith("a_"):
+                # the same frame in batches of 4 samples: 4R shadow rays a
+                # launch of C, each launch logged to be held below
+                logging = True
+                p4 = prepare(dataclasses.replace(cfg, render=dataclasses.replace(
+                    cfg.render, shadow_sample_batch=4)))
+                self.zero_counts()
+                with self.logging_launches() as log:
+                    img4 = render(p4)
+                    torch.cuda.synchronize()
+                counts4 = self.counts()
+                n_bad = int((img4.view(torch.int32) != img.view(torch.int32)).sum())
+                if n_bad:
+                    raise AssertionError(f"{name}: shadow_sample_batch 4 differs from 1 in "
+                                         f"{n_bad} floats")
+                r = size * size
+                batched = [x for x in log if x[1].count == 4 * r]
+                if len(batched) != 4 * 3 or any(x[3].get("queue") is None for x in batched):
+                    raise AssertionError(f"{name}: expected 12 compacted launches of 4R shadow "
+                                         f"rays, got {[x[1].count for x in log]}")
+                row["batch_4"] = {"launches": counts4, "floats_differing_from_batch_1": 0,
+                                  **self.frame_times(p4, name + "_batch4")}
+            if logging:
+                row["kernel_C_held"] = self.hold_logged(name, log)
+                del log
+            row["lit_pixels"] = int((tonemap_u8(img.cpu().numpy()).max(axis=-1) > 0).sum())
+            for bname, bcfg, bscene in bases:
+                bp = prepare(bcfg, scene=bscene)
+                self.zero_counts()
+                render(bp)
+                torch.cuda.synchronize()
+                bcounts = self.counts()
+                self.path_launches[bname] = bcounts
+                rows[bname] = {"launches": bcounts, **self.frame_times(bp, bname)}
+            rows[name] = row
+            emit({"phase": "lights_frame", "config": name, "size": size, **row,
+                  "featureless": {b: rows[b] for b, _, _ in bases},
+                  "extra_lights": [list(l.position) + [l.intensity] for l in cfg.extra_lights],
+                  "tolerance": "launches of C bitwise against the plain version (records, "
+                               "rows tested and touched, capped lanes, most steps)"})
+        self.lights_fit(256 if size == 1024 else size)
+        self.lights_card_vs_cpu()
+
+    def lights_fit(self, size=256):
+        """(d) The gradcheck scene at 256^2 with one extra light (kernel B):
+        extra_light_pos, extra_light_intensity and light_pos trainable, five
+        Adam steps from a perturbed start toward the true render, each timed
+        with CUDA events; the losses finite and falling."""
+        from ray_tracer_tpu_torch.models.scenes import gradcheck_scene
+        from ray_tracer_tpu_torch.opt import fit as fitmod
+        from ray_tracer_tpu_torch.render.renderer import prepare, render
+
+        trainable = ("extra_light_pos", "extra_light_intensity", "light_pos")
+        scene, cfg = gradcheck_scene(size, size, device=self.dev)
+        cfg = dataclasses.replace(cfg, extra_lights=extra_lights(LIGHTS_FIT))
+        prep = prepare(cfg, scene=scene)
+        target = render(prep)
+        p = fitmod.split_scene(prep.scene)
+        start = prep._replace(scene=fitmod.merge_scene(p._replace(
+            extra_light_pos=p.extra_light_pos + 0.4,
+            extra_light_intensity=p.extra_light_intensity * 1.5), prep.scene))
+        events = []
+        make_step = fitmod.make_train_step
+
+        def timed_make_step(*a, **kw):
+            step, init = make_step(*a, **kw)
+
+            def timed(*sa, **skw):
+                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                out = step(*sa, **skw)
+                ev[1].record()
+                events.append(ev)
+                return out
+            return timed, init
+
+        fitmod.make_train_step = timed_make_step
+        try:
+            self.zero_counts()
+            params, losses = fitmod.fit(start, target, steps=5, lr=2e-2, trainable=trainable,
+                                        log_every=0)
+            torch.cuda.synchronize()
+            counts = self.counts()
+        finally:
+            fitmod.make_train_step = make_step
+        self.path_launches["d_fit_gradcheck_extra_light"] = counts
+        if counts["traverse_grid"] <= 0:
+            raise AssertionError("the extra-light fit launched traverse_grid 0 times")
+        if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"the extra-light fit's losses do not fall: {losses}")
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        emit({"phase": "lights_fit", "config": "gradcheck, one extra light", "size": size,
+              "trainable": list(trainable), "losses": losses, "step_ms": step_ms,
+              "median_step_ms": sorted(step_ms[1:])[len(step_ms[1:]) // 2],
+              "launches": counts, "extra_light_pos": params.extra_light_pos.tolist()})
+
+    def lights_card_vs_cpu(self):
+        """(a) to (c) at 64x64, and (a) over the csr grid (kernel B), card
+        against CPU: the image by the 2-count rule (the floats that differ
+        reported: powf and, with the sky, acos and atan2 differ between the
+        card's libdevice and the CPU); (d)'s loss at 64x64 to rtol 1e-6 and
+        its gradients to rtol 1e-4, atol 1e-6 max|g|."""
+        from ray_tracer_tpu_torch.io.ppm import tonemap_u8
+        from ray_tracer_tpu_torch.models.scenes import gradcheck_scene
+        from ray_tracer_tpu_torch.opt import fit as fitmod
+        from ray_tracer_tpu_torch.render.renderer import prepare, render
+
+        out = {}
+        devs = {"card": self.dev, "cpu": torch.device("cpu")}
+        cases = {k: self.lights_configs(64, dev) for k, dev in devs.items()}
+        for k in cases:
+            a = cases[k]["a_serial_extras_area"][0]
+            cases[k]["a_csr"] = (dataclasses.replace(a, render=dataclasses.replace(
+                a.render, traversal="csr")), None, [])
+        for name in cases["card"]:
+            imgs = {}
+            for k, dev in devs.items():
+                cfg, scene, _ = cases[k][name]
+                self.zero_counts()
+                imgs[k] = render(prepare(cfg, scene=scene,
+                                         device=dev if scene is None else None)).cpu()
+                if k == "card":
+                    counts = self.counts()
+            kernel = "traverse_grid" if name == "a_csr" else "packed_march"
+            if counts[kernel] <= 0:
+                raise AssertionError(f"{name} 64: {kernel} not launched ({counts})")
+            a, b = tonemap_u8(imgs["card"].numpy()), tonemap_u8(imgs["cpu"].numpy())
+            frac = image_rule(a, b)
+            out[name] = {"launches": counts, "pixels_over_2_counts": frac,
+                         "bytes_differing": int((a != b).sum()),
+                         "floats_differing": int((imgs["card"].view(torch.int32)
+                                                  != imgs["cpu"].view(torch.int32)).sum())}
+            if frac >= 0.01:
+                raise AssertionError(f"{name} 64 card vs CPU: {frac:.2%} of pixels differ "
+                                     "by > 2")
+        fields = ("extra_light_pos", "extra_light_intensity", "light_pos")
+        grads = {}
+        for k, dev in devs.items():
+            scene, cfg = gradcheck_scene(64, 64, device=dev)
+            prep = prepare(dataclasses.replace(cfg, extra_lights=extra_lights(LIGHTS_FIT)),
+                           scene=scene)
+            params = fitmod.split_scene(prep.scene)
+            leaves = {f: getattr(params, f).clone().requires_grad_(True) for f in fields}
+            loss = fitmod.image_loss(params._replace(**leaves), prep.scene, prep.grid.arrays,
+                                     prep.grid.meta, prep.cfg,
+                                     torch.full((64, 64, 3), 40.0, device=dev), dda=prep.dda)
+            grads[k] = (float(loss.detach()),
+                        [g.cpu() for g in torch.autograd.grad(loss, list(leaves.values()))])
+        rel = abs(grads["card"][0] - grads["cpu"][0]) / abs(grads["cpu"][0])
+        worst = {}
+        for f, g, w in zip(fields, grads["card"][1], grads["cpu"][1]):
+            atol = 1e-6 * float(w.abs().max())
+            worst[f] = float((g - w).abs().max())
+            if bool(((g - w).abs() > atol + 1e-4 * w.abs()).any()) or not bool(
+                    torch.isfinite(g).all()):
+                raise AssertionError(f"extra-light gradient {f} card vs CPU beyond rtol 1e-4, "
+                                     f"atol {atol:.3g}")
+        out["d_fit_gradients"] = {"loss_cuda": grads["card"][0], "loss_cpu": grads["cpu"][0],
+                                  "loss_rel_err": rel, "grad_max_abs_err": worst}
+        emit({"phase": "lights_card_vs_cpu", "size": 64, "cases": out,
+              "tolerance": "images: under 1% of pixels over 2 counts; loss rtol 1e-6; "
+                           "gradients rtol 1e-4, atol 1e-6 max|g|"})
+        if rel > 1e-6:
+            raise AssertionError(f"extra-light loss card vs CPU rel err {rel:.3g}")
+
     def wave_pow_probe(self, cfg, prep, lanes):
         """The wave's plain version on the card over the differing pixels'
         CPU camera rays, twice: with torch.pow on the card, and with each
@@ -2359,6 +2656,8 @@ def main(argv=None) -> int:
         smoke.card_vs_cpu()
     if "appearance" in phases:
         smoke.appearance()
+    if "lights" in phases:
+        smoke.lights()
     if "train" in phases:
         smoke.train()
     if "D" in phases:

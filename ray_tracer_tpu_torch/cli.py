@@ -20,6 +20,9 @@
     python -m ray_tracer_tpu_torch.cli render --scene serial --width 1024 \\
         --turbo --smooth-normals --texture image --texture-file tex.ppm \\
         --env-file sky.png --out app.png   # the appearance epilogues
+    python -m ray_tracer_tpu_torch.cli render --scene serial --width 1024 \\
+        --turbo --extra-light -5,-5,2,128 --light-radius 0.5 \\
+        --shadow-samples 16 --out soft.ppm   # extra lights, an area light
     python -m ray_tracer_tpu_torch.cli fit --scene gradcheck --width 64 \\
         --steps 100 --out-dir ckpt   # inverse rendering (self-demo target)
 
@@ -41,9 +44,8 @@ def _build_cfg(args):
     """(cfg, scene): scene is None where prepare loads the meshes itself."""
     from ray_tracer_tpu_torch.models import scenes
 
-    if getattr(args, "config", None) or getattr(args, "extra_light", None):
-        raise NotImplementedError("--config and --extra-light are not served by the "
-                                  "PyTorch port yet")
+    if getattr(args, "config", None):
+        raise NotImplementedError("--config is not served by the PyTorch port yet")
     scene = None
     if args.scene == "gradcheck":
         scene, cfg = scenes.gradcheck_scene(args.width, args.height, device=args.device)
@@ -85,11 +87,40 @@ def _build_cfg(args):
     if getattr(args, "gi", 0) > 0:
         cfg = dataclasses.replace(cfg, render=dataclasses.replace(
             cfg.render, faithful=False, gi_samples=args.gi, gi_depth=args.gi_depth))
+    li = getattr(args, "light_intensity", None)
+    if li is not None:
+        if cfg.render.faithful:
+            print("warning: --light-intensity overrides a faithful render's reference "
+                  "light; the output will not be the oracle's bytes", file=sys.stderr)
+        cfg = dataclasses.replace(cfg, light=dataclasses.replace(cfg.light, intensity=li))
+    for spec in getattr(args, "extra_light", None) or ():
+        from ray_tracer_tpu_torch.config import LightConfig
+
+        try:
+            parts = [float(x) for x in spec.split(",")]
+        except ValueError:
+            parts = []
+        if len(parts) not in (3, 4):
+            raise SystemExit(f"--extra-light wants x,y,z[,intensity], got {spec!r}")
+        light = LightConfig(position=tuple(parts[:3]),
+                            intensity=parts[3] if len(parts) == 4 else 1.0)
+        cfg = dataclasses.replace(cfg, extra_lights=cfg.extra_lights + (light,))
     if getattr(args, "aperture", 0.0):
         cfg = dataclasses.replace(cfg, camera=dataclasses.replace(
             cfg.camera, aperture=args.aperture, focus_distance=args.focus_distance or 0.0))
     if cfg.camera.aperture > 0 and cfg.render.spp <= 1:
         raise SystemExit("depth of field needs render.spp > 1 (one lens point per subsample)")
+    ss = getattr(args, "shadow_samples", 0)
+    lr = getattr(args, "light_radius", 0.0)
+    if ss or lr:
+        # an area light: the radius is required, one sample is no
+        # penumbra, and 16 samples are the default
+        if ss and not lr:
+            raise SystemExit("--shadow-samples requires --light-radius")
+        if ss == 1:
+            raise SystemExit("--shadow-samples must be > 1 for a penumbra")
+        cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+            cfg.render, faithful=False, light_radius=lr, shadow_samples=ss or 16))
     if args.smooth_normals:
         cfg = dataclasses.replace(cfg, render=dataclasses.replace(
             cfg.render, normal_mode="smooth", faithful=False))
@@ -147,7 +178,9 @@ def cmd_render(args) -> None:
               f"build)", file=sys.stderr)
         return
     spp2 = cfg.render.spp * cfg.render.spp
-    rays = pixels * spp2 * 2
+    # every light traces one shadow ray a pixel, or the area light's samples
+    fan = cfg.render.shadow_samples if cfg.render.light_radius > 0 else 1
+    rays = pixels * spp2 * (1 + fan * (1 + len(cfg.extra_lights)))
     print(f"wrote {args.out} ({cfg.camera.width}x{cfg.camera.height}"
           f"{f', spp={cfg.render.spp}' if spp2 > 1 else ''}, "
           f"{cfg.render.traversal}, {prep.device}) in {dt:.3f}s = "
@@ -226,6 +259,16 @@ def main(argv=None) -> None:
                    help="PPM image sampled bilinearly when --texture image")
     r.add_argument("--env-file", default=None,
                    help="lat-long environment map (PNG or PPM) for misses (implies --fast)")
+    r.add_argument("--extra-light", action="append", default=None, metavar="X,Y,Z[,I]",
+                   help="an additional point light (repeatable; intensity 1 by default)")
+    r.add_argument("--light-intensity", type=float, default=None,
+                   help="the primary light's intensity (a faithful render then leaves "
+                        "the oracle's bytes)")
+    r.add_argument("--light-radius", type=float, default=0.0,
+                   help="a spherical area light of this radius: soft shadows "
+                        "(implies --fast)")
+    r.add_argument("--shadow-samples", type=int, default=0,
+                   help="shadow rays a light for --light-radius (default 16)")
     r.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     r.set_defaults(fn=cmd_render)
     f = sub.add_parser("fit", help="inverse rendering: fit scene parameters to a target")
@@ -247,7 +290,7 @@ def main(argv=None) -> None:
                    help="lat-long environment map (PNG or PPM; also the init for "
                         "--trainable env_image)")
     f.add_argument("--extra-light", action="append", default=None, metavar="X,Y,Z[,I]",
-                   help="not served by the port yet")
+                   help="an additional point light (repeatable)")
     f.add_argument("--trainable", default="base_color,kd,ks,ka,light_pos",
                    help="comma-separated SceneParams fields")
     f.add_argument("--out-dir", default=None, help="checkpoint directory")

@@ -42,8 +42,8 @@ class LightConfig:
 @dataclass(frozen=True)
 class MaterialConfig:
     """Blinn-Phong material (reference: Parallel/geometry.cuh:284-303).
-    transmissive/ior belong to the path tracer, which the port does not
-    serve yet."""
+    transmissive/ior make it glass in the path tracer (the Whitted
+    render refuses them)."""
 
     base_color: Vec3 = (255.0, 0.0, 0.0)
     kd: float = 2.0

@@ -6,7 +6,8 @@ environment lookups `sample_texture_image`, `texture_factor` and
 `sample_env_image`).  A Scene is a NamedTuple of tensors on one device:
 indexed geometry (verts + faces), a per-face material index, the
 material table, the point light, the OBJ's uvs, and optionally a texture
-image and a lat-long environment map.
+image, a lat-long environment map, extra point lights and the
+dielectric (glass) tables.
 Meshes are loaded and concatenated in numpy on the host, and
 `scene_from_numpy` takes the same arrays the JAX package's
 `scene_from_numpy` takes, so one set of arrays gives both packages the
@@ -53,7 +54,11 @@ class Scene(NamedTuple):
     texture_image is the (Th, Tw, 3) f32 texel grid in [0, 1] of
     texture="image", env_image the (Eh, Ew, 3) f32 lat-long environment
     map in color units (0..255) that misses see instead of the flat
-    background (None: the background)."""
+    background (None: the background).  extra_light_pos/_intensity are
+    the extra point lights of SceneConfig.extra_lights, and
+    transmissive/ior the per-material glass flags and indices of
+    refraction, which only the path tracer reads (each None when the
+    scene has none)."""
 
     verts: torch.Tensor  # (V,3) f32
     faces: torch.Tensor  # (F,3) i64
@@ -65,6 +70,10 @@ class Scene(NamedTuple):
     uv_faces: Optional[torch.Tensor] = None  # (F,3) i64, -1 where absent
     texture_image: Optional[torch.Tensor] = None  # (Th,Tw,3) f32
     env_image: Optional[torch.Tensor] = None  # (Eh,Ew,3) f32
+    extra_light_pos: Optional[torch.Tensor] = None  # (L,3)
+    extra_light_intensity: Optional[torch.Tensor] = None  # (L,)
+    transmissive: Optional[torch.Tensor] = None  # (M,) bool
+    ior: Optional[torch.Tensor] = None  # (M,) f32
 
     def sample_texture(self, uv: torch.Tensor) -> torch.Tensor:
         """Bilinear wrap-mode sample of this scene's texture: (R,2) uv ->
@@ -233,12 +242,15 @@ def scene_from_numpy(
     device=None,
     texture_image: Optional[np.ndarray] = None,
     env_image: Optional[np.ndarray] = None,
+    extra_lights: Sequence[LightConfig] = (),
 ) -> Scene:
     """The same arguments as the JAX package's `scene_from_numpy`, plus
     the device (cuda unless "cpu" is asked for) and the scene's optional
     texture image and environment map as (H, W, 3) arrays (the JAX scene
-    takes them by `_replace`)."""
+    takes them by `_replace`).  The extra lights' tables, and the glass
+    tables when some material is transmissive, are None otherwise."""
     dev = resolve_device(device)
+    glass = any(m.transmissive for m in materials)
 
     def idx(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
@@ -259,7 +271,24 @@ def scene_from_numpy(
         uv_faces=idx(uv_faces) if uv_faces is not None else None,
         texture_image=image(texture_image),
         env_image=image(env_image),
+        **extra_light_tables(extra_lights, dtype, dev),
+        transmissive=(torch.tensor([m.transmissive for m in materials], dtype=torch.bool,
+                                   device=dev) if glass else None),
+        ior=(torch.tensor([m.ior for m in materials], dtype=dtype, device=dev)
+             if glass else None),
     )
+
+
+def extra_light_tables(extra_lights: Sequence[LightConfig], dtype, device) -> dict:
+    """The Scene fields of extra point lights: extra_light_pos (L,3) and
+    extra_light_intensity (L,), None without any."""
+    if not extra_lights:
+        return dict(extra_light_pos=None, extra_light_intensity=None)
+    return dict(
+        extra_light_pos=torch.tensor([l.position for l in extra_lights], dtype=dtype,
+                                     device=device),
+        extra_light_intensity=torch.tensor([l.intensity for l in extra_lights], dtype=dtype,
+                                           device=device))
 
 
 def scene_from_meshes(
@@ -268,11 +297,12 @@ def scene_from_meshes(
     light: LightConfig,
     dtype=torch.float32,
     device=None,
+    extra_lights: Sequence[LightConfig] = (),
 ) -> Scene:
     """Concatenate (mesh, material_index) parts into one Scene."""
     verts, faces, fmat, uvs, uvf = concat_mesh_arrays(parts)
     return scene_from_numpy(verts, faces, fmat, materials, light, uvs, uvf,
-                            dtype=dtype, device=device)
+                            dtype=dtype, device=device, extra_lights=extra_lights)
 
 
 def scene_numpy_arrays(cfg: SceneConfig):
@@ -288,7 +318,8 @@ def scene_numpy_arrays(cfg: SceneConfig):
 def build_scene(cfg: SceneConfig, dtype=torch.float32, device=None) -> Scene:
     verts, faces, fmat, uvs, uvf = scene_numpy_arrays(cfg)
     return scene_from_numpy(verts, faces, fmat, cfg.materials, cfg.light,
-                            uvs, uvf, dtype=dtype, device=device)
+                            uvs, uvf, dtype=dtype, device=device,
+                            extra_lights=cfg.extra_lights)
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,11 @@ Counterpart of `ray_tracer_tpu/ops/shade.py`:
     normalized half-vector, shadow scaling the whole local color.
   * `vertex_normals` and `interpolate_normal` — the smooth-normal mode
     (RenderConfig.normal_mode="smooth"): area-weighted vertex normals,
-    Phong-interpolated at the hits.
+    Phong-interpolated at the hits;
+  * `light_sample_offsets` — the area light's fixed sample set
+    (RenderConfig.shadow_samples, light_radius);
+  * `shade_direct_serial` and `shade_direct_parallel` — one light's term
+    without ambient, which every extra point light adds.
 
 Plain elementwise tensor code, one op at a time.
 """
@@ -37,6 +41,21 @@ def apply_shadow(color: torch.Tensor, shadow: torch.Tensor, scale: float) -> tor
     return color * (1.0 - shadow * (1.0 - scale))[:, None]
 
 
+def _strided(x: torch.Tensor) -> torch.Tensor:
+    """x's values as a view with an inner stride of 2."""
+    return torch.stack([x, x], dim=-1)[..., 0]
+
+
+def _pow(base: torch.Tensor, exponent: torch.Tensor) -> torch.Tensor:
+    """torch.pow, on the CPU over strided operands: PyTorch's CPU loop over
+    contiguous ones takes a vectorized pow that misses glibc's powf (the
+    JAX package's, XLA calling it) in the last bit on about 1.8% of
+    inputs, while its element-by-element loop calls powf itself."""
+    if base.device.type == "cpu":
+        return torch.pow(_strided(base), _strided(exponent))
+    return torch.pow(base, exponent)
+
+
 def _pow_safe(base: torch.Tensor, exponent: torch.Tensor) -> torch.Tensor:
     """C pow() for base >= 0 (0^a = 0 for a > 0, 0^0 = 1), with the base
     guarded where it is not positive."""
@@ -44,7 +63,7 @@ def _pow_safe(base: torch.Tensor, exponent: torch.Tensor) -> torch.Tensor:
     safe = torch.where(pos, base, torch.ones_like(base))
     zero_pow = torch.where(exponent == 0, torch.ones_like(exponent),
                            torch.zeros_like(exponent))
-    return torch.where(pos, torch.pow(safe, exponent), zero_pow)
+    return torch.where(pos, _pow(safe, exponent), zero_pow)
 
 
 def _cross_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -120,6 +139,23 @@ def interpolate_normal(vn: torch.Tensor, faces: torch.Tensor, tri: torch.Tensor,
     n = (alpha[:, None] * vm.take(vn, f[:, 0]) + beta[:, None] * vm.take(vn, f[:, 1])
          + gamma[:, None] * vm.take(vn, f[:, 2]))
     return vm.normalize(n)
+
+
+def light_sample_offsets(n: int, radius: float) -> np.ndarray:
+    """The spherical area light's fixed Fibonacci sample set -> (n, 3)
+    float32 offsets around the light's centre, the same for every pixel
+    (no random numbers: renders are reproducible).  Taken in float64 and
+    rounded once.  n == 1 is the centre itself, the hard-shadow limit."""
+    if n == 1:
+        return np.zeros((1, 3), np.float32)
+    i = np.arange(n, dtype=np.float64) + 0.5
+    phi = np.arccos(1.0 - 2.0 * i / n)
+    theta = np.pi * (3.0 - np.sqrt(5.0)) * i  # golden-angle spiral
+    return (radius * np.stack([
+        np.cos(theta) * np.sin(phi),
+        np.sin(theta) * np.sin(phi),
+        np.cos(phi),
+    ], axis=1)).astype(np.float32)
 
 
 class HitGeometry(NamedTuple):

@@ -47,7 +47,7 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 class SceneParams(NamedTuple):
     """The differentiable leaves of a Scene, in the JAX package's field
     order (a checkpoint's p_i leaves follow it).  The optional fields are
-    None where the scene lacks them; the port has no extra lights yet."""
+    None where the scene lacks them."""
 
     verts: torch.Tensor
     base_color: torch.Tensor
@@ -70,13 +70,14 @@ def split_scene(scene: Scene) -> SceneParams:
         verts=scene.verts, base_color=m.base_color, kd=m.kd, ks=m.ks,
         spec_alpha=m.spec_alpha, ka=m.ka, km=m.km,
         light_pos=scene.light_pos, light_intensity=scene.light_intensity,
-        texture_image=scene.texture_image, env_image=scene.env_image,
+        texture_image=scene.texture_image, extra_light_pos=scene.extra_light_pos,
+        extra_light_intensity=scene.extra_light_intensity, env_image=scene.env_image,
     )
 
 
 def merge_scene(params: SceneParams, scene: Scene) -> Scene:
-    if params.extra_light_pos is not None or params.extra_light_intensity is not None:
-        raise NotImplementedError("extra lights are not served by the PyTorch port yet")
+    """The scene with params' leaves; its topology, uvs and glass tables
+    pass through untrained."""
     return scene._replace(
         verts=params.verts,
         materials=MaterialTable(
@@ -85,7 +86,8 @@ def merge_scene(params: SceneParams, scene: Scene) -> Scene:
             reflective=scene.materials.reflective,
         ),
         light_pos=params.light_pos, light_intensity=params.light_intensity,
-        texture_image=params.texture_image, env_image=params.env_image,
+        texture_image=params.texture_image, extra_light_pos=params.extra_light_pos,
+        extra_light_intensity=params.extra_light_intensity, env_image=params.env_image,
     )
 
 
@@ -252,6 +254,12 @@ def fit(prep, target: torch.Tensor, steps: int = 100, lr: float = 1e-2,
 
     if mesh is not None:
         raise NotImplementedError("the sharded fit (mesh=) is not ported yet")
+    if prep.scene.transmissive is not None:
+        raise NotImplementedError(
+            "fit() optimizes through the Whitted renderer, which has no "
+            "refraction branch — transmissive (dielectric) materials "
+            "are served by the path-traced integrator only "
+            "(render/pathtrace.py)")
     cfg = prep.cfg
 
     def stepping(p):

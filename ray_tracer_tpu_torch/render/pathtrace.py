@@ -2,18 +2,22 @@
 and the GI wave's host side.
 
 Counterpart of `ray_tracer_tpu/render/pathtrace.py` (`_hash_u01`,
-`ray_sample_keys`, `_onb`, `_cosine_sample`, `pathtrace_rays`,
-`gi_wave_eligible`, `use_gi_wave_spec`, `build_gi_wave_tables`,
-`build_gi_wave_tri9`, `_render_pt_wave`, `render_pt`) for the features
-the port serves: Lambertian surfaces with the Lambertian/mirror mix of
-`reflective` materials (gi_specular), one point light through next-event
-estimation (fused into the persistent march, gi_fuse_nee, or a separate
-shadow traversal), the flat background or the scene's environment map
-(by the escaping segment's direction) as escape radiance, textures
-(checker or image, modulating the raw base color before the clip to
-[0, 1]), smooth normals (the parallel convention's vertex normals,
-interpolated and normalized twice), and sample batching
-(gi_sample_batch, which changes no bit).
+`ray_sample_keys`, `_onb`, `_cosine_sample`, `fresnel_refract`,
+`pathtrace_rays`, `gi_wave_eligible`, `use_gi_wave_spec`,
+`build_gi_wave_tables`, `build_gi_wave_tri9`, `_render_pt_wave`,
+`render_pt`): Lambertian surfaces with the Lambertian/mirror mix of
+`reflective` materials (gi_specular); the primary and every extra point
+light through next-event estimation (the one light's shadow fused into
+the persistent march, gi_fuse_nee, else a separate shadow traversal per
+light); the flat background or the scene's environment map (by the
+escaping segment's direction) as escape radiance, and with gi_env_nee the
+environment sampled at every diffuse vertex too, each estimate weighted
+against the other by the balance heuristic (`EnvSampler`); glass
+(transmissive materials: exact Fresnel reflect or refract, opaque to
+shadow rays, as in the JAX package); textures (checker or image,
+modulating the raw base color before the clip to [0, 1]); smooth normals
+(the parallel convention's vertex normals, interpolated and normalized
+twice); and sample batching (gi_sample_batch, which changes no bit).
 
 Sampling is a pure function of each ray's own bits, the sample and the
 depth (the lowbias32 hash), so images are deterministic and independent
@@ -30,9 +34,11 @@ about 1.3% of draws, so images agree bitwise only where radiance does not
 depend on the sampled directions, and statistically elsewhere
 (tests/test_torch_pathtrace.py).
 
-Env NEE, extra lights, transmissive materials and the ring `tracer=` are
-not served (`render.renderer.check_supported` and `pathtrace_rays` raise
-NotImplementedError naming each).
+The environment sampler's tables come from a cumsum and a sum whose
+order XLA and PyTorch take differently, and its lookups from `acos` and
+`atan2`, so env NEE is held to the JAX package statistically
+(tests/test_torch_env_nee.py).  The ring `tracer=` is not served
+(`pathtrace_rays` raises NotImplementedError).
 """
 
 from __future__ import annotations
@@ -141,16 +147,108 @@ def _bg_acc(bg, S: int) -> np.ndarray:
     return acc
 
 
-@torch.no_grad()
+def fresnel_refract(d_unit: torch.Tensor, n: torch.Tensor, entering: torch.Tensor,
+                    ior: torch.Tensor):
+    """The exact (unpolarized) Fresnel response of a dielectric interface
+    -> (F (R,), mirror direction (R,3), Snell direction (R,3)).  d_unit:
+    unit incident directions; n: unit normals oriented against them;
+    entering: where the ray meets the front face (outside index 1); ior:
+    each lane's index of refraction.  Total internal reflection comes out
+    of the equations as F == 1; ior == 1 gives F == 0 at every angle."""
+    one = torch.ones_like(ior)
+    zero = torch.zeros_like(ior)
+    cos_i = torch.clamp(-vm.dot(d_unit, n), 0.0, 1.0)
+    eta = torch.where(entering, one / ior, ior)  # n1/n2 as the ray sees it
+    sin2_t = eta * eta * torch.maximum(1.0 - cos_i * cos_i, zero)
+    cos_t = vm.sqrt(torch.maximum(1.0 - sin2_t, zero))  # 0 under TIR
+    tiny = _f32(1e-20, ior)
+    rs = (eta * cos_i - cos_t) / torch.maximum(eta * cos_i + cos_t, tiny)
+    rp = (eta * cos_t - cos_i) / torch.maximum(eta * cos_t + cos_i, tiny)
+    F = 0.5 * (rs * rs + rp * rp)
+    refl = d_unit + 2.0 * cos_i[:, None] * n
+    refr = eta[:, None] * d_unit + (eta * cos_i - cos_t)[:, None] * n
+    return F, refl, refr
+
+
+class EnvSampler(NamedTuple):
+    """The environment map's importance-sampling tables (gi_env_nee): a
+    piecewise-constant (luminance + 1e-3) x sin(theta) distribution over
+    the lat-long texels, with each row's exact solid angle.  Selection
+    probabilities, so built from the detached map, on the host (the same
+    tables on the card and the CPU) and moved to the device."""
+
+    edges: torch.Tensor  # (He+1,) cos of the row edges
+    dcos: torch.Tensor  # (He,)
+    wtex: torch.Tensor  # (He*We,) texel weights
+    wsum: torch.Tensor  # ()
+    cdf: torch.Tensor  # (He*We,)
+    texel_sr: torch.Tensor  # (He,) a texel's solid angle, row by row
+    width: int
+
+    @staticmethod
+    def build(env_image: torch.Tensor) -> "EnvSampler":
+        env = env_image.detach().to("cpu", torch.float32)
+        he, we = env.shape[0], env.shape[1]
+        pi = torch.tensor(np.pi, dtype=torch.float32)
+        edges = torch.cos(vm.div_scalar(torch.arange(he + 1, dtype=torch.float32), float(he))
+                          * pi)
+        dcos = edges[:-1] - edges[1:]
+        th_c = vm.div_scalar(torch.arange(he, dtype=torch.float32) + 0.5, float(he)) * pi
+        lum = vm.div_scalar(env[..., 0] + env[..., 1] + env[..., 2], 3.0)
+        wtex = ((lum + _f32(1e-3, lum)) * torch.sin(th_c)[:, None]).reshape(-1)
+        wsum = wtex.sum()
+        cdf = torch.cumsum(wtex, 0) / wsum
+        texel_sr = _f32(2.0 * np.pi / we, dcos) * dcos
+        dev = env_image.device
+        return EnvSampler(*(x.to(dev) for x in (edges, dcos, wtex, wsum, cdf, texel_sr)), we)
+
+    def _texel_pdf(self, idx: torch.Tensor, iv: torch.Tensor) -> torch.Tensor:
+        return (self.wtex[idx] / self.wsum) / torch.maximum(self.texel_sr[iv],
+                                                          _f32(1e-12, self.wsum))
+
+    def pdf(self, dirs: torch.Tensor) -> torch.Tensor:
+        """The sampler's per-steradian pdf at unit directions (R,3)."""
+        from ray_tracer_tpu_torch.models.scenes import _to_i32
+
+        we, he = self.width, self.dcos.shape[0]
+        u = vm.div_scalar(torch.atan2(dirs[:, 2], dirs[:, 0]), 2.0 * np.pi) + 0.5
+        v = vm.div_scalar(torch.acos(torch.clamp(dirs[:, 1], -1.0, 1.0)), np.pi)
+        iu = torch.clamp(_to_i32(u * we), 0, we - 1)
+        iv = torch.clamp(_to_i32(v * he), 0, he - 1)
+        return self._texel_pdf(iv * we + iu, iv)
+
+    def sample(self, u01: torch.Tensor, uj1: torch.Tensor, uj2: torch.Tensor):
+        """u01 picks a texel, uj1 and uj2 jitter within it (uniform in
+        cos theta and in phi) -> (unit directions (R,3), their pdf (R,)).
+        cos and sin of phi are taken in float64 and rounded (`cos_sin`)."""
+        we = self.width
+        idx = torch.clamp(torch.searchsorted(self.cdf, u01), 0, self.wtex.shape[0] - 1)
+        iv, iu = idx // we, idx % we
+        cth = self.edges[iv] - uj1 * self.dcos[iv]
+        phi = (vm.div_scalar(iu.to(torch.float32) + uj2, float(we)) - 0.5) * _f32(2.0 * np.pi,
+                                                                                 uj2)
+        st = vm.sqrt(torch.maximum(1.0 - cth * cth, torch.zeros_like(cth)))
+        c, s = cos_sin(phi)
+        return torch.stack([st * c, cth, st * s], dim=-1), self._texel_pdf(idx, iv)
+
+
 def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=None,
                    dda=None, consts=None, vn=None) -> torch.Tensor:
-    """gi_samples Lambertian/mirror paths per input ray -> (R, 3) linear
-    radiance (the segment integrator: one traversal per sample batch and
-    depth, kernel B or C on the card).  dda: kernel B's tables; consts:
-    kernel C's host-held launch values; vn: smooth normals' vertex-normal
-    table in the parallel convention (built here when not given)."""
+    """gi_samples paths per input ray -> (R, 3) linear radiance (the
+    segment integrator: one traversal per sample batch and depth, and one
+    standalone shadow traversal per light and per env-NEE batch unless the
+    one point light's shadow is fused; kernel B or C on the card).  dda:
+    kernel B's tables; consts: kernel C's host-held launch values; vn:
+    smooth normals' vertex-normal table in the parallel convention (built
+    here when not given).
+
+    Differentiable as the JAX package's is: every trace takes detached
+    inputs, and the sampled directions and the branch probabilities are
+    constants, while hit distances, normals, albedos, the Fresnel weights
+    (through ior), the light terms and the environment's values follow
+    the scene's tensors.  `render` runs it under torch.no_grad()."""
     from ray_tracer_tpu_torch.ops.persistent import persistent_trace
-    from ray_tracer_tpu_torch.render.renderer import make_traversal, shadow_rays_for
+    from ray_tracer_tpu_torch.render.renderer import _detached, make_traversal, shadow_rays_for
 
     rcfg = cfg.render
     if rcfg.gi_samples <= 0:
@@ -162,8 +260,10 @@ def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=N
     v0, v1, v2 = scene.triangle_soa()
     tri9 = build_gi_wave_tri9(scene)
     dt = v0.dtype
-    trav = make_traversal(rcfg, grid, meta, v0, v1, v2, dda=dda, consts=consts)
+    trav = make_traversal(rcfg, grid, meta, v0.detach(), v1.detach(), v2.detach(), dda=dda,
+                          consts=consts)
     persistent = rcfg.traversal == "packed" and rcfg.scheduler == "persistent"
+    skw = {"compact": True} if persistent else {}  # shadow batches: live lanes queued
     r = rays.count
     eps = rcfg.shadow_eps
     ddt = {"float32": torch.float32, "float64": torch.float64}[rcfg.det_dtype]
@@ -178,9 +278,22 @@ def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=N
     # modulates the raw base color, clipped to [0, 1] after
     textured = rcfg.texture != "none" and scene.uvs is not None
     bc255_table = vm.div_scalar(scene.materials.base_color, 255.0) if textured else None
-    lp, li = scene.light_pos, scene.light_intensity
+    # glass: a delta interface (no NEE, no mirror mix, no albedo), where an
+    # exact-Fresnel draw reflects or refracts
+    has_diel = scene.transmissive is not None
+    if has_diel:
+        trans_table, ior_table = scene.transmissive, scene.ior.to(dt)
+    # point lights: the primary and the extras, each by next-event estimation
+    lights = [(scene.light_pos, scene.light_intensity)]
+    if scene.extra_light_pos is not None:
+        lights += [(scene.extra_light_pos[i], scene.extra_light_intensity[i])
+                   for i in range(scene.extra_light_pos.shape[0])]
+    env_nee = rcfg.gi_env_nee and scene.env_image is not None
+    sampler = EnvSampler.build(scene.env_image) if env_nee else None
     ray_ids = ray_sample_keys(rays.orig, rays.dirn)
-    fuse_nee = persistent and rcfg.gi_fuse_nee
+    # the one point light's shadow rides the persistent march
+    fuse_nee = persistent and rcfg.gi_fuse_nee and len(lights) == 1
+    lp0 = scene.light_pos.detach().to(torch.float32)
     inv_pi = _f32(_INV_PI, v0)
     tiny = _f32(1e-20, v0)
 
@@ -191,18 +304,22 @@ def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=N
         path_alive = torch.ones((rr,), dtype=torch.bool, device=dev)
         inf3 = torch.full((rr, 3), float("inf"), dtype=dt, device=dev)
         z3 = torch.zeros_like(radiance)
+        # the cosine pdf of the segment's sampled direction (0 for camera
+        # and mirror segments: weight 1 on escape)
+        bsdf_pdf = torch.zeros((rr,), dtype=torch.float32, device=dev)
         for depth in range(rcfg.gi_depth + 1):
             gate = rcfg.primary_gate() if depth == 0 else rcfg.bounce_gate()
+            cur_sg = _detached(cur)
             if fuse_nee:
                 res = persistent_trace(
-                    cur, grid, meta, lp.to(torch.float32), wave=rcfg.wave, pump=rcfg.pump,
+                    cur_sg, grid, meta, lp0, wave=rcfg.wave, pump=rcfg.pump,
                     t_gate=0.0 if gate is None else gate, fuse_shadow=True, shadow_gate=eps,
                     shadow_mint=rcfg.shadow_mint(),
                     serial_quirk=rcfg.shadow_dir_away_from_light(), need_t=False,
                     compact=depth > 0, consts=consts)
             else:
                 tkw = {"compact": depth > 0} if persistent else {}
-                res = trav(cur, t_gate=gate, **tkw)
+                res = trav(cur_sg, t_gate=gate, **tkw)
             res_hit = res.hit
             hit = res_hit & path_alive
             # escape: the environment by this segment's direction (or the
@@ -212,12 +329,19 @@ def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=N
                 env = scene.sample_env(vm.normalize(cur.dirn)).to(dt)
             else:
                 env = background.expand(rr, 3)
+            if env_nee:
+                # balance-heuristic MIS against the env sampler at the
+                # previous diffuse vertex
+                pe = sampler.pdf(vm.normalize(cur_sg.dirn.to(torch.float32)))
+                w_mis = torch.where(bsdf_pdf > 0.0, bsdf_pdf / (bsdf_pdf + pe),
+                                    torch.ones_like(pe)).to(dt)
+                env = env * w_mis[:, None]
             radiance = radiance + torch.where(escaped[:, None], throughput * env, z3)
 
             tri = torch.clamp(res.tri_id, min=0).long()
-            tv = tri9[tri]
+            tv = vm.take(tri9, tri)
             tv0, tv1, tv2 = tv[:, 0:3], tv[:, 3:6], tv[:, 6:9]
-            mat = tv[:, 9].to(torch.int32)
+            mat = tv[:, 9].detach().to(torch.int32)
             t_re = cramer_t_safe(cur.orig, cur.dirn, tv0, tv1, tv2, res_hit, det_dtype=ddt)
             t = torch.where(res_hit, t_re.to(dt), torch.zeros_like(t_re).to(dt))
             orig_safe = torch.where(res_hit[:, None], cur.orig, torch.zeros_like(cur.orig))
@@ -232,57 +356,107 @@ def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=N
             flip = vm.dot(n, cur.dirn) > 0.0
             n = torch.where(flip[:, None], -n, n)
             mat_c = torch.clamp(mat, 0, n_mats - 1).long()
+            diel = hit & trans_table[mat_c] if has_diel else torch.zeros_like(hit)
             if textured:
                 uv = scene.interpolate_uv(tri, hb.to(dt), hg.to(dt))
                 has_uv = scene.uv_faces[tri][:, 0] >= 0
                 tex = texture_factor(uv, has_uv, hit, rcfg.texture, rcfg.texture_scale,
                                      scene.texture_image, dt)
-                albedo = torch.clamp(bc255_table[mat_c] * tex, 0.0, 1.0)
+                albedo = torch.clamp(vm.take(bc255_table, mat_c) * tex, 0.0, 1.0)
             else:
-                albedo = albedo_table[mat_c]
+                albedo = vm.take(albedo_table, mat_c)
 
             # the Lambertian/mirror branch: one draw a (pixel, sample,
-            # depth) takes the mirror with probability km; both branch
-            # weights are km/km and (1-km)/(1-km), exactly 1
+            # depth) takes the mirror with probability km (glass lanes sit
+            # outside the mix); the weights divide by the constant
+            # probability, each exactly 1 in value
             if rcfg.gi_specular:
-                km_d = km_table[mat_c]
-                p_spec = km_d
+                km_d = vm.take(km_table, mat_c)
+                p_spec = km_d.detach()
                 u3 = _hash_u01(key, 0x85EBCA77 * (depth + 1) + 13)
-                spec = hit & (u3.to(dt) < p_spec)
+                spec = hit & ~diel & (u3.to(dt) < p_spec)
                 one = torch.ones_like(km_d)
                 w_branch = torch.where(
                     spec, km_d / torch.where(p_spec > 0, p_spec, one),
                     (1.0 - km_d) / torch.where(p_spec < 1, 1.0 - p_spec, one))
-                throughput = throughput * w_branch[:, None]
+                throughput = throughput * torch.where(diel, one, w_branch)[:, None]
             else:
                 spec = torch.zeros_like(hit)
 
-            # next-event estimation at the diffuse vertices
-            to_l = lp - poi
-            d2 = vm.dot(to_l, to_l)
-            wl = to_l / vm.sqrt(torch.maximum(d2, tiny))[:, None]
-            cos_i = torch.maximum(vm.dot(n, wl), torch.zeros_like(d2))
-            if fuse_nee:
-                unoccluded = hit & ~spec & ~res.in_shadow
-            else:
-                srays = shadow_rays_for(rcfg, lp, poi, hit)
-                skw = {"compact": True} if persistent else {}
-                occ = trav(srays, t_gate=eps, stop_on_first_hit=True, **skw).hit
-                unoccluded = hit & ~spec & ~occ
-            direct = albedo * inv_pi * (li * cos_i / torch.maximum(d2, tiny))[:, None]
-            radiance = radiance + torch.where(unoccluded[:, None], throughput * direct, z3)
+            # next-event estimation toward each point light at the diffuse
+            # vertices
+            for lp, li in lights:
+                to_l = lp - poi
+                d2 = vm.dot(to_l, to_l)
+                wl = to_l / vm.sqrt(torch.maximum(d2, tiny))[:, None]
+                cos_i = torch.maximum(vm.dot(n, wl), torch.zeros_like(d2))
+                if fuse_nee:
+                    occ = res.in_shadow
+                else:
+                    srays = _detached(shadow_rays_for(rcfg, lp, poi, hit))
+                    occ = trav(srays, t_gate=eps, stop_on_first_hit=True, **skw).hit
+                unoccluded = hit & ~spec & ~diel & ~occ
+                direct = albedo * inv_pi * (li * cos_i / torch.maximum(d2, tiny))[:, None]
+                radiance = radiance + torch.where(unoccluded[:, None], throughput * direct, z3)
+
+            # environment NEE: one env-sampled direction a diffuse vertex,
+            # shadow-tested for a clear escape, MIS-weighted against the
+            # cosine sampler
+            if env_nee:
+                u4 = _hash_u01(key, 0x68E31DA4 * (depth + 1) + 3)
+                u5 = _hash_u01(key, 0x7F4A7C15 * (depth + 1) + 11)
+                u6 = _hash_u01(key, 0x94D049BB * (depth + 1) + 29)
+                edir, epdf = sampler.sample(u4, u5, u6)
+                edir = edir.to(dt)
+                cos_e = vm.dot(n, edir)
+                cos_e = torch.maximum(cos_e, torch.zeros_like(cos_e))
+                live_e = hit & ~spec & ~diel & (cos_e > 0.0)
+                erays = _detached(RayBatch.make(torch.where(live_e[:, None], poi, inf3), edir,
+                                                mint=eps))
+                e_occ = trav(erays, t_gate=eps, stop_on_first_hit=True, **skw).hit
+                clear = live_e & ~e_occ
+                l_env = scene.sample_env(edir).to(dt)
+                pc_e = cos_e.detach().to(torch.float32) * inv_pi
+                w_nee = (epdf / (epdf + pc_e)).to(dt)
+                contrib = (albedo * inv_pi * l_env
+                           * (cos_e / torch.maximum(epdf, _f32(1e-12, epdf)).to(dt)
+                              * w_nee)[:, None])
+                radiance = radiance + torch.where(clear[:, None], throughput * contrib, z3)
 
             if depth == rcfg.gi_depth:
                 break
+            n_sg = n.detach()
             u1 = _hash_u01(key, 0x1000193 * (depth + 1))
             u2 = _hash_u01(key, 0x5BD1E995 * (depth + 1) + 7)
-            ndir = _cosine_sample(n, u1, u2)
+            ndir = _cosine_sample(n_sg, u1, u2)
             if rcfg.gi_specular:
-                mdir = cur.dirn - 2.0 * vm.dot(cur.dirn, n)[:, None] * n
+                mdir = cur_sg.dirn - 2.0 * vm.dot(cur_sg.dirn, n_sg)[:, None] * n_sg
                 ndir = torch.where(spec[:, None], mdir, ndir)
-            ndir = ndir.to(dt)
-            throughput = throughput * torch.where(spec[:, None], torch.ones_like(albedo),
-                                                  albedo)
+            if has_diel:
+                # glass: one draw reflects with probability F (total
+                # internal reflection gives F == 1), each branch weighted
+                # by its Fresnel factor over the constant probability;
+                # untinted by base_color
+                F, refl_dir, refr_dir = fresnel_refract(
+                    vm.normalize(cur.dirn), n, ~flip, vm.take(ior_table, mat_c))
+                p_refl = F.detach()
+                u7 = _hash_u01(key, 0xA0761D65 * (depth + 1) + 17)
+                refl_d = diel & (u7.to(dt) < p_refl)
+                one = torch.ones_like(F)
+                w_diel = torch.where(
+                    refl_d, F / torch.where(p_refl > 0, p_refl, one),
+                    (1.0 - F) / torch.where(p_refl < 1, 1.0 - p_refl, one))
+                throughput = throughput * torch.where(diel, w_diel, one)[:, None]
+                ndir = torch.where(diel[:, None],
+                                   torch.where(refl_d[:, None], refl_dir, refr_dir), ndir)
+            ndir = ndir.detach().to(dt)
+            if env_nee:
+                # the next segment's cosine pdf, for its escape's MIS weight
+                pc_next = torch.maximum(vm.dot(n_sg.to(torch.float32), ndir.to(torch.float32)),
+                                        torch.zeros_like(bsdf_pdf)) * inv_pi
+                bsdf_pdf = torch.where(spec | diel | ~hit, torch.zeros_like(pc_next), pc_next)
+            throughput = throughput * torch.where((spec | diel)[:, None],
+                                                  torch.ones_like(albedo), albedo)
             path_alive = hit
             cur = RayBatch.make(torch.where(hit[:, None], poi, inf3), ndir, mint=eps)
         return radiance
@@ -313,9 +487,13 @@ def gi_wave_eligible(cfg: SceneConfig, scene=None) -> bool:
     never, "auto" when eligible, "on" requires it (ValueError when
     ineligible).  Environment maps, textures and smooth normals are
     eligible; an environment map with gi_env_nee is not (the scene, when
-    given, says whether it has one).  The JAX test on extra lights and
-    dielectrics always passes here: the port serves neither."""
+    given, says whether it has one), and neither are extra lights nor glass
+    (the scene's, when given; else cfg's)."""
+    from ray_tracer_tpu_torch.render.renderer import has_extra_lights
+
     rcfg = cfg.render
+    glass = (scene.transmissive is not None if scene is not None
+             else any(m.transmissive for m in cfg.materials))
     knob = rcfg.gi_wave
     if knob == "off":
         return False
@@ -327,6 +505,8 @@ def gi_wave_eligible(cfg: SceneConfig, scene=None) -> bool:
         and rcfg.det_dtype == "float32"
         and rcfg.dtype == "float32"
         and not (scene is not None and scene.env_image is not None and rcfg.gi_env_nee)
+        and not has_extra_lights(cfg, scene)
+        and not glass
     )
     if knob == "on" and not ok:
         raise ValueError(

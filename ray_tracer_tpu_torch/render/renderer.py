@@ -31,12 +31,19 @@ grid:
     hit's base color, smooth normals replace the facet normal's direction
     (vertex normals built once by `frame_setup`), and misses see the
     scene's environment map by this depth's ray direction instead of the
-    flat background.
+    flat background;
+  * the shadow-side epilogues: every extra point light adds its own
+    shadow-tested direct term (ambient rides the primary light's, once),
+    and an area light (shadow_samples > 1, light_radius > 0) averages the
+    occlusion of a fixed sample set (`occlusion_toward`), whose rays ride
+    standalone traces of shadow_sample_batch samples each; the fused
+    march then keeps only the primary point light's shadow.
 
 gi_samples > 0 renders path-traced instead (`render/pathtrace.py`: the
 GI wave, kernel F, when `gi_wave_eligible`, else the segment
-integrator).  Options of `RenderConfig` outside this slice raise
-NotImplementedError (`check_supported`); none is silently ignored.
+integrator).  Transmissive (glass) materials render path-traced only, as
+in the JAX package.  dtype="float64" raises NotImplementedError
+(`check_supported`); no option is silently ignored.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ from ray_tracer_tpu_torch.core.rays import RayBatch
 from ray_tracer_tpu_torch.device import resolve_device
 from ray_tracer_tpu_torch.models.scenes import (
     Scene,
+    extra_light_tables,
     scene_from_numpy,
     scene_numpy_arrays,
     texture_factor,
@@ -69,9 +77,13 @@ from ray_tracer_tpu_torch.ops.camera import (
 )
 from ray_tracer_tpu_torch.ops.intersect import cramer_bg_safe, cramer_t_safe, intersect_brute
 from ray_tracer_tpu_torch.ops.shade import (
+    apply_shadow,
     hit_geometry_parallel,
     hit_geometry_serial,
     interpolate_normal,
+    light_sample_offsets,
+    shade_direct_parallel,
+    shade_direct_serial,
     shade_parallel,
     shade_serial,
     vertex_normals,
@@ -98,6 +110,19 @@ TRAVERSALS = ("csr", "brute", "brute_pallas", "packed")
 _DET_DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
+def has_extra_lights(cfg: SceneConfig, scene: Scene = None) -> bool:
+    """Does the frame shade extra point lights?  The scene's when one is
+    given, and cfg's, which `prepare` attaches to a scene without them."""
+    return bool(cfg.extra_lights) or (scene is not None
+                                      and getattr(scene, "extra_light_pos", None) is not None)
+
+
+def soft_shadows(rcfg: RenderConfig) -> bool:
+    """Area-light soft shadows: several shadow samples of a light of
+    positive radius."""
+    return rcfg.shadow_samples > 1 and rcfg.light_radius > 0.0
+
+
 def whitted_wave_eligible(cfg: SceneConfig, scene: Scene = None) -> bool:
     """Would the JAX package render this config through the cross-depth
     Whitted wave (ray_tracer_tpu/render/renderer.py:836-872)?
@@ -118,10 +143,10 @@ def whitted_wave_eligible(cfg: SceneConfig, scene: Scene = None) -> bool:
         and rcfg.normal_mode != "smooth"
         and (rcfg.texture == "none" or (scene is not None and scene.uvs is None))
         and (scene is None or scene.env_image is None)
-        and not cfg.extra_lights
+        and not has_extra_lights(cfg, scene)
         and rcfg.soft_visibility <= 0.0
         and rcfg.soft_primary <= 0.0
-        and not (rcfg.shadow_samples > 1 and rcfg.light_radius > 0)
+        and not soft_shadows(rcfg)
         and not (cfg.camera.aperture > 0.0 and rcfg.spp <= 1)
     )
     if knob == "on" and not ok:
@@ -143,19 +168,13 @@ def check_supported(cfg: SceneConfig, scene: Scene = None) -> bool:
     ineligible config raises ValueError, as in the JAX package's render).
     A path-traced config (gi_samples > 0) never takes the Whitted wave,
     and its own wave is `pathtrace.gi_wave_eligible`'s to decide (gi_wave
-    "on" with an ineligible config raises ValueError there)."""
+    "on" with an ineligible config raises ValueError there).  A
+    transmissive scene prepares either way; its Whitted render raises
+    (`render`), as in the JAX package."""
     r = cfg.render
     bad = []
     if r.traversal not in TRAVERSALS:
         bad.append(f"traversal={r.traversal!r}")
-    if r.shadow_samples != 1 or r.light_radius != 0.0:
-        bad.append("area-light soft shadows")
-    if cfg.extra_lights:
-        bad.append("extra lights")
-    if any(m.transmissive for m in cfg.materials):
-        bad.append("transmissive materials")
-    if r.gi_samples > 0 and r.gi_env_nee:
-        bad.append("gi_env_nee (environment maps)")
     if r.dtype != "float32":
         bad.append(f"dtype={r.dtype!r}")
     if bad:
@@ -167,7 +186,7 @@ def check_supported(cfg: SceneConfig, scene: Scene = None) -> bool:
     if r.texture not in ("none", "checker", "image"):
         raise ValueError(f"unknown texture mode {r.texture!r}")
     env = scene is not None and scene.env_image is not None
-    if r.faithful and (r.normal_mode == "smooth" or env):
+    if r.faithful and (r.normal_mode == "smooth" or env or soft_shadows(r)):
         raise ValueError("smooth normals / area-light soft shadows / environment maps "
                          "require faithful=False")
     if r.spp < 1:
@@ -212,7 +231,9 @@ def _soften(srays: RayBatch, occ, tri10, shadow_tri, shadow_hit_rec, ddt, s: flo
     barycentric margin, recomputed from the differentiable vertices,
     squashed to sigmoid(margin / s): 1 deep inside the blocker, 0.5 at
     its silhouette, 0 where no shadow ray was occluded.  Hard occlusion
-    has zero-measure gradients."""
+    has zero-measure gradients.  s <= 0 (off) returns occ as it is."""
+    if s <= 0.0:
+        return occ
     stv = vm.take(tri10, torch.clamp(shadow_tri, min=0).long())
     sbeta, sgamma = cramer_bg_safe(srays.orig, srays.dirn, stv[:, 0:3], stv[:, 3:6],
                                    stv[:, 6:9], shadow_hit_rec, det_dtype=ddt)
@@ -298,17 +319,23 @@ def prepare(cfg: SceneConfig, scene: Scene = None, device=None) -> Prepared:
     for a config that takes the Whitted wave, kernel E's
     (`build_wave_tables`), and for one that takes the GI wave, kernel F's
     (`build_gi_wave_tables`), are derived there once, and so are the frame
-    facts (`frame_setup`, the smooth normals' vertex normals among them)."""
+    facts (`frame_setup`, the smooth normals' vertex normals among them).
+    cfg.extra_lights are attached to a given scene that has none (a scene
+    that carries extra lights keeps its own), as in the JAX package."""
     check_supported(cfg, scene)  # raise before any work
     if scene is None:
         dev = resolve_device(device)
         verts_np, faces_np, fmat_np, uvs_np, uvf_np = scene_numpy_arrays(cfg)
         scene = scene_from_numpy(verts_np, faces_np, fmat_np, cfg.materials,
-                                 cfg.light, uvs_np, uvf_np, device=dev)
+                                 cfg.light, uvs_np, uvf_np, device=dev,
+                                 extra_lights=cfg.extra_lights)
     else:
         dev = scene.device
         if device is not None and resolve_device(device) != dev:
             raise ValueError(f"scene lies on {dev}, not on {device}")
+        if cfg.extra_lights and scene.extra_light_pos is None:
+            scene = scene._replace(**extra_light_tables(cfg.extra_lights, scene.verts.dtype,
+                                                        dev))
         verts_np = scene.verts.cpu().numpy()
         faces_np = scene.faces.cpu().numpy()
     grid = build_grid(
@@ -461,9 +488,16 @@ def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
                           consts=consts)
     light_sg = scene.light_pos.detach()
     persistent = rcfg.traversal == "packed" and rcfg.scheduler == "persistent"
-    # one march for primary + shadow (soft shadows, which need several
-    # shadow rays, raise in check_supported)
-    fused = rcfg.traversal == "packed" and rcfg.fused_shadow
+    area = soft_shadows(rcfg)
+    # one march for primary + shadow: the fused march traces one shadow
+    # ray toward the light's centre, so an area light takes the
+    # standalone shadow traces
+    fused = rcfg.traversal == "packed" and rcfg.fused_shadow and not area
+    offsets = None
+    if area:
+        # the area light's sample set, on the device once a call
+        offsets = torch.from_numpy(
+            light_sample_offsets(rcfg.shadow_samples, rcfg.light_radius)).to(v0.device)
 
     r = rays.count
     cur = rays
@@ -557,18 +591,48 @@ def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
             unit = interpolate_normal(vn, scene.faces, tri, hb.to(v0.dtype), hg.to(v0.dtype))
             geom = geom._replace(normal=unit * vm.length(geom.normal)[:, None])
 
-        soft = rcfg.soft_visibility > 0.0
-        srays = None
-        if fres is None or soft:
-            srays = _detached(shadow_rays_for(rcfg, scene.light_pos, geom.poi, hit))
+        # shadow batches past depth 0 are mostly dead (only reflecting
+        # lanes have finite origins), and so are an area light's sample
+        # batches at every depth: the persistent wave queues live rays only
+        skw = {"compact": depth > 0 or area} if persistent else {}
+
+        def occlusion_toward(lp):
+            """Occlusion toward light position lp, for the primary light's
+            standalone path and every extra light alike: one shadow ray's
+            (bool, or soft visibility's float), or with an area light the
+            mean over the sample set as a float factor.  Up to
+            shadow_sample_batch samples' rays ride one trace; each
+            sample's occlusion is added in sample order, so the image does
+            not depend on the batch size."""
+            if not area:
+                srays = _detached(shadow_rays_for(rcfg, lp, geom.poi, hit))
+                sres = trav(srays, t_gate=eps, stop_on_first_hit=early, **skw)
+                return _soften(srays, rcfg.accepted_hit(sres) & hit, tri10, sres.tri_id,
+                               sres.hit, ddt, rcfg.soft_visibility)
+            n_s = rcfg.shadow_samples
+            step = max(1, min(rcfg.shadow_sample_batch, n_s))
+            occ = torch.zeros((r,), dtype=torch.float32, device=v0.device)
+            for s0 in range(0, n_s, step):
+                batches = [_detached(shadow_rays_for(rcfg, lp + off, geom.poi, hit))
+                           for off in offsets[s0:s0 + step]]
+                srays_all = (batches[0] if len(batches) == 1
+                             else RayBatch(*(torch.cat(xs) for xs in zip(*batches))))
+                sres = trav(srays_all, t_gate=eps, stop_on_first_hit=early, **skw)
+                for j, srays in enumerate(batches):
+                    sres_j = type(sres)(*(x[j * r:(j + 1) * r] for x in sres))
+                    occ = occ + _soften(srays, rcfg.accepted_hit(sres_j) & hit, tri10,
+                                        sres_j.tri_id, sres_j.hit, ddt,
+                                        rcfg.soft_visibility).to(torch.float32)
+            return vm.div_scalar(occ, float(n_s))
+
         if fres is not None:
-            in_shadow, stri, srec = fres.in_shadow & hit, fres.shadow_tri_id, fres.in_shadow
+            srays = None
+            if rcfg.soft_visibility > 0.0:
+                srays = _detached(shadow_rays_for(rcfg, scene.light_pos, geom.poi, hit))
+            in_shadow = _soften(srays, fres.in_shadow & hit, tri10, fres.shadow_tri_id,
+                                fres.in_shadow, ddt, rcfg.soft_visibility)
         else:
-            skw = {"compact": depth > 0} if persistent else {}
-            sres = trav(srays, t_gate=eps, stop_on_first_hit=early, **skw)
-            in_shadow, stri, srec = rcfg.accepted_hit(sres) & hit, sres.tri_id, sres.hit
-        if soft:
-            in_shadow = _soften(srays, in_shadow, tri10, stri, srec, ddt, rcfg.soft_visibility)
+            in_shadow = occlusion_toward(scene.light_pos)
 
         if serial:
             color = shade_serial(geom, mat, scene.light_pos, scene.light_intensity,
@@ -576,6 +640,19 @@ def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
         else:
             color = shade_parallel(geom, mat, scene.light_pos, in_shadow,
                                    rcfg.shadow_scale)
+        if scene.extra_light_pos is not None:
+            # each extra light adds its shadow-tested direct term (ambient
+            # rode the primary term above, once), each through its own
+            # standalone shadow trace
+            for i in range(scene.extra_light_pos.shape[0]):
+                lp = scene.extra_light_pos[i]
+                li = scene.extra_light_intensity[i]
+                occ_i = occlusion_toward(lp)
+                if serial:
+                    direct = shade_direct_serial(geom, mat, lp, li)
+                else:
+                    direct = shade_direct_parallel(geom, mat, lp) * li
+                color = color + apply_shadow(direct, occ_i, rcfg.shadow_scale)
 
         if scene.env_image is not None:
             # misses see the environment by this depth's ray direction
@@ -671,6 +748,12 @@ def render(prep: Prepared) -> torch.Tensor:
     setup = prep.frame()
     if cfg.render.gi_samples > 0:
         return render_pt(prep, setup)
+    if prep.scene.transmissive is not None:
+        raise NotImplementedError(
+            "transmissive (dielectric) materials are served by the "
+            "path-traced integrator only — set render.gi_samples > 0 "
+            "(the Whitted recursion has no refraction branch, matching "
+            "the reference's mirror-only materials)")
     if setup.wave:
         return _render_whitted_wave(prep, setup)
     rcfg = cfg.render

@@ -257,5 +257,4 @@ def test_gi_wave_takes_env_maps_but_not_env_nee():
     assert not pt.gi_wave_eligible(nee, prep.scene) and not jax_pt.gi_wave_eligible(jnee)
     with pytest.raises(ValueError, match="ineligible"):
         pt.gi_wave_eligible(_replace(nee, gi_wave="on"), prep.scene)
-    with pytest.raises(NotImplementedError, match="gi_env_nee"):
-        prepare(nee, scene=prep.scene)
+    assert not prepare(nee, scene=prep.scene).setup.gi_wave

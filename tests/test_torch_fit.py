@@ -307,6 +307,6 @@ def test_cli_fit_on_gradcheck(tmp_path):
     assert "step 0 loss" in out.stderr
     bad = subprocess.run(
         [sys.executable, "-m", "ray_tracer_tpu_torch.cli", "fit", "--width", "8", "--steps", "1",
-         "--device", "cpu", "--extra-light", "1,2,3"],
+         "--device", "cpu", "--config", "scene.json"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert bad.returncode != 0 and "NotImplementedError" in bad.stderr

@@ -130,15 +130,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     dict(extra_lights=True, traversal="packed", scheduler="persistent", faithful=False),
 ])
 def test_unsupported_options_raise(change):
-    """Options outside the slice raise NotImplementedError; none is
-    silently ignored.  (The packed traversal, spp, depth of field, the
-    Whitted wave, path-traced GI, textures, smooth normals, environment
-    maps, soft visibility and soft primary are served; area-light soft
-    shadows, float64 rendering, extra lights and, in the path tracer, env
-    NEE and glass are not.)"""
+    """dtype="float64" raises NotImplementedError; none is silently
+    ignored.  The options of this table that the port refused before it
+    served them (area-light soft shadows, extra lights and, in the path
+    tracer, env NEE and glass) now prepare and render."""
     from ray_tracer_tpu_torch.config import LightConfig, MaterialConfig
     from ray_tracer_tpu_torch.models.scenes import serial_scene_config
-    from ray_tracer_tpu_torch.render.renderer import prepare
+    from ray_tracer_tpu_torch.render.renderer import prepare, render
 
     cfg = serial_scene_config(8, 8)
     change = dict(change)
@@ -147,8 +145,12 @@ def test_unsupported_options_raise(change):
     if change.pop("transmissive", False):
         cfg = dataclasses.replace(cfg, materials=(MaterialConfig(transmissive=True, ior=1.5),))
     cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, **change))
-    with pytest.raises(NotImplementedError):
-        prepare(cfg, device="cpu")
+    if cfg.render.dtype == "float64":
+        with pytest.raises(NotImplementedError):
+            prepare(cfg, device="cpu")
+        return
+    img = render(prepare(cfg, device="cpu"))
+    assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
 
 
 @pytest.mark.parametrize("change", [

@@ -160,5 +160,6 @@ def test_whitted_wave_knob_follows_jax():
     gi = _replace(apply_turbo(base, "parallel"), gi_samples=1, whitted_wave="on")
     assert check_supported(gi) is False
     assert check_supported(_replace(gi, texture="checker")) is False
-    with pytest.raises(NotImplementedError, match="extra lights"):
-        check_supported(dataclasses.replace(gi, extra_lights=(gi.light,)))
+    assert check_supported(dataclasses.replace(gi, extra_lights=(gi.light,))) is False
+    with pytest.raises(NotImplementedError, match="dtype"):
+        check_supported(_replace(gi, dtype="float64"))
