@@ -11,10 +11,12 @@ row (`SUITE`, bench.py:173-190) with the knobs bench.py derives from
 TUNED_KNOBS (bench.py:373-447): the packed grid at the family's row width,
 grid resolution and SAT-exact insertion, the persistent wave at its wave
 and pump, the Whitted wave's own knee on the parallel scene and gi_pump on
-the GI row.  bench.py picks `fused_shadow` and `camera_refill` by measured
-probes, which the port does not have yet: every row here runs with
-fused_shadow on (the turbo default) and camera_refill "auto" (which
-changes no bit and no launch in the port), and the row says so.
+the GI row.  `fused_shadow` and `camera_refill` come from the measured
+probes after prepare, as bench.py:459-473 takes them
+(`render/metrics.choose_fused_shadow`: on under the persistent scheduler,
+else by the coverage probe; `choose_camera_refill`: "on" where at least
+45% of the camera rays miss the grid's box, else "off"); each row prints
+the picks and the probes' wall time.
 
 Per row, after a warm-up frame (the first includes the kernels' build):
 `--rounds` chains of `--repeat` frames, each chain timed with CUDA events
@@ -129,6 +131,24 @@ def gi_segments(prep) -> dict:
     return ev
 
 
+def probed(prep):
+    """(prep with bench.py's probed knobs, the probes' record):
+    fused_shadow from choose_fused_shadow, camera_refill "on" or "off" from
+    choose_camera_refill, and the frame facts settled again."""
+    from ray_tracer_tpu_torch.render.metrics import choose_camera_refill, choose_fused_shadow
+    from ray_tracer_tpu_torch.render.renderer import frame_setup
+
+    t0 = time.perf_counter()
+    fused = choose_fused_shadow(prep)
+    refill = "on" if choose_camera_refill(prep) else "off"
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cfg = dataclasses.replace(prep.cfg, render=dataclasses.replace(
+        prep.cfg.render, fused_shadow=fused, camera_refill=refill))
+    prep = prep._replace(cfg=cfg, setup=frame_setup(cfg, prep.scene, prep.packed))
+    return prep, {"fused_shadow": fused, "camera_refill": refill, "seconds": secs}
+
+
 def bench_row(workload: str, prep, repeat: int, rounds: int) -> dict:
     from ray_tracer_tpu_torch.render.renderer import render
     from ray_tracer_tpu_torch.tools.profiling import profile_render
@@ -168,8 +188,7 @@ def bench_row(workload: str, prep, repeat: int, rounds: int) -> dict:
                      "pump": rc.pump, "grid": list(prep.packed.meta.n_voxels),
                      "inline": prep.packed.meta.inline, "exact": rc.grid.exact_overlap,
                      "whitted_wave": rc.whitted_wave, "gi_wave": rc.gi_wave,
-                     "fused_shadow": rc.fused_shadow, "camera_refill": rc.camera_refill,
-                     "probes": "not ported: fused_shadow and camera_refill are fixed"}}
+                     "fused_shadow": rc.fused_shadow, "camera_refill": rc.camera_refill}}
     if gi:
         ev = gi_segments(prep)
         paths = size * size * gi
@@ -278,11 +297,14 @@ def main(argv=None) -> int:
             prep = nef._replace(cfg=cfg, setup=frame_setup(cfg, nef.scene, nef.packed))
         torch.cuda.synchronize()
         prep_s = time.perf_counter() - t0
+        prep, probes = probed(prep)
+        log(f"{workload}: probes {probes}")
         if workload == "train_nefertiti_1024":
             row = bench_train(workload, prep, max(args.rounds, 1))
         else:
             row = bench_row(workload, prep, max(args.repeat, 2), max(args.rounds, 1))
-        row.update(prepare_s=prep_s, card=card, device=torch.cuda.get_device_name(0))
+        row.update(prepare_s=prep_s, probes=probes, card=card,
+                   device=torch.cuda.get_device_name(0))
         print(json.dumps(row), flush=True)
         out.append(row)
     print(json.dumps({"rows": out, "card": card, "device": torch.cuda.get_device_name(0),

@@ -131,6 +131,29 @@ each printing one JSON line:
      rtol 1e-4, atol 1e-6 max|g|.  The lights' positions are LIGHTS_A,
      LIGHTS_B, LIGHTS_C and LIGHTS_FIT below.
 
+ 14. dtype="float64" (phase float64), at 1024x1024 through prepare +
+     render: the csr serial frame with float32 and with float64 dets
+     (kernel B's f64-ray instantiations: the launch counter of float64
+     rays rises, and every launch is held bitwise to the plain version at
+     its own inputs, records and rows tested), the turbo serial frame (C
+     on float32 copies of the rays, the epilogue on the float64 rays) and
+     the GI segment integrator at 256x256 (S 4, D 2; the GI wave refuses
+     float64), each a float64 image, timed beside its float32 frame
+     (CUDA events, kernels a frame, busy and idle); at 64x64 card against
+     CPU, the csr frame with float64 dets by its PPM bytes and the others
+     by the 2-count rule.
+ 15. the inspection path (phase inspect), on the turbo serial scene and
+     the csr serial scene at 1024x1024: render_aovs (one launch, ids and
+     flags its record's), render_ao at 16 samples (a primary and 16
+     any-hit launches), every launch of B and C held bitwise to the plain
+     version; trace_pixel at three pixels, each the frame's primary
+     record there; render_banded with 8 bands, the same floats as
+     render(); collect_render_metrics (its two launches of C held) and the
+     three probes with their picks and wall times on the bench's
+     spot_1024 and nefertiti_1024 rows; the command line's stats, debug,
+     aov and info at 256x256 as subprocesses, each exiting 0 with output
+     that parses.
+
 Then the kernel times at the main path's shapes (each launch held
 bitwise to the plain version; B's, C's and E's barycentric passes, and
 E's camera rays, vertices and reflections, counted for their operation
@@ -139,7 +162,13 @@ lane utilisation before and after its redesign, on lines of their own;
 F's device time as the sum of its kernels and memset, each stage's
 beside it, its lane utilisation before and after its redesign, its
 events over launches, its plain version once and its bound from its
-counters, with ptxas's registers and spills),
+counters, with ptxas's registers and spills; B's f64-ray instantiations
+on the 1024^2 csr frame's float64 camera rays, float32 and float64 dets,
+each held bitwise to the plain version, with registers and spills and a
+bound from the tests at the determinants' rate and the float64 DDA steps
+at the FP64 rate; the JAX package's K7, the all-pairs hit as six matrix
+products, on 16,384 rays against the serial scene's triangles beside the
+six torch.matmul products alone and the Cramer sweep),
 a `kernels` line, the card line, and last {"ok": true, "device": {...}}.  Any
 failure raises and exits non-zero; without a CUDA device it exits
 non-zero before any phase.
@@ -158,6 +187,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
@@ -180,6 +210,18 @@ OPS_PER_PAIR_A = 51
 # (1).  The kernels count the passes of this run's data.
 OPS_PER_FAILED_TEST = 48
 OPS_PER_PASSED_TEST = 61
+# H100 SXM FP64 outside the tensor cores (NVIDIA data sheet: 34 TFLOP/s,
+# a fused multiply-add counted as two operations), unfused as for FP32.
+PEAK_FP64_UNFUSED = 34e12 / 2
+# Float64 operations per DDA step of kernel B's f64-ray instantiations: the
+# three crossing comparisons, the early-exit minimum, the move comparison
+# and the crossing's advance (two selects not counted).
+OPS_PER_STEP_B_F64 = 6
+# FP32 operations per (ray, triangle) pair of K7 (ops/intersect.py
+# mxu_intersect_all_pairs): six 3-term products (5 each), t (2), beta and
+# gamma (3 each), the acceptance test with the gate (6) and the masked
+# minimum (2).
+OPS_PER_PAIR_K7 = 46
 # FP32 operations per triangle lane of kernel D, counted as for B: the
 # columns (9), four determinants (44), 1/A (1), three products (3), the
 # acceptance test (5) and the running minimum (1).
@@ -222,7 +264,7 @@ OPS_PER_ESCAPE_F = 6
 OPS_PER_PIXEL_F = 79
 OPS_PER_SAMPLE_F = 3
 ALL_PHASES = ("build", "A", "B", "C", "E", "F", "main", "card_vs_cpu", "appearance", "lights",
-              "train", "D", "times")
+              "float64", "inspect", "train", "D", "times")
 # The kernels' device times on the 1024^2 main path before this version
 # of the sources (B and C as redesigned, before C's march step moved into
 # csrc/packed_step.cuh), NVIDIA H100 80GB HBM3 at 700 W, as recorded in
@@ -378,6 +420,14 @@ class Logged:
     def launches(self, n):
         self.fn.launches = n
 
+    @property
+    def launches_f64(self):  # kernel B's launches of its f64-ray instantiations
+        return self.fn.launches_f64
+
+    @launches_f64.setter
+    def launches_f64(self, n):
+        self.fn.launches_f64 = n
+
     def __call__(self, rays, *args, **kw):
         from ray_tracer_tpu_torch.core.rays import RayBatch
 
@@ -411,7 +461,8 @@ class Smoke:
         self.dev = torch.device("cuda")
         self.root = os.path.dirname(os.path.abspath(__file__))
         self.launches = {}
-        self.err = {"brute_intersect": 0.0, "traverse_grid": 0.0, "packed_march": 0.0,
+        self.err = {"brute_intersect": 0.0, "traverse_grid": 0.0, "traverse_grid_f64": 0.0,
+                    "packed_march": 0.0,
                     "gather_row_test": 0.0, "whitted_wave": 0.0, "gi_wave": 0.0}
         self.times = {}
         self.images = {}
@@ -425,6 +476,7 @@ class Smoke:
     def zero_counts(self):
         for fn in self.counters.values():
             fn.launches = 0
+        self.kB.traverse_grid_cuda.launches_f64 = 0
 
     def counts(self):
         return {k: fn.launches for k, fn in self.counters.items()}
@@ -2160,6 +2212,282 @@ class Smoke:
         if rel > 1e-6:
             raise AssertionError(f"extra-light loss card vs CPU rel err {rel:.3g}")
 
+    # ---- 14. dtype="float64" ------------------------------------------
+    def float64(self, size=1024):
+        """dtype="float64" on the card at size x size: the csr serial frame
+        with float32 and float64 dets (kernel B's f64-ray instantiations,
+        every launch held bitwise to the plain version at its own inputs),
+        the turbo serial frame (C on float32 copies, the bounce loop's
+        epilogue on the float64 rays) and the GI segment integrator at
+        256x256 (the GI wave refuses float64), each timed beside its
+        float32 frame; then 64x64 card against CPU."""
+        from ray_tracer_tpu_torch.config import apply_turbo
+        from ray_tracer_tpu_torch.models.scenes import serial_scene_config
+        from ray_tracer_tpu_torch.render.renderer import prepare, render
+
+        def rep(cfg, **kw):
+            return dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, **kw))
+
+        b = self.kB.traverse_grid_cuda
+        main = serial_scene_config(size, size)
+        gi = self.gi_config(serial_scene_config, 256, "serial", 4, 2)
+        frames = {
+            "csr_det32": (rep(main, dtype="float64"), main, "traverse_grid"),
+            "csr_det64": (rep(main, dtype="float64", det_dtype="float64"),
+                          rep(main, det_dtype="float64"), "traverse_grid"),
+            "turbo": (rep(apply_turbo(main, "serial"), dtype="float64"),
+                      apply_turbo(main, "serial"), "packed_march"),
+            "gi_segments_256": (rep(gi, dtype="float64"), rep(gi, gi_wave="off"),
+                                "packed_march"),
+        }
+        for name, (cfg, base, kernel) in frames.items():
+            p = prepare(cfg)
+            if p.setup.wave or p.setup.gi_wave:
+                raise AssertionError(f"float64 {name} took a wave")
+            csr = kernel == "traverse_grid"
+            self.zero_counts()
+            with (self.logging_launches() if csr else contextlib.nullcontext()) as log:
+                img = render(p)
+                torch.cuda.synchronize()
+            counts = self.counts()
+            n_f64 = b.launches_f64
+            self.path_launches[f"float64_{name}"] = dict(counts, traverse_grid_f64=n_f64)
+            if counts[kernel] < 1 or counts["whitted_wave"] or counts["gi_wave"]:
+                raise AssertionError(f"float64 {name} launched {counts}")
+            if csr != (n_f64 == counts["traverse_grid"] > 0):
+                raise AssertionError(f"float64 {name}: {n_f64} f64-ray launches of B in "
+                                     f"{counts}")
+            h = img.shape[0]
+            if img.dtype != torch.float64 or img.shape != (h, h, 3) or not bool(
+                    torch.isfinite(img).all()):
+                raise AssertionError(f"float64 {name}: bad image {img.dtype} {img.shape}")
+            row = {"launches": counts, "launches_B_f64_rays": n_f64,
+                   **self.frame_times(p, f"float64_{name}")}
+            if csr:
+                if any(x[1].orig.dtype != torch.float64 for x in log):
+                    raise AssertionError(f"float64 {name}: B took non-float64 rays")
+                row["kernel_B_held"] = self.hold_logged(f"float64 {name}", log)
+                del log
+                if name == "csr_det32":
+                    self.launches["traverse_grid_f64"] = n_f64
+            bp = prepare(base)
+            self.zero_counts()
+            render(bp)
+            torch.cuda.synchronize()
+            row["float32"] = {"launches": self.counts(),
+                              **self.frame_times(bp, f"float32_{name}")}
+            emit({"phase": "float64_frame", "config": name, "size": h, **row,
+                  "tolerance": "every launch of B bitwise against the plain version "
+                               "(records and rows tested)"})
+        self.float64_card_vs_cpu()
+
+    def float64_card_vs_cpu(self):
+        """The float64 frames at 64x64, card against CPU: the csr frame with
+        float64 dets gives the CPU's PPM bytes (as the float32-ray one does,
+        phase card_vs_cpu); the others keep to the 2-count rule.  The floats
+        that differ are reported (libdevice's pow against glibc's)."""
+        from ray_tracer_tpu_torch.config import apply_turbo
+        from ray_tracer_tpu_torch.io.ppm import tonemap_u8
+        from ray_tracer_tpu_torch.models.scenes import serial_scene_config
+        from ray_tracer_tpu_torch.render.renderer import prepare, render
+
+        def rep(cfg, **kw):
+            return dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, dtype="float64",
+                                                                       **kw))
+
+        small = serial_scene_config(64, 64)
+        cases = {"csr_det64": rep(small, det_dtype="float64"), "csr_det32": rep(small),
+                 "turbo": rep(apply_turbo(small, "serial")),
+                 "gi_segments": rep(self.gi_config(serial_scene_config, 64, "serial", 2, 1))}
+        out = {}
+        for name, cfg in cases.items():
+            self.zero_counts()
+            card = render(prepare(cfg)).cpu()
+            counts = self.counts()
+            cpu = render(prepare(cfg, device="cpu"))
+            a, c = tonemap_u8(card.numpy()), tonemap_u8(cpu.numpy())
+            frac = image_rule(a, c)
+            out[name] = {"launches": counts, "bytes_differing": int((a != c).sum()),
+                         "pixels_over_2_counts": frac,
+                         "floats_differing": int((card.view(torch.int64)
+                                                  != cpu.view(torch.int64)).sum())}
+            if name == "csr_det64" and out[name]["bytes_differing"]:
+                raise AssertionError(f"float64 csr 64 card vs CPU: {out[name]} PPM bytes differ")
+            if frac >= 0.01:
+                raise AssertionError(f"float64 {name} 64 card vs CPU: {frac:.2%} of pixels "
+                                     "differ by > 2")
+        emit({"phase": "float64_card_vs_cpu", "size": 64, "cases": out,
+              "tolerance": "csr float64 dets: PPM bytes equal; others under 1% of pixels "
+                           "over 2 counts"})
+
+    # ---- 15. inspection: AOVs, AO, metrics and probes, trace_pixel, bands --
+    def inspect(self, size=1024):
+        """The inspection path on the card: render_aovs, render_ao (16
+        samples), trace_pixel at three pixels and render_banded (8 bands) on
+        the turbo serial scene and on the csr serial scene at size x size,
+        every launch of B and C held bitwise to the plain version; the
+        metrics and the three probes on the bench's spot_1024 and
+        nefertiti_1024 rows; the command line's stats, debug, aov and info
+        at 256x256."""
+        from ray_tracer_tpu_torch.config import apply_turbo
+        from ray_tracer_tpu_torch.models.scenes import serial_scene_config
+        from ray_tracer_tpu_torch.ops.camera import camera_rays
+        from ray_tracer_tpu_torch.render.aov import render_ao, render_aovs
+        from ray_tracer_tpu_torch.render.debug import trace_pixel
+        from ray_tracer_tpu_torch.render.renderer import prepare, render
+        from ray_tracer_tpu_torch.render.resilient import render_banded
+
+        main = serial_scene_config(size, size)
+        pixels = ((size // 2, size // 2), (size * 3 // 10, size * 7 // 10), (10, 10))
+        for name, cfg in (("turbo", apply_turbo(main, "serial")), ("csr", main)):
+            p = prepare(cfg)
+            kernel = "packed_march" if name == "turbo" else "traverse_grid"
+            row = {}
+            # AOVs: one primary launch; ids and flags are its record's
+            self.zero_counts()
+            with self.logging_launches() as log:
+                ms, aovs = once_ms(lambda: render_aovs(p))
+            counts = self.counts()
+            if counts[kernel] != 1 or len(log) != 1:
+                raise AssertionError(f"inspect {name} aovs launched {counts}")
+            rec = log[0][4]
+            hit = aovs["hit"].reshape(-1)
+            if not (torch.equal(hit, rec.hit) and torch.equal(
+                    aovs["tri_id"].reshape(-1)[hit], rec.tri_id[hit])):
+                raise AssertionError(f"inspect {name}: AOV ids differ from the trace's record")
+            row["aovs"] = {"ms": ms, "launches": counts, "hits": int(hit.sum()),
+                           "held": self.hold_logged(f"inspect {name} aovs", log)}
+            del log
+            # AO: the primary launch and 16 any-hit launches, each held
+            self.zero_counts()
+            with self.logging_launches() as log:
+                ms, ao = once_ms(lambda: render_ao(p, samples=16, radius=1.0))
+            counts = self.counts()
+            if counts[kernel] != 17 or not bool(((ao >= 0) & (ao <= 1)).all()):
+                raise AssertionError(f"inspect {name} ao launched {counts}")
+            if not all(x[3].get("stop_on_first_hit") for x in log[1:]):
+                raise AssertionError(f"inspect {name}: AO's occlusion traces were not any-hit")
+            row["ao"] = {"ms": ms, "launches": counts, "mean": float(ao.mean()),
+                         "held": self.hold_logged(f"inspect {name} ao", log)}
+            del log
+            # trace_pixel: the frame's primary record at each pixel (the
+            # render's own policy: csr faithful walks to the end, any t)
+            rays = camera_rays(cfg.camera, device=self.dev)
+            if name == "turbo":
+                frame_hit, frame_tri, frame_t = hit, aovs["tri_id"].reshape(-1), \
+                    aovs["depth"].reshape(-1)
+            else:
+                tri9 = self.kB.vertex_table(*p.scene.triangle_soa())
+                fr = self.kB.traverse_grid(rays, p.grid.arrays, p.grid.meta, tri9,
+                                           t_gate=cfg.render.primary_gate(), early_exit=False,
+                                           det_dtype=cfg.render.det_dtype, tables=p.dda)
+                frame_hit, frame_tri, frame_t = fr.hit, fr.tri_id, fr.t
+            traced = []
+            for x, y in pixels:
+                d = trace_pixel(p, x, y)
+                i = y * size + x
+                want = (bool(frame_hit[i]), int(frame_tri[i]) if bool(frame_hit[i]) else None,
+                        float(frame_t[i]) if bool(frame_hit[i]) else None)
+                got = (d["hit"], d["tri_id"] if d["hit"] else None, d["t"] if d["hit"] else None)
+                if got != want:
+                    raise AssertionError(f"inspect {name}: trace_pixel{(x, y)} {got} against "
+                                         f"the frame's {want}")
+                traced.append({"pixel": [x, y], "hit": d["hit"], "steps": d["steps"],
+                               "in_shadow": d.get("in_shadow")})
+            row["trace_pixel"] = traced
+            # render_banded: 8 bands, the same bits as render()
+            img = render(p).cpu().numpy()
+            t0 = time.perf_counter()
+            banded = render_banded(p, bands=8)
+            banded_s = time.perf_counter() - t0
+            if not np.array_equal(banded.view(np.int32), img.view(np.int32)):
+                raise AssertionError(f"inspect {name}: render_banded differs from render()")
+            row["render_banded"] = {"bands": 8, "seconds": banded_s, "floats_differing": 0}
+            emit({"phase": "inspect", "config": name, "size": size, **row,
+                  "tolerance": "every launch of B and C bitwise against the plain version; "
+                               "AOV ids, trace_pixel and render_banded equal"})
+        self.inspect_probes()
+        self.inspect_cli()
+
+    def inspect_probes(self):
+        """collect_render_metrics (its launches held) and the three probes,
+        with their picks and wall times, on the bench's spot_1024 and
+        nefertiti_1024 rows."""
+        from bench_torch import row_config
+        from ray_tracer_tpu_torch.models.scenes import nefertiti_scene
+        from ray_tracer_tpu_torch.render import metrics
+        from ray_tracer_tpu_torch.render.renderer import frame_setup, prepare
+
+        for row in ("spot_1024", "nefertiti_1024"):
+            cfg = row_config(row)
+            if row == "spot_1024":
+                p = prepare(cfg)
+            elif self.nef_prep is not None:
+                p = self.nef_prep._replace(cfg=cfg, setup=frame_setup(
+                    cfg, self.nef_prep.scene, self.nef_prep.packed))
+            else:
+                scene, _ = nefertiti_scene(device=self.dev)
+                p = prepare(cfg, scene=scene)
+            self.zero_counts()
+            with self.logging_launches() as log:
+                t0 = time.perf_counter()
+                m = metrics.collect_render_metrics(p)
+                m_s = time.perf_counter() - t0
+            counts = self.counts()
+            if counts["packed_march"] != 2:
+                raise AssertionError(f"metrics {row} launched {counts}")
+            held = self.hold_logged(f"metrics {row}", log)
+            del log
+            picks = {}
+            for probe in ("estimate_coverage", "choose_fused_shadow", "choose_camera_refill"):
+                t0 = time.perf_counter()
+                value = getattr(metrics, probe)(p)
+                torch.cuda.synchronize()
+                picks[probe] = {"value": value, "seconds": time.perf_counter() - t0}
+            emit({"phase": "inspect_metrics", "row": row, "metrics": m, "seconds": m_s,
+                  "launches": counts, "held": held, "probes": picks})
+
+    def inspect_cli(self):
+        """python -m ray_tracer_tpu_torch.cli stats, debug, aov and info at
+        256x256 as subprocesses, all four started together (each spends
+        most of its time starting): each exits 0 and its output parses."""
+        out_npz = os.path.join(self.root, "build", "chip_smoke_aovs.npz")
+        os.makedirs(os.path.dirname(out_npz), exist_ok=True)
+        scene = ["--scene", "serial", "--width", "256"]
+        t0 = time.perf_counter()
+        procs = {cmd: subprocess.Popen(
+            [sys.executable, "-m", "ray_tracer_tpu_torch.cli", cmd, *args], cwd=self.root,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for cmd, args in (("stats", scene + ["--turbo"]),
+                              ("debug", scene + ["--x", "128", "--y", "128"]),
+                              ("aov", scene + ["--turbo", "--ao-samples", "4", "--out", out_npz]),
+                              ("info", []))}
+        results = {}
+        try:
+            outs = {cmd: proc.communicate(timeout=600) for cmd, proc in procs.items()}
+        finally:
+            for proc in procs.values():  # none outlives the phase
+                proc.kill()
+        for cmd, (stdout, stderr) in outs.items():
+            proc = procs[cmd]
+            if proc.returncode != 0:
+                raise AssertionError(f"cli {cmd} failed:\n{stderr[-3000:]}")
+            if cmd == "aov":
+                data = np.load(out_npz)
+                if data["depth"].shape != (256, 256) or data["ao"].shape != (256, 256):
+                    raise AssertionError(f"cli aov wrote {data.files}")
+                parsed = sorted(data.files)
+            else:
+                parsed = json.loads(stdout)
+            if cmd == "info" and not (parsed["native_library"]
+                                      and parsed["default_backend"] == "cuda"):
+                raise AssertionError(f"cli info: {parsed}")
+            results[cmd] = {"output": parsed if cmd != "stats" else {
+                k: parsed[k] for k in ("primary_rays", "primary_hits", "primary_steps_mean",
+                                       "shadow_hits", "packed_blocks")}}
+        emit({"phase": "inspect_cli", "size": 256, "seconds_all_four": time.perf_counter() - t0,
+              "commands": results})
+
     def wave_pow_probe(self, cfg, prep, lanes):
         """The wave's plain version on the card over the differing pixels'
         CPU camera rays, twice: with torch.pow on the card, and with each
@@ -2384,6 +2712,12 @@ class Smoke:
 
         e = self.wave_times(bound)
         f = self.gi_times(bound)
+        b64 = self.b64_times(p)
+        k7 = self.k7_times(p)
+        emit({"phase": "kernel_times_B_f64_rays", "rays": r, "cases": b64,
+              "rates": {"fp32_unfused": PEAK_FP32_UNFUSED, "fp64_unfused": PEAK_FP64_UNFUSED,
+                        "bytes": PEAK_BYTES}})
+        emit({"phase": "times_K7", **k7})
 
         self.times.update(
             E=e, F=f,
@@ -2391,6 +2725,7 @@ class Smoke:
             B=dict(ms=b_ms, plain_ms=b_plain_ms, bound_ms=b_bound, bound_by=b_by),
             C=dict(ms=c_ms, plain_ms=c_plain_ms, bound_ms=c_bound, bound_by=c_by),
             D=dict(ms=d_ms, plain_ms=d_plain_ms, bound_ms=d_bound, bound_by=d_by),
+            B64={k: b64["float32"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
         )
         emit({"phase": "kernel_times", "rays": r, "triangles": n_tris,
               "A": {"ms": a_ms, "device_ms": a_dev_ms, "shadow_ms": a_shadow_ms,
@@ -2424,6 +2759,103 @@ class Smoke:
                     "lanes": w, "distinct_rows": d_rows, "bytes": d_bytes, "ops": d_ops,
                     "bound_ms": d_bound, "bound_ops_fma_peak_ms": d_ops / PEAK_FP32_OPS * 1e3,
                     "bound_bytes_ms": d_bytes / PEAK_BYTES * 1e3}})
+
+    def b64_times(self, p) -> dict:
+        """Kernel B's f64-ray instantiations at the 1024^2 csr frame's
+        primary shape (float64 camera rays, float32 and float64 dets): events
+        over n launches, the profiler's device time, the plain version once
+        (held bitwise), and the bound: the bytes, the triangle tests at the
+        determinants' unfused rate and the float64 DDA steps at the unfused
+        FP64 rate, the largest of the three."""
+        from ray_tracer_tpu_torch.ops.camera import camera_rays
+
+        kB, dev = self.kB, self.dev
+        rcfg = p.cfg.render
+        grid, meta = p.grid.arrays, p.grid.meta
+        tri9 = kB.vertex_table(*p.scene.triangle_soa())
+        rays = camera_rays(p.cfg.camera, dtype=torch.float64, device=dev)
+        r = rays.count
+        out = {}
+        for det in ("float32", "float64"):
+            kw = dict(det_dtype=det, t_gate=rcfg.primary_gate(), early_exit=not rcfg.faithful)
+
+            def launch(**extra):
+                return kB.traverse_grid_cuda(rays, grid, meta, tri9, tables=p.dda, **kw, **extra)
+
+            ms = cuda_ms(launch, 20)
+            dev_ms = calls_device_ms(launch, 10, "traverse_grid_kernel")[0]
+            tested = torch.zeros((r,), dtype=torch.int32, device=dev)
+            passes = torch.zeros((1,), dtype=torch.int32, device=dev)
+            got = launch(tested_out=tested, passes_out=passes)
+            plain_ms, want = once_ms(lambda: kB.traverse_grid_plain(rays, grid, meta, tri9, **kw))
+            self.err["traverse_grid_f64"] = max(self.err["traverse_grid_f64"], compare(
+                f"kernel B f64 rays {det} 1024 primary", got, want))
+            n_tests, n_passes = int(tested.sum()), int(passes.item())
+            n_steps = int(got.steps.sum())
+            test_ops = (n_tests - n_passes) * OPS_PER_FAILED_TEST + n_passes * OPS_PER_PASSED_TEST
+            n_bytes = (r * (64 + 14) + (grid.cell_start.numel() + grid.tri_ids.numel()) * 4
+                       + tri9.numel() * 4)
+            parts = {"bytes": n_bytes / PEAK_BYTES * 1e3,
+                     "operations": max(test_ops / (PEAK_FP64_UNFUSED if det == "float64"
+                                                   else PEAK_FP32_UNFUSED),
+                                       n_steps * OPS_PER_STEP_B_F64 / PEAK_FP64_UNFUSED) * 1e3}
+            by = max(parts, key=parts.get)
+            name = "traverse_grid_kernelId" + ("d" if det == "float64" else "f") + "EE"
+            out[det] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                        "bound_ms": parts[by], "bound_by": by, "bound_parts_ms": parts,
+                        "tested_triangles": n_tests, "passes": n_passes, "steps": n_steps,
+                        "hits": int(got.hit.sum()),
+                        "ptxas": self.ptxas.get("traverse_grid", {}).get(name)}
+        return out
+
+    def k7_times(self, p) -> dict:
+        """The all-pairs hit as six matrix products (ops/intersect.py
+        mxu_intersect_all_pairs, the JAX package's K7; no render path calls
+        it) on a tile of 16,384 of the 1024^2 serial frame's camera rays
+        (the middle rows) against its 20,064 triangles: events over n calls,
+        the six torch.matmul products alone, its topology against the Cramer
+        all-pairs sweep (intersect_brute) on the same rays, and the bound
+        (operations at the FMA peak: the products fuse)."""
+        from ray_tracer_tpu_torch.ops.camera import camera_rays
+        from ray_tracer_tpu_torch.ops.intersect import (_dual_basis, intersect_brute,
+                                                        mxu_intersect_all_pairs)
+
+        tile = 16384
+        rays = camera_rays(p.cfg.camera, device=self.dev)
+        lo = rays.count // 2 - tile // 2
+        rb = rays.slice(lo, lo + tile)
+        v0, v1, v2 = p.scene.triangle_soa()
+        n_tris = v0.shape[0]
+        eps = p.cfg.render.shadow_eps
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: mxu_intersect_all_pairs(rb, v0, v1, v2, t_lower=eps), 5)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        got = mxu_intersect_all_pairs(rb, v0, v1, v2, t_lower=eps)
+        n, b1, b2 = _dual_basis(v0, v1, v2, torch.float32)
+
+        def products():
+            return [torch.matmul(x, y.T) for x in (rb.dirn, rb.orig) for y in (n, b1, b2)]
+
+        library_ms = cuda_ms(products, 5)
+        cramer_ms, want = once_ms(lambda: intersect_brute(rb, v0, v1, v2, t_lower=eps))
+        same = got.hit == want.hit
+        both = got.hit & want.hit
+        agree = float(same.float().mean())
+        tri_agree = float((got.tri_id[both] == want.tri_id[both]).float().mean())
+        if agree < 0.99 or tri_agree < 0.99:
+            raise AssertionError(f"K7 against the Cramer sweep: hits agree on {agree:.4f}, "
+                                 f"triangles on {tri_agree:.4f}")
+        n_ops = tile * n_tris * OPS_PER_PAIR_K7
+        n_bytes = tile * (24 + 13) + n_tris * 36
+        tb, to = n_bytes / PEAK_BYTES * 1e3, n_ops / PEAK_FP32_OPS * 1e3
+        return {"rays": tile, "triangles": n_tris, "ms": ms, "library_ms": library_ms,
+                "library": "six torch.matmul (R,3)x(3,T) products", "cramer_ms": cramer_ms,
+                "peak_memory_gib": peak_gib, "hits": int(got.hit.sum()),
+                "hit_agreement": agree, "triangle_agreement": tri_agree,
+                "t_max_rel_err": float(((got.t[both] - want.t[both]).abs()
+                                        / want.t[both].abs()).max()) if bool(both.any()) else 0.0,
+                "bound_ms": max(tb, to), "bound_by": "bytes" if tb >= to else "operations",
+                "launches_on_render_paths": 0}
 
     def wave_times(self, bound) -> dict:
         """Kernel E at the main path's shape, the turbo parallel 1024^2
@@ -2606,6 +3038,8 @@ class Smoke:
              "ray_tracer_tpu/ops/pallas_intersect.py:114"),
             ("traverse_grid", "B", "ray_tracer_tpu_torch/csrc/traverse_grid.cu",
              "ray_tracer_tpu/ops/traverse.py:91"),
+            ("traverse_grid_f64", "B64", "ray_tracer_tpu_torch/csrc/traverse_grid.cu",
+             "ray_tracer_tpu/ops/traverse.py:91"),
             ("packed_march", "C", "ray_tracer_tpu_torch/csrc/packed_march.cu",
              "ray_tracer_tpu/ops/traverse_packed.py:152"),
             ("gather_row_test", "D", "ray_tracer_tpu_torch/csrc/gather_row_test.cu",
@@ -2641,30 +3075,22 @@ def main(argv=None) -> int:
           "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()})
     smoke = Smoke()
     t_start = time.perf_counter()
-    smoke.build()
+    steps = [("build", smoke.build)]
     if phases & {"A", "B"}:
-        smoke.kernels_ab(phases)
-    if "C" in phases:
-        smoke.kernel_c()
-    if "E" in phases:
-        smoke.kernel_e()
-    if "F" in phases:
-        smoke.kernel_f()
-    if "main" in phases:
-        smoke.main_path()
-    if "card_vs_cpu" in phases:
-        smoke.card_vs_cpu()
-    if "appearance" in phases:
-        smoke.appearance()
-    if "lights" in phases:
-        smoke.lights()
-    if "train" in phases:
-        smoke.train()
-    if "D" in phases:
-        smoke.kernel_d()
-    if "times" in phases:
-        smoke.kernel_times()
-    emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start})
+        steps.append(("A,B", lambda: smoke.kernels_ab(phases)))
+    steps += [(name, run) for name, run in (
+        ("C", smoke.kernel_c), ("E", smoke.kernel_e), ("F", smoke.kernel_f),
+        ("main", smoke.main_path), ("card_vs_cpu", smoke.card_vs_cpu),
+        ("appearance", smoke.appearance), ("lights", smoke.lights),
+        ("float64", smoke.float64), ("inspect", smoke.inspect), ("train", smoke.train),
+        ("D", smoke.kernel_d), ("times", smoke.kernel_times)) if name in phases]
+    seconds = {}
+    for name, run in steps:
+        t0 = time.perf_counter()
+        run()
+        seconds[name] = time.perf_counter() - t0
+    emit({"phase": "elapsed", "seconds": time.perf_counter() - t_start,
+          "by_phase": seconds})
     if phases >= set(ALL_PHASES):
         smoke.kernels_line()
     print(card, flush=True)

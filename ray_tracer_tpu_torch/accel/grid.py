@@ -33,6 +33,11 @@ class GridMeta(NamedTuple):
     max_per_voxel: int
     nnz: int
 
+    @property
+    def total_voxels(self) -> int:
+        nx, ny, nz = self.n_voxels
+        return nx * ny * nz
+
 
 class GridArrays(NamedTuple):
     """Device-resident grid data."""

@@ -25,9 +25,16 @@
         --shadow-samples 16 --out soft.ppm   # extra lights, an area light
     python -m ray_tracer_tpu_torch.cli fit --scene gradcheck --width 64 \\
         --steps 100 --out-dir ckpt   # inverse rendering (self-demo target)
+    python -m ray_tracer_tpu_torch.cli render --config scene.json --out x.ppm
+    python -m ray_tracer_tpu_torch.cli stats --scene serial --width 256 --turbo
+    python -m ray_tracer_tpu_torch.cli debug --scene serial --width 256 --x 128 --y 128
+    python -m ray_tracer_tpu_torch.cli aov --scene serial --width 256 --ao-samples 16 \\
+        --out aovs.npz
+    python -m ray_tracer_tpu_torch.cli info
+    python -m ray_tracer_tpu_torch.cli bench --rows spot_1024
 
-The counterpart of `ray_tracer_tpu/cli.py render` and `fit` for the
-options this port serves.  It runs on the card unless `--device cpu` is
+The counterpart of `ray_tracer_tpu/cli.py` on one device (its --devices
+and --ring are refused).  It runs on the card unless `--device cpu` is
 given.
 """
 
@@ -41,13 +48,17 @@ import time
 
 
 def _build_cfg(args):
-    """(cfg, scene): scene is None where prepare loads the meshes itself."""
+    """(cfg, scene): scene is None where prepare loads the meshes itself.
+    --config loads a scene config file (either package's JSON) in place of
+    --scene and the size options."""
     from ray_tracer_tpu_torch.models import scenes
 
-    if getattr(args, "config", None):
-        raise NotImplementedError("--config is not served by the PyTorch port yet")
     scene = None
-    if args.scene == "gradcheck":
+    if getattr(args, "config", None):
+        from ray_tracer_tpu_torch.config import load_scene_config
+
+        cfg = load_scene_config(args.config)
+    elif args.scene == "gradcheck":
         scene, cfg = scenes.gradcheck_scene(args.width, args.height, device=args.device)
     elif args.scene == "serial":
         cfg = scenes.serial_scene_config(args.width, args.height)
@@ -58,7 +69,7 @@ def _build_cfg(args):
                                             with_spot=args.scene == "nefertiti_spot",
                                             device=args.device)
     rkw = {}
-    if args.fast:
+    if getattr(args, "fast", False):
         rkw["faithful"] = False
     if getattr(args, "traversal", None):
         rkw["traversal"] = args.traversal
@@ -80,7 +91,7 @@ def _build_cfg(args):
             cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render,
                                                                       gi_samples=args.gi))
         family = {"serial": "serial", "parallel": "parallel", "nefertiti": "nefertiti",
-                  "nefertiti_spot": "nefertiti"}.get(args.scene)
+                  "nefertiti_spot": "nefertiti"}.get(getattr(args, "scene", None))
         cfg = apply_turbo(cfg, family)
     if getattr(args, "spp", 1) > 1:
         cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, spp=args.spp))
@@ -121,14 +132,14 @@ def _build_cfg(args):
             raise SystemExit("--shadow-samples must be > 1 for a penumbra")
         cfg = dataclasses.replace(cfg, render=dataclasses.replace(
             cfg.render, faithful=False, light_radius=lr, shadow_samples=ss or 16))
-    if args.smooth_normals:
+    if getattr(args, "smooth_normals", False):
         cfg = dataclasses.replace(cfg, render=dataclasses.replace(
             cfg.render, normal_mode="smooth", faithful=False))
-    if args.texture:
+    if getattr(args, "texture", None):
         cfg = dataclasses.replace(cfg, render=dataclasses.replace(
             cfg.render, texture=args.texture,
             texture_scale=args.texture_scale or cfg.render.texture_scale))
-    if args.texture_file or args.env_file:
+    if getattr(args, "texture_file", None) or getattr(args, "env_file", None):
         import numpy as np
         import torch
 
@@ -219,12 +230,116 @@ def cmd_fit(args) -> None:
     print(json.dumps({"first_loss": losses[0], "last_loss": losses[-1]}))
 
 
+def cmd_bench(args) -> None:
+    """Exec the port's bench (bench_torch.py at the repository root), as the
+    JAX package's command execs bench.py."""
+    import os
+
+    script = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "bench_torch.py")
+    extra = []
+    for flag in ("rows", "repeat", "rounds"):
+        if getattr(args, flag):
+            extra += [f"--{flag}", str(getattr(args, flag))]
+    os.execv(sys.executable, [sys.executable, script] + extra)
+
+
+def _prepared(args):
+    from ray_tracer_tpu_torch.render.renderer import prepare
+
+    cfg, scene = _build_cfg(args)
+    return prepare(cfg, scene=scene, device=args.device)
+
+
+def _single_device(args) -> None:
+    if getattr(args, "devices", 0) or getattr(args, "ring", False):
+        raise SystemExit("--devices and --ring are not served by the PyTorch port yet "
+                         "(multi-device)")
+
+
+def cmd_stats(args) -> None:
+    """Print collect_render_metrics of the scene as JSON."""
+    import json
+
+    from ray_tracer_tpu_torch.render.metrics import collect_render_metrics
+
+    print(json.dumps(collect_render_metrics(_prepared(args)), indent=2))
+
+
+def cmd_debug(args) -> None:
+    """Print trace_pixel of pixel (--x, --y) as JSON."""
+    import json
+
+    from ray_tracer_tpu_torch.render.debug import trace_pixel
+
+    _single_device(args)
+    print(json.dumps(trace_pixel(_prepared(args), args.x, args.y), indent=2))
+
+
+def cmd_aov(args) -> None:
+    """Write render_aovs' buffers (and with --ao-samples an 'ao' buffer)
+    to an .npz file."""
+    import numpy as np
+
+    from ray_tracer_tpu_torch.render.aov import render_ao, render_aovs
+
+    _single_device(args)
+    prep = _prepared(args)
+    aovs = {k: v.cpu().numpy() for k, v in render_aovs(prep).items()}
+    if args.ao_samples:
+        aovs["ao"] = render_ao(prep, samples=args.ao_samples,
+                               radius=args.ao_radius).cpu().numpy()
+    np.savez(args.out, **aovs)
+    print(f"wrote {args.out}: " + ", ".join(f"{k}{list(v.shape)}" for k, v in aovs.items()),
+          file=sys.stderr)
+
+
+def cmd_info(_args) -> None:
+    """Print the devices, the process count, whether the CUDA kernels are
+    built, and the default device, as JSON (the JAX command's keys)."""
+    import json
+    import os
+
+    import torch
+
+    from ray_tracer_tpu_torch.kernels import _build
+
+    cuda = torch.cuda.is_available()
+    devices = ([f"cuda:{i} {torch.cuda.get_device_name(i)}"
+                for i in range(torch.cuda.device_count())] if cuda else ["cpu"])
+    built = {k: os.path.exists(_build.library_path(k)) for k in _build.KERNELS}
+    print(json.dumps({
+        "devices": devices,
+        "process_count": 1,
+        "native_library": all(built.values()),
+        "default_backend": "cuda" if cuda else "cpu",
+        "kernels_built": built,
+    }, indent=2))
+
+
+def _inspect_parser(sub, name, help_, width):
+    """A subcommand taking a scene as render does (--scene or --config)."""
+    p = sub.add_parser(name, help=help_)
+    p.add_argument("--scene", default="serial",
+                   choices=["serial", "parallel", "gradcheck", "nefertiti", "nefertiti_spot"])
+    p.add_argument("--config", help="scene config JSON (in place of --scene and the size)")
+    p.add_argument("--width", type=int, default=width)
+    p.add_argument("--height", type=int, default=0, help="0 = width")
+    p.add_argument("--fast", action="store_true", help="production semantics")
+    p.add_argument("--turbo", action="store_true",
+                   help="the tuned production pipeline (packed grid, persistent wave)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(gi=0)
+    return p
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="ray_tracer_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     r = sub.add_parser("render", help="render a scene to PPM (or PNG: --out x.png)")
     r.add_argument("--scene", default="serial",
                    choices=["serial", "parallel", "nefertiti", "nefertiti_spot"])
+    r.add_argument("--config", help="scene config JSON (in place of --scene and the size)")
     r.add_argument("--width", type=int, default=256)
     r.add_argument("--height", type=int, default=0, help="0 = width")
     r.add_argument("--out", default="out.ppm")
@@ -273,7 +388,7 @@ def main(argv=None) -> None:
     r.set_defaults(fn=cmd_render)
     f = sub.add_parser("fit", help="inverse rendering: fit scene parameters to a target")
     f.add_argument("--scene", default="gradcheck", choices=["gradcheck", "serial", "parallel"])
-    f.add_argument("--config", help="not served by the port yet")
+    f.add_argument("--config", help="scene config JSON (in place of --scene and the size)")
     f.add_argument("--width", type=int, default=64)
     f.add_argument("--height", type=int, default=0, help="0 = width")
     f.add_argument("--steps", type=int, default=100)
@@ -297,6 +412,29 @@ def main(argv=None) -> None:
     f.add_argument("--fast", action="store_true", help="production semantics")
     f.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     f.set_defaults(fn=cmd_fit)
+    b = sub.add_parser("bench", help="run the port's benchmark (bench_torch.py)")
+    b.add_argument("--rows", default=None, help="comma list of bench_torch.py rows")
+    b.add_argument("--repeat", type=int, default=0, help="frames a timed chain")
+    b.add_argument("--rounds", type=int, default=0, help="timed chains a row")
+    b.set_defaults(fn=cmd_bench, height=1)
+    _inspect_parser(sub, "stats", "per-stage render metrics (JSON)", 64).set_defaults(
+        fn=cmd_stats)
+    dbg = _inspect_parser(sub, "debug", "single-pixel diagnostic trace (JSON)", 64)
+    dbg.add_argument("--x", type=int, required=True)
+    dbg.add_argument("--y", type=int, required=True)
+    dbg.add_argument("--devices", type=int, default=0, help="not served: one device")
+    dbg.add_argument("--ring", action="store_true", help="not served: one device")
+    dbg.set_defaults(fn=cmd_debug)
+    av = _inspect_parser(sub, "aov", "export geometry buffers (depth/normal/ids) to .npz", 256)
+    av.add_argument("--out", default="aovs.npz")
+    av.add_argument("--ao-samples", type=int, default=0,
+                    help="add an 'ao' buffer (N hemisphere rays a pixel)")
+    av.add_argument("--ao-radius", type=float, default=1.0, help="ambient-occlusion ray length")
+    av.add_argument("--devices", type=int, default=0, help="not served: one device")
+    av.add_argument("--ring", action="store_true", help="not served: one device")
+    av.set_defaults(fn=cmd_aov)
+    sub.add_parser("info", help="devices and kernel build state (JSON)").set_defaults(
+        fn=cmd_info, height=1)
     args = ap.parse_args(argv)
     if args.height == 0:
         args.height = args.width

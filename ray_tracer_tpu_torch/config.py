@@ -5,12 +5,17 @@ field names and defaults, so one configuration means one render in both
 packages.  Every field is kept; the renderer raises NotImplementedError
 for the options this package does not serve yet
 (`render/renderer.check_supported`) instead of ignoring them.
+`save_scene_config` and `load_scene_config` are the JAX package's JSON
+round trip: the same bytes for the same config, so a file written by
+either package loads into the other.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, Dict, Tuple
 
 Vec3 = Tuple[float, float, float]
 
@@ -106,7 +111,8 @@ class RenderConfig:
         bounce loop elsewhere ("on" raises there), as in the JAX package;
       * spp (spp x spp subsamples a pixel, on the wave and the bounce
         loop), max_bounces, shadow_eps, shadow_scale, background,
-        ray_tile, det_dtype, grid.
+        ray_tile, dtype (the camera rays' type, "float32" or "float64"),
+        det_dtype, grid.
 
     Every other knob that changes the JAX package's image must keep its
     default (the renderer raises).  gi_wave applies only with
@@ -226,8 +232,6 @@ def apply_turbo(cfg: SceneConfig, scene_family: "str | None") -> SceneConfig:
     apply_turbo): packed block rows + the persistent wave + auto grid
     layout + SAT-exact grid insertion, with the TUNED_KNOBS row of the
     scene family."""
-    import dataclasses
-
     k = TUNED_KNOBS.get(scene_family, TUNED_KNOBS[None])
     wwave = bool(k.get("wwave"))
     return dataclasses.replace(
@@ -255,3 +259,56 @@ def apply_turbo(cfg: SceneConfig, scene_family: "str | None") -> SceneConfig:
             ),
         ),
     )
+
+
+# ---------------------------------------------------------------------------
+# JSON round trip (ray_tracer_tpu/config.py:520-559)
+# ---------------------------------------------------------------------------
+
+_CONFIG_TYPES = {
+    "camera": CameraConfig,
+    "light": LightConfig,
+    "render": RenderConfig,
+    "grid": GridConfig,
+}
+
+
+def _to_jsonable(obj: Any) -> Any:
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return {f.name: _to_jsonable(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+    if isinstance(obj, (list, tuple)):
+        return [_to_jsonable(x) for x in obj]
+    return obj
+
+
+def _from_dict(cls, data: Dict[str, Any]):
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in data:
+            continue
+        val = data[f.name]
+        if f.name == "meshes":
+            val = tuple(_from_dict(MeshConfig, m) for m in val)
+        elif f.name == "materials":
+            val = tuple(_from_dict(MaterialConfig, m) for m in val)
+        elif f.name == "extra_lights":
+            val = tuple(_from_dict(LightConfig, m) for m in val)
+        elif f.name in _CONFIG_TYPES and isinstance(val, dict):
+            val = _from_dict(_CONFIG_TYPES[f.name], val)
+        elif isinstance(val, list):
+            val = tuple(val)
+        kwargs[f.name] = val
+    return cls(**kwargs)
+
+
+def save_scene_config(cfg: SceneConfig, path: str) -> None:
+    """Write cfg as indented JSON, the JAX package's bytes."""
+    with open(path, "w") as fh:
+        json.dump(_to_jsonable(cfg), fh, indent=2)
+
+
+def load_scene_config(path: str) -> SceneConfig:
+    """Read a config written by either package's save_scene_config; fields
+    the file lacks keep their defaults."""
+    with open(path) as fh:
+        return _from_dict(SceneConfig, json.load(fh))

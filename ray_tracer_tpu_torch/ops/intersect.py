@@ -2,7 +2,8 @@
 
 Counterpart of `ray_tracer_tpu/ops/intersect.py` (`cramer_tbg`,
 `cramer_t_safe`, `cramer_bg_safe`, `_safe_cramer_columns`, `barycentric_pass`,
-`intersect_brute`).  Every determinant is `vecmath.det3` in the
+`intersect_brute`, and the matrix-product form `_dual_basis` and
+`mxu_intersect_all_pairs`).  Every determinant is `vecmath.det3` in the
 reference's expansion order (Serial/raytracer.cpp:203-211), each
 numerator divided by the determinant A, over any broadcastable batch of
 (ray, triangle) pairs.  With det_dtype=float64 it reproduces the
@@ -161,4 +162,71 @@ def intersect_brute(
         t=best_t.to(torch.float32),
         tri_id=best_id.to(torch.int32),
         hit=torch.isfinite(best_t),
+    )
+
+
+def _dual_basis(v0, v1, v2, dtype):
+    """Per-triangle plane normal and barycentric dual vectors
+    (ray_tracer_tpu/ops/intersect.py:212):
+
+    n  = e1 x e2 (e1 = v1-v0, e2 = v2-v0)
+    b1 = (e2 x n) / |n|^2   so that (p - v0).b1 = beta
+    b2 = (n x e1) / |n|^2   so that (p - v0).b2 = gamma
+    """
+    a, b, c = (x.to(dtype) for x in (v0, v1, v2))
+    e1 = b - a
+    e2 = c - a
+    n = vm.cross(e1, e2)
+    inv_n2 = 1.0 / vm.dot(n, n)
+    b1 = vm.cross(e2, n) * inv_n2[..., None]
+    b2 = vm.cross(n, e1) * inv_n2[..., None]
+    return n, b1, b2
+
+
+def mxu_intersect_all_pairs(
+    rays: RayBatch,
+    v0: torch.Tensor,
+    v1: torch.Tensor,
+    v2: torch.Tensor,
+    t_lower: Optional[float] = None,
+    dtype=torch.float32,
+) -> BruteResult:
+    """All-pairs nearest hit as six (R,3)x(3,T) matrix products
+    (ray_tracer_tpu/ops/intersect.py:229): t from the plane equation, beta
+    and gamma from the dual vectors.  Algebraically `intersect_brute`, not
+    bitwise it (another order of operations): topology agrees, t to a
+    tolerance.  The JAX package left the products to XLA and no render
+    path calls it; here they are `torch.matmul` (full float32 on the card:
+    TF32 is off by default).  Memory is several (R, T) matrices of
+    `dtype`: callers cut R to fit."""
+    n, b1, b2 = _dual_basis(v0, v1, v2, dtype)
+    o = rays.orig.to(dtype)
+    d = rays.dirn.to(dtype)
+    a = v0.to(dtype)
+
+    dn = torch.matmul(d, n.T)  # (R, T)
+    on = torch.matmul(o, n.T)
+    v0n = vm.dot(a, n)  # (T,)
+    t = (v0n[None, :] - on) / dn
+
+    ob1 = torch.matmul(o, b1.T)
+    db1 = torch.matmul(d, b1.T)
+    v0b1 = vm.dot(a, b1)
+    beta = ob1 + t * db1 - v0b1[None, :]
+
+    ob2 = torch.matmul(o, b2.T)
+    db2 = torch.matmul(d, b2.T)
+    v0b2 = vm.dot(a, b2)
+    gamma = ob2 + t * db2 - v0b2[None, :]
+
+    passed = barycentric_pass(beta, gamma)
+    accept = passed if t_lower is None else passed & (t > t_lower)
+    t_masked = torch.where(accept, t, torch.full_like(t, float("inf")))
+    tri_id = torch.argmin(t_masked, dim=1)
+    t_best = torch.gather(t_masked, 1, tri_id[:, None])[:, 0]
+    return BruteResult(
+        any_pass=passed.any(dim=1),
+        t=t_best.to(torch.float32),
+        tri_id=tri_id.to(torch.int32),
+        hit=torch.isfinite(t_best),
     )

@@ -14,6 +14,11 @@ Counterpart of `ray_tracer_tpu/ops/traverse.py` (`traverse_grid`,
   * the step axis comes from the LUT cmpToAxis = [2,1,2,1,2,2,0,0]
     (grid.h:217-221).
 
+The rays may be float32 or float64 (dtype="float64"): the entry setup
+and the DDA's crossings run in the rays' own type, the running minimum t
+stays float32 and the Cramer solve takes the rays in the determinant
+type, as in the JAX package.
+
 `traverse_grid_cuda` launches `csrc/traverse_grid.cu`, one thread per
 ray, over `DdaTables` derived from the CSR grid once (`dda_tables`: an
 occupancy bit per cell, an (start, count) pair per cell, the vertices in
@@ -83,7 +88,7 @@ def dda_tables(grid: GridArrays, tri9: torch.Tensor) -> DdaTables:
 
 
 def _to_cell(pos_f: torch.Tensor, nvox: torch.Tensor) -> torch.Tensor:
-    """f32 -> voxel index the way the JAX code's int32 cast then clip
+    """f32 or f64 -> voxel index the way the JAX code's int32 cast then clip
     behaves: NaN -> 0, out-of-range values saturate, truncation toward
     zero, clip to [0, n-1].  (A C or PyTorch cast of NaN or inf is
     undefined or gives INT_MIN, so the saturation is written out.)"""
@@ -223,6 +228,8 @@ def traverse_grid_cuda(
     passes_out: Optional[torch.Tensor] = None,
 ) -> TraceResult:
     """Kernel B on CUDA tensors; the same outputs as the plain version.
+    Float64 rays launch the f64-ray instantiations (the DDA in float64, as
+    the plain version runs it on them), float32 rays the others.
     `tables` are `dda_tables(grid, tri9)`, built here when not given.
     passes_out (1,) i32, when given, receives the number of tested
     triangles that passed the barycentric test (chip_smoke.py counts the
@@ -232,8 +239,14 @@ def traverse_grid_cuda(
     if det_dtype not in _DET_DTYPES:
         raise ValueError(f"unknown det_dtype {det_dtype!r}")
     dev = rays.orig.device
-    f32 = [x.to(torch.float32).contiguous() for x in rays]
-    orig, dirn, mint, maxt = f32
+    # the rays' own type, float32 or float64 (the f64-ray instantiations);
+    # mixed fields promote as XLA's arithmetic would
+    ray_dtype = torch.float32
+    for x in rays:
+        ray_dtype = torch.promote_types(ray_dtype, x.dtype)
+    if ray_dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"rays must be float32 or float64, not {ray_dtype}")
+    orig, dirn, mint, maxt = (x.to(ray_dtype).contiguous() for x in rays)
     if tables is None:
         tables = dda_tables(grid, tri9)
     occupancy = tables.occupancy.to(torch.int32).contiguous()
@@ -267,11 +280,12 @@ def traverse_grid_cuda(
     fn = _build.library("traverse_grid").traverse_grid_launch
     fn.restype = ctypes.c_int
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = ([i] + [p] * 5 + [i] * 3 + [p] * 4 + [i, i, ctypes.c_double, i, i]
+    fn.argtypes = ([i, i] + [p] * 5 + [i] * 3 + [p] * 4 + [i, i, ctypes.c_double, i, i]
                    + [p] * 8)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(int(det_dtype == "float64"), orig.data_ptr(), dirn.data_ptr(),
+        err = fn(int(ray_dtype == torch.float64), int(det_dtype == "float64"),
+                 orig.data_ptr(), dirn.data_ptr(),
                  mint.data_ptr(), maxt.data_ptr(), gridf.data_ptr(), nx, ny, nz,
                  occupancy.data_ptr(), cell_range.data_ptr(),
                  cell_tri9.data_ptr(), tri_ids.data_ptr(), r,
@@ -282,10 +296,14 @@ def traverse_grid_cuda(
                  passes_out.data_ptr() if passes_out is not None else None, stream)
     _build.check(err, "traverse_grid")
     traverse_grid_cuda.launches += 1
+    if ray_dtype == torch.float64:
+        traverse_grid_cuda.launches_f64 += 1
     return TraceResult(any_pass=any_pass, hit=hit, t=t, tri_id=tri_id, steps=steps)
 
 
+# every launch, and those of the f64-ray instantiations among them
 traverse_grid_cuda.launches = 0
+traverse_grid_cuda.launches_f64 = 0
 
 
 def traverse_grid(

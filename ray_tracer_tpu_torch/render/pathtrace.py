@@ -56,6 +56,7 @@ from ray_tracer_tpu_torch.ops.camera import camera_rays
 from ray_tracer_tpu_torch.ops.intersect import cramer_bg_safe, cramer_t_safe
 from ray_tracer_tpu_torch.ops.shade import interpolate_normal, vertex_normals
 
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
 _INV_PI = 0.3183098861837907
 _TWO_PI = 2.0 * np.pi
 _SALT = 0x632BE59B  # per-sample key stride
@@ -266,7 +267,7 @@ def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=N
     skw = {"compact": True} if persistent else {}  # shadow batches: live lanes queued
     r = rays.count
     eps = rcfg.shadow_eps
-    ddt = {"float32": torch.float32, "float64": torch.float64}[rcfg.det_dtype]
+    ddt = _DTYPES[rcfg.det_dtype]
     dev = v0.device
     background = torch.tensor(rcfg.background, dtype=dt, device=dev)
     albedo_table, km_table = _material_tables(scene)
@@ -627,7 +628,7 @@ def render_pt(prep, setup=None) -> torch.Tensor:
         grid, meta = prep.packed.arrays, prep.packed.meta
     else:
         grid, meta = prep.grid.arrays, prep.grid.meta
-    rays = camera_rays(cfg.camera, device=prep.device)
+    rays = camera_rays(cfg.camera, dtype=_DTYPES[rcfg.dtype], device=prep.device)
     tile = rays.count if prep.device.type == "cuda" else max(1, rcfg.ray_tile)
     colors = rays.map_tiles(
         lambda rb: pathtrace_rays(rb, prep.scene, grid, meta, cfg, dda=prep.dda,

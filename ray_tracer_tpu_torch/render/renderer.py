@@ -42,8 +42,11 @@ grid:
 gi_samples > 0 renders path-traced instead (`render/pathtrace.py`: the
 GI wave, kernel F, when `gi_wave_eligible`, else the segment
 integrator).  Transmissive (glass) materials render path-traced only, as
-in the JAX package.  dtype="float64" raises NotImplementedError
-(`check_supported`); no option is silently ignored.
+in the JAX package.  dtype="float64" makes the camera rays float64: the
+CSR walk takes them as they are (kernel B's f64-ray instantiations), the
+packed march float32 copies, and the epilogue runs on them; both waves
+refuse it, as in the JAX package.  No option is silently ignored
+(`check_supported`).
 """
 
 from __future__ import annotations
@@ -175,7 +178,7 @@ def check_supported(cfg: SceneConfig, scene: Scene = None) -> bool:
     bad = []
     if r.traversal not in TRAVERSALS:
         bad.append(f"traversal={r.traversal!r}")
-    if r.dtype != "float32":
+    if r.dtype not in _DET_DTYPES:
         bad.append(f"dtype={r.dtype!r}")
     if bad:
         raise NotImplementedError(

@@ -309,4 +309,5 @@ def test_cli_fit_on_gradcheck(tmp_path):
         [sys.executable, "-m", "ray_tracer_tpu_torch.cli", "fit", "--width", "8", "--steps", "1",
          "--device", "cpu", "--config", "scene.json"],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
-    assert bad.returncode != 0 and "NotImplementedError" in bad.stderr
+    # --config is served now: a missing file is an error, not a refusal
+    assert bad.returncode != 0 and "FileNotFoundError" in bad.stderr

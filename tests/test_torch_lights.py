@@ -29,8 +29,9 @@ tests/test_shading_features.py's area-light tests).
   with extra lights restores into the port's fit, whose first loss is
   the restored params'; `cli fit --extra-light` and `cli render` with
   the light options run.
-* `check_supported` accepts the features and still refuses
-  dtype="float64"; the Whitted wave is ineligible with them.
+* `check_supported` accepts the features, with dtype="float64" too (an
+  area light in float64 prepares and renders through the bounce loop);
+  the Whitted wave is ineligible with them.
 """
 
 import builtins
@@ -247,8 +248,10 @@ def test_features_served_and_the_waves_ineligible():
     with_lights = scene._replace(extra_light_pos=torch.ones((1, 3)),
                                  extra_light_intensity=torch.ones((1,)))
     assert not whitted_wave_eligible(turbo, with_lights)
-    with pytest.raises(NotImplementedError, match="dtype"):
-        check_supported(_replace(turbo, dtype="float64", **AREA))
+    f64 = _replace(turbo, dtype="float64", **AREA)
+    assert check_supported(f64) is False and not whitted_wave_eligible(f64)
+    prep = prepare(f64, device="cpu")  # an area light in float64 prepares, takes no wave
+    assert not prep.setup.wave and render(prep).dtype == torch.float64
     with pytest.raises(ValueError, match="faithful"):
         check_supported(_replace(scenes.serial_scene_config(8, 8), **AREA))
 
@@ -351,7 +354,7 @@ def test_jax_checkpoint_with_extra_lights_restores_into_fit(grad_pair, tmp_path,
 def test_cli_light_options(tmp_path):
     """`cli render` with two extra lights and an area light writes the
     in-process render's bytes; JAX's option rules hold; `cli fit
-    --extra-light` runs and `--config` stays refused."""
+    --extra-light` runs, and so does `cli fit --config` with a light option."""
     from ray_tracer_tpu_torch import cli
 
     out = tmp_path / "soft.ppm"
@@ -376,6 +379,14 @@ def test_cli_light_options(tmp_path):
                         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert ok.returncode == 0, ok.stderr[-3000:]
     assert set(json.loads(ok.stdout.strip().splitlines()[-1])) == {"first_loss", "last_loss"}
-    bad = subprocess.run(base + ["--config", "scene.json"], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=300)
-    assert bad.returncode != 0 and "NotImplementedError" in bad.stderr
+    # a scene config file (served since dtype="float64" and config files
+    # came to the port) takes the light options on top
+    from ray_tracer_tpu_torch.config import save_scene_config
+
+    path = str(tmp_path / "scene.json")
+    save_scene_config(scenes.serial_scene_config(8, 8), path)
+    ok = subprocess.run(base[:4] + ["--config", path, "--steps", "2", "--device", "cpu",
+                                    "--extra-light=-4,6,-2", "--trainable", "kd"],
+                        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert ok.returncode == 0, ok.stderr[-3000:]
+    assert set(json.loads(ok.stdout.strip().splitlines()[-1])) == {"first_loss", "last_loss"}

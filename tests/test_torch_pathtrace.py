@@ -303,11 +303,11 @@ def test_gi_wave_eligibility_and_spec_follow_jax(case):
     ("transmissive", "transmissive"),
 ])
 def test_refused_gi_features_raise(change, match):
-    """Of the GI options the port refused, only dtype="float64" still
-    raises NotImplementedError.  The others prepare now (the segment
-    integrator serves extra lights, env NEE and glass, and the path
-    tracer's point lights take no area-light samples, as in the JAX
-    package), and those the GI wave does not serve make it ineligible."""
+    """Every GI option of this table the port refused prepares now: the
+    segment integrator serves float64 rays, extra lights, env NEE and
+    glass, and the path tracer's point lights take no area-light samples,
+    as in the JAX package; those the GI wave does not serve (float64
+    among them) make it ineligible."""
     cfg = apply_turbo(_replace(scenes.serial_scene_config(8, 8), gi_samples=2), "serial")
     if change == "extra_lights":
         cfg = dataclasses.replace(cfg, extra_lights=(LightConfig(),))
@@ -315,10 +315,6 @@ def test_refused_gi_features_raise(change, match):
         cfg = dataclasses.replace(cfg, materials=(MaterialConfig(transmissive=True),))
     else:
         cfg = _replace(cfg, **change)
-    if match == "dtype":
-        with pytest.raises(NotImplementedError, match=match):
-            prepare(cfg, device="cpu")
-        return
     prep = prepare(cfg, device="cpu")
     # env NEE needs an environment map to change the wave's eligibility
     wave = match in ("area-light soft shadows", "gi_env_nee")

@@ -130,10 +130,11 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     dict(extra_lights=True, traversal="packed", scheduler="persistent", faithful=False),
 ])
 def test_unsupported_options_raise(change):
-    """dtype="float64" raises NotImplementedError; none is silently
-    ignored.  The options of this table that the port refused before it
-    served them (area-light soft shadows, extra lights and, in the path
-    tracer, env NEE and glass) now prepare and render."""
+    """Every option of this table was refused before the port served it
+    (dtype="float64", area-light soft shadows, extra lights and, in the
+    path tracer, env NEE and glass): each now prepares and renders (a
+    float64 image for dtype="float64"), and a dtype the port does not
+    serve still raises NotImplementedError."""
     from ray_tracer_tpu_torch.config import LightConfig, MaterialConfig
     from ray_tracer_tpu_torch.models.scenes import serial_scene_config
     from ray_tracer_tpu_torch.render.renderer import prepare, render
@@ -145,12 +146,13 @@ def test_unsupported_options_raise(change):
     if change.pop("transmissive", False):
         cfg = dataclasses.replace(cfg, materials=(MaterialConfig(transmissive=True, ior=1.5),))
     cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, **change))
-    if cfg.render.dtype == "float64":
-        with pytest.raises(NotImplementedError):
-            prepare(cfg, device="cpu")
-        return
     img = render(prepare(cfg, device="cpu"))
     assert img.shape == (8, 8, 3) and bool(torch.isfinite(img).all())
+    if cfg.render.dtype == "float64":
+        assert img.dtype == torch.float64
+        with pytest.raises(NotImplementedError, match="dtype"):
+            prepare(dataclasses.replace(cfg, render=dataclasses.replace(
+                cfg.render, dtype="float16")), device="cpu")
 
 
 @pytest.mark.parametrize("change", [

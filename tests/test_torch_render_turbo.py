@@ -161,5 +161,6 @@ def test_whitted_wave_knob_follows_jax():
     assert check_supported(gi) is False
     assert check_supported(_replace(gi, texture="checker")) is False
     assert check_supported(dataclasses.replace(gi, extra_lights=(gi.light,))) is False
+    assert check_supported(_replace(gi, dtype="float64")) is False
     with pytest.raises(NotImplementedError, match="dtype"):
-        check_supported(_replace(gi, dtype="float64"))
+        check_supported(_replace(gi, dtype="float16"))
