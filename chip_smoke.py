@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                    # every phase
     python3 chip_smoke.py --phases build,C,E # a subset, for a quick check
+    python3 chip_smoke.py --phases build,multidevice  # the multi-device layer
 
 Run from the repository root on a machine with a CUDA device.  Phases,
 each printing one JSON line:
@@ -153,6 +154,29 @@ each printing one JSON line:
      spot_1024 and nefertiti_1024 rows; the command line's stats, debug,
      aov and info at 256x256 as subprocesses, each exiting 0 with output
      that parses.
+ 16. ray-sharded multi-device (phase multidevice): (a) in one process, E on
+     parallel_1024 and F on the GI row dealt to 4 shard queues
+     (pix_offset, pix_stride, queue_len), contiguous and round-robin: the
+     shards' rows composed are the single launch's bits, each shard's
+     CUDA-event time beside the single launch's; at 256x256 with a dead
+     position a shard, every shard's launch against its plain version on
+     the same queue, colors and counters bitwise; (b) on a process group
+     of one rank (NCCL) and of two ranks sharing the card (gloo; this
+     process is rank 0, the other a `chip_smoke.py --rank-job` process),
+     render_sharded of spot_1024 (C), the csr serial frame (B),
+     parallel_1024 (E) and the GI row (F) bitwise render()'s at both
+     dealings, each kernel launched (the counts zeroed just before the
+     sharded frame and read just after), frame wall times beside
+     render()'s and rank 0's busy time; (c) 3 sharded Adam steps on
+     spot_1024 (verts and materials), each against an unsharded step from
+     the same parameters (loss rtol 1e-6, gradients rtol 1e-4 with atol
+     1e-6 max|g|), the parameters bitwise equal on every rank, the losses
+     falling; (d) sharded render_aovs bitwise one device's, and `cli
+     render --devices 1` (one NCCL rank the command starts) writing `cli
+     render`'s PPM bytes; (e) scaling_report at [1] and [1, 2] and
+     balance_report at 4 shards on spot_1024 and nefertiti_1024.  The
+     backend that carried the collectives is on every line; two ranks on
+     one card give no scaling number.
 
 Then the kernel times at the main path's shapes (each launch held
 bitwise to the plain version; B's, C's and E's barycentric passes, and
@@ -264,7 +288,7 @@ OPS_PER_ESCAPE_F = 6
 OPS_PER_PIXEL_F = 79
 OPS_PER_SAMPLE_F = 3
 ALL_PHASES = ("build", "A", "B", "C", "E", "F", "main", "card_vs_cpu", "appearance", "lights",
-              "float64", "inspect", "train", "D", "times")
+              "float64", "inspect", "train", "multidevice", "D", "times")
 # The kernels' device times on the 1024^2 main path before this version
 # of the sources (B and C as redesigned, before C's march step moved into
 # csrc/packed_step.cuh), NVIDIA H100 80GB HBM3 at 700 W, as recorded in
@@ -2488,6 +2512,244 @@ class Smoke:
         emit({"phase": "inspect_cli", "size": 256, "seconds_all_four": time.perf_counter() - t0,
               "commands": results})
 
+    # ---- 16. multi-device (phase multidevice) ------------------------------
+    def multidevice(self):
+        """(a) the sharded queues of E and F in one process; (b) to (e) the
+        ray-sharded paths on process groups of one rank (NCCL) and two ranks
+        sharing the card (gloo); the command line's --devices 1; the work
+        balance of four shards."""
+        self.md_queues()
+        groups = {}
+        for world, backend in ((1, "nccl"), (2, "gloo")):
+            groups[world] = self.md_group(world, backend)
+        self.md_cli()
+        self.md_balance()
+        return groups
+
+    def md_shard_queues(self, r: int, n: int, extra: int = 0):
+        """The n shards' wave queues over r pixels, contiguous and round-robin
+        (render_sharded's dealing; `extra` positions more a shard leave dead
+        rows), with the permutation that composes them."""
+        from ray_tracer_tpu_torch.parallel.shard import stride_permutation
+
+        local = -(-r // n) + extra
+        out = {}
+        for layout in ("contiguous", "round_robin"):
+            if layout == "round_robin":
+                queues = [dict(pix_offset=s, pix_stride=n, queue_len=local) for s in range(n)]
+                perm = stride_permutation(local * n, n)
+            else:
+                queues = [dict(pix_offset=s * local, pix_stride=1, queue_len=local)
+                          for s in range(n)]
+                perm = np.arange(local * n)
+            out[layout] = (queues, torch.from_numpy(np.argsort(perm)).to(self.dev))
+        return out
+
+    def md_queues(self, n: int = 4):
+        """(a) E on parallel_1024 and F on the GI row, each dealt to n shard
+        queues, contiguous and round-robin: the shards' rows composed are the
+        single launch's bits; each shard's events time beside the single
+        launch's.  At 256x256, with one dead position a shard, every shard's
+        launch against its plain version on the same queue: colors and
+        counters bitwise."""
+        from ray_tracer_tpu_torch.config import apply_turbo
+        from ray_tracer_tpu_torch.core.rays import RayBatch
+        from ray_tracer_tpu_torch.models.scenes import parallel_scene_config, serial_scene_config
+        from ray_tracer_tpu_torch.ops.camera import queue_rays
+        from ray_tracer_tpu_torch.render.renderer import prepare
+
+        kE, kF = self.kE, self.kF
+        if self.wave_frame is None:
+            cfg = apply_turbo(parallel_scene_config(1024, 1024), "parallel")
+            self.wave_frame = (cfg, prepare(cfg))
+        if self.gi_frame is None:
+            self.gi_frame = prepare(self.gi_config(serial_scene_config, 1024, "serial", 4, 2))
+        wcfg, wp = self.wave_frame
+        wtail, wkw, _ = self.wave_inputs(wcfg, wp)
+        gp = self.gi_frame
+        gtail, gkw = kF.launch_inputs(gp)
+        launchers = {
+            "E": ("parallel_1024", lambda **q: self.wave_launch(wcfg, wp, wtail, wkw, **q),
+                  wcfg.camera),
+            "F": ("gi_spot_1024_s4d2", lambda **q: self.gi_launch(gp, gtail, gkw, **q),
+                  gp.cfg.camera),
+        }
+        rows = []
+        for kernel, (frame, launch, cam) in launchers.items():
+            r = cam.width * cam.height
+            whole = launch()
+            whole_ms = cuda_ms(launch, 10)
+            for layout, (queues, inv) in self.md_shard_queues(r, n).items():
+                parts = [launch(**q) for q in queues]
+                composed = torch.cat(parts)[inv][:r]
+                torch.cuda.synchronize()
+                compare(f"kernel {kernel} {frame}: {n} {layout} shards composed vs the single "
+                        "launch", (composed.reshape(-1),), (whole.reshape(-1),))
+                shard_ms = [cuda_ms(lambda q=q: launch(**q), 5) for q in queues]
+                rows.append({"kernel": kernel, "frame": frame, "layout": layout, "shards": n,
+                             "queue_len": queues[0]["queue_len"], "shard_ms": shard_ms,
+                             "sum_ms": sum(shard_ms), "single_launch_ms": whole_ms,
+                             "composed_equals_single": True})
+        emit({"phase": "multidevice_queues", "rows": rows,
+              "timing": "CUDA events, each shard 5 launches, the single launch 10"})
+        # every shard's launch against its plain version, at 256x256
+        size = 256
+        wcfg2 = apply_turbo(parallel_scene_config(size, size), "parallel")
+        wp2 = prepare(wcfg2)
+        wtail2, wkw2, _ = self.wave_inputs(wcfg2, wp2)
+        gp2 = prepare(self.gi_config(serial_scene_config, size, "serial", 4, 2))
+        gtail2, gkw2 = kF.launch_inputs(gp2)
+        held = []
+        err = {"E": 0.0, "F": 0.0}
+        for layout, (queues, _) in self.md_shard_queues(size * size, n, extra=1).items():
+            for s, q in enumerate(queues):
+                def rays_of(camera, q=q):
+                    """The queue's rays from the CPU batch, whose bits the
+                    kernels' own camera rays have."""
+                    return RayBatch(*(x.to(self.dev) for x in queue_rays(
+                        camera, q["pix_offset"], q["pix_stride"], q["queue_len"],
+                        device="cpu")))
+
+                rays = rays_of(wcfg2.camera)
+                ck, cp = (self.wave_counters(wp2, q["queue_len"]) for _ in range(2))
+                got = self.wave_launch(wcfg2, wp2, wtail2, wkw2, **q, **ck)
+                want = kE.whitted_wave_plain(rays, *wtail2, **wkw2, **cp)
+                torch.cuda.synchronize()
+                label = f"kernel E 256 {layout} shard {s}"
+                err["E"] = max(err["E"], compare(label, (got.reshape(-1),),
+                                                 (want.reshape(-1),)))
+                for key in ck:
+                    if not torch.equal(ck[key], cp[key]):
+                        raise AssertionError(f"{label}: counter {key} differs from the plain "
+                                             "version's")
+                gk, gq = self.gi_counters(), self.gi_counters()
+                got = self.gi_launch(gp2, gtail2, gkw2, **q, **gk)
+                want = kF.gi_wave_plain(rays_of(gp2.cfg.camera), *gtail2, **gkw2, **gq)
+                torch.cuda.synchronize()
+                label = f"kernel F 256 {layout} shard {s}"
+                err["F"] = max(err["F"], compare(label, (got.reshape(-1),),
+                                                 (want.reshape(-1),)))
+                for key in gk:
+                    if not torch.equal(gk[key], gq[key]):
+                        raise AssertionError(f"{label}: counter {key} differs from the plain "
+                                             f"version's: {gk[key].tolist()} vs "
+                                             f"{gq[key].tolist()}")
+                dead = int((q["pix_offset"] + torch.arange(q["queue_len"]) * q["pix_stride"]
+                            >= size * size).sum())
+                held.append({"layout": layout, "shard": s, **q, "dead_positions": dead})
+        self.err["whitted_wave"] = max(self.err["whitted_wave"], err["E"])
+        self.err["gi_wave"] = max(self.err["gi_wave"], err["F"])
+        emit({"phase": "multidevice_queues_vs_plain", "size": size, "shards": held,
+              "max_abs_err": err, "tolerance": "bitwise (colors or radiance, every counter)",
+              "equal": True})
+
+    def md_group(self, world: int, backend: str) -> dict:
+        """(b) to (e) on a process group of `world` ranks on this card: this
+        process is rank 0 (its prepared frames reused), the others are
+        `chip_smoke.py --rank-job` processes.  Every rank checks its own
+        images, steps and buffers; rank 0's numbers are printed."""
+        import tempfile
+
+        import torch.distributed as dist
+
+        from ray_tracer_tpu_torch.parallel import multihost
+
+        os.makedirs(os.path.join(self.root, "build"), exist_ok=True)
+        tmp = tempfile.mkdtemp(dir=os.path.join(self.root, "build"))
+        init = f"file://{tmp}/rendezvous"
+        outs = [os.path.join(tmp, f"rank{i}.json") for i in range(world)]
+        logs = [os.path.join(tmp, f"rank{i}.log") for i in range(world)]
+        procs = []
+        for i in range(1, world):  # output to files: a full pipe would stall a rank
+            with open(logs[i], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--rank-job", init, str(world),
+                     backend, str(i), outs[i]], cwd=self.root, stdout=log,
+                    stderr=subprocess.STDOUT))
+        ok = False
+        try:
+            multihost.initialize(init, world, 0, backend=backend, timeout=240)
+            res = md_rank_work(self, 0)
+            ok = True
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            for proc in procs:
+                try:
+                    proc.wait(timeout=600 if ok else 5)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+        for i, proc in enumerate(procs, start=1):
+            if proc.returncode != 0:
+                with open(logs[i]) as fh:
+                    tail = fh.read()[-3000:]
+                raise AssertionError(f"rank {i} of the {backend} group failed:\n{tail}")
+            with open(outs[i]) as fh:
+                other = json.load(fh)
+            if other["backend"] != res["backend"]:
+                raise AssertionError(f"rank {i} ran on {other['backend']}")
+        note = (f"{world} ranks share one card: not a scaling number" if world > 1 else
+                "one rank: the sharded path's own cost over render()")
+        for name, frame in res["frames"].items():
+            self.path_launches[f"sharded_{name}_w{world}"] = frame["launches_per_frame"]
+        emit({"phase": "multidevice_frames", "world": world, "backend": res["backend"],
+              "ranks_on": res["device"], "note": note, "frames": res["frames"]})
+        emit({"phase": "multidevice_fit", "world": world, "backend": res["backend"],
+              **res["fit"]})
+        emit({"phase": "multidevice_aov", "world": world, "backend": res["backend"],
+              **res["aov"]})
+        emit({"phase": "multidevice_scaling", "world": world, "backend": res["backend"],
+              "note": note, **res["scaling"]})
+        emit({"phase": "launches_by_path", "paths": {
+            k: v for k, v in self.path_launches.items() if k.endswith(f"_w{world}")}})
+        return res
+
+    def md_cli(self):
+        """(d) `cli render --devices 1` (one NCCL rank started by the command)
+        writes `cli render`'s PPM bytes."""
+        outs = {}
+        procs = {}
+        for name, extra in (("single", []), ("devices_1", ["--devices", "1"])):
+            outs[name] = os.path.join(self.root, "build", f"chip_smoke_cli_{name}.ppm")
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "ray_tracer_tpu_torch.cli", "render", "--scene", "serial",
+                 "--width", "1024", "--turbo", *extra, "--out", outs[name]], cwd=self.root,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            done = {name: proc.communicate(timeout=600) for name, proc in procs.items()}
+        finally:
+            for proc in procs.values():
+                proc.kill()
+        for name, proc in procs.items():
+            if proc.returncode != 0:
+                raise AssertionError(f"cli render ({name}) failed:\n{done[name][1][-3000:]}")
+        with open(outs["single"], "rb") as a, open(outs["devices_1"], "rb") as b:
+            same = a.read() == b.read()
+        if not same:
+            raise AssertionError("cli render --devices 1 differs from cli render")
+        emit({"phase": "multidevice_cli", "size": 1024, "same_bytes": True,
+              "stderr": done["devices_1"][1].strip().splitlines()[-1]})
+
+    def md_balance(self, n: int = 4):
+        """(e) balance_report at n shards on spot_1024 and nefertiti_1024."""
+        from ray_tracer_tpu_torch.config import apply_turbo
+        from ray_tracer_tpu_torch.models.scenes import nefertiti_scene, serial_scene_config
+        from ray_tracer_tpu_torch.parallel.scaling import balance_report
+        from ray_tracer_tpu_torch.render.renderer import prepare
+
+        if self.nef_prep is None:
+            scene, cfg = nefertiti_scene(1024, 1024, device=self.dev)
+            self.nef_prep = prepare(apply_turbo(cfg, "nefertiti"), scene=scene)
+        rows = {}
+        for name, p in (("spot_1024", prepare(apply_turbo(serial_scene_config(1024, 1024),
+                                                          "serial"))),
+                        ("nefertiti_1024", self.nef_prep)):
+            t0 = time.perf_counter()
+            rows[name] = balance_report(p, n)
+            rows[name]["seconds"] = time.perf_counter() - t0
+        emit({"phase": "multidevice_balance", "reports": rows})
+
     def wave_pow_probe(self, cfg, prep, lanes):
         """The wave's plain version on the card over the differing pixels'
         CPU camera rays, twice: with torch.pow on the card, and with each
@@ -3057,6 +3319,207 @@ class Smoke:
         emit({"kernels": rows})
 
 
+def md_busy(fn, calls: int, profile: bool):
+    """`calls` calls of fn() after one warm-up, in a torch.profiler window
+    when `profile` (rank 0; the other ranks make the same calls, so that
+    the collectives pair up) -> the device busy time and kernels of a
+    call, or None."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    fn()
+    torch.cuda.synchronize()
+    with (profiler(activities=[ProfilerActivity.CUDA]) if profile
+          else contextlib.nullcontext()) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        if profile:
+            time.sleep(0.05)  # let the tracer take the window's last records
+    if not profile:
+        return None
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    busy = sum(e.time_range.end - e.time_range.start for e in kernels) / calls / 1e3
+    return {"device_busy_ms": busy, "kernels_per_frame": len(kernels) / calls}
+
+
+def md_median_ms(fn, n: int = 5) -> list:
+    """Host-clock times of n calls of fn(), each ended by a synchronise."""
+    secs = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs.append((time.perf_counter() - t0) * 1e3)
+    return secs
+
+
+def md_rank_work(smoke, rank: int, size: int = 1024) -> dict:
+    """A rank's share of phase multidevice on the current process group,
+    every rank on the card: (b) render_sharded of spot_1024 (C), the csr
+    serial frame (B), parallel_1024 (E) and the GI row (F), each image
+    bitwise render()'s at both dealings, its kernel launched (the counts
+    zeroed just before the sharded frame and read just after), the frame's
+    wall time (median of 5) beside render()'s and rank 0's busy time; (c) 3
+    sharded Adam steps (lr 1e-4) on spot_1024 with verts and the materials trainable,
+    each against an unsharded step from the same parameters (loss rtol
+    1e-6, gradients rtol 1e-4 with atol 1e-6 max|g|), the losses finite and
+    falling, the parameters bitwise equal on every rank after every step;
+    (d) render_aovs sharded against single-device, bitwise; (e)
+    scaling_report over 1 to world ranks.  Raises on any failed hold."""
+    import torch.distributed as dist
+
+    from ray_tracer_tpu_torch.config import apply_turbo
+    from ray_tracer_tpu_torch.models.scenes import parallel_scene_config, serial_scene_config
+    from ray_tracer_tpu_torch.opt import fit
+    from ray_tracer_tpu_torch.parallel.collectives import all_gather
+    from ray_tracer_tpu_torch.parallel.mesh import make_mesh
+    from ray_tracer_tpu_torch.parallel.scaling import scaling_report
+    from ray_tracer_tpu_torch.parallel.shard import render_sharded
+    from ray_tracer_tpu_torch.render.aov import render_aovs
+    from ray_tracer_tpu_torch.render.renderer import prepare, render
+
+    dev = smoke.dev
+    world = dist.get_world_size()
+    mesh = make_mesh(devices=dev)
+    serial = serial_scene_config(size, size)
+
+    def bitwise(a, b) -> bool:
+        if a.dtype.is_floating_point:
+            return torch.equal(a.view(torch.int32), b.view(torch.int32))
+        return torch.equal(a, b)
+
+    def parallel_frame():
+        if smoke.wave_frame is None:
+            cfg = apply_turbo(parallel_scene_config(size, size), "parallel")
+            smoke.wave_frame = (cfg, prepare(cfg))
+        return smoke.wave_frame[1]
+
+    def gi_frame():
+        if smoke.gi_frame is None:
+            smoke.gi_frame = prepare(smoke.gi_config(serial_scene_config, size, "serial", 4, 2))
+        return smoke.gi_frame
+
+    spot = prepare(apply_turbo(serial, "serial"))
+    frames = {}
+    for name, make, kernel in (
+            ("spot_1024", lambda: spot, "packed_march"),
+            ("csr_spot_1024", lambda: prepare(serial), "traverse_grid"),
+            ("parallel_1024", parallel_frame, "whitted_wave"),
+            ("gi_spot_1024_s4d2", gi_frame, "gi_wave")):
+        p = make()
+        single = render(p)
+        torch.cuda.synchronize()
+        smoke.zero_counts()
+        img = render_sharded(p, mesh=mesh)
+        torch.cuda.synchronize()
+        counts = smoke.counts()
+        if counts[kernel] <= 0:
+            raise AssertionError(f"sharded {name} launched {kernel} 0 times: {counts}")
+        contiguous = render_sharded(p, mesh=mesh, balance=False)
+        for layout, got in (("round_robin", img), ("contiguous", contiguous)):
+            if not bitwise(got, single):
+                bad = int((got.view(torch.int32) != single.view(torch.int32)).sum())
+                raise AssertionError(f"rank {rank}: sharded {name} ({layout}) differs from "
+                                     f"render() in {bad} floats")
+        sharded_ms = md_median_ms(lambda: render_sharded(p, mesh=mesh))
+        single_ms = md_median_ms(lambda: render(p))
+        frames[name] = {"kernel": kernel, "launches_per_frame": counts,
+                        "equal_render_bitwise": True,
+                        "sharded_median_ms": sorted(sharded_ms)[2], "sharded_ms": sharded_ms,
+                        "render_median_ms": sorted(single_ms)[2],
+                        "busy": md_busy(lambda: render_sharded(p, mesh=mesh), 5, rank == 0)}
+    # (c) the data-parallel fit
+    trainable = ("verts", "base_color", "kd", "ks", "ka")
+    target = render(spot)
+    p0 = fit.split_scene(spot.scene)
+    scene = fit.merge_scene(p0._replace(kd=p0.kd * 1.5, base_color=p0.base_color * 0.6),
+                            spot.scene)
+    grid, meta, consts = spot.packed.arrays, spot.packed.meta, spot.frame().consts
+    # lr 1e-4: the serial scene's vertex gradients are large (unnormalized
+    # normals, a bright light), and Adam at 1e-2 throws its loss up
+    s_step, s_init = fit.make_train_step(meta, spot.cfg, lr=1e-4, mesh=mesh,
+                                         trainable=trainable)
+    u_step, u_init = fit.make_train_step(meta, spot.cfg, lr=1e-4, trainable=trainable)
+    params, opt = s_init(fit.split_scene(scene))
+    steps, fit_counts = [], {}
+    for k in range(3):
+        up, uo = u_init(fit.detached(params))
+        _, _, u_loss = u_step(up, uo, scene, grid, target, consts=consts)
+        smoke.zero_counts()
+        params, opt, s_loss = s_step(params, opt, scene, grid, target, consts=consts)
+        torch.cuda.synchronize()
+        for key, v in smoke.counts().items():
+            fit_counts[key] = fit_counts.get(key, 0) + v
+        rel = abs(float(s_loss) - float(u_loss)) / abs(float(u_loss))
+        if not rel <= 1e-6:
+            raise AssertionError(f"rank {rank}: step {k} loss {float(s_loss)!r} vs the "
+                                 f"unsharded {float(u_loss)!r} (rel {rel:.3g})")
+        worst = 0.0
+        for f in trainable:
+            gs, gu = getattr(params, f).grad, getattr(up, f).grad
+            scale = float(gu.abs().max())
+            excess = float(((gs - gu).abs() - 1e-4 * gu.abs()).max())
+            worst = max(worst, excess / scale if scale else excess)
+            if excess > 1e-6 * scale:
+                raise AssertionError(f"rank {rank}: step {k} gradient of {f} off by {excess:.3g} "
+                                     f"beyond rtol 1e-4 (max|g| {scale:.3g})")
+            if not all(bitwise(x, getattr(params, f).detach())
+                       for x in all_gather(getattr(params, f).detach())):
+                raise AssertionError(f"rank {rank}: step {k}: {f} differs across ranks")
+        steps.append({"loss": float(s_loss), "unsharded_loss": float(u_loss), "loss_rel": rel,
+                      "grad_excess_over_max": worst})
+    losses = [s["loss"] for s in steps]
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"rank {rank}: sharded fit losses {losses}")
+    if fit_counts["packed_march"] <= 0:
+        raise AssertionError(f"the sharded fit launched no kernel C: {fit_counts}")
+    fit_out = {"frame": "spot_1024", "trainable": list(trainable), "steps": steps,
+               "launches": fit_counts, "params_equal_across_ranks": True,
+               "tolerance": "loss rtol 1e-6; gradients rtol 1e-4, atol 1e-6 max|g|"}
+    # (d) the AOV buffers
+    mesh2 = make_mesh(world, ("rays", "tris"), shape=(world, 1), devices=dev)
+    smoke.zero_counts()
+    t0 = time.perf_counter()
+    aovs = render_aovs(spot, mesh=mesh2)
+    torch.cuda.synchronize()
+    aov_ms = (time.perf_counter() - t0) * 1e3
+    aov_counts = smoke.counts()
+    want = render_aovs(spot)
+    for key, v in want.items():
+        if not bitwise(aovs[key], v):
+            raise AssertionError(f"rank {rank}: sharded AOV {key} differs from one device's")
+    if aov_counts["packed_march"] <= 0:
+        raise AssertionError(f"sharded render_aovs launched no kernel C: {aov_counts}")
+    aov_out = {"frame": "spot_1024", "buffers": sorted(want), "equal_bitwise": True,
+               "ms": aov_ms, "launches": aov_counts}
+    # (e) throughput over 1 to world ranks
+    scaling = scaling_report(spot, device_counts=list(range(1, world + 1)), repeats=3)
+    dist.barrier()  # no rank tears the group down under another
+    return {"rank": rank, "world": world, "backend": dist.get_backend(), "device": str(dev),
+            "frames": frames, "fit": fit_out, "aov": aov_out, "scaling": scaling}
+
+
+def rank_job(argv) -> int:
+    """`chip_smoke.py --rank-job INIT WORLD BACKEND RANK OUT`: rank RANK (> 0)
+    of phase multidevice's group on this card; writes its results to OUT."""
+    import torch.distributed as dist
+
+    init, world, backend, rank, out = argv
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ray_tracer_tpu_torch.parallel import multihost
+
+    torch.cuda.set_device(0)
+    multihost.initialize(init, int(world), int(rank), backend=backend, timeout=240)
+    try:
+        res = md_rank_work(Smoke(), int(rank))
+    finally:
+        dist.destroy_process_group()
+    with open(out, "w") as fh:
+        json.dump(res, fh)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -3083,7 +3546,8 @@ def main(argv=None) -> int:
         ("main", smoke.main_path), ("card_vs_cpu", smoke.card_vs_cpu),
         ("appearance", smoke.appearance), ("lights", smoke.lights),
         ("float64", smoke.float64), ("inspect", smoke.inspect), ("train", smoke.train),
-        ("D", smoke.kernel_d), ("times", smoke.kernel_times)) if name in phases]
+        ("multidevice", smoke.multidevice), ("D", smoke.kernel_d),
+        ("times", smoke.kernel_times)) if name in phases]
     seconds = {}
     for name, run in steps:
         t0 = time.perf_counter()
@@ -3100,4 +3564,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-job"]:
+        sys.exit(rank_job(sys.argv[2:]))
     sys.exit(main())

@@ -15,3 +15,13 @@ plain PyTorch version, as the tests do).
 """
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """`render_sharded` at the package root, imported when first read (the
+    JAX package's lazy export)."""
+    if name == "render_sharded":
+        from ray_tracer_tpu_torch.parallel.shard import render_sharded
+
+        return render_sharded
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -32,10 +32,23 @@
         --out aovs.npz
     python -m ray_tracer_tpu_torch.cli info
     python -m ray_tracer_tpu_torch.cli bench --rows spot_1024
+    python -m ray_tracer_tpu_torch.cli render --scene serial --width 1024 --turbo \
+        --devices 4 --out x.ppm      # rays sharded over four cards (NCCL)
+    torchrun --nproc-per-node 4 -m ray_tracer_tpu_torch.cli render --devices 4 ...
+    python -m ray_tracer_tpu_torch.cli aov --scene serial --width 64 --devices 2 \
+        --device cpu --out aovs.npz  # two CPU ranks (gloo)
 
-The counterpart of `ray_tracer_tpu/cli.py` on one device (its --devices
-and --ring are refused).  It runs on the card unless `--device cpu` is
-given.
+The counterpart of `ray_tracer_tpu/cli.py`.  It runs on the card unless
+`--device cpu` is given.  `render --devices N` and `aov --devices N`
+shard the rays over N ranks, one process a device: under torchrun (its
+WORLD_SIZE / RANK / MASTER_ADDR set) the command joins that group, whose
+world size must be N; otherwise it starts N local ranks itself
+(torch.multiprocessing, spawn, a file:// rendezvous in a temporary
+directory), rank i on cuda:i (NCCL) or, with --device cpu, on the CPU
+(gloo).  Rank 0 writes the output.  `debug --devices N` traces its pixel
+on one device, as the JAX command does without --ring.  `--ring`
+(geometry sharded by ring orbits) is refused: it comes with the ring
+slice of the port.
 """
 
 from __future__ import annotations
@@ -43,6 +56,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import os
 import sys
 import time
 
@@ -163,6 +177,103 @@ def _build_cfg(args):
     return cfg, scene
 
 
+_TORCHRUN = ("WORLD_SIZE", "RANK", "MASTER_ADDR")
+_RANK_TIMEOUT = 900.0  # seconds the ranks may take: their join and every collective
+
+
+def _refuse_ring(args) -> None:
+    if getattr(args, "ring", False):
+        raise SystemExit("--ring (multi-device ring orbits over sharded geometry) is not "
+                         "served by the PyTorch port yet: it comes with the ring slice")
+
+
+def _as_rank(args) -> None:
+    """Run the command as a rank of the formed group, then leave it."""
+    import torch.distributed as dist
+
+    try:
+        args.fn(args)
+        dist.barrier()  # no rank tears the group down under another
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_main(index: int, n: int, init: str, args) -> None:
+    """One local rank of `_on_ranks`: join the group, run the command."""
+    import torch
+
+    from ray_tracer_tpu_torch.parallel import multihost
+
+    cpu = args.device == "cpu"
+    if cpu:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    args.device = "cpu" if cpu else f"cuda:{index}"
+    multihost.initialize(init, n, index, backend="gloo" if cpu else "nccl",
+                         timeout=_RANK_TIMEOUT)
+    _as_rank(args)
+
+
+def _on_ranks(args) -> bool:
+    """Run args.fn over args.devices ranks when it asks for them -> True
+    when this process ran as (or started) the ranks, False for one
+    device.  Under torchrun the process joins the launcher's group (whose
+    world size must be --devices); otherwise it starts the ranks itself
+    and waits for them, at most _RANK_TIMEOUT seconds."""
+    import torch
+    import torch.distributed as dist
+
+    n = getattr(args, "devices", 0)
+    if not n:
+        return False
+    if dist.is_initialized():
+        return False  # a rank of the group: the command runs here
+    if n < 1:
+        raise SystemExit(f"--devices must be >= 1, got {n}")
+    if all(k in os.environ for k in _TORCHRUN):
+        from ray_tracer_tpu_torch.parallel import multihost
+
+        cpu = args.device == "cpu"
+        multihost.initialize(backend="gloo" if cpu else "nccl", timeout=_RANK_TIMEOUT)
+        if dist.get_world_size() != n:
+            raise SystemExit(f"--devices {n} but the launcher's group has "
+                             f"{dist.get_world_size()} ranks")
+        if not cpu:
+            args.device = f"cuda:{int(os.environ.get('LOCAL_RANK', dist.get_rank()))}"
+        _as_rank(args)
+        return True
+    if args.device != "cpu":
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have < n:
+            raise SystemExit(f"--devices {n} asks for {n} cuda ranks, one a card, but this "
+                             f"machine has {have} card(s); pass --device cpu for CPU ranks")
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = mp.spawn(_rank_main, args=(n, f"file://{tmp}/rendezvous", args), nprocs=n,
+                       join=False)
+        deadline = time.monotonic() + _RANK_TIMEOUT
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise SystemExit(f"the {n} ranks did not finish in {_RANK_TIMEOUT} s")
+    return True
+
+
+def _mesh(args, axis_names=("rays",)):
+    """The mesh of this rank's group over its --device, rays on the first
+    axis (None for one device)."""
+    if not getattr(args, "devices", 0):
+        return None
+    from ray_tracer_tpu_torch.parallel.mesh import make_mesh
+
+    n = args.devices
+    return make_mesh(n, axis_names, shape=(n,) + (1,) * (len(axis_names) - 1),
+                     devices=args.device)
+
+
 def cmd_render(args) -> None:
     import torch
 
@@ -170,10 +281,22 @@ def cmd_render(args) -> None:
     from ray_tracer_tpu_torch.io.ppm import write_ppm
     from ray_tracer_tpu_torch.render.renderer import prepare, render
 
+    _refuse_ring(args)
+    if _on_ranks(args):
+        return
     cfg, scene = _build_cfg(args)
     prep = prepare(cfg, scene=scene, device=args.device)
+    mesh = _mesh(args)
     t0 = time.perf_counter()
-    img = render(prep)
+    if mesh is None:
+        img = render(prep)
+    else:
+        from ray_tracer_tpu_torch.parallel.multihost import is_host0
+        from ray_tracer_tpu_torch.parallel.shard import render_sharded
+
+        img = render_sharded(prep, mesh=mesh)
+        if not is_host0():
+            return
     if prep.device.type == "cuda":
         torch.cuda.synchronize(prep.device)
     dt = time.perf_counter() - t0
@@ -251,12 +374,6 @@ def _prepared(args):
     return prepare(cfg, scene=scene, device=args.device)
 
 
-def _single_device(args) -> None:
-    if getattr(args, "devices", 0) or getattr(args, "ring", False):
-        raise SystemExit("--devices and --ring are not served by the PyTorch port yet "
-                         "(multi-device)")
-
-
 def cmd_stats(args) -> None:
     """Print collect_render_metrics of the scene as JSON."""
     import json
@@ -267,28 +384,36 @@ def cmd_stats(args) -> None:
 
 
 def cmd_debug(args) -> None:
-    """Print trace_pixel of pixel (--x, --y) as JSON."""
+    """Print trace_pixel of pixel (--x, --y) as JSON (on one device, with
+    or without --devices, as the JAX command without --ring)."""
     import json
 
     from ray_tracer_tpu_torch.render.debug import trace_pixel
 
-    _single_device(args)
+    _refuse_ring(args)
     print(json.dumps(trace_pixel(_prepared(args), args.x, args.y), indent=2))
 
 
 def cmd_aov(args) -> None:
     """Write render_aovs' buffers (and with --ao-samples an 'ao' buffer)
-    to an .npz file."""
+    to an .npz file; with --devices the traces are ray-sharded and rank 0
+    writes."""
     import numpy as np
 
+    from ray_tracer_tpu_torch.parallel.multihost import is_host0
     from ray_tracer_tpu_torch.render.aov import render_ao, render_aovs
 
-    _single_device(args)
+    _refuse_ring(args)
+    if _on_ranks(args):
+        return
     prep = _prepared(args)
-    aovs = {k: v.cpu().numpy() for k, v in render_aovs(prep).items()}
+    mesh = _mesh(args, ("rays", "tris"))
+    aovs = {k: v.cpu().numpy() for k, v in render_aovs(prep, mesh=mesh).items()}
     if args.ao_samples:
-        aovs["ao"] = render_ao(prep, samples=args.ao_samples,
-                               radius=args.ao_radius).cpu().numpy()
+        aovs["ao"] = render_ao(prep, samples=args.ao_samples, radius=args.ao_radius,
+                               mesh=mesh).cpu().numpy()
+    if not is_host0():
+        return
     np.savez(args.out, **aovs)
     print(f"wrote {args.out}: " + ", ".join(f"{k}{list(v.shape)}" for k, v in aovs.items()),
           file=sys.stderr)
@@ -298,11 +423,11 @@ def cmd_info(_args) -> None:
     """Print the devices, the process count, whether the CUDA kernels are
     built, and the default device, as JSON (the JAX command's keys)."""
     import json
-    import os
 
     import torch
 
     from ray_tracer_tpu_torch.kernels import _build
+    from ray_tracer_tpu_torch.parallel.multihost import process_count
 
     cuda = torch.cuda.is_available()
     devices = ([f"cuda:{i} {torch.cuda.get_device_name(i)}"
@@ -310,7 +435,7 @@ def cmd_info(_args) -> None:
     built = {k: os.path.exists(_build.library_path(k)) for k in _build.KERNELS}
     print(json.dumps({
         "devices": devices,
-        "process_count": 1,
+        "process_count": process_count(),
         "native_library": all(built.values()),
         "default_backend": "cuda" if cuda else "cpu",
         "kernels_built": built,
@@ -331,6 +456,12 @@ def _inspect_parser(sub, name, help_, width):
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(gi=0)
     return p
+
+
+def _rank_options(p, devices_help: str) -> None:
+    p.add_argument("--devices", type=int, default=0, help=devices_help)
+    p.add_argument("--ring", action="store_true",
+                   help="shard the geometry by ring orbits (not served yet: the ring slice)")
 
 
 def main(argv=None) -> None:
@@ -385,6 +516,7 @@ def main(argv=None) -> None:
     r.add_argument("--shadow-samples", type=int, default=0,
                    help="shadow rays a light for --light-radius (default 16)")
     r.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    _rank_options(r, "shard the rays over this many ranks, one a device")
     r.set_defaults(fn=cmd_render)
     f = sub.add_parser("fit", help="inverse rendering: fit scene parameters to a target")
     f.add_argument("--scene", default="gradcheck", choices=["gradcheck", "serial", "parallel"])
@@ -422,16 +554,15 @@ def main(argv=None) -> None:
     dbg = _inspect_parser(sub, "debug", "single-pixel diagnostic trace (JSON)", 64)
     dbg.add_argument("--x", type=int, required=True)
     dbg.add_argument("--y", type=int, required=True)
-    dbg.add_argument("--devices", type=int, default=0, help="not served: one device")
-    dbg.add_argument("--ring", action="store_true", help="not served: one device")
+    _rank_options(dbg, "the pixel is traced on one device all the same (as without --ring "
+                       "in the JAX command)")
     dbg.set_defaults(fn=cmd_debug)
     av = _inspect_parser(sub, "aov", "export geometry buffers (depth/normal/ids) to .npz", 256)
     av.add_argument("--out", default="aovs.npz")
     av.add_argument("--ao-samples", type=int, default=0,
                     help="add an 'ao' buffer (N hemisphere rays a pixel)")
     av.add_argument("--ao-radius", type=float, default=1.0, help="ambient-occlusion ray length")
-    av.add_argument("--devices", type=int, default=0, help="not served: one device")
-    av.add_argument("--ring", action="store_true", help="not served: one device")
+    _rank_options(av, "shard the AOV and AO rays over this many ranks, one a device")
     av.set_defaults(fn=cmd_aov)
     sub.add_parser("info", help="devices and kernel build state (JSON)").set_defaults(
         fn=cmd_info, height=1)

@@ -109,12 +109,16 @@
 // The launch's scalars, passed by value from ctypes (the layout of
 // ops/gi_wave._GiParams).  m holds the grid, the light and the layout (its
 // gate, fused, skip and chain fields are not read: the JAX wave probes one
-// cell a step); m.n_rays is the number of pixels.
+// cell a step); m.n_rays is the queue's length.  Queue position k serves
+// pixel pix_offset + k * pix_stride of the camera's n_pix (the sharded
+// queue of the JAX wave; 0, 1 and n_rays unsharded); a position past n_pix
+// is dead and holds the last pixel's escape (the JAX wave's clipped index).
 struct GiParams {
   MarchParams m;
   float li, gate0, gate_b, eps, smint;
   float bg[3], bg_acc[3];
   int quirk, S, D, seg_bound, n_faces, n_mats, has_spec;
+  int pix_offset, pix_stride, n_pix;
 };
 
 // The scratch in device memory (laid out by ops/gi_wave._scratch_layout):
@@ -463,18 +467,22 @@ __device__ int primary_transition(const GiParams& G, const AppearParams& AP, Pri
   return kQueue;
 }
 
-// Take pixel `pixel`: its camera ray, key and slab entry.  Returns whether
-// the primary entered the grid; else the pixel's radiance is its escape's.
+// Take queue position `pixel`: the camera ray of pixel gid = pix_offset +
+// pixel * pix_stride, its key and slab entry.  Returns whether the primary
+// entered the grid; else the position's radiance is its escape's (a dead
+// position, gid >= n_pix, takes the last pixel's ray and never enters).
 template <bool kEnv>
 __device__ __forceinline__ bool start_primary(const GiParams& G, const AppearParams& AP,
                                               const CameraParams& CP, const float4* subs,
                                               int pixel, Prim& S, float* rad_out,
                                               const Tally& ev) {
   Lane& L = S.L;
-  camera_ray_at(CP, subs, pixel, L.o, L.d);
-  float t0;
-  bool entered;
-  slab_entry(G.m, L.o, L.d, 0.0f, INFINITY, t0, entered);
+  const long long gid = (long long)G.pix_offset + (long long)pixel * G.pix_stride;
+  const bool live = gid < G.n_pix;
+  camera_ray_at(CP, subs, live ? (int)gid : G.n_pix - 1, L.o, L.d);
+  float t0 = 0.0f;
+  bool entered = false;
+  if (live) slab_entry(G.m, L.o, L.d, 0.0f, INFINITY, t0, entered);
   if (!entered) {
     write_miss<kEnv>(G, AP, L.d, rad_out, pixel);
     return false;
@@ -513,7 +521,8 @@ __device__ __forceinline__ void enqueue(const Queue& Q, bool enq, const Prim& S,
   Q.flags[q] = S.capped ? 1 : 0;
 }
 
-// Stage P: one thread a pixel.  A hit's depth-0 record goes to the queue.
+// Stage P: one thread a queue position (`pixel`, its output row).  A hit's
+// depth-0 record goes to the queue.
 template <bool kEnv, bool kSmooth, int kTex>
 __global__ void __launch_bounds__(kBlock, kMinBlocksP)
 gi_primary_kernel(GiParams G, AppearParams AP, CameraParams CP, const float4* __restrict__ subs,
@@ -903,7 +912,8 @@ extern "C" int gi_wave_occupancy(int* sms, int* per_sm) {
   return (int)err;
 }
 
-// Launch kernel F over the n_rays = G.m.n_rays pixels of camera CP: subs
+// Launch kernel F over the n_rays = G.m.n_rays queue positions of camera CP
+// (position k the pixel G.pix_offset + k * G.pix_stride): subs
 // (1, 4) f32 [ox, oy, lx, ly]; cell_info (n_cells,) or (1,) i32, blocks
 // (n_blocks, row_lanes) f32, slot_tri (n_slots,) i32, tri9 (n_faces, 10)
 // f32, albedo (n_mats, 3) f32, km (n_mats,) f32 or null (no mirror mix);

@@ -89,12 +89,16 @@
 // The launch's scalars, passed by value from ctypes (the layout of
 // ops/whitted_wave._WaveParams).  m holds the grid, the light and the
 // layout (its gate, fused, skip and chain fields are not read: the JAX
-// wave probes one cell a step); m.n_rays is the queue's length.
+// wave probes one cell a step); m.n_rays is the queue's length.  Queue
+// position k serves subsample pix_offset + k * pix_stride of the camera's
+// n_pix (the sharded queue of the JAX wave; 0, 1 and n_rays unsharded);
+// a position past n_pix is dead and holds the background.
 struct WaveParams {
   MarchParams m;
   float li, shadow_scale, gate0, gate_b, eps, smint;
   float bg[3];
   int serial, quirk, max_bounces, seg_bound, n_faces, n_mats;
+  int pix_offset, pix_stride, n_pix;
 };
 
 namespace {
@@ -242,16 +246,20 @@ __device__ void resolve_vertex(const WaveParams& W, const Lane& L, int depth,
   V.rgo = m[8] > 0.5f && depth < W.max_bounces;
 }
 
-// Take queue position `position`: make its camera ray (written to rays_out
-// when given: origin, direction, mint 0, maxt +inf) and its slab entry.
-// Returns whether the primary entered the grid; else the background is
-// the position's color.
+// Take queue position `position`: make the camera ray of its subsample
+// gid = pix_offset + position * pix_stride (written to rays_out when
+// given: origin, direction, mint 0, maxt +inf; a dead position's is the
+// last subsample's) and its slab entry.  Returns whether the primary
+// entered the grid; else (or when gid >= n_pix) the background is the
+// position's color.
 __device__ __forceinline__ bool start_pixel(const WaveParams& W, const CameraParams& CP,
                                             const float4* subs, int position, Pixel& S,
                                             float* color, float* rays_out) {
   const MarchParams& P = W.m;
   Lane& L = S.L;
-  camera_ray_at(CP, subs, position, L.o, L.d);
+  const long long gid = (long long)W.pix_offset + (long long)position * W.pix_stride;
+  const bool live = gid < W.n_pix;
+  camera_ray_at(CP, subs, live ? (int)gid : W.n_pix - 1, L.o, L.d);
   if (rays_out != nullptr) {
     float* row = rays_out + (size_t)position * 8;
     for (int k = 0; k < 3; ++k) {
@@ -263,9 +271,9 @@ __device__ __forceinline__ bool start_pixel(const WaveParams& W, const CameraPar
   }
   for (int k = 0; k < 3; ++k) L.invd[k] = 1.0f / L.d[k];
   S.maxt_seg = INFINITY;
-  float t0;
-  bool entered;
-  slab_entry(P, L.o, L.d, 0.0f, INFINITY, t0, entered);
+  float t0 = 0.0f;
+  bool entered = false;
+  if (live) slab_entry(P, L.o, L.d, 0.0f, INFINITY, t0, entered);
   if (!entered) {
     for (int c = 0; c < 3; ++c) color[3 * position + c] = W.bg[c];
     return false;
@@ -446,7 +454,7 @@ whitted_wave_kernel(WaveParams W, CameraParams CP, const float4* __restrict__ su
 }  // namespace
 
 // Launch kernel E over the n_rays = W.m.n_rays queue positions of camera
-// CP: subs (n_sub, 4) f32 [ox, oy, lx, ly]; cell_info (n_cells,) or (1,)
+// CP (position k the subsample W.pix_offset + k * W.pix_stride): subs (n_sub, 4) f32 [ox, oy, lx, ly]; cell_info (n_cells,) or (1,)
 // i32, blocks (n_blocks, row_lanes) f32, slot_tri (n_slots,) i32, tri9
 // (n_faces, 10) f32, mat9 (n_mats, 9) f32; color (n_rays, 3) f32 out, every
 // row written; rays_out (n_rays, 8) f32 or null; head (1,) i32 zeroed by

@@ -179,6 +179,22 @@ def camera_ray_at(cfg: CameraConfig, idx: torch.Tensor, dtype=torch.float32, spp
     return RayBatch.make(orig, dirs, mint=0.0, maxt=math.inf)
 
 
+def queue_rays(cfg: CameraConfig, pix_offset: int, pix_stride: int, queue_len: int,
+               device=None) -> RayBatch:
+    """The rays of a sharded wave queue (the JAX waves' pix_offset /
+    pix_stride / queue_len): position k takes the camera_rays row of pixel
+    gid = pix_offset + k * pix_stride.  A dead position (gid >= H*W)
+    takes the last pixel's ray, as the JAX waves' clipped index does, with
+    maxt -inf, so that it never enters the grid."""
+    r = cfg.width * cfg.height
+    rays = camera_rays(cfg, device=device)
+    gid = pix_offset + torch.arange(queue_len, dtype=torch.int64, device=rays.orig.device) \
+        * pix_stride
+    idx = torch.clamp(gid, 0, r - 1)
+    maxt = torch.where(gid < r, rays.maxt[idx], torch.full_like(rays.maxt[idx], -math.inf))
+    return RayBatch(rays.orig[idx], rays.dirn[idx], rays.mint[idx], maxt)
+
+
 class CameraLaunch(NamedTuple):
     """What a kernel that makes camera rays takes (csrc/camera.cuh): the
     camera and spp it was made for, the f32 launch values as Python

@@ -47,8 +47,10 @@ order.
 `gi_wave_trace` takes the kernel for a grid on the card and the plain
 version over the `camera_rays` batch for one on the CPU.
 
-The sharded queue of the JAX wave is not served (its arguments raise
-NotImplementedError).
+The JAX wave's sharded queue (`pix_offset`, `pix_stride`, `queue_len`:
+position k serves pixel pix_offset + k * pix_stride) is served by both:
+stage P runs a thread a queue position, and the queue, stage S and the
+fold keep positions, so a shard's output rows are in queue order.
 """
 
 from __future__ import annotations
@@ -65,7 +67,12 @@ from ray_tracer_tpu_torch.core import vecmath as vm
 from ray_tracer_tpu_torch.core.rays import RayBatch
 from ray_tracer_tpu_torch.kernels import _build
 from ray_tracer_tpu_torch.models.scenes import sample_env_image, texture_factor
-from ray_tracer_tpu_torch.ops.camera import CameraLaunch, camera_launch, camera_rays
+from ray_tracer_tpu_torch.ops.camera import (
+    CameraLaunch,
+    camera_launch,
+    camera_rays,
+    queue_rays,
+)
 from ray_tracer_tpu_torch.ops.intersect import cramer_bg_safe, cramer_t_safe
 from ray_tracer_tpu_torch.ops.traverse_packed import (
     LaunchConsts,
@@ -76,7 +83,12 @@ from ray_tracer_tpu_torch.ops.traverse_packed import (
     launch_consts,
     march_params,
 )
-from ray_tracer_tpu_torch.ops.whitted_wave import _CameraParams, _check_counter, _rearm
+from ray_tracer_tpu_torch.ops.whitted_wave import (
+    _CameraParams,
+    _check_counter,
+    _queue_len,
+    _rearm,
+)
 from ray_tracer_tpu_torch.render.pathtrace import (
     _INV_PI,
     _M32,
@@ -461,6 +473,7 @@ class _GiParams(ctypes.Structure):
         ("quirk", ctypes.c_int), ("S", ctypes.c_int), ("D", ctypes.c_int),
         ("seg_bound", ctypes.c_int), ("n_faces", ctypes.c_int), ("n_mats", ctypes.c_int),
         ("has_spec", ctypes.c_int),
+        ("pix_offset", ctypes.c_int), ("pix_stride", ctypes.c_int), ("n_pix", ctypes.c_int),
     ]
 
 
@@ -492,9 +505,13 @@ def _appear_params(app: dict) -> _AppearParams:
 def _launch_params(cam: CameraLaunch, consts: LaunchConsts, meta: PackedGridMeta, *,
                    n_slots: int, n_faces: int, n_mats: int, has_spec: bool, S: int, D: int,
                    gate0: float, gate_b: float, eps: float, smint: float, quirk: bool,
-                   bg) -> "tuple[_GiParams, _CameraParams]":
-    """Kernel F's launch parameters, from host values only."""
-    n = cam.camera.width * cam.camera.height
+                   bg, pix_offset: int = 0, pix_stride: int = 1,
+                   queue_len: Optional[int] = None) -> "tuple[_GiParams, _CameraParams]":
+    """Kernel F's launch parameters, from host values only: a queue of
+    queue_len positions (every pixel by default), position k the pixel
+    pix_offset + k * pix_stride."""
+    n_pix = cam.camera.width * cam.camera.height
+    n = n_pix if queue_len is None else queue_len
     seg_bound = _default_max_steps(meta)
     march = march_params(
         consts, meta, gate=gate0, shadow_gate=eps, shadow_mint=smint, n_slots=n_slots,
@@ -505,7 +522,8 @@ def _launch_params(cam: CameraLaunch, consts: LaunchConsts, meta: PackedGridMeta
         m=march, li=consts.intensity, gate0=gate0, gate_b=gate_b, eps=eps, smint=smint,
         bg=vec3(*(float(x) for x in bg)), bg_acc=vec3(*(float(x) for x in _bg_acc(bg, S))),
         quirk=int(quirk), S=int(S), D=int(D), seg_bound=int(seg_bound), n_faces=n_faces,
-        n_mats=n_mats, has_spec=int(has_spec))
+        n_mats=n_mats, has_spec=int(has_spec), pix_offset=int(pix_offset),
+        pix_stride=int(pix_stride), n_pix=n_pix)
     pos, u, v, w = (vec3(*b) for b in cam.basis)
     fd, aspect, half_w, half_h, fw, fh, focus = cam.scalars
     camera = _CameraParams(
@@ -576,12 +594,16 @@ def gi_wave_cuda(
     smint: float = 1e-4, quirk: bool = False, bg=(0.0, 0.0, 0.0),
     env_image=None, fvn9=None, fuv7=None, tex_image=None, bc255_table=None,
     tex_scale: float = 1.0, cam: Optional[CameraLaunch] = None,
-    consts: Optional[LaunchConsts] = None, capped_out=None, passes_out=None,
+    consts: Optional[LaunchConsts] = None, pix_offset: int = 0, pix_stride: int = 1,
+    queue_len: Optional[int] = None, capped_out=None, passes_out=None,
     events_out=None, lanes_out=None,
 ) -> torch.Tensor:
     """Kernel F on CUDA tensors: the radiance summed over S samples of
     every pixel of `camera` -> (H*W, 3) f32, the plain version's bits for
-    the rays of `camera_rays(camera)`.  Stage P marches each pixel's
+    the rays of `camera_rays(camera)`.  The sharded queue: queue_len
+    positions, position k the pixel pix_offset + k * pix_stride, a
+    position past the last pixel dead (the last pixel's escape) ->
+    (queue_len, 3), the plain version's bits for `queue_rays`.  Stage P marches each pixel's
     camera ray and depth-0 shadow ray and queues the hits' depth-0
     records; a persistent stage S serves the (queued pixel, sample) items;
     the fold sums each pixel's samples in order.  The appearance tables
@@ -609,7 +631,7 @@ def gi_wave_cuda(
         raise ValueError("cam was made for another camera or spp")
     if consts is None:
         consts = launch_consts(grid, light_pos, light_intensity)
-    r = camera.width * camera.height
+    r = _queue_len(camera, 1, pix_offset, pix_stride, queue_len)
     blocks = grid.blocks.to(torch.float32).contiguous()
     cell_info = grid.cell_info.to(torch.int32).contiguous()
     slot_tri = grid.slot_tri.to(torch.int32).contiguous()
@@ -650,7 +672,8 @@ def gi_wave_cuda(
     gi, cparams = _launch_params(
         cam, consts, meta, n_slots=slot_tri.shape[0], n_faces=tri9.shape[0],
         n_mats=albedo.shape[0], has_spec=km is not None, S=S, D=D, gate0=gate0,
-        gate_b=gate_b, eps=eps, smint=smint, quirk=quirk, bg=bg)
+        gate_b=gate_b, eps=eps, smint=smint, quirk=quirk, bg=bg, pix_offset=pix_offset,
+        pix_stride=pix_stride, queue_len=r)
     layout = _scratch_layout(r, S)
     scratch = torch.empty((layout["total"],), dtype=torch.uint8, device=dev)
     lib = _build.library("gi_wave")
@@ -716,21 +739,32 @@ def gi_wave_trace(
     version traces the batch of `camera_rays`, `tile` pixels at a time
     (each pixel is traced on its own, so the radiance does not depend on
     it).  `wave`, `pump`, `refill_retries` and `max_iters` shape only the
-    JAX lock-step loop and change no bit."""
+    JAX lock-step loop and change no bit.
+
+    The sharded queue (the JAX wave's): with pix_offset given, queue
+    position k serves pixel pix_offset + k * pix_stride for k < queue_len,
+    and the output is (queue_len, 3) in queue order; a position past the
+    last pixel is dead, and holds the last pixel's escape (bg summed S
+    times, or its environment lookup), as the JAX wave's clipped index
+    gives.  The sampler keys hash the ray, so every pixel's radiance is the
+    unsharded wave's."""
     del wave, pump, refill_retries, max_iters
-    if pix_offset is not None or pix_stride != 1 or queue_len is not None:
-        raise NotImplementedError("not served by the PyTorch port yet: the sharded GI wave "
-                                  "queue (pix_offset, pix_stride, queue_len)")
+    off = 0 if pix_offset is None else int(pix_offset)
+    qn = _queue_len(camera, 1, off, int(pix_stride), queue_len)
     kw = dict(S=S, D=D, gate0=gate0, gate_b=gate_b, eps=eps, smint=smint, quirk=quirk,
               bg=tuple(bg), env_image=env_image, fvn9=fvn9, fuv7=fuv7, tex_image=tex_image,
               bc255_table=bc255_table, tex_scale=tex_scale)
     args = (light_pos, light_intensity, albedo_table, tri9, grid, meta, km_table)
     dev = grid.blocks.device
     if grid.blocks.is_cuda:
-        return gi_wave_cuda(camera, *args, cam=cam, consts=consts, **kw)
+        return gi_wave_cuda(camera, *args, cam=cam, consts=consts, pix_offset=off,
+                            pix_stride=int(pix_stride), queue_len=qn, **kw)
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
-    rays = camera_rays(camera, device=dev)
+    if qn == camera.width * camera.height and off == 0 and pix_stride == 1:
+        rays = camera_rays(camera, device=dev)
+    else:
+        rays = queue_rays(camera, off, int(pix_stride), qn, device=dev)
     return rays.map_tiles(lambda rb: gi_wave_plain(rb, *args, **kw),
                           rays.count if tile is None else tile)
 

@@ -29,7 +29,10 @@ the CPU `camera_rays`) from host-held launch values (`CameraLaunch`,
 bit.  `whitted_wave_trace` takes the kernel for a grid on the card and
 the plain version over the `camera_rays` batch for one on the CPU, and
 folds spp > 1 subsample-major in `accumulate_spp`'s order
-(`fold_subsamples`).
+(`fold_subsamples`).  Both serve the JAX wave's sharded queue
+(`pix_offset`, `pix_stride`, `queue_len`: position k the pixel
+pix_offset + k * pix_stride), with which `parallel.shard.render_sharded`
+deals the pixels over the ranks.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from ray_tracer_tpu_torch.ops.camera import (
     camera_launch,
     camera_rays,
     fold_subsamples,
+    queue_rays,
 )
 from ray_tracer_tpu_torch.ops.intersect import cramer_t_safe
 from ray_tracer_tpu_torch.ops.shade import _pow_safe, _relu
@@ -338,6 +342,7 @@ class _WaveParams(ctypes.Structure):
         ("serial", ctypes.c_int), ("quirk", ctypes.c_int),
         ("max_bounces", ctypes.c_int), ("seg_bound", ctypes.c_int),
         ("n_faces", ctypes.c_int), ("n_mats", ctypes.c_int),
+        ("pix_offset", ctypes.c_int), ("pix_stride", ctypes.c_int), ("n_pix", ctypes.c_int),
     ]
 
 
@@ -358,9 +363,13 @@ class _CameraParams(ctypes.Structure):
 def _launch_params(cam: CameraLaunch, consts: LaunchConsts, meta: PackedGridMeta, *,
                    n_slots: int, n_faces: int, n_mats: int, max_bounces: int, serial: bool,
                    gate0: float, gate_b: float, eps: float, smint: float, quirk: bool,
-                   shadow_scale: float, bg) -> "tuple[_WaveParams, _CameraParams]":
-    """Kernel E's launch parameters, from host values only."""
-    n = cam.camera.width * cam.camera.height * cam.spp * cam.spp
+                   shadow_scale: float, bg, pix_offset: int = 0, pix_stride: int = 1,
+                   queue_len: Optional[int] = None) -> "tuple[_WaveParams, _CameraParams]":
+    """Kernel E's launch parameters, from host values only: a queue of
+    queue_len positions (all the camera's subsamples by default), position
+    k the subsample pix_offset + k * pix_stride."""
+    n_pix = cam.camera.width * cam.camera.height * cam.spp * cam.spp
+    n = n_pix if queue_len is None else queue_len
     seg_bound = _default_max_steps(meta)
     march = march_params(
         consts, meta, gate=gate0, shadow_gate=eps, shadow_mint=smint, n_slots=n_slots,
@@ -370,7 +379,8 @@ def _launch_params(cam: CameraLaunch, consts: LaunchConsts, meta: PackedGridMeta
         m=march, li=consts.intensity, shadow_scale=shadow_scale, gate0=gate0, gate_b=gate_b,
         eps=eps, smint=smint, bg=(ctypes.c_float * 3)(*(float(x) for x in bg)),
         serial=int(serial), quirk=int(quirk), max_bounces=int(max_bounces),
-        seg_bound=int(seg_bound), n_faces=n_faces, n_mats=n_mats)
+        seg_bound=int(seg_bound), n_faces=n_faces, n_mats=n_mats, pix_offset=int(pix_offset),
+        pix_stride=int(pix_stride), n_pix=n_pix)
     pos, u, v, w = ((ctypes.c_float * 3)(*b) for b in cam.basis)
     fd, aspect, half_w, half_h, fw, fh, focus = cam.scalars
     camera = _CameraParams(
@@ -387,12 +397,16 @@ def whitted_wave_cuda(
     eps: float = 1e-4, smint: float = 1e-4, quirk: bool = False,
     shadow_scale: float = 0.5, bg=(0.0, 0.0, 0.0),
     cam: Optional[CameraLaunch] = None, consts: Optional[LaunchConsts] = None,
+    pix_offset: int = 0, pix_stride: int = 1, queue_len: Optional[int] = None,
     rays_out=None, capped_out=None, passes_out=None, tested_out=None, touched_out=None,
     slots_out=None, events_out=None, lanes_out=None,
 ) -> torch.Tensor:
     """Kernel E on CUDA tensors: the color of every queue position of
     `camera`'s H*W*spp^2 subsamples -> (R, 3) f32, the plain version's
-    bits for the rays of `camera_rays(camera, spp=spp)`.  A persistent
+    bits for the rays of `camera_rays(camera, spp=spp)`.  The sharded
+    queue (spp 1): queue_len positions, position k the pixel pix_offset +
+    k * pix_stride, a position past the last pixel dead (the background)
+    -> (queue_len, 3), the plain version's bits for `queue_rays`.  A persistent
     wave of resident lanes pops the positions from a queue (a zeroed
     counter allocated here) and makes each position's camera ray itself;
     rays_out (R, 8) f32, when given, receives them (orig, dirn, mint,
@@ -415,7 +429,7 @@ def whitted_wave_cuda(
         raise ValueError("cam was made for another camera or spp")
     if consts is None:
         consts = launch_consts(grid, light_pos, light_intensity)
-    r = camera.width * camera.height * spp * spp
+    r = _queue_len(camera, spp, pix_offset, pix_stride, queue_len)
     blocks = grid.blocks.to(torch.float32).contiguous()
     cell_info = grid.cell_info.to(torch.int32).contiguous()
     slot_tri = grid.slot_tri.to(torch.int32).contiguous()
@@ -453,7 +467,8 @@ def whitted_wave_cuda(
     wave, cparams = _launch_params(
         cam, consts, meta, n_slots=n_slots, n_faces=tri9.shape[0], n_mats=mat9.shape[0],
         max_bounces=max_bounces, serial=serial, gate0=gate0, gate_b=gate_b, eps=eps,
-        smint=smint, quirk=quirk, shadow_scale=shadow_scale, bg=bg)
+        smint=smint, quirk=quirk, shadow_scale=shadow_scale, bg=bg, pix_offset=pix_offset,
+        pix_stride=pix_stride, queue_len=r)
 
     def ptr(x):
         return x.data_ptr() if x is not None else None
@@ -477,6 +492,23 @@ def whitted_wave_cuda(
 whitted_wave_cuda.launches = 0
 
 
+def _queue_len(camera: CameraConfig, spp: int, pix_offset: int, pix_stride: int,
+               queue_len: Optional[int]) -> int:
+    """The queue's length: every subsample unsharded, else queue_len
+    (the JAX waves' sharded queue, which serves spp 1)."""
+    n = camera.width * camera.height * spp * spp
+    if pix_offset == 0 and pix_stride == 1 and queue_len in (None, n):
+        return n
+    if spp != 1:
+        raise ValueError("the sharded wave queue serves spp == 1")
+    if pix_offset < 0 or pix_stride < 1 or queue_len is None or queue_len < 0:
+        raise ValueError("the sharded wave queue needs pix_offset >= 0, pix_stride >= 1 "
+                         "and queue_len >= 0")
+    if pix_offset + max(queue_len - 1, 0) * pix_stride >= (1 << 31):
+        raise ValueError("the queue's pixel indices must fit in 31 bits")
+    return queue_len
+
+
 def whitted_wave_trace(
     light_pos, light_intensity, mat9, tri9, grid: PackedGridArrays, meta: PackedGridMeta, *,
     camera, max_bounces: int, serial: bool, spp: int = 1, wave: int = 12288, pump: int = 1,
@@ -495,20 +527,28 @@ def whitted_wave_trace(
     version traces the batch of `camera_rays`, `tile` positions at a time
     (each position is traced on its own, so the colors do not depend on
     it).  `wave`, `pump`, `refill_retries` and `max_iters` shape only the
-    JAX lock-step loop and change no color.  The sharded queue
-    (`pix_offset`, `pix_stride`, `queue_len`) is not served."""
+    JAX lock-step loop and change no color.
+
+    The sharded queue (spp 1; the JAX wave's): with pix_offset given,
+    queue position k serves pixel pix_offset + k * pix_stride for k <
+    queue_len, and the output is (queue_len, 3) in queue order, a position
+    past the last pixel dead (the background); a shard of `render_sharded`
+    serves its pixels so, each one's color the unsharded wave's."""
     del wave, pump, refill_retries, max_iters
-    if pix_offset is not None or pix_stride != 1 or queue_len is not None:
-        raise NotImplementedError("the sharded wave queue (pix_offset, pix_stride, "
-                                  "queue_len) is not served by the port yet")
+    off = 0 if pix_offset is None else int(pix_offset)
+    qn = _queue_len(camera, spp, off, int(pix_stride), queue_len)
     kw = dict(max_bounces=max_bounces, serial=serial, gate0=gate0, gate_b=gate_b, eps=eps,
               smint=smint, quirk=quirk, shadow_scale=shadow_scale, bg=tuple(bg))
     args = (light_pos, light_intensity, mat9, tri9, grid, meta)
     dev = grid.blocks.device
     if grid.blocks.is_cuda:
-        col = whitted_wave_cuda(camera, *args, spp=spp, cam=cam, consts=consts, **kw)
+        col = whitted_wave_cuda(camera, *args, spp=spp, cam=cam, consts=consts,
+                                pix_offset=off, pix_stride=int(pix_stride), queue_len=qn, **kw)
     elif dev.type == "cpu":
-        rays = camera_rays(camera, spp=spp, device=dev)
+        if qn == camera.width * camera.height * spp * spp and off == 0 and pix_stride == 1:
+            rays = camera_rays(camera, spp=spp, device=dev)
+        else:
+            rays = queue_rays(camera, off, int(pix_stride), qn, device=dev)
         col = rays.map_tiles(lambda rb: whitted_wave_plain(rb, *args, **kw),
                              rays.count if tile is None else tile)
     else:

@@ -1,7 +1,8 @@
 """Inverse rendering: fit scene parameters to a target image.
 
 Counterpart of `ray_tracer_tpu/opt/fit.py` (`SceneParams`, `split_scene`,
-`merge_scene`, `image_loss`, `make_train_step`, `fit`) on one device.
+`merge_scene`, `pixel_major_rays`, `image_loss`, `make_train_step`,
+`fit`), on one device or data-parallel over a mesh's "rays" axis.
 Pixel-loss gradients with respect to the vertices, the materials, the
 light and the scene's images flow through `render_rays`: the traversal
 is a no-grad island that finds the hit topology, and t, the normals and
@@ -18,8 +19,13 @@ Where the JAX package differs:
     package's padding to a static meta (the port has no jit to keep);
   * `init` returns the params it made trainable with the optimizer, and
     the optimizer updates them in place;
-  * rays sharded over a device mesh (`mesh=`) and the tris-sharded ring
-    step are not ported (NotImplementedError).
+  * with `mesh=` every rank renders its contiguous shard of the rays and
+    runs its own backward; the loss is the all-reduced sum of the local
+    sums and the gradients are summed (`allreduce_gradients`) before the
+    optimizer steps, so every rank holds the same parameters after every
+    step (the JAX package's psum inside shard_map);
+  * the tris-sharded ring step (`make_ring_train_step`) comes with the
+    ring slice of the port (NotImplementedError).
 """
 
 from __future__ import annotations
@@ -37,6 +43,11 @@ from ray_tracer_tpu_torch.ops.camera import camera_rays, fold_subsamples
 from ray_tracer_tpu_torch.ops.traverse import dda_tables, vertex_table
 from ray_tracer_tpu_torch.ops.traverse_packed import LaunchConsts, launch_consts
 from ray_tracer_tpu_torch.core import vecmath as vm
+from ray_tracer_tpu_torch.core.rays import RayBatch
+from ray_tracer_tpu_torch.parallel.collectives import all_reduce_sum, allreduce_gradients
+from ray_tracer_tpu_torch.parallel.mesh import axis_index, axis_size
+from ray_tracer_tpu_torch.parallel.multihost import is_host0
+from ray_tracer_tpu_torch.parallel.shard import _pad_to, pad_rays
 from ray_tracer_tpu_torch.render.renderer import prepare, render_rays
 
 log = logging.getLogger("ray_tracer_tpu_torch.fit")
@@ -113,6 +124,24 @@ def _colors(params, scene, grid, meta, cfg, dda, consts) -> torch.Tensor:
     return colors
 
 
+def pixel_major_rays(rays: RayBatch, r: int, spp: int, padded: int) -> RayBatch:
+    """Regroup a subsample-major camera batch (index s*r + pixel) pixel
+    major (index pixel*spp^2 + s) and pad it by whole pixels to `padded`,
+    so that a contiguous shard holds every subsample of its pixels.
+    Padding pixels get inf origins, by which the loss masks them."""
+    fills = dict(orig=float("inf"), dirn=1.0, mint=0.0, maxt=0.0)
+    k = spp * spp
+
+    def one(x, fill):
+        x2 = x.reshape((k, r) + x.shape[1:]).transpose(0, 1)
+        if padded != r:
+            x2 = torch.cat([x2, torch.full((padded - r,) + x2.shape[1:], fill, dtype=x.dtype,
+                                           device=x.device)])
+        return x2.reshape((padded * k,) + x2.shape[2:]).contiguous()
+
+    return RayBatch(*(one(getattr(rays, f), fills[f]) for f in RayBatch._fields))
+
+
 def _residual(colors, target) -> torch.Tensor:
     return vm.div_scalar(colors - target.reshape(-1, 3).to(colors.dtype), 255.0)
 
@@ -165,7 +194,8 @@ def _launch_tables(cfg: SceneConfig, params: SceneParams, scene: Scene, grid, fi
 
 
 def make_train_step(meta, cfg: SceneConfig, optimizer: str = "adam", lr: float = 1e-2,
-                    mesh=None, trainable: Optional[Tuple[str, ...]] = None):
+                    mesh=None, axis: str = "rays",
+                    trainable: Optional[Tuple[str, ...]] = None):
     """-> (step_fn, init_fn).  init_fn(params) -> (params, opt_state): the
     trainable fields become leaf tensors that require grad (copies; the
     others are left as given, the port's stop_gradient) and opt_state is
@@ -176,10 +206,16 @@ def make_train_step(meta, cfg: SceneConfig, optimizer: str = "adam", lr: float =
     launch values from `prepare` (refreshed each step where the trained
     fields move them).
 
+    With `mesh`, the rays are sharded over its `axis` (every rank calls
+    the step with the same arguments): the batch padded to a multiple of
+    the shards (pixel-major by whole pixels at spp > 1,
+    `pixel_major_rays`), each rank rendering its contiguous shard without
+    the camera refill and masking the padding by its inf origins; the loss
+    is the all-reduced sum of the local sums over 3 H W, and the gradients
+    are summed over the axis before the update.
+
     Optimizing `verts` moves geometry out of the grid: rebuild it between
     steps (`fit`'s rebuild_grid_every)."""
-    if mesh is not None:
-        raise NotImplementedError("the sharded fit (mesh=) is not ported yet")
     if trainable is not None:
         unknown = set(trainable) - set(SceneParams._fields)
         if unknown:
@@ -204,12 +240,60 @@ def make_train_step(meta, cfg: SceneConfig, optimizer: str = "adam", lr: float =
         opt_state.step()
         return params, opt_state, loss.detach()
 
-    return step, init
+    if mesh is None:
+        return step, init
+    n = axis_size(mesh, axis)
+    padded = _pad_to(r, n)
+    k = cfg.render.spp * cfg.render.spp
+    lo = axis_index(mesh, axis) * (padded // n)
+    hi = lo + padded // n  # this rank's pixels [lo, hi) of the padded batch
+
+    def sharded_step(params: SceneParams, opt_state, scene: Scene, grid, target, dda=None,
+                     consts=None):
+        fields = _trainable_fields(params, trainable)
+        dda, consts = _launch_tables(cfg, params, scene, grid, fields, dda, consts)
+        opt_state.zero_grad(set_to_none=True)
+        rcfg = cfg.render
+        rays = camera_rays(cfg.camera, dtype=_DTYPES[rcfg.dtype], spp=rcfg.spp,
+                           device=params.verts.device)
+        rays = pad_rays(rays, padded) if k == 1 else pixel_major_rays(rays, r, rcfg.spp,
+                                                                       padded)
+        mine = rays.slice(lo * k, hi * k)
+        colors = render_rays(mine, merge_scene(params, scene), grid, meta, rcfg, dda=dda,
+                             consts=consts)
+        if k > 1:  # every subsample of a pixel is local, summed in order
+            colors = fold_subsamples(colors.reshape(-1, k, 3).unbind(1))
+        tgt = target.reshape(-1, 3).to(colors.dtype)
+        if padded != r:
+            # padding pixels render as the background; pad the target with
+            # it, and mask them by their inf origins (with an environment
+            # map a padding lane sees a lookup, not the background)
+            bg = torch.tensor(rcfg.background, dtype=tgt.dtype, device=tgt.device)
+            tgt = torch.cat([tgt, bg.expand(padded - r, 3)])
+        d = _residual(colors, tgt[lo:hi])
+        if padded != r:
+            po = mine.orig if k == 1 else mine.orig.reshape(-1, k, 3)[:, 0, :]
+            d = torch.where(torch.isfinite(po[:, :1]), d, torch.zeros_like(d))
+        local = torch.sum(d * d)
+        vm.div_scalar(local, float(3 * r)).backward()
+        leaves = [getattr(params, f) for f in fields]  # the same list on every rank
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in leaves]
+        for p, g in zip(leaves, allreduce_gradients(grads, mesh, axis)):
+            p.grad = g
+        opt_state.step()
+        group = mesh.get_group(axis)
+        return params, opt_state, vm.div_scalar(all_reduce_sum(local.detach(), group),
+                                                float(3 * r))
+
+    return sharded_step, init
 
 
 def make_ring_train_step(*args, **kwargs):
-    """The tris-sharded train step (JAX opt/fit.py:300) is not ported."""
-    raise NotImplementedError("the tris-sharded ring train step is not ported yet")
+    """The tris-sharded train step (JAX opt/fit.py:300), which trains
+    through ring orbits over sharded geometry, comes with the ring slice
+    of the port."""
+    raise NotImplementedError("the tris-sharded ring train step (multi-device ring "
+                              "orbits) is not ported yet: it comes with the ring slice")
 
 
 def _rebuild(prep, params: SceneParams):
@@ -234,7 +318,7 @@ def _grid_of(prep):
 
 
 def fit(prep, target: torch.Tensor, steps: int = 100, lr: float = 1e-2,
-        optimizer: str = "adam", mesh=None,
+        optimizer: str = "adam", mesh=None, axis: str = "rays",
         trainable: Optional[Tuple[str, ...]] = None, rebuild_grid_every: int = 0,
         checkpoint_dir: Optional[str] = None, checkpoint_every: int = 50,
         resume: bool = False, log_every: int = 10) -> Tuple[SceneParams, list]:
@@ -247,13 +331,16 @@ def fit(prep, target: torch.Tensor, steps: int = 100, lr: float = 1e-2,
     checkpoint_every save `opt/checkpoint.py` checkpoints; resume=True
     restores the newest complete one first (a checkpoint the JAX package
     saved with its npz backend gives its params; the optimizer then
-    starts afresh).  The losses are read back once, at the end."""
+    starts afresh).  The losses are read back once, at the end.
+
+    With `mesh` every rank runs the loop with the same arguments: the
+    steps are data-parallel over its `axis` (`make_train_step`), every
+    rebuild is made on every rank from the same parameters, and rank 0
+    writes the checkpoints and the log."""
     from ray_tracer_tpu_torch.opt.checkpoint import (
         latest_step, restore_checkpoint, save_checkpoint,
     )
 
-    if mesh is not None:
-        raise NotImplementedError("the sharded fit (mesh=) is not ported yet")
     if prep.scene.transmissive is not None:
         raise NotImplementedError(
             "fit() optimizes through the Whitted renderer, which has no "
@@ -265,8 +352,8 @@ def fit(prep, target: torch.Tensor, steps: int = 100, lr: float = 1e-2,
     def stepping(p):
         """The train step over p's grid, and the grid's launch tables."""
         grid, meta = _grid_of(p)
-        step, init = make_train_step(meta, cfg, optimizer=optimizer, lr=lr,
-                                     trainable=trainable)
+        step, init = make_train_step(meta, cfg, optimizer=optimizer, lr=lr, mesh=mesh,
+                                     axis=axis, trainable=trainable)
         return grid, step, init, p.dda, p.frame().consts
 
     grid, step, init, dda, consts = stepping(prep)
@@ -293,12 +380,13 @@ def fit(prep, target: torch.Tensor, steps: int = 100, lr: float = 1e-2,
         params, opt_state, loss = step(params, opt_state, prep.scene, grid, target, dda=dda,
                                        consts=consts)
         losses.append(loss)
-        if log_every and (step_no - start_step) % log_every == 0:
+        if log_every and (step_no - start_step) % log_every == 0 and is_host0():
             log.info("step %d loss %.6g", step_no, float(loss))
         if (rebuild_grid_every and (step_no + 1) % rebuild_grid_every == 0
                 and step_no + 1 < steps):
             prep = _rebuild(prep, params)
             grid, step, _, dda, consts = stepping(prep)
-        if checkpoint_dir and checkpoint_every and (step_no + 1) % checkpoint_every == 0:
+        if (checkpoint_dir and checkpoint_every and (step_no + 1) % checkpoint_every == 0
+                and (mesh is None or is_host0())):
             save_checkpoint(checkpoint_dir, params, opt_state, step_num=step_no + 1)
     return detached(params), [float(x) for x in losses]

@@ -1,13 +1,15 @@
 """AOV (arbitrary output variable) buffers and ambient occlusion.
 
-Counterpart of `ray_tracer_tpu/render/aov.py` on one device: depth, hit
-mask, triangle id, material id, geometric normal and hit position per
-pixel from one primary trace (`render_aovs`), and an ambient-occlusion map
-from a fixed Fibonacci hemisphere of any-hit occlusion rays a hit
-(`render_ao`).  The traces are kernel B (csr) or kernel C (packed) on the
-card, one launch each, and their plain versions on the CPU in `ray_tile`
-chunks.  The `mesh=` and `ring=` arguments (rays or geometry sharded over
-devices) raise NotImplementedError: the port serves one device.
+Counterpart of `ray_tracer_tpu/render/aov.py`: depth, hit mask, triangle
+id, material id, geometric normal and hit position per pixel from one
+primary trace (`render_aovs`), and an ambient-occlusion map from a fixed
+Fibonacci hemisphere of any-hit occlusion rays a hit (`render_ao`).  The
+traces are kernel B (csr) or kernel C (packed) on the card, one launch
+each, and their plain versions on the CPU in `ray_tile` chunks.  With
+`mesh=` every trace is ray-sharded over the mesh's "rays" axis
+(`parallel.shard.trace_sharded`), bitwise the single-device buffers on
+every rank; `ring=True` (geometry sharded by ring orbits) comes with the
+ring slice of the port and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -26,10 +28,25 @@ from ray_tracer_tpu_torch.ops.traverse_packed import traverse_packed
 from ray_tracer_tpu_torch.render.metrics import traced_in_tiles
 
 
-def _single_device(mesh, ring) -> None:
-    if mesh is not None or ring:
+def _refuse_ring(ring) -> None:
+    if ring:
         raise NotImplementedError(
-            "not served by the PyTorch port yet: mesh= / ring= (multi-device)")
+            "not served by the PyTorch port yet: ring=True (multi-device ring orbits over "
+            "sharded geometry; the ring slice)")
+
+
+def _traced(prep, rays, mesh, stop_on_first_hit=False, gate=None, tri9=None):
+    """(hit, t, tri_id) of `_trace`, ray-sharded over mesh's "rays" axis
+    when a mesh is given."""
+    if mesh is None:
+        res = _trace(prep, rays, stop_on_first_hit=stop_on_first_hit, gate=gate, tri9=tri9)
+        return res.hit, res.t, res.tri_id
+    from ray_tracer_tpu_torch.parallel.shard import trace_sharded
+
+    if gate is None:
+        rcfg = prep.cfg.render
+        gate = 0.0 if rcfg.shading == "serial" else rcfg.shadow_eps
+    return trace_sharded(prep, rays, mesh, t_gate=gate, stop_first=stop_on_first_hit)
 
 
 def _trace(prep, rays, stop_on_first_hit=False, gate=None, tri9=None):
@@ -91,15 +108,17 @@ def render_aovs(prep, mesh=None, ring: bool = False,
                 ring_grids=None) -> Dict[str, torch.Tensor]:
     """-> dict of (H, W, ...) buffers on the scene's device: 'depth' (f32,
     inf on miss), 'hit' (bool), 'tri_id' (i32, -1 on miss), 'material_id'
-    (i32, -1), 'normal' (f32 unit, 0 on miss), 'position' (f32, 0 on miss)."""
-    _single_device(mesh, ring)
+    (i32, -1), 'normal' (f32 unit, 0 on miss), 'position' (f32, 0 on miss).
+    mesh: the rays sharded over its "rays" axis, every rank getting the
+    whole buffers, bitwise the single-device ones."""
+    _refuse_ring(ring)
     cfg = prep.cfg
     h, w = cfg.camera.height, cfg.camera.width
     rays = camera_rays(cfg.camera, device=prep.device)
-    res = _trace(prep, rays)
-    tri = torch.clamp(res.tri_id, min=0).long()
+    hit, t, tid = _traced(prep, rays, mesh)
+    tri = torch.clamp(tid, min=0).long()
     v0, v1, v2 = prep.scene.triangle_soa()
-    return _aov_buffers(rays, res.hit, res.t, res.tri_id, prep.scene.face_material[tri],
+    return _aov_buffers(rays, hit, t, tid, prep.scene.face_material[tri],
                         v0[tri], v1[tri], v2[tri], cfg.render.shading == "serial", h, w)
 
 
@@ -120,23 +139,23 @@ def render_ao(prep, samples: int = 16, radius: float = 1.0, mesh=None, ring: boo
     eye-facing geometric normal; ao is the unoccluded share within `radius`
     (1 where the pixel misses).  Each sample is one trace of every pixel
     (misses retire at entry), gated t > eps as the renderer's shadow rays
-    are, and a hit counts only at t <= radius."""
-    _single_device(mesh, ring)
+    are, and a hit counts only at t <= radius.  mesh: every trace sharded
+    over its "rays" axis, bitwise the single-device map on every rank."""
+    _refuse_ring(ring)
     cfg = prep.cfg
     rcfg = cfg.render
     h, w = cfg.camera.height, cfg.camera.width
     eps = rcfg.shadow_eps
     rays = camera_rays(cfg.camera, device=prep.device)
     serial = rcfg.shading == "serial"
-    res = _trace(prep, rays)
-    hit = res.hit
-    tri = torch.clamp(res.tri_id, min=0).long()
+    hit, t, tid = _traced(prep, rays, mesh)
+    tri = torch.clamp(tid, min=0).long()
     v0, v1, v2 = prep.scene.triangle_soa()
     n = _face_normal(v0[tri], v1[tri], v2[tri], serial)
     # face the eye, as two-sided AO does: flip normals pointing away
     n = torch.where((vm.dot(n, rays.dirn) > 0)[:, None], -n, n)
 
-    poi = rays.at(torch.where(hit, res.t, torch.zeros_like(res.t)))
+    poi = rays.at(torch.where(hit, t, torch.zeros_like(t)))
     orig = torch.where(hit[:, None], poi, torch.full_like(poi, math.inf))  # misses retire
 
     # a tangent frame a hit, its helper axis chosen away from n
@@ -151,8 +170,9 @@ def render_ao(prep, samples: int = 16, radius: float = 1.0, mesh=None, ring: boo
     for d in hemisphere_dirs(samples):
         dirn = float(d[0]) * t1 + float(d[1]) * t2 + float(d[2]) * n
         srays = RayBatch.make(orig, dirn, mint=eps, maxt=radius)
-        sres = _trace(prep, srays, stop_on_first_hit=True, gate=eps, tri9=tri9)
-        occ = occ + (sres.hit & (sres.t <= radius) & hit).to(torch.float32)
+        s_hit, s_t, _ = _traced(prep, srays, mesh, stop_on_first_hit=True, gate=eps,
+                                tri9=tri9)
+        occ = occ + (s_hit & (s_t <= radius) & hit).to(torch.float32)
     ao = torch.where(hit, 1.0 - vm.div_scalar(occ, float(samples)), torch.ones_like(occ))
     return ao.reshape(h, w)
 

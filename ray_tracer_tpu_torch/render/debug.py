@@ -8,7 +8,9 @@ ray, the grid's box, the traversal's record, the hit geometry and the
 shadow query) with the renderer's own functions on a one-ray batch, and
 returns the intermediates as a dict of Python values.  The traces are
 kernel B or C on the card and their plain versions on the CPU.  `mesh=`
-(ring orbits over sharded geometry) raises NotImplementedError.
+is the JAX function's ring mode (the pixel traced through ring orbits over
+sharded geometry), which comes with the ring slice of the port: it raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,7 +32,9 @@ def trace_pixel(prep, x: int, y: int, mesh=None, ring_grids=None) -> Dict[str, A
     record, hit geometry, shadow query and shading inputs, with the gates
     and mints of the renderer's policy (RenderConfig's methods)."""
     if mesh is not None:
-        raise NotImplementedError("not served by the PyTorch port yet: mesh= (multi-device)")
+        raise NotImplementedError("not served by the PyTorch port yet: mesh= traces the "
+                                  "pixel through multi-device ring orbits over sharded "
+                                  "geometry (the ring slice)")
     cfg = prep.cfg
     rcfg = cfg.render
     # refuse the configs whose shading this trace would misreport

@@ -586,10 +586,12 @@ def build_gi_wave_tri9(scene) -> torch.Tensor:
     return torch.cat([v0, v1, v2, scene.face_material.to(v0.dtype)[:, None]], dim=1)
 
 
-def _render_pt_wave(prep, setup) -> torch.Tensor:
+def gi_wave_colors(prep, setup, **queue) -> torch.Tensor:
     """Forward GI through the cross-depth wave (kernel F on the card) ->
-    (H, W, 3).  The tables come from `prepare`; a Prepared whose cfg was
-    swapped after it was made gets them built here."""
+    (H*W, 3), or with `queue` (pix_offset, pix_stride, queue_len: a
+    shard's queue) that queue's (queue_len, 3).  The tables come from
+    `prepare`; a Prepared whose cfg was swapped after it was made gets them
+    built here."""
     from ray_tracer_tpu_torch.ops.gi_wave import gi_wave_trace
 
     cfg = prep.cfg
@@ -609,10 +611,9 @@ def _render_pt_wave(prep, setup) -> torch.Tensor:
         gate0=0.0 if pg is None else pg, gate_b=rcfg.bounce_gate(),
         eps=rcfg.shadow_eps, smint=rcfg.shadow_mint(),
         quirk=rcfg.shadow_dir_away_from_light(), bg=tuple(rcfg.background),
-        tile=max(1, rcfg.ray_tile), cam=setup.cam, consts=setup.consts,
+        tile=max(1, rcfg.ray_tile), cam=setup.cam, consts=setup.consts, **queue,
     )
-    cam = cfg.camera
-    return vm.div_scalar(rad, float(rcfg.gi_samples)).reshape(cam.height, cam.width, 3)
+    return vm.div_scalar(rad, float(rcfg.gi_samples))
 
 
 def render_pt(prep, setup=None) -> torch.Tensor:
@@ -622,7 +623,7 @@ def render_pt(prep, setup=None) -> torch.Tensor:
     cfg = prep.cfg
     setup = prep.frame() if setup is None else setup
     if setup.gi_wave:
-        return _render_pt_wave(prep, setup)
+        return gi_wave_colors(prep, setup).reshape(cfg.camera.height, cfg.camera.width, 3)
     rcfg = cfg.render
     if rcfg.traversal == "packed":
         grid, meta = prep.packed.arrays, prep.packed.meta

@@ -713,18 +713,20 @@ def accumulate_spp(one, camera_cfg, spp: int, dtype, device) -> torch.Tensor:
         for s in range(spp * spp))
 
 
-def _render_whitted_wave(prep: Prepared, setup: FrameSetup) -> torch.Tensor:
+def whitted_wave_colors(prep: Prepared, setup: FrameSetup, **queue) -> torch.Tensor:
     """The cross-depth Whitted wave (kernel E on the card) with the JAX
-    dispatch's knob mapping (renderer.py:875-899) -> (H, W, 3); its wave,
-    pump and refill_retries shape only the JAX loop and are not passed.
-    The tables come from `prepare`; a Prepared whose cfg was swapped for
-    a wave config after it was made gets them built here."""
+    dispatch's knob mapping (renderer.py:875-899) -> (H*W, 3), or with
+    `queue` (pix_offset, pix_stride, queue_len: a shard's queue) that
+    queue's (queue_len, 3); its wave, pump and refill_retries shape only
+    the JAX loop and are not passed.  The tables come from `prepare`; a
+    Prepared whose cfg was swapped for a wave config after it was made gets
+    them built here."""
     cfg = prep.cfg
     rcfg = cfg.render
     scene = prep.scene
     mat9, tri9 = prep.wave if prep.wave is not None else build_wave_tables(scene)
     pg = rcfg.primary_gate()
-    col = whitted_wave_trace(
+    return whitted_wave_trace(
         scene.light_pos, scene.light_intensity, mat9, tri9,
         prep.packed.arrays, prep.packed.meta,
         camera=cfg.camera, max_bounces=rcfg.max_bounces,
@@ -733,9 +735,8 @@ def _render_whitted_wave(prep: Prepared, setup: FrameSetup) -> torch.Tensor:
         eps=rcfg.shadow_eps, smint=rcfg.shadow_mint(),
         quirk=rcfg.shadow_dir_away_from_light(),
         shadow_scale=rcfg.shadow_scale, bg=tuple(rcfg.background),
-        tile=max(1, rcfg.ray_tile), cam=setup.cam, consts=setup.consts,
+        tile=max(1, rcfg.ray_tile), cam=setup.cam, consts=setup.consts, **queue,
     )
-    return col.reshape(cfg.camera.height, cfg.camera.width, 3)
 
 
 @torch.no_grad()
@@ -758,7 +759,7 @@ def render(prep: Prepared) -> torch.Tensor:
             "(the Whitted recursion has no refraction branch, matching "
             "the reference's mirror-only materials)")
     if setup.wave:
-        return _render_whitted_wave(prep, setup)
+        return whitted_wave_colors(prep, setup).reshape(cfg.camera.height, cfg.camera.width, 3)
     rcfg = cfg.render
     if rcfg.traversal == "packed":
         args = (prep.scene, prep.packed.arrays, prep.packed.meta, rcfg)

@@ -110,9 +110,21 @@ def test_render_ao_serial_no_self_occlusion():
 
 
 def test_multi_device_arguments_raise():
+    """ring=True (geometry sharded by ring orbits) is refused, with a mesh
+    or without; mesh= is served (tests/test_torch_sharding.py holds it on 2
+    and 4 ranks): on a one-rank group the buffers are bitwise one
+    device's."""
+    from torch_ranks import one_rank_group
+
     prep, _ = _gradcheck_pair()
     for fn in (aov.render_aovs, aov.render_ao):
         with pytest.raises(NotImplementedError, match="multi-device"):
-            fn(prep, mesh=object())
+            fn(prep, mesh=object(), ring=True)
         with pytest.raises(NotImplementedError, match="multi-device"):
             fn(prep, ring=True)
+    with one_rank_group() as mesh:
+        got = aov.render_aovs(prep, mesh=mesh)
+        ao = aov.render_ao(prep, samples=4, mesh=mesh)
+    for k, v in aov.render_aovs(prep).items():
+        assert torch.equal(got[k], v), k
+    assert torch.equal(ao, aov.render_ao(prep, samples=4))

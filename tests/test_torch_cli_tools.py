@@ -10,8 +10,10 @@
   port's render_ao.
 * `info` prints the JAX command's keys: the devices, process count 1,
   whether the kernels are built and the default device.
-* `bench` execs bench_torch.py with its options; `--devices` and `--ring`
-  are refused (one device).
+* `bench` execs bench_torch.py with its options; `--ring` is refused
+  (the ring slice); `aov --devices 2` and `render --devices 2` on two CPU
+  ranks write the single-device output, and `debug --devices 2` traces
+  on one device.
 """
 
 import dataclasses
@@ -128,7 +130,38 @@ def test_bench_command_execs_bench_torch(monkeypatch):
 
 @pytest.mark.parametrize("cmd", [["debug", "--x", "1", "--y", "1"], ["aov"]])
 @pytest.mark.parametrize("flag", [["--devices", "2"], ["--ring"]])
-def test_multi_device_flags_refused(cmd, flag, tmp_path):
-    out = ["--out", str(tmp_path / "x.npz")] if cmd == ["aov"] else []
+def test_multi_device_flags_refused(cmd, flag, tmp_path, capsys):
+    """--ring (the ring slice) is refused; --devices 2 is served: `aov` on
+    two CPU ranks writes the single-device file's arrays, and `debug`
+    traces its pixel on one device, as the JAX command without --ring."""
+    def run(extra, name):
+        out = ["--out", str(tmp_path / name)] if cmd == ["aov"] else []
+        cli.main([cmd[0], *SCENE, *cmd[1:], *extra, *out, "--device", "cpu"])
+        return np.load(tmp_path / name) if cmd == ["aov"] else _json_out(capsys)
+
+    if flag == ["--ring"]:
+        with pytest.raises(SystemExit, match="multi-device"):
+            run(flag, "x.npz")
+        return
+    got, want = run(flag, "d2.npz"), run([], "d0.npz")
+    if cmd == ["aov"]:
+        assert sorted(got.files) == sorted(want.files)
+        for k in want.files:
+            np.testing.assert_array_equal(got[k], want[k])
+    else:
+        assert got == want
+
+
+def test_render_devices_writes_the_single_device_ppm(tmp_path):
+    """`render --devices 2 --device cpu` (two gloo ranks the command starts,
+    rank 0 writing) gives `render`'s PPM bytes (tests/test_cli.py:34)."""
+    for name, extra in (("d2.ppm", ["--devices", "2"]), ("d0.ppm", [])):
+        cli.main(["render", "--scene", "serial", "--width", "16", "--turbo", *extra,
+                  "--out", str(tmp_path / name), "--device", "cpu"])
+    assert (tmp_path / "d2.ppm").read_bytes() == (tmp_path / "d0.ppm").read_bytes()
     with pytest.raises(SystemExit, match="multi-device"):
-        cli.main([cmd[0], *SCENE, *cmd[1:], *flag, *out, "--device", "cpu"])
+        cli.main(["render", "--scene", "serial", "--width", "16", "--devices", "2", "--ring",
+                  "--out", str(tmp_path / "r.ppm"), "--device", "cpu"])
+    with pytest.raises(SystemExit, match="cuda ranks"):
+        cli.main(["render", "--scene", "serial", "--width", "16", "--devices", "2",
+                  "--out", str(tmp_path / "c.ppm")])

@@ -169,11 +169,26 @@ def test_merge_split_roundtrip(prep):
 
 
 def test_train_step_refuses_what_is_not_ported(prep):
+    """Unknown fields and the ring train step are refused; mesh= is served
+    (tests/test_torch_fit_sharded.py holds it on 2 and 4 ranks): on a
+    one-rank group the sharded step's loss and gradients are the
+    unsharded step's bits."""
+    from torch_ranks import one_rank_group
+
     with pytest.raises(ValueError, match="unknown trainable"):
         fit.make_train_step(prep.grid.meta, prep.cfg, trainable=("kd", "nope"))
-    with pytest.raises(NotImplementedError):
-        fit.make_train_step(prep.grid.meta, prep.cfg, mesh=object())
-    with pytest.raises(NotImplementedError):
+    target = torch.full((16, 16, 3), 10.0)
+    with one_rank_group() as mesh:
+        out = []
+        for m in (None, mesh):
+            step, init = fit.make_train_step(prep.grid.meta, prep.cfg, lr=1e-3, mesh=m,
+                                             trainable=("kd", "verts"))
+            params, opt = init(fit.split_scene(prep.scene))
+            params, _, loss = step(params, opt, prep.scene, prep.grid.arrays, target)
+            out.append((loss, params.kd.grad, params.verts.grad))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    with pytest.raises(NotImplementedError, match="ring"):
         fit.make_ring_train_step(prep, object())
 
 

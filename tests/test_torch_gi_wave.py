@@ -20,6 +20,12 @@ version on the CPU) against the JAX package's `gi_wave_trace`.
 * The port's wave against the port's segment loop: the JAX package's
   statistical rule (tests/test_pathtrace.py:565-586).
 * `build_gi_wave_tables` and `build_gi_wave_tri9` equal JAX's.
+* The sharded queue (pix_offset, pix_stride, queue_len) on the mirror
+  furnace (km 0.7) at 32x32 under a constant environment map, 4 shards of
+  257 positions, contiguous and round-robin: each shard's radiance, dead
+  rows included (the last pixel's environment escape, not the
+  background), bitwise JAX's run op by op, and the shards composed
+  bitwise the unsharded wave's.
 * Kernel F's host side (the kernel itself runs on the card only): its
   scratch layout and stage launch values, its parameter struct and C
   signature against the ctypes mirrors, and its refusal of CPU tensors.
@@ -46,6 +52,7 @@ from ray_tracer_tpu.config import SceneConfig as JaxSceneConfig  # noqa: E402
 from ray_tracer_tpu.config import apply_turbo as jax_apply_turbo  # noqa: E402
 from ray_tracer_tpu.models import meshes as jax_meshes  # noqa: E402
 from ray_tracer_tpu.models import scenes as jax_scenes  # noqa: E402
+from ray_tracer_tpu.ops import gi_wave as jax_gi_wave  # noqa: E402
 from ray_tracer_tpu.render import pathtrace as jax_pt  # noqa: E402
 from ray_tracer_tpu.render import renderer as jax_renderer  # noqa: E402
 from ray_tracer_tpu_torch.config import (  # noqa: E402
@@ -264,7 +271,8 @@ def test_wave_tables_equal_jax(name):
 
 
 def test_unserved_wave_arguments_raise(parallel_turbo):
-    """The sharded queue raises; an environment map, served since, is the
+    """The sharded queue, served since, composes to the image (its JAX
+    equality is tested below); an environment map, served since, is the
     plain version's: a constant map gives what the same constant as the
     flat background gives, bitwise."""
     prep = parallel_turbo[0]
@@ -276,7 +284,11 @@ def test_unserved_wave_arguments_raise(parallel_turbo):
                                      camera=prep.cfg.camera, **kw)
     _bitwise(with_env.numpy(),
              gi_wave.gi_wave_trace(*args, camera=prep.cfg.camera, bg=sky, **kw).numpy())
-    with pytest.raises(NotImplementedError, match="sharded"):
+    whole = gi_wave.gi_wave_trace(*args, camera=prep.cfg.camera, **kw)
+    halves = [gi_wave.gi_wave_trace(*args, camera=prep.cfg.camera, pix_offset=s, pix_stride=2,
+                                    queue_len=128, **kw) for s in range(2)]
+    _bitwise(torch.stack(halves, dim=1).reshape(-1, 3).numpy(), whole.numpy())
+    with pytest.raises(ValueError, match="queue_len"):
         gi_wave.gi_wave_trace(*args, camera=prep.cfg.camera, pix_stride=2, **kw)
     with pytest.raises(ValueError, match="CUDA"):
         gi_wave.gi_wave_cuda(prep.cfg.camera, *args, **kw)
@@ -345,7 +357,7 @@ def test_gi_params_mirror_the_c_struct():
         assert mirror == (want if count == 1 else want * count), name
     march = _c_fields(_source("packed_step.cuh"), "MarchParams")
     assert [f[0] for f in march] == [f[0] for f in _MarchParams._fields_]
-    assert ctypes.sizeof(gi_wave._GiParams) == ctypes.sizeof(_MarchParams) + 4 * (5 + 6 + 7)
+    assert ctypes.sizeof(gi_wave._GiParams) == ctypes.sizeof(_MarchParams) + 4 * (5 + 6 + 10)
 
 
 def test_appear_params_mirror_the_c_struct():
@@ -408,3 +420,90 @@ def test_gi_wave_cuda_refuses_cpu_tensors(parallel_turbo):
         gi_wave.gi_wave_cuda(prep.cfg.camera, *tail, **kw,
                              lanes_out=torch.zeros((2, 3), dtype=torch.int64))
     assert gi_wave.gi_wave_cuda.launches == before
+
+
+QSIZE, QSHARDS = 32, 4
+QUEUE = QSIZE * QSIZE // QSHARDS + 1  # one position more a shard: dead rows
+QBG = (7.0, 5.0, 3.0)  # the background, set apart from the environment E
+
+
+@pytest.fixture(scope="module")
+def furnace_env():
+    """(JAX prep, port prep) of the mirror furnace (km 0.7, S 2, D 1) at
+    32x32 under a constant environment map E, with a background that
+    differs from E: a dead queue row holds the environment's escape of the
+    last pixel (the JAX wave's clipped index), not the background."""
+    out = []
+    for mg, Mat, Light, Cam, Scn, sfm, prep, extra, env in (
+            (jax_meshes, JaxMaterialConfig, JaxLightConfig, JaxCameraConfig, JaxSceneConfig,
+             jax_scenes.scene_from_meshes, jax_renderer.prepare, {},
+             jnp.full((4, 8, 3), E, jnp.float32)),
+            (meshes, MaterialConfig, LightConfig, CameraConfig, SceneConfig,
+             scenes.scene_from_meshes, prepare, dict(device="cpu"), torch.full((4, 8, 3), E))):
+        mats = (Mat(base_color=(127.5,) * 3, km=0.7, reflective=True),)
+        light = Light(position=(0.5, 6.0, 0.3), intensity=0.0)
+        scene = sfm([(mg.make_plane(extent=8.0, y=-1.0, density=2), 0)], mats, light, **extra)
+        cfg = Scn(materials=mats, light=light,
+                  camera=Cam(position=(0.0, 3.0, 0.0), target=(0.1, -1.0, 0.1), width=QSIZE,
+                             height=QSIZE))
+        cfg = _replace(cfg, pump=1, gi_samples=2, gi_depth=1, background=QBG,
+                       **dict(WAVE_KW, wave=QUEUE))
+        out.append(prep(cfg, scene=scene._replace(env_image=env)))
+    return out
+
+
+def _gi_queues(layout):
+    if layout == "contiguous":
+        return [(QUEUE * s, 1) for s in range(QSHARDS)]
+    return [(s, QSHARDS) for s in range(QSHARDS)]
+
+
+def _port_queue(prep, **queue):
+    tail, kw = gi_wave.launch_inputs(prep)
+    return gi_wave.gi_wave_trace(*tail[:6], prep.scene.env_image, kw["fvn9"], tail[6],
+                                 camera=prep.cfg.camera, S=kw["S"], D=kw["D"], bg=kw["bg"],
+                                 gate0=kw["gate0"], gate_b=kw["gate_b"], eps=kw["eps"],
+                                 smint=kw["smint"], quirk=kw["quirk"], **queue).numpy()
+
+
+@pytest.mark.parametrize("shard", range(QSHARDS))
+@pytest.mark.parametrize("layout", ["contiguous", "round_robin"])
+def test_gi_shard_queue_bitwise_vs_op_by_op_jax(furnace_env, layout, shard):
+    """Each shard's summed radiance, dead rows included, is bitwise the JAX
+    wave's on the same queue, run op by op."""
+    jprep, prep = furnace_env
+    assert prep.setup.gi_wave and prep.setup.gi_spec
+    offset, stride = _gi_queues(layout)[shard]
+    got = _port_queue(prep, pix_offset=offset, pix_stride=stride, queue_len=QUEUE)
+    spec = jax_pt.use_gi_wave_spec(jprep.scene, jprep.cfg.render)
+    albedo, km, fuv7, tex, bc255, fvn9 = jax_pt.build_gi_wave_tables(jprep.scene,
+                                                                      jprep.cfg.render, spec)
+    rc = jprep.cfg.render
+    with jax.disable_jit():
+        want = np.asarray(jax_gi_wave.gi_wave_trace(
+            jprep.scene.light_pos, jprep.scene.light_intensity, albedo,
+            jax_pt.build_gi_wave_tri9(jprep.scene), jprep.packed.arrays, jprep.packed.meta,
+            jprep.scene.env_image, fvn9, km, fuv7, tex, bc255, camera=jprep.cfg.camera,
+            S=rc.gi_samples, D=rc.gi_depth, wave=QUEUE, pump=1,
+            gate0=0.0 if rc.primary_gate() is None else rc.primary_gate(),
+            gate_b=rc.bounce_gate(), eps=rc.shadow_eps, smint=rc.shadow_mint(),
+            quirk=rc.shadow_dir_away_from_light(), bg=tuple(rc.background),
+            pix_offset=jnp.int32(offset), pix_stride=stride, queue_len=QUEUE), np.float32)
+    assert got.shape == want.shape == (QUEUE, 3)
+    _bitwise(got, want)
+    dead = offset + np.arange(QUEUE) * stride >= QSIZE * QSIZE
+    assert dead.any() == (layout == "round_robin" or shard == QSHARDS - 1)
+    np.testing.assert_array_equal(got[dead], np.float32(E) + np.float32(E))  # S = 2 escapes
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "round_robin"])
+def test_gi_shards_compose_to_the_unsharded_wave(furnace_env, layout):
+    from ray_tracer_tpu_torch.parallel.shard import stride_permutation
+
+    prep = furnace_env[1]
+    parts = [_port_queue(prep, pix_offset=o, pix_stride=s, queue_len=QUEUE)
+             for o, s in _gi_queues(layout)]
+    perm = (np.arange(QUEUE * QSHARDS) if layout == "contiguous"
+            else stride_permutation(QUEUE * QSHARDS, QSHARDS))
+    composed = np.concatenate(parts)[np.argsort(perm)][:QSIZE * QSIZE]
+    _bitwise(composed, _port_queue(prep))

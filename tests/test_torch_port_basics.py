@@ -74,6 +74,15 @@ with tempfile.TemporaryDirectory() as d:  # the fit loop and its checkpoints
                     render(gprep), steps=2, lr=5e-2, trainable=("kd", "verts"),
                     rebuild_grid_every=1, checkpoint_dir=d, checkpoint_every=1, log_every=0)
     assert len(losses) == 2 and latest_step(d) == 2
+import torch.distributed as dist
+from ray_tracer_tpu_torch import render_sharded as root_render_sharded
+from ray_tracer_tpu_torch.parallel import make_mesh, render_sharded
+from ray_tracer_tpu_torch.parallel import collectives, multihost, scaling, shard
+assert root_render_sharded is render_sharded
+mesh = make_mesh(devices="cpu")  # a one-rank gloo group, the multi-device layer at world 1
+wprep = prepare(apply_turbo(parallel_scene_config(8, 8), "parallel"), device="cpu")
+assert torch.equal(render_sharded(wprep, mesh=mesh), render(wprep))
+dist.destroy_process_group()
 loaded = [k for k, v in sys.modules.items()
           if v is not None and (k.split(".")[0] in ("jax", "jaxlib", "ray_tracer_tpu"))]
 assert not loaded, loaded
@@ -90,8 +99,10 @@ def test_port_imports_nothing_of_jax():
     wave and the segment integrator, the GI wave and the bounce loop with
     every appearance feature, and a small nefertiti scene), and a fit of
     two steps with soft visibility, soft primary, a grid rebuild and
-    checkpoints (opt.fit, opt.checkpoint) runs, with `jax` and
-    `ray_tracer_tpu` made unimportable."""
+    checkpoints (opt.fit, opt.checkpoint) runs, and the multi-device layer
+    (parallel/: mesh, multihost, collectives, shard, scaling) renders the
+    Whitted wave sharded on a one-rank group as render() does, with `jax`
+    and `ray_tracer_tpu` made unimportable."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _INDEPENDENCE], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)

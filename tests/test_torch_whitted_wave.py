@@ -300,19 +300,30 @@ def test_eligibility_follows_jax():
 
 
 def test_sharded_queue_and_cuda_wrapper_refuse(parallel_turbo):
+    """The sharded queue is served (its JAX-equality and composition tests
+    are in tests/test_torch_whitted_wave_queue.py): 3 shards of 86
+    positions, position k the pixel 85*s + k (contiguous, the last two
+    positions dead, the background), give the image; spp > 1 is refused
+    there, as the JAX wave asserts; the CUDA wrapper refuses CPU tensors."""
     prep, _, _ = parallel_turbo
     mat9, tri9 = wave.build_wave_tables(prep.scene)
     args = (prep.scene.light_pos, prep.scene.light_intensity, mat9, tri9,
             prep.packed.arrays, prep.packed.meta)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        wave.whitted_wave_trace(*args, camera=prep.cfg.camera, max_bounces=3, serial=False,
-                                pix_offset=0, pix_stride=2, queue_len=128)
+    rc = prep.cfg.render
+    kw = dict(camera=prep.cfg.camera, max_bounces=rc.max_bounces, serial=False,
+              gate0=rc.primary_gate(), gate_b=rc.bounce_gate(), eps=rc.shadow_eps,
+              smint=rc.shadow_mint(), shadow_scale=rc.shadow_scale)
+    parts = [wave.whitted_wave_trace(*args, pix_offset=86 * s, pix_stride=1, queue_len=86, **kw)
+             for s in range(3)]
+    assert torch.equal(torch.cat(parts)[:256], parallel_turbo[2].reshape(-1, 3))
+    assert torch.equal(parts[-1][-2:], torch.zeros((2, 3)))  # dead: the background
+    with pytest.raises(ValueError, match="spp == 1"):
+        wave.whitted_wave_trace(*args, spp=2, pix_offset=0, pix_stride=2, queue_len=128, **kw)
     before = wave.whitted_wave_cuda.launches
     with pytest.raises(ValueError, match="CUDA"):
         wave.whitted_wave_cuda(prep.cfg.camera, *args, max_bounces=3, serial=False)
     assert wave.whitted_wave_cuda.launches == before
     # the JAX loop's schedule knobs change no color
-    rc = prep.cfg.render
     col = wave.whitted_wave_trace(*args, camera=prep.cfg.camera, max_bounces=rc.max_bounces,
                                   serial=False, gate0=rc.primary_gate(),
                                   gate_b=rc.bounce_gate(), eps=rc.shadow_eps,
