@@ -3,6 +3,7 @@
     python3 chip_smoke.py                    # every phase
     python3 chip_smoke.py --phases build,C,E # a subset, for a quick check
     python3 chip_smoke.py --phases build,multidevice  # the multi-device layer
+    python3 chip_smoke.py --phases build,ring  # geometry sharded by ring orbits
 
 Run from the repository root on a machine with a CUDA device.  Phases,
 each printing one JSON line:
@@ -177,6 +178,38 @@ each printing one JSON line:
      balance_report at 4 shards on spot_1024 and nefertiti_1024.  The
      backend that carried the collectives is on every line; two ranks on
      one card give no scaling number.
+ 17. geometry sharded by ring orbits (phase ring): (a) in one process, the
+     dealing of a 4-card ring on nefertiti_1024: each rank of a four-rank
+     gloo group on this card builds its own shard (build_ring_shard, the
+     build of every ring entry point given no grids), its host seconds
+     printed, and this process stacks the four; kernel C on each shard's
+     grid over the whole 1024^2 primary batch, merged by the orbit's rule
+     (smaller t, or equal t and the lower global id) against the
+     replicated march of the same rays (the differing ids counted and held
+     to 1e-4 of the rays), each launch's CUDA-event time beside the
+     replicated launch's, shard 1's launch held bitwise to the plain
+     version; (b) on the one-rank NCCL group and the two-rank gloo group
+     of phase multidevice, one "tris" axis over the ranks:
+     render_sharded_geometry with grid hops on spot_1024 (every launch of
+     C held bitwise to the plain version), parallel_1024 (three mirror
+     bounces) and the GI row through the ring tracer (512x512 at two
+     ranks), each against render() (the GI row against the segment
+     integrator on the same camera rays) on every pixel whose orbits all
+     agree with the same frame's orbits replaced by the replicated march
+     (the ids of every path orbit, the hit flags of every shadow orbit),
+     to the JAX ring tests' tolerances (atol 1e-4, rtol 1e-5; GI atol
+     5e-3, rtol 1e-3), no pixel excepted; the pixels whose orbits differ,
+     and those whose primary ids differ, counted and held to 1e-4 of the
+     pixels; wall times beside render()'s, C's launches a frame, rank 0's
+     busy time; the bytes a hop moves and one hop's time; the all-pairs
+     ring on the serial scene at 128x128 (the same bits at one and two
+     ranks); 3 ring train steps on spot_1024 (verts and materials), each
+     against the unsharded step (loss rtol 1e-6, gradients rtol 1e-4 with
+     atol 1e-6 max|g|), the parameters bitwise equal on every rank;
+     render_aovs and render_ao (8 samples) with ring=True (ids and flags
+     exact, floats to 1e-5) and trace_pixel(mesh=) at three pixels; (c)
+     `cli render --ring --devices 2` (two gloo ranks sharing the card) at
+     1024^2 writing the PPM bytes of (b)'s two-rank spot_1024 image.
 
 Then the kernel times at the main path's shapes (each launch held
 bitwise to the plain version; B's, C's and E's barycentric passes, and
@@ -288,7 +321,7 @@ OPS_PER_ESCAPE_F = 6
 OPS_PER_PIXEL_F = 79
 OPS_PER_SAMPLE_F = 3
 ALL_PHASES = ("build", "A", "B", "C", "E", "F", "main", "card_vs_cpu", "appearance", "lights",
-              "float64", "inspect", "train", "multidevice", "D", "times")
+              "float64", "inspect", "train", "multidevice", "ring", "D", "times")
 # The kernels' device times on the 1024^2 main path before this version
 # of the sources (B and C as redesigned, before C's march step moved into
 # csrc/packed_step.cuh), NVIDIA H100 80GB HBM3 at 700 W, as recorded in
@@ -317,6 +350,12 @@ LIGHTS_B = ((-6.0, 8.0, 4.0, 0.6),)
 LIGHTS_C = ((0.0, 5.0, 5.0, 96.0),)
 LIGHTS_FIT = ((-4.0, 6.0, -2.0, 1.0),)
 AREA_LIGHT = dict(light_radius=0.5, shadow_samples=16)
+# Phase ring: the all-pairs ring's image size (its sweep is every ray
+# against every triangle of the serial scene).
+RING_BRUTE_SIZE = 128
+# the share of rays whose ring ids may differ from the replicated march's
+# (shared-edge flips between per-shard grids; 0 in every reading so far)
+RING_IDS_DIFFER = 1e-4
 
 
 def extra_lights(raw):
@@ -2643,9 +2682,10 @@ class Smoke:
               "max_abs_err": err, "tolerance": "bitwise (colors or radiance, every counter)",
               "equal": True})
 
-    def md_group(self, world: int, backend: str) -> dict:
-        """(b) to (e) on a process group of `world` ranks on this card: this
-        process is rank 0 (its prepared frames reused), the others are
+    def md_group(self, world: int, backend: str, work: str = "multidevice") -> dict:
+        """Phase multidevice's (b) to (e), or with work="ring" phase ring's
+        (b), on a process group of `world` ranks on this card: this process
+        is rank 0 (its prepared frames reused), the others are
         `chip_smoke.py --rank-job` processes.  Every rank checks its own
         images, steps and buffers; rank 0's numbers are printed."""
         import tempfile
@@ -2664,12 +2704,12 @@ class Smoke:
             with open(logs[i], "w") as log:
                 procs.append(subprocess.Popen(
                     [sys.executable, os.path.abspath(__file__), "--rank-job", init, str(world),
-                     backend, str(i), outs[i]], cwd=self.root, stdout=log,
+                     backend, str(i), outs[i], work], cwd=self.root, stdout=log,
                     stderr=subprocess.STDOUT))
         ok = False
         try:
             multihost.initialize(init, world, 0, backend=backend, timeout=240)
-            res = md_rank_work(self, 0)
+            res = RANK_WORK[work](self, 0)
             ok = True
         finally:
             if dist.is_initialized():
@@ -2689,8 +2729,20 @@ class Smoke:
                 other = json.load(fh)
             if other["backend"] != res["backend"]:
                 raise AssertionError(f"rank {i} ran on {other['backend']}")
+        if work == "ring_build":
+            return res
         note = (f"{world} ranks share one card: not a scaling number" if world > 1 else
                 "one rank: the sharded path's own cost over render()")
+        if work == "ring":
+            for name, frame in res["frames"].items():
+                self.path_launches[f"ring_{name}_w{world}"] = frame["launches_per_frame"]
+            for key in ("frames", "hop", "fit", "queries"):
+                emit({"phase": f"ring_{key}", "world": world, "backend": res["backend"],
+                      "ranks_on": res["device"], "note": note, key: res[key]})
+            emit({"phase": "launches_by_path", "paths": {
+                k: v for k, v in self.path_launches.items()
+                if k.startswith("ring_") and k.endswith(f"_w{world}")}})
+            return res
         for name, frame in res["frames"].items():
             self.path_launches[f"sharded_{name}_w{world}"] = frame["launches_per_frame"]
         emit({"phase": "multidevice_frames", "world": world, "backend": res["backend"],
@@ -2749,6 +2801,137 @@ class Smoke:
             rows[name] = balance_report(p, n)
             rows[name]["seconds"] = time.perf_counter() - t0
         emit({"phase": "multidevice_balance", "reports": rows})
+
+    # ---- 17. geometry sharded by ring orbits ---------------------------
+    def ring(self):
+        """(a) the dealing of a 4-card ring on nefertiti_1024 in one
+        process; (b) the ring paths on process groups of one rank (NCCL) and
+        two ranks sharing the card (gloo); (c) `cli render --ring --devices
+        2` against (b)'s image."""
+        self.ring_deal()
+        groups = {}
+        for world, backend in ((1, "nccl"), (2, "gloo")):
+            groups[world] = self.md_group(world, backend, work="ring")
+        if groups[1]["brute_sha256"] != groups[2]["brute_sha256"]:
+            raise AssertionError("the all-pairs ring image differs between 1 and 2 ranks")
+        emit({"phase": "ring_all_pairs", "size": RING_BRUTE_SIZE, "same_bits_at_worlds": [1, 2],
+              "sha256": groups[1]["brute_sha256"]})
+        self.ring_cli(groups[2]["spot_ppm"])
+
+    def ring_deal(self, n: int = 4):
+        """(a) nefertiti_1024's ring grids for n shards, each built by its
+        own rank (`build_ring_shard` on a gloo group of n ranks sharing the
+        card, what each rank of an n-card ring builds; their host seconds
+        printed) and stacked here;
+        kernel C on each shard's grid over the whole 1024^2 primary batch,
+        the n results merged by the orbit's rule against the replicated
+        march of the same rays (the ids that differ counted and held to
+        RING_IDS_DIFFER of the rays), each launch's CUDA-event time beside
+        the replicated launch's, and one shard's launch held bitwise to the
+        plain version at its own inputs."""
+        from ray_tracer_tpu_torch.accel.packed import PackedGridArrays
+        from ray_tracer_tpu_torch.config import apply_turbo
+        from ray_tracer_tpu_torch.models.scenes import nefertiti_scene
+        from ray_tracer_tpu_torch.ops.camera import camera_rays
+        from ray_tracer_tpu_torch.parallel.shard import RingGrids
+        from ray_tracer_tpu_torch.render.renderer import prepare
+
+        kC = self.kC
+        if self.nef_prep is None:
+            scene, cfg = nefertiti_scene(1024, 1024, device=self.dev)
+            self.nef_prep = prepare(apply_turbo(cfg, "nefertiti"), scene=scene)
+        p = self.nef_prep
+        rcfg = p.cfg.render
+        gate = rcfg.primary_gate()
+        gate = 0.0 if gate is None else gate
+        t0 = time.perf_counter()
+        built = self.md_group(n, "gloo", work="ring_build")
+        group_s = time.perf_counter() - t0
+        parts = [torch.load(f, weights_only=True) for f in built["files"]]
+        metas = {tuple(x["meta"]) for x in parts}
+        if len(metas) != 1 or len({x["fp"] for x in parts}) != 1:
+            raise AssertionError(f"the ranks' ring grids disagree on the shared meta: {metas}")
+        meta = type(p.packed.meta)(*metas.pop())
+        rg = RingGrids(PackedGridArrays(**{k: torch.cat([x["arrays"][k] for x in parts])
+                                           for k in PackedGridArrays._fields}),
+                       meta, parts[0]["fp"])
+        st = rg.fp // n
+        rays = camera_rays(p.cfg.camera, device=self.dev)
+        consts = p.frame().consts
+
+        def replicated():
+            return kC.traverse_packed(rays, p.packed.arrays, p.packed.meta, t_gate=gate,
+                                      consts=consts)
+
+        self.zero_counts()
+        want = replicated()
+        best_t = torch.full((rays.count,), float("inf"), device=self.dev)
+        best_id = torch.full((rays.count,), 2 ** 31 - 1, dtype=torch.int32, device=self.dev)
+        launchers = []
+        for d in range(n):
+            garr, cd = rg.shard(d, self.dev)
+
+            def launch(garr=garr, cd=cd):
+                return kC.traverse_packed(rays, garr, rg.meta, t_gate=gate, consts=cd)
+
+            res = launch()
+            t = torch.where(res.hit, res.t, torch.full_like(res.t, float("inf")))
+            tid = torch.where(res.hit, res.tri_id + d * st, torch.full_like(res.tri_id,
+                                                                           2 ** 31 - 1))
+            better = (t < best_t) | ((t == best_t) & (tid < best_id))
+            best_t = torch.where(better, t, best_t)
+            best_id = torch.where(better, tid, best_id)
+            launchers.append((launch, garr, cd, int(res.hit.sum())))
+        torch.cuda.synchronize()
+        launches = self.counts()["packed_march"]
+        shards = [{"shard": d, "hits": hits, "ms": cuda_ms(launch, 5)}
+                  for d, (launch, _, _, hits) in enumerate(launchers)]
+        for f in built["files"]:
+            os.remove(f)
+        _, garr, cd, _ = launchers[1]
+        plain = kC.march_plain(rays, garr, rg.meta, t_gate=gate,
+                               max_steps=kC._default_max_steps(rg.meta))
+        got = kC.march_cuda(rays, garr, rg.meta, t_gate=gate, consts=cd)
+        torch.cuda.synchronize()
+        self.err["packed_march"] = max(self.err["packed_march"],
+                                       compare("ring shard 1 vs plain", got, plain))
+        hit = torch.isfinite(best_t)
+        differ = int(((hit != want.hit) | (hit & (best_id != want.tri_id))).sum())
+        if differ > RING_IDS_DIFFER * rays.count:
+            raise AssertionError(f"ring dealing: {differ} of {rays.count} merged ids differ from "
+                                 "the replicated march")
+        emit({"phase": "ring_deal", "frame": "nefertiti_1024", "shards": n, "faces": rg.fp,
+              "meta": {"n_voxels": list(rg.meta.n_voxels), "n_blocks": rg.meta.n_blocks,
+                       "max_blocks": rg.meta.max_blocks, "probe_delta": rg.meta.probe_delta,
+                       "replicated_n_blocks": p.packed.meta.n_blocks,
+                       "replicated_inline": p.packed.meta.inline},
+              "build_ring_shard_s": built["build_s"], "build_prepare_s": built["prepare_s"],
+              "build_group_wall_s": group_s, "shard_launches": shards,
+              "replicated_ms": cuda_ms(replicated, 5), "launches_c": launches,
+              "rays": rays.count, "hits": int(hit.sum()), "ids_differ": differ,
+              "shard_1_vs_plain": "bitwise",
+              "timing": "CUDA events, 5 launches after a warm-up"})
+
+    def ring_cli(self, want_ppm: str):
+        """(c) `cli render --ring --devices 2` (two ranks the command starts
+        on this card, which join over gloo as they outnumber the cards) at
+        1024^2 writes the PPM bytes of the world-2 ring frame of
+        spot_1024."""
+        out = os.path.join(self.root, "build", "chip_smoke_cli_ring2.ppm")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "ray_tracer_tpu_torch.cli", "render", "--scene", "serial",
+             "--width", "1024", "--turbo", "--devices", "2", "--ring", "--out", out], cwd=self.root, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"cli render --ring failed:\n{proc.stderr[-3000:]}")
+        with open(out, "rb") as a, open(want_ppm, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError("cli render --ring --devices 2 differs from "
+                                     "render_sharded_geometry's image")
+        emit({"phase": "ring_cli", "size": 1024, "devices": 2, "backend": "gloo",
+              "same_bytes": True, "seconds": secs,
+              "stderr": proc.stderr.strip().splitlines()[-1]})
 
     def wave_pow_probe(self, cfg, prep, lanes):
         """The wave's plain version on the card over the differing pixels'
@@ -3500,19 +3683,347 @@ def md_rank_work(smoke, rank: int, size: int = 1024) -> dict:
             "frames": frames, "fit": fit_out, "aov": aov_out, "scaling": scaling}
 
 
-def rank_job(argv) -> int:
-    """`chip_smoke.py --rank-job INIT WORLD BACKEND RANK OUT`: rank RANK (> 0)
-    of phase multidevice's group on this card; writes its results to OUT."""
+def ring_rank_work(smoke, rank: int, size: int = 1024) -> dict:
+    """A rank's share of phase ring on the current process group (one
+    "tris" axis over every rank, the rays dealt over it), every rank on the
+    card: render_sharded_geometry with grid hops on spot_1024, on
+    parallel_1024 and on the GI row through the ring tracer (at 512x512 on
+    more than one rank), each against render() (the GI row against the
+    segment integrator on the same camera rays) on the pixels whose
+    primary ids equal the replicated trace's, to the JAX ring tests'
+    tolerances, the differing ids counted; every launch of kernel C on the
+    spot frame held bitwise to the plain version; the all-pairs ring on
+    the serial scene at 128x128; 3 ring train steps on spot_1024 (verts and
+    materials), each against the unsharded step; render_aovs, render_ao
+    and trace_pixel with ring orbits.  Raises on any failed hold."""
+    import hashlib
+
     import torch.distributed as dist
 
-    init, world, backend, rank, out = argv
+    from ray_tracer_tpu_torch.config import apply_turbo
+    from ray_tracer_tpu_torch.io.ppm import write_ppm
+    from ray_tracer_tpu_torch.models.scenes import parallel_scene_config, serial_scene_config
+    from ray_tracer_tpu_torch.opt import fit
+    from ray_tracer_tpu_torch.ops.camera import camera_rays
+    from ray_tracer_tpu_torch.parallel.collectives import all_gather, ring_pass
+    from ray_tracer_tpu_torch.parallel.mesh import make_mesh
+    from ray_tracer_tpu_torch.parallel import shard
+    from ray_tracer_tpu_torch.parallel.shard import build_ring_shard, render_sharded_geometry
+    from ray_tracer_tpu_torch.render.aov import render_ao, render_aovs
+    from ray_tracer_tpu_torch.render.debug import trace_pixel
+    from ray_tracer_tpu_torch.render.pathtrace import pathtrace_rays
+    from ray_tracer_tpu_torch.render.renderer import prepare, render
+
+    dev = smoke.dev
+    world = dist.get_world_size()
+    mesh = make_mesh(world, ("tris",), shape=(world,), devices=dev)
+    two = make_mesh(world, ("rays", "tris"), shape=(1, world), devices=dev)
+    serial = serial_scene_config(size, size)
+
+    def bitwise(a, b) -> bool:
+        if a.dtype.is_floating_point:
+            return torch.equal(a.view(torch.int32), b.view(torch.int32))
+        return torch.equal(a, b)
+
+    def orbit_chains(frame, prep):
+        """frame() twice, every ring orbit recorded: as it runs, and with
+        each orbit replaced by the replicated march of the same rays
+        (`_grid_local_best` over prep's packed grid) -> (pixels whose
+        orbits all agree, pixels whose primary ids agree), each (H*W,)
+        bool.  A path orbit agrees by its winner's id, a shadow orbit by
+        its hit flag (an any-hit id is any blocker's)."""
+        h, w = prep.cfg.camera.height, prep.cfg.camera.width
+        deal = shard._RingDeal(h * w, mesh, None, "tris")
+        v0, v1, v2 = prep.scene.triangle_soa()
+        fmat, f = prep.scene.face_material, prep.scene.num_faces
+        full = shard._ring_extras(prep, prep.scene.faces, slice(None))
+        ring_orbit = shard._Ring.orbit
+
+        def replicated(ring, rb, t_gate, stop_first, with_any_pass=False):
+            extras = (None,) * 3 if stop_first else tuple(
+                x if use else None for x, use in zip(full, (ring.smooth, ring.textured,
+                                                            ring.textured)))
+            return rb, shard._grid_local_best(rb, 0, prep.packed.arrays, prep.packed.meta, v0,
+                                              v1, v2, fmat, f, t_gate, stop_first,
+                                              extras=extras, consts=prep.frame().consts)
+
+        def run(orbit):
+            log = []
+
+            def recorded(ring, rb, t_gate, stop_first, with_any_pass=False):
+                out = orbit(ring, rb, t_gate, stop_first, with_any_pass)
+                hit = torch.isfinite(out[1]["t"])
+                log.append(hit if stop_first else
+                           torch.where(hit, out[1]["tid"], torch.full_like(out[1]["tid"], -1)))
+                return out
+
+            shard._Ring.orbit = recorded
+            try:
+                frame()
+            finally:
+                shard._Ring.orbit = ring_orbit
+            return log
+
+        got, want = run(ring_orbit), run(replicated)
+        if len(got) != len(want):
+            raise AssertionError(f"rank {rank}: {len(got)} ring orbits against {len(want)}")
+        agree = torch.ones((deal.per,), dtype=torch.bool, device=dev)
+        for g, r in zip(got, want):
+            agree &= (g == r).reshape(-1, deal.per).all(dim=0)  # sample-major batches
+        first = (got[0] == want[0]).reshape(-1, deal.per).all(dim=0)
+        return deal.gather(agree), deal.gather(first)
+
+    def hold_image(name, got, want, prep, frame, atol, rtol):
+        """got within atol + rtol |want| on every pixel whose orbits all
+        agree with the replicated march's (`orbit_chains`); the pixels
+        whose orbits differ held to RING_IDS_DIFFER of the frame."""
+        same, first = orbit_chains(frame, prep)
+        g, w = got.reshape(-1, 3), want.reshape(-1, 3)
+        out = ((g - w).abs() > atol + rtol * w.abs()).any(dim=1) & same
+        n_out, n_differ = int(out.sum()), int((~same).sum())
+        if not (torch.isfinite(got).all() and n_out == 0):
+            raise AssertionError(f"rank {rank}: ring {name}: {n_out} of {int(same.sum())} "
+                                 f"pixels whose orbits agree beyond atol {atol}, rtol {rtol}")
+        if n_differ > RING_IDS_DIFFER * same.numel():
+            raise AssertionError(f"rank {rank}: ring {name}: the orbits of {n_differ} of "
+                                 f"{same.numel()} pixels differ from the replicated march's")
+        return {"ids_differ": int((~first).sum()), "orbits_differ": n_differ,
+                "pixels_beyond_tolerance": n_out,
+                "max_abs_diff_equal_orbits": float((g - w).abs().max(dim=1).values[same].max()),
+                "tolerance": f"atol {atol}, rtol {rtol}"}
+
+    spot = prepare(apply_turbo(serial, "serial"))
+    gi_size = size if world == 1 else size // 2
+    frames, grids = {}, {}
+
+    def parallel_frame():
+        if world == 1 and smoke.wave_frame is not None:
+            return smoke.wave_frame[1]
+        return prepare(apply_turbo(parallel_scene_config(size, size), "parallel"))
+
+    def gi_frame():
+        if world == 1 and smoke.gi_frame is not None:
+            return smoke.gi_frame
+        return prepare(smoke.gi_config(serial_scene_config, gi_size, "serial", 4, 2))
+
+    for name, make in (("spot_1024", lambda: spot), ("parallel_1024", parallel_frame),
+                       (f"gi_spot_{gi_size}_s4d2", gi_frame)):
+        p = make()
+        t0 = time.perf_counter()
+        grids[name] = build_ring_shard(p, mesh)
+        build_s = time.perf_counter() - t0
+        gi = p.cfg.render.gi_samples > 0
+        if gi:
+            # the ring tracer runs the segment integrator; so does the reference
+            cam = camera_rays(p.cfg.camera, device=dev)
+            single_fn = lambda p=p, cam=cam: pathtrace_rays(  # noqa: E731
+                cam, p.scene, p.packed.arrays, p.packed.meta, p.cfg,
+                consts=p.frame().consts).reshape(p.cfg.camera.height, p.cfg.camera.width, 3)
+        else:
+            single_fn = lambda p=p: render(p)  # noqa: E731
+        with torch.no_grad():
+            single = single_fn()
+        torch.cuda.synchronize()
+
+        def frame(p=p, name=name):
+            return render_sharded_geometry(p, mesh=mesh, rays_axis=None, ring_grids=grids[name])
+
+        frame()  # the shard's grid on the card, the kernels warm
+        torch.cuda.synchronize()
+        smoke.zero_counts()
+        if name == "spot_1024":
+            with smoke.logging_launches() as log:
+                img = frame()
+                torch.cuda.synchronize()
+            counts = smoke.counts()
+            held = smoke.hold_logged(f"rank {rank} ring spot_1024", log)
+        else:
+            img = frame()
+            torch.cuda.synchronize()
+            counts = smoke.counts()
+            held = None
+        if counts["packed_march"] <= 0:
+            raise AssertionError(f"ring {name} launched no kernel C: {counts}")
+        tol = (5e-3, 1e-3) if gi else (1e-4, 1e-5)
+        agree = hold_image(name, img, single, p, frame, *tol)
+        reps = 3 if world == 1 else 1
+        ring_ms = md_median_ms(frame, reps)
+        single_ms = md_median_ms(single_fn, 3)
+        frames[name] = {"launches_per_frame": counts, "held": held,
+                        "build_ring_shard_s": build_s, **agree,
+                        "ring_ms": ring_ms, "ring_median_ms": sorted(ring_ms)[len(ring_ms) // 2],
+                        "single_median_ms": sorted(single_ms)[1],
+                        "single": "segment integrator" if gi else "render()",
+                        "busy": md_busy(frame, 1, rank == 0)}
+        if name == "spot_1024":
+            spot_img = img
+    # the bytes a hop moves: the spot frame's path orbit, measured alone
+    per = -(-size * size // world)
+    words = 20  # rays 8, t, id, material, three vertices 9
+    side = [torch.zeros((per, 8), dtype=torch.float32, device=dev),
+            torch.zeros((per, 3), dtype=torch.int32, device=dev)]
+    diff = [torch.zeros((per, 9), dtype=torch.float32, device=dev)]
+    hop_ms = md_median_ms(lambda: ring_pass(side, diff, mesh, "tris"), 5)
+    hop = {"rays_a_rank": per, "bytes_a_ray": words * 4, "bytes_a_hop": per * words * 4,
+           "hop_ms": hop_ms, "hop_median_ms": sorted(hop_ms)[2],
+           "gb_per_s": per * words * 4 / (sorted(hop_ms)[2] * 1e-3) / 1e9}
+    # the all-pairs ring at 128x128
+    bcfg = serial_scene_config(RING_BRUTE_SIZE, RING_BRUTE_SIZE)
+    bcfg = dataclasses.replace(bcfg, render=dataclasses.replace(bcfg.render, traversal="brute",
+                                                                faithful=False))
+    bp = prepare(bcfg)
+    bimg = render_sharded_geometry(bp, mesh=mesh, rays_axis=None)
+    bsingle = render(bp)
+    bdiff = float((bimg - bsingle).abs().max())
+    if not torch.allclose(bimg, bsingle, atol=1e-4, rtol=1e-5):
+        raise AssertionError(f"rank {rank}: the all-pairs ring differs from render() by {bdiff}")
+    brute_sha = hashlib.sha256(bimg.cpu().numpy().tobytes()).hexdigest()
+    # 3 ring train steps on spot_1024
+    trainable = ("verts", "base_color", "kd", "ks", "ka")
+    target = render(spot)
+    p0 = fit.split_scene(spot.scene)
+    scene = fit.merge_scene(p0._replace(kd=p0.kd * 1.5, base_color=p0.base_color * 0.6),
+                            spot.scene)
+    sprep = spot._replace(scene=scene)
+    s_step, s_init, ring_scene = fit.make_ring_train_step(sprep, mesh, rays_axis=None, lr=1e-4,
+                                                          trainable=trainable,
+                                                          ring_grids=grids["spot_1024"])
+    u_step, u_init = fit.make_train_step(spot.packed.meta, spot.cfg, lr=1e-4,
+                                         trainable=trainable)
+    params, opt = s_init(fit.split_scene(scene))
+    steps, fit_counts = [], {}
+    for k in range(3):
+        up, uo = u_init(fit.detached(params))
+        _, _, u_loss = u_step(up, uo, scene, spot.packed.arrays, target,
+                              consts=spot.frame().consts)
+        smoke.zero_counts()
+        ms, (params, opt, s_loss) = once_ms(lambda: s_step(params, opt, ring_scene, target))
+        for key, v in smoke.counts().items():
+            fit_counts[key] = fit_counts.get(key, 0) + v
+        rel = abs(float(s_loss) - float(u_loss)) / abs(float(u_loss))
+        if not rel <= 1e-6:
+            raise AssertionError(f"rank {rank}: ring step {k} loss {float(s_loss)!r} vs the "
+                                 f"unsharded {float(u_loss)!r} (rel {rel:.3g})")
+        worst = 0.0
+        for f in trainable:
+            gs, gu = getattr(params, f).grad, getattr(up, f).grad
+            scale = float(gu.abs().max())
+            excess = float(((gs - gu).abs() - 1e-4 * gu.abs()).max())
+            worst = max(worst, excess / scale if scale else excess)
+            if excess > 1e-6 * scale:
+                raise AssertionError(f"rank {rank}: ring step {k} gradient of {f} off by "
+                                     f"{excess:.3g} beyond rtol 1e-4 (max|g| {scale:.3g})")
+            if not all(bitwise(x, getattr(params, f).detach())
+                       for x in all_gather(getattr(params, f).detach())):
+                raise AssertionError(f"rank {rank}: ring step {k}: {f} differs across ranks")
+        steps.append({"loss": float(s_loss), "unsharded_loss": float(u_loss), "loss_rel": rel,
+                      "grad_excess_over_max": worst, "step_ms": ms})
+    losses = [s["loss"] for s in steps]
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"rank {rank}: ring fit losses {losses}")
+    if fit_counts["packed_march"] <= 0:
+        raise AssertionError(f"the ring train step launched no kernel C: {fit_counts}")
+    # the ring queries on spot_1024 over (1, world) ("rays", "tris")
+    smoke.zero_counts()
+    t0 = time.perf_counter()
+    aovs = render_aovs(spot, mesh=two, ring=True, ring_grids=grids["spot_1024"])
+    ao = render_ao(spot, samples=8, radius=1.0, mesh=two, ring=True,
+                   ring_grids=grids["spot_1024"])
+    torch.cuda.synchronize()
+    query_ms = (time.perf_counter() - t0) * 1e3
+    query_counts = smoke.counts()
+    want = render_aovs(spot)
+    for key, v in want.items():
+        if v.dtype.is_floating_point:
+            if not torch.allclose(aovs[key], v, rtol=1e-5, atol=1e-5, equal_nan=True):
+                raise AssertionError(f"rank {rank}: ring AOV {key} differs from one device's")
+        elif not torch.equal(aovs[key], v):
+            n_bad = int((aovs[key] != v).sum())
+            raise AssertionError(f"rank {rank}: ring AOV {key} differs in {n_bad} pixels")
+    ao_diff = float((ao - render_ao(spot, samples=8, radius=1.0)).abs().max())
+    pixels = []
+    for x, y in ((512, 512), (300, 700), (5, 5)):
+        rec = trace_pixel(spot, x, y, mesh=two, ring_grids=grids["spot_1024"])
+        one = trace_pixel(spot, x, y)
+        if rec["steps"] != -1 or rec["hit"] != one["hit"] or rec["tri_id"] != one["tri_id"]:
+            raise AssertionError(f"rank {rank}: trace_pixel({x}, {y}) ring {rec} vs {one}")
+        pixels.append({"pixel": [x, y], "hit": rec["hit"], "tri_id": rec["tri_id"],
+                       "in_shadow": rec.get("in_shadow")})
+    spot_ppm = None
+    if rank == 0 and world == 2:
+        spot_ppm = os.path.join(smoke.root, "build", "chip_smoke_ring2_spot.ppm")
+        write_ppm(spot_ppm, spot_img.cpu().numpy())
+    dist.barrier()  # no rank tears the group down under another
+    return {"rank": rank, "world": world, "backend": dist.get_backend(), "device": str(dev),
+            "frames": frames, "hop": hop, "brute_sha256": brute_sha,
+            "brute_max_diff_vs_render": bdiff,
+            "fit": {"frame": "spot_1024", "trainable": list(trainable), "steps": steps,
+                    "launches": fit_counts, "params_equal_across_ranks": True,
+                    "tolerance": "loss rtol 1e-6; gradients rtol 1e-4, atol 1e-6 max|g|"},
+            "queries": {"frame": "spot_1024", "aov_buffers": sorted(want),
+                        "ids_and_flags_equal": True, "floats": "rtol 1e-5, atol 1e-5",
+                        "ao_samples": 8, "ao_max_diff": ao_diff, "ms": query_ms,
+                        "launches": query_counts, "trace_pixel": pixels},
+            "spot_ppm": spot_ppm}
+
+
+def ring_build_rank_work(smoke, rank: int) -> dict:
+    """A rank's share of phase ring's (a): its own ring grid of
+    nefertiti_1024 on a "tris" axis over every rank (`build_ring_shard`),
+    saved for rank 0 to stack; every rank's build seconds, and the
+    seconds the others took to prepare the frame (rank 0 reuses its
+    own)."""
+    import torch.distributed as dist
+
+    from ray_tracer_tpu_torch.accel.packed import PackedGridArrays
+    from ray_tracer_tpu_torch.config import apply_turbo
+    from ray_tracer_tpu_torch.models.scenes import nefertiti_scene
+    from ray_tracer_tpu_torch.parallel.collectives import all_gather
+    from ray_tracer_tpu_torch.parallel.mesh import make_mesh
+    from ray_tracer_tpu_torch.parallel.shard import build_ring_shard
+    from ray_tracer_tpu_torch.render.renderer import prepare
+
+    world = dist.get_world_size()
+    t0 = time.perf_counter()
+    p = smoke.nef_prep
+    if p is None:
+        scene, cfg = nefertiti_scene(1024, 1024, device=smoke.dev)
+        p = prepare(apply_turbo(cfg, "nefertiti"), scene=scene)
+    prepare_s = time.perf_counter() - t0
+    mesh = make_mesh(world, ("tris",), shape=(world,), devices=smoke.dev)
+    t0 = time.perf_counter()
+    rg = build_ring_shard(p, mesh)
+    build_s = time.perf_counter() - t0
+    out = os.path.join(smoke.root, "build", f"chip_smoke_ring_shard{rank}.pt")
+    torch.save({"arrays": {k: getattr(rg.arrays, k) for k in PackedGridArrays._fields},
+                "meta": tuple(rg.meta), "fp": rg.fp}, out)
+    secs = all_gather(torch.tensor([build_s, prepare_s], dtype=torch.float64))
+    dist.barrier()  # every rank's file is written
+    return {"rank": rank, "world": world, "backend": dist.get_backend(), "device": str(smoke.dev),
+            "build_s": [float(x[0]) for x in secs],
+            "prepare_s": [float(x[1]) for x in secs[1:]],
+            "files": [os.path.join(smoke.root, "build", f"chip_smoke_ring_shard{i}.pt")
+                      for i in range(world)]}
+
+
+RANK_WORK = {"multidevice": md_rank_work, "ring": ring_rank_work,
+             "ring_build": ring_build_rank_work}
+
+
+def rank_job(argv) -> int:
+    """`chip_smoke.py --rank-job INIT WORLD BACKEND RANK OUT WORK`: rank RANK
+    (> 0) of phase multidevice's or ring's (WORK) group on this card;
+    writes its results to OUT."""
+    import torch.distributed as dist
+
+    init, world, backend, rank, out, work = argv
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ray_tracer_tpu_torch.parallel import multihost
 
     torch.cuda.set_device(0)
     multihost.initialize(init, int(world), int(rank), backend=backend, timeout=240)
     try:
-        res = md_rank_work(Smoke(), int(rank))
+        res = RANK_WORK[work](Smoke(), int(rank))
     finally:
         dist.destroy_process_group()
     with open(out, "w") as fh:
@@ -3546,7 +4057,7 @@ def main(argv=None) -> int:
         ("main", smoke.main_path), ("card_vs_cpu", smoke.card_vs_cpu),
         ("appearance", smoke.appearance), ("lights", smoke.lights),
         ("float64", smoke.float64), ("inspect", smoke.inspect), ("train", smoke.train),
-        ("multidevice", smoke.multidevice), ("D", smoke.kernel_d),
+        ("multidevice", smoke.multidevice), ("ring", smoke.ring), ("D", smoke.kernel_d),
         ("times", smoke.kernel_times)) if name in phases]
     seconds = {}
     for name, run in steps:

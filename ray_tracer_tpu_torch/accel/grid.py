@@ -213,9 +213,13 @@ def build_grid(
     max_resolution: int = 64,
     exact_overlap: bool = False,
     device=None,
+    force_resolution: "Tuple[int, int, int] | None" = None,
 ) -> UniformGrid:
     """Build the CSR grid in numpy (float32 binning, as the reference) and
-    put it on `device` (cuda unless "cpu" is asked for)."""
+    put it on `device` (cuda unless "cpu" is asked for).  force_resolution
+    replaces the 3*cbrt(F) rule with a fixed (nx, ny, nz): the per-shard
+    grids of the ring share the replicated build's resolution
+    (`parallel.shard.build_ring_grids`)."""
     verts = np.asarray(verts, dtype=np.float32)
     faces = np.asarray(faces, dtype=np.int32)
     num_tris = faces.shape[0]
@@ -232,9 +236,12 @@ def build_grid(
         lower = tri_lo.min(axis=0)
         upper = tri_hi.max(axis=0)
 
-    n_voxels = grid_resolution(
-        lower, upper, num_tris, resolution_multiplier, max_resolution
-    )
+    if force_resolution is not None:
+        n_voxels = np.asarray(force_resolution, np.int32)
+    else:
+        n_voxels = grid_resolution(
+            lower, upper, num_tris, resolution_multiplier, max_resolution
+        )
     delta = (upper - lower).astype(np.float32)
     width = delta / n_voxels.astype(np.float32)
     with np.errstate(divide="ignore"):  # zero-extent axes

@@ -213,12 +213,16 @@ def pack_grid(
     The row width is 9*block_tris (+2 header lanes inline) rounded up to
     a multiple of 128.  leap="box" builds greedy maximal empty boxes,
     "cheb" the symmetric Chebyshev cube; hits are the same either way.
-    pad_meta (vertex-optimization rebuilds) and as_numpy (the sharded
-    ring build) belong to later slices of the port and raise."""
-    if pad_meta is not None or as_numpy:
+    as_numpy keeps every array in host numpy (cell_info as its int32
+    bits) for a caller that pads and stacks several packs before one
+    upload (`parallel.shard.build_ring_grids`).  pad_meta (the JAX
+    package's padding to a static meta for vertex-optimization rebuilds)
+    is refused: the port has no jit to keep, and a rebuild is `prepare`
+    at the built meta."""
+    if pad_meta is not None:
         raise NotImplementedError(
-            "pack_grid(pad_meta=..., as_numpy=True) is not served by the "
-            "PyTorch port yet")
+            "pack_grid(pad_meta=...) is not served by the PyTorch port: a rebuild is "
+            "prepare() at the built meta (ROADMAP.md)")
     row_lanes = -(-(block_tris * 9 + (2 if inline else 0)) // 128) * 128
     nx, ny, nz = grid.meta.n_voxels
     n_cells = nx * ny * nz
@@ -307,6 +311,13 @@ def pack_grid(
         max_blocks=int(nblk.max(initial=1)),
         inline=inline,
     )
+    if as_numpy:
+        arrays = PackedGridArrays(
+            lower=np.asarray(host.lower, np.float32), upper=np.asarray(host.upper, np.float32),
+            width=np.asarray(host.width, np.float32),
+            inv_width=np.asarray(host.inv_width, np.float32),
+            cell_info=info.view(np.int32), blocks=blocks, slot_tri=slot_tri)
+        return PackedGrid(arrays=arrays, meta=meta)
     dev = grid.arrays.lower.device
     arrays = PackedGridArrays(
         lower=grid.arrays.lower, upper=grid.arrays.upper,

@@ -37,6 +37,10 @@
     torchrun --nproc-per-node 4 -m ray_tracer_tpu_torch.cli render --devices 4 ...
     python -m ray_tracer_tpu_torch.cli aov --scene serial --width 64 --devices 2 \
         --device cpu --out aovs.npz  # two CPU ranks (gloo)
+    python -m ray_tracer_tpu_torch.cli render --scene serial --width 1024 --turbo \
+        --devices 4 --ring --out x.ppm   # the geometry sharded by ring orbits
+    python -m ray_tracer_tpu_torch.cli render --scene serial --width 1024 --turbo \
+        --devices 2 --ring --out x.ppm   # on one card: two ranks share it (gloo)
 
 The counterpart of `ray_tracer_tpu/cli.py`.  It runs on the card unless
 `--device cpu` is given.  `render --devices N` and `aov --devices N`
@@ -44,11 +48,16 @@ shard the rays over N ranks, one process a device: under torchrun (its
 WORLD_SIZE / RANK / MASTER_ADDR set) the command joins that group, whose
 world size must be N; otherwise it starts N local ranks itself
 (torch.multiprocessing, spawn, a file:// rendezvous in a temporary
-directory), rank i on cuda:i (NCCL) or, with --device cpu, on the CPU
-(gloo).  Rank 0 writes the output.  `debug --devices N` traces its pixel
-on one device, as the JAX command does without --ring.  `--ring`
-(geometry sharded by ring orbits) is refused: it comes with the ring
-slice of the port.
+directory), rank i on cuda:i mod the card count or, with --device cpu,
+on the CPU.  The ranks join over NCCL when each has a card of its own,
+over gloo on the CPU or when they outnumber the cards (NCCL takes one
+rank a card; gloo lets ranks share one).  Rank 0 writes
+the output.  `--ring` shards the geometry by ring orbits instead of the
+rays: `render --devices N --ring` over a one-axis ("tris",) mesh of N
+ranks (`parallel.shard.render_sharded_geometry`), `aov` and `debug
+--devices N --ring` over the (1, N) ("rays", "tris") mesh (the ring AOVs
+and AO, `trace_pixel(mesh=)`), as the JAX command does; `debug --devices
+N` without --ring traces its pixel on one device.
 """
 
 from __future__ import annotations
@@ -181,10 +190,14 @@ _TORCHRUN = ("WORLD_SIZE", "RANK", "MASTER_ADDR")
 _RANK_TIMEOUT = 900.0  # seconds the ranks may take: their join and every collective
 
 
-def _refuse_ring(args) -> None:
-    if getattr(args, "ring", False):
-        raise SystemExit("--ring (multi-device ring orbits over sharded geometry) is not "
-                         "served by the PyTorch port yet: it comes with the ring slice")
+def _backend(args, local_ranks: int) -> str:
+    """The ranks' backend: gloo on the CPU or when this host's cuda ranks
+    outnumber its cards, NCCL otherwise."""
+    import torch
+
+    if args.device == "cpu" or local_ranks > torch.cuda.device_count():
+        return "gloo"
+    return "nccl"
 
 
 def _as_rank(args) -> None:
@@ -207,9 +220,9 @@ def _rank_main(index: int, n: int, init: str, args) -> None:
     cpu = args.device == "cpu"
     if cpu:
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
-    args.device = "cpu" if cpu else f"cuda:{index}"
-    multihost.initialize(init, n, index, backend="gloo" if cpu else "nccl",
-                         timeout=_RANK_TIMEOUT)
+    backend = _backend(args, n)
+    args.device = "cpu" if cpu else f"cuda:{index % torch.cuda.device_count()}"
+    multihost.initialize(init, n, index, backend=backend, timeout=_RANK_TIMEOUT)
     _as_rank(args)
 
 
@@ -233,19 +246,21 @@ def _on_ranks(args) -> bool:
         from ray_tracer_tpu_torch.parallel import multihost
 
         cpu = args.device == "cpu"
-        multihost.initialize(backend="gloo" if cpu else "nccl", timeout=_RANK_TIMEOUT)
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", n))
+        multihost.initialize(backend=_backend(args, local), timeout=_RANK_TIMEOUT)
         if dist.get_world_size() != n:
             raise SystemExit(f"--devices {n} but the launcher's group has "
                              f"{dist.get_world_size()} ranks")
         if not cpu:
-            args.device = f"cuda:{int(os.environ.get('LOCAL_RANK', dist.get_rank()))}"
+            local = int(os.environ.get('LOCAL_RANK', dist.get_rank()))
+            args.device = f"cuda:{local % torch.cuda.device_count()}"
         _as_rank(args)
         return True
     if args.device != "cpu":
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        if have < n:
-            raise SystemExit(f"--devices {n} asks for {n} cuda ranks, one a card, but this "
-                             f"machine has {have} card(s); pass --device cpu for CPU ranks")
+        if have < 1:
+            raise SystemExit(f"--devices {n} asks for {n} cuda ranks, but this machine has "
+                             "no card; pass --device cpu for CPU ranks")
     import tempfile
 
     import torch.multiprocessing as mp
@@ -263,15 +278,19 @@ def _on_ranks(args) -> bool:
 
 
 def _mesh(args, axis_names=("rays",)):
-    """The mesh of this rank's group over its --device, rays on the first
-    axis (None for one device)."""
+    """The mesh of this rank's group over its --device (None for one
+    device): with --ring every rank on "tris" (one axis, or "rays" of 1),
+    else every rank on the first axis."""
     if not getattr(args, "devices", 0):
         return None
     from ray_tracer_tpu_torch.parallel.mesh import make_mesh
 
     n = args.devices
-    return make_mesh(n, axis_names, shape=(n,) + (1,) * (len(axis_names) - 1),
-                     devices=args.device)
+    if getattr(args, "ring", False):
+        shape = (n,) if axis_names == ("tris",) else (1, n)
+    else:
+        shape = (n,) + (1,) * (len(axis_names) - 1)
+    return make_mesh(n, axis_names, shape=shape, devices=args.device)
 
 
 def cmd_render(args) -> None:
@@ -281,20 +300,24 @@ def cmd_render(args) -> None:
     from ray_tracer_tpu_torch.io.ppm import write_ppm
     from ray_tracer_tpu_torch.render.renderer import prepare, render
 
-    _refuse_ring(args)
     if _on_ranks(args):
         return
     cfg, scene = _build_cfg(args)
     prep = prepare(cfg, scene=scene, device=args.device)
-    mesh = _mesh(args)
+    ring = getattr(args, "ring", False)
+    mesh = _mesh(args, ("tris",) if ring else ("rays",))
     t0 = time.perf_counter()
     if mesh is None:
         img = render(prep)
     else:
         from ray_tracer_tpu_torch.parallel.multihost import is_host0
-        from ray_tracer_tpu_torch.parallel.shard import render_sharded
+        from ray_tracer_tpu_torch.parallel.shard import render_sharded, render_sharded_geometry
 
-        img = render_sharded(prep, mesh=mesh)
+        if ring:
+            # every rank on the triangle axis: each holds 1/N of the geometry
+            img = render_sharded_geometry(prep, mesh=mesh, rays_axis=None)
+        else:
+            img = render_sharded(prep, mesh=mesh)
         if not is_host0():
             return
     if prep.device.type == "cuda":
@@ -384,34 +407,41 @@ def cmd_stats(args) -> None:
 
 
 def cmd_debug(args) -> None:
-    """Print trace_pixel of pixel (--x, --y) as JSON (on one device, with
-    or without --devices, as the JAX command without --ring)."""
+    """Print trace_pixel of pixel (--x, --y) as JSON: on one device (with
+    or without --devices, as the JAX command), or with --devices N --ring
+    through ring orbits over N ranks (rank 0 prints)."""
     import json
 
+    from ray_tracer_tpu_torch.parallel.multihost import is_host0
     from ray_tracer_tpu_torch.render.debug import trace_pixel
 
-    _refuse_ring(args)
-    print(json.dumps(trace_pixel(_prepared(args), args.x, args.y), indent=2))
+    ring = getattr(args, "ring", False) and getattr(args, "devices", 0)
+    if ring and _on_ranks(args):
+        return
+    out = trace_pixel(_prepared(args), args.x, args.y,
+                      mesh=_mesh(args, ("rays", "tris")) if ring else None)
+    if not ring or is_host0():
+        print(json.dumps(out, indent=2))
 
 
 def cmd_aov(args) -> None:
     """Write render_aovs' buffers (and with --ao-samples an 'ao' buffer)
-    to an .npz file; with --devices the traces are ray-sharded and rank 0
-    writes."""
+    to an .npz file; with --devices the traces are ray-sharded (with --ring
+    ring orbits over the geometry sharded on N ranks) and rank 0 writes."""
     import numpy as np
 
     from ray_tracer_tpu_torch.parallel.multihost import is_host0
     from ray_tracer_tpu_torch.render.aov import render_ao, render_aovs
 
-    _refuse_ring(args)
     if _on_ranks(args):
         return
     prep = _prepared(args)
     mesh = _mesh(args, ("rays", "tris"))
-    aovs = {k: v.cpu().numpy() for k, v in render_aovs(prep, mesh=mesh).items()}
+    ring = getattr(args, "ring", False)
+    aovs = {k: v.cpu().numpy() for k, v in render_aovs(prep, mesh=mesh, ring=ring).items()}
     if args.ao_samples:
         aovs["ao"] = render_ao(prep, samples=args.ao_samples, radius=args.ao_radius,
-                               mesh=mesh).cpu().numpy()
+                               mesh=mesh, ring=ring).cpu().numpy()
     if not is_host0():
         return
     np.savez(args.out, **aovs)
@@ -458,10 +488,9 @@ def _inspect_parser(sub, name, help_, width):
     return p
 
 
-def _rank_options(p, devices_help: str) -> None:
+def _rank_options(p, devices_help: str, ring_help: str) -> None:
     p.add_argument("--devices", type=int, default=0, help=devices_help)
-    p.add_argument("--ring", action="store_true",
-                   help="shard the geometry by ring orbits (not served yet: the ring slice)")
+    p.add_argument("--ring", action="store_true", help=ring_help)
 
 
 def main(argv=None) -> None:
@@ -516,7 +545,8 @@ def main(argv=None) -> None:
     r.add_argument("--shadow-samples", type=int, default=0,
                    help="shadow rays a light for --light-radius (default 16)")
     r.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    _rank_options(r, "shard the rays over this many ranks, one a device")
+    _rank_options(r, "shard the rays over this many ranks, one a device",
+                  "with --devices: shard the geometry over the ranks and ring-pass the rays")
     r.set_defaults(fn=cmd_render)
     f = sub.add_parser("fit", help="inverse rendering: fit scene parameters to a target")
     f.add_argument("--scene", default="gradcheck", choices=["gradcheck", "serial", "parallel"])
@@ -554,15 +584,17 @@ def main(argv=None) -> None:
     dbg = _inspect_parser(sub, "debug", "single-pixel diagnostic trace (JSON)", 64)
     dbg.add_argument("--x", type=int, required=True)
     dbg.add_argument("--y", type=int, required=True)
-    _rank_options(dbg, "the pixel is traced on one device all the same (as without --ring "
-                       "in the JAX command)")
+    _rank_options(dbg, "with --ring, the ranks the geometry is sharded over (without it "
+                       "the pixel is traced on one device)",
+                  "trace the pixel through ring orbits over the sharded geometry")
     dbg.set_defaults(fn=cmd_debug)
     av = _inspect_parser(sub, "aov", "export geometry buffers (depth/normal/ids) to .npz", 256)
     av.add_argument("--out", default="aovs.npz")
     av.add_argument("--ao-samples", type=int, default=0,
                     help="add an 'ao' buffer (N hemisphere rays a pixel)")
     av.add_argument("--ao-radius", type=float, default=1.0, help="ambient-occlusion ray length")
-    _rank_options(av, "shard the AOV and AO rays over this many ranks, one a device")
+    _rank_options(av, "shard the AOV and AO rays over this many ranks, one a device",
+                  "shard the geometry over the ranks instead, every trace a ring orbit")
     av.set_defaults(fn=cmd_aov)
     sub.add_parser("info", help="devices and kernel build state (JSON)").set_defaults(
         fn=cmd_info, height=1)

@@ -230,6 +230,13 @@ def concat_mesh_arrays(parts: Sequence[Tuple[MeshArrays, int]]):
     )
 
 
+def host_geometry(scene: Scene):
+    """(verts (V,3) f32, faces (F,3) i32) of the scene in numpy (the JAX
+    package's `host_geometry`; a copy from the device)."""
+    return (scene.verts.detach().to("cpu", torch.float32).numpy(),
+            scene.faces.cpu().numpy().astype(np.int32))
+
+
 def scene_from_numpy(
     verts: np.ndarray,
     faces: np.ndarray,

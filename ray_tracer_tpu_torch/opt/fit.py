@@ -2,7 +2,9 @@
 
 Counterpart of `ray_tracer_tpu/opt/fit.py` (`SceneParams`, `split_scene`,
 `merge_scene`, `pixel_major_rays`, `image_loss`, `make_train_step`,
-`fit`), on one device or data-parallel over a mesh's "rays" axis.
+`RingSceneArrays`, `make_ring_train_step`, `fit`), on one device,
+data-parallel over a mesh's "rays" axis, or with the geometry sharded by
+ring orbits over its "tris" axis.
 Pixel-loss gradients with respect to the vertices, the materials, the
 light and the scene's images flow through `render_rays`: the traversal
 is a no-grad island that finds the hit topology, and t, the normals and
@@ -24,8 +26,11 @@ Where the JAX package differs:
     sums and the gradients are summed (`allreduce_gradients`) before the
     optimizer steps, so every rank holds the same parameters after every
     step (the JAX package's psum inside shard_map);
-  * the tris-sharded ring step (`make_ring_train_step`) comes with the
-    ring slice of the port (NotImplementedError).
+  * the tris-sharded ring step (`make_ring_train_step`) trains through
+    ring orbits (`parallel.shard.ring_loss`): each rank holds a slice of
+    the faces, the carried vertices' gradients come back along the ring,
+    and the loss and gradients are summed over both mesh axes before the
+    optimizer steps (the JAX package's psum over both axes).
 """
 
 from __future__ import annotations
@@ -288,12 +293,101 @@ def make_train_step(meta, cfg: SceneConfig, optimizer: str = "adam", lr: float =
     return sharded_step, init
 
 
-def make_ring_train_step(*args, **kwargs):
-    """The tris-sharded train step (JAX opt/fit.py:300), which trains
-    through ring orbits over sharded geometry, comes with the ring slice
-    of the port."""
-    raise NotImplementedError("the tris-sharded ring train step (multi-device ring "
-                              "orbits) is not ported yet: it comes with the ring slice")
+class RingSceneArrays(NamedTuple):
+    """The ring step's per-step inputs that do not train: the faces and
+    material ids padded to the shard multiple (padding faces are point
+    triangles at vertex 0), the reflective flags, and the ring grids
+    (`parallel.shard.build_ring_shard`; None for all-pairs hops), swapped
+    after a rebuild over moved vertices."""
+
+    faces: torch.Tensor  # (fp, 3)
+    fmat: torch.Tensor  # (fp,)
+    reflective: torch.Tensor  # (M,) bool
+    garr: Optional[object] = None  # the RingGrids, or None
+
+
+def _psum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    for axis in axes:
+        x = all_reduce_sum(x, mesh.get_group(axis))
+    return x
+
+
+def make_ring_train_step(prep, mesh, rays_axis: Optional[str] = "rays",
+                         tris_axis: str = "tris", optimizer: str = "adam", lr: float = 1e-2,
+                         trainable: Optional[Tuple[str, ...]] = None, ring_grids=None):
+    """The train step with the geometry sharded over `tris_axis` (JAX
+    opt/fit.py:300-403) -> (step_fn, init_fn, ring_scene).
+
+    init_fn(params) -> (params, opt_state), as `make_train_step`'s;
+    step_fn(params, opt_state, ring_scene, target) -> (params, opt_state,
+    loss).  Every rank calls it with the same arguments: the camera rays
+    (pixel-major at spp > 1, `pixel_major_rays`) are dealt over both axes,
+    each rank's loss share runs the ring (`parallel.shard.ring_loss`) and
+    its backward, and the loss sum(d^2) / (3 H W) and the gradients are
+    summed over both axes before the update, so every rank holds the same
+    parameters.  When verts train, rebuild ring_scene.garr with
+    `build_ring_shard` between steps."""
+    from ray_tracer_tpu_torch.parallel.shard import (
+        _ring_faces,
+        _RingDeal,
+        build_ring_shard,
+        ring_loss,
+    )
+
+    if trainable is not None:
+        unknown = set(trainable) - set(SceneParams._fields)
+        if unknown:
+            raise ValueError(f"unknown trainable fields {sorted(unknown)}")
+        trainable = tuple(sorted(trainable))
+    cfg, scene = prep.cfg, prep.scene
+    rcfg = cfg.render
+    faces, fmat = _ring_faces(scene, axis_size(mesh, tris_axis))
+    garr = None
+    if rcfg.traversal == "packed":
+        garr = build_ring_shard(prep, mesh, tris_axis) if ring_grids is None else ring_grids
+        if garr.fp != faces.shape[0]:
+            raise ValueError("ring_grids were built for a different shard count")
+    ring_scene = RingSceneArrays(faces=faces, fmat=fmat,
+                                 reflective=scene.materials.reflective, garr=garr)
+    r = cfg.camera.height * cfg.camera.width
+    k = rcfg.spp * rcfg.spp
+    axes = (tris_axis, rays_axis) if rays_axis else (tris_axis,)
+
+    def init(params: SceneParams):
+        fields = _trainable_fields(params, trainable)
+        params = params._replace(**{f: getattr(params, f).detach().clone().requires_grad_(True)
+                                    for f in fields})
+        return params, _make_optimizer(optimizer, lr, [getattr(params, f) for f in fields])
+
+    def step(params: SceneParams, opt_state, ring_scene: RingSceneArrays, target):
+        fields = _trainable_fields(params, trainable)
+        opt_state.zero_grad(set_to_none=True)
+        deal = _RingDeal(r, mesh, rays_axis, tris_axis)
+        rays = camera_rays(cfg.camera, dtype=_DTYPES[rcfg.dtype], spp=rcfg.spp,
+                           device=params.verts.device)
+        rays = (pad_rays(rays, deal.padded) if k == 1
+                else pixel_major_rays(rays, r, rcfg.spp, deal.padded))
+        mine = rays.slice(deal.lo * k, (deal.lo + deal.per) * k)
+        tgt = target.reshape(-1, 3)
+        if deal.padded != r:
+            bg = torch.tensor(rcfg.background, dtype=tgt.dtype, device=tgt.device)
+            tgt = torch.cat([tgt, bg.expand(deal.padded - r, 3)])
+        p = params._replace(**{f: getattr(params, f).detach() for f in SceneParams._fields
+                               if f not in fields and getattr(params, f) is not None})
+        local = ring_loss(p, ring_scene.faces, ring_scene.fmat, ring_scene.reflective, mine,
+                          tgt[deal.lo:deal.lo + deal.per], cfg, mesh, rays_axis, tris_axis,
+                          ring_grids=ring_scene.garr)
+        vm.div_scalar(local, float(3 * r)).backward()
+        leaves = [getattr(params, f) for f in fields]
+        grads = [torch.zeros_like(q) if q.grad is None else q.grad for q in leaves]
+        for axis in axes:
+            grads = allreduce_gradients(grads, mesh, axis)
+        for q, g in zip(leaves, grads):
+            q.grad = g
+        opt_state.step()
+        return params, opt_state, vm.div_scalar(_psum(local.detach(), mesh, axes), float(3 * r))
+
+    return step, init, ring_scene
 
 
 def _rebuild(prep, params: SceneParams):

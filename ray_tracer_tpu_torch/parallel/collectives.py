@@ -11,7 +11,12 @@ process group (`DeviceMesh.get_group`).
   * `min_reduce_hits` keeps the first minimum in shard order, the
     reference's strict-< update when shards hold ascending triangle ids;
   * `ring_shift` sends to shard (i + shift) mod n with
-    `batch_isend_irecv`.
+    `batch_isend_irecv` (detached data);
+  * `ring_pass` is the ring orbit's hop: a bundle of tensors goes to
+    shard i + 1 as one packed tensor, and under autograd the gradients
+    of its floating members come back from shard i + 1 as one packed
+    tensor (the transpose of the shift, which `ring_shift` alone would
+    drop).
 
 A gloo group takes CUDA tensors through host copies, made here
 explicitly and only for gloo (two ranks that share one card cannot form
@@ -24,6 +29,7 @@ such types, so they have no counterpart here.
 
 from __future__ import annotations
 
+import math
 from typing import Any, List
 
 import torch
@@ -158,7 +164,74 @@ def ring_shift(x: torch.Tensor, mesh, axis: str, shift: int = 1) -> torch.Tensor
     return out.to(device=x.device, dtype=x.dtype)
 
 
+def _words(x: torch.Tensor) -> torch.Tensor:
+    """x (R, ...) as int32 words (R, k): floats by their bits, bools and
+    integers by value (int32 holds every id and flag the ring carries)."""
+    x = x.detach().reshape(x.shape[0], -1)
+    if x.dtype in (torch.float32, torch.float64):
+        return x.contiguous().view(torch.int32)
+    return x.to(torch.int32)
+
+
+def _unwords(w: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    if like.dtype in (torch.float32, torch.float64):
+        x = w.contiguous().view(like.dtype)
+    elif like.dtype == torch.bool:
+        x = w != 0
+    else:
+        x = w.to(like.dtype)
+    return x.reshape(like.shape)
+
+
+def _word_count(x: torch.Tensor) -> int:
+    return math.prod(x.shape[1:]) * (2 if x.dtype == torch.float64 else 1)
+
+
+class _RingPass(torch.autograd.Function):
+    """Forward: the bundle (side tensors, then the differentiable ones) to
+    shard i + 1 as one int32 tensor.  Backward: the incoming gradients of
+    the differentiable members, packed into one tensor, to shard i - 1."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, n_side, *xs):
+        ctx.mesh, ctx.axis, ctx.n_side = mesh, axis, n_side
+        packed = torch.cat([_words(x) for x in xs], dim=1)
+        out = ring_shift(packed, mesh, axis, 1)
+        outs, lo = [], 0
+        for x in xs:
+            k = _word_count(x)
+            outs.append(_unwords(out[:, lo:lo + k], x))
+            lo += k
+        ctx.mark_non_differentiable(*outs[:n_side])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        gs = grads[ctx.n_side:]
+        flat = torch.cat([g.reshape(g.shape[0], -1) for g in gs], dim=1)
+        back = ring_shift(flat, ctx.mesh, ctx.axis, -1)
+        out, lo = [], 0
+        for g in gs:
+            k = math.prod(g.shape[1:])
+            out.append(back[:, lo:lo + k].reshape(g.shape))
+            lo += k
+        return (None, None, None) + (None,) * ctx.n_side + tuple(out)
+
+
+def ring_pass(side, diff, mesh, axis: str):
+    """One hop of a ring orbit -> (side', diff'): every tensor of `side`
+    (detached data: rays, ids, flags, t's) and of `diff` (floating
+    tensors that may carry gradients) as shard (i - 1) mod n sent them.
+    The bundle travels as one packed tensor, one collective a hop; under
+    autograd the gradients of `diff` travel back the same way, so the
+    backward of an orbit is one chain of shifts that every rank issues in
+    the same order.  Every tensor has the hop's rays on its first axis."""
+    side, diff = list(side), list(diff)
+    outs = _RingPass.apply(mesh, axis, len(side), *side, *diff)
+    return list(outs[:len(side)]), list(outs[len(side):])
+
+
 __all__ = [
     "all_gather", "all_reduce_sum", "allreduce_gradients", "broadcast", "gather_image",
-    "min_reduce_hits", "ring_shift", "scatter_rays",
+    "min_reduce_hits", "ring_pass", "ring_shift", "scatter_rays",
 ]

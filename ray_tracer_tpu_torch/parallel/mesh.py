@@ -5,7 +5,8 @@ Counterpart of `ray_tracer_tpu/parallel/mesh.py`: a
 
   * "rays" — data parallelism over pixels and rays;
   * "tris" — triangles sharded over the axis, nearest hits min-reduced
-    across it (`parallel/shard.intersect_brute_sharded`).
+    across it (`parallel/shard.intersect_brute_sharded`) or found by ray
+    bundles orbiting it (the ring: `parallel/shard.render_sharded_geometry`).
 
 A rank is one process and one device: `devices=` names this rank's,
 else rank i takes cuda:{LOCAL_RANK} (or cuda:{rank mod the card count}),

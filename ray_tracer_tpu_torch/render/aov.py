@@ -8,8 +8,12 @@ traces are kernel B (csr) or kernel C (packed) on the card, one launch
 each, and their plain versions on the CPU in `ray_tile` chunks.  With
 `mesh=` every trace is ray-sharded over the mesh's "rays" axis
 (`parallel.shard.trace_sharded`), bitwise the single-device buffers on
-every rank; `ring=True` (geometry sharded by ring orbits) comes with the
-ring slice of the port and raises NotImplementedError.
+every rank; with `mesh=` and `ring=True` the geometry is sharded over the
+mesh's "tris" axis and every trace is a ring orbit
+(`parallel.shard.trace_ring`: each shard's grid march, kernel C, or the
+all-pairs hop), the normals from the carried winner vertices: ids and
+flags exact, floats to the traversal's arithmetic.  ring=True without a
+mesh is the single-device path, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,13 +30,6 @@ from ray_tracer_tpu_torch.ops.camera import camera_rays
 from ray_tracer_tpu_torch.ops.traverse import traverse_grid, vertex_table
 from ray_tracer_tpu_torch.ops.traverse_packed import traverse_packed
 from ray_tracer_tpu_torch.render.metrics import traced_in_tiles
-
-
-def _refuse_ring(ring) -> None:
-    if ring:
-        raise NotImplementedError(
-            "not served by the PyTorch port yet: ring=True (multi-device ring orbits over "
-            "sharded geometry; the ring slice)")
 
 
 def _traced(prep, rays, mesh, stop_on_first_hit=False, gate=None, tri9=None):
@@ -110,16 +107,24 @@ def render_aovs(prep, mesh=None, ring: bool = False,
     inf on miss), 'hit' (bool), 'tri_id' (i32, -1 on miss), 'material_id'
     (i32, -1), 'normal' (f32 unit, 0 on miss), 'position' (f32, 0 on miss).
     mesh: the rays sharded over its "rays" axis, every rank getting the
-    whole buffers, bitwise the single-device ones."""
-    _refuse_ring(ring)
+    whole buffers, bitwise the single-device ones; with ring=True the
+    geometry sharded by ring orbits over its "tris" axis."""
     cfg = prep.cfg
     h, w = cfg.camera.height, cfg.camera.width
     rays = camera_rays(cfg.camera, device=prep.device)
+    serial = cfg.render.shading == "serial"
+    if mesh is not None and ring:
+        from ray_tracer_tpu_torch.parallel.shard import trace_ring
+
+        gate = 0.0 if serial else cfg.render.shadow_eps
+        b = trace_ring(prep, rays, mesh, t_gate=gate, ring_grids=ring_grids)
+        return _aov_buffers(rays, b["hit"], b["t"], b["tri_id"], b["mat"], b["tv0"], b["tv1"],
+                            b["tv2"], serial, h, w)
     hit, t, tid = _traced(prep, rays, mesh)
     tri = torch.clamp(tid, min=0).long()
     v0, v1, v2 = prep.scene.triangle_soa()
     return _aov_buffers(rays, hit, t, tid, prep.scene.face_material[tri],
-                        v0[tri], v1[tri], v2[tri], cfg.render.shading == "serial", h, w)
+                        v0[tri], v1[tri], v2[tri], serial, h, w)
 
 
 def hemisphere_dirs(n: int) -> np.ndarray:
@@ -140,18 +145,29 @@ def render_ao(prep, samples: int = 16, radius: float = 1.0, mesh=None, ring: boo
     (1 where the pixel misses).  Each sample is one trace of every pixel
     (misses retire at entry), gated t > eps as the renderer's shadow rays
     are, and a hit counts only at t <= radius.  mesh: every trace sharded
-    over its "rays" axis, bitwise the single-device map on every rank."""
-    _refuse_ring(ring)
+    over its "rays" axis, bitwise the single-device map on every rank;
+    with ring=True every sample a ring occlusion orbit over the geometry
+    sharded on its "tris" axis, the normals from the carried vertices."""
     cfg = prep.cfg
     rcfg = cfg.render
     h, w = cfg.camera.height, cfg.camera.width
     eps = rcfg.shadow_eps
     rays = camera_rays(cfg.camera, device=prep.device)
     serial = rcfg.shading == "serial"
-    hit, t, tid = _traced(prep, rays, mesh)
-    tri = torch.clamp(tid, min=0).long()
-    v0, v1, v2 = prep.scene.triangle_soa()
-    n = _face_normal(v0[tri], v1[tri], v2[tri], serial)
+    ring = mesh is not None and ring
+    if ring:
+        from ray_tracer_tpu_torch.parallel.shard import build_ring_shard, trace_ring
+
+        if rcfg.traversal == "packed" and ring_grids is None:
+            ring_grids = build_ring_shard(prep, mesh)  # once for every orbit
+        b = trace_ring(prep, rays, mesh, t_gate=0.0 if serial else eps, ring_grids=ring_grids)
+        hit, t = b["hit"], b["t"]
+        n = _face_normal(b["tv0"], b["tv1"], b["tv2"], serial)
+    else:
+        hit, t, tid = _traced(prep, rays, mesh)
+        tri = torch.clamp(tid, min=0).long()
+        v0, v1, v2 = prep.scene.triangle_soa()
+        n = _face_normal(v0[tri], v1[tri], v2[tri], serial)
     # face the eye, as two-sided AO does: flip normals pointing away
     n = torch.where((vm.dot(n, rays.dirn) > 0)[:, None], -n, n)
 
@@ -165,13 +181,20 @@ def render_ao(prep, samples: int = 16, radius: float = 1.0, mesh=None, ring: boo
     t1 = vm.normalize(vm.cross(a, n))
     t2 = vm.cross(n, t1)
 
-    tri9 = None if rcfg.traversal == "packed" else vertex_table(v0, v1, v2)
+    tri9 = None
+    if rcfg.traversal != "packed" and not ring:
+        tri9 = vertex_table(*prep.scene.triangle_soa())
     occ = torch.zeros((rays.count,), dtype=torch.float32, device=prep.device)
     for d in hemisphere_dirs(samples):
         dirn = float(d[0]) * t1 + float(d[1]) * t2 + float(d[2]) * n
         srays = RayBatch.make(orig, dirn, mint=eps, maxt=radius)
-        s_hit, s_t, _ = _traced(prep, srays, mesh, stop_on_first_hit=True, gate=eps,
-                                tri9=tri9)
+        if ring:
+            sb = trace_ring(prep, srays, mesh, t_gate=eps, stop_first=True,
+                            ring_grids=ring_grids)
+            s_hit, s_t = sb["hit"], sb["t"]
+        else:
+            s_hit, s_t, _ = _traced(prep, srays, mesh, stop_on_first_hit=True, gate=eps,
+                                    tri9=tri9)
         occ = occ + (s_hit & (s_t <= radius) & hit).to(torch.float32)
     ao = torch.where(hit, 1.0 - vm.div_scalar(occ, float(samples)), torch.ones_like(occ))
     return ao.reshape(h, w)

@@ -7,15 +7,18 @@ the ray's state (Parallel/raytracer.cu:367, Parallel/geometry.cuh:237-255);
 ray, the grid's box, the traversal's record, the hit geometry and the
 shadow query) with the renderer's own functions on a one-ray batch, and
 returns the intermediates as a dict of Python values.  The traces are
-kernel B or C on the card and their plain versions on the CPU.  `mesh=`
-is the JAX function's ring mode (the pixel traced through ring orbits over
-sharded geometry), which comes with the ring slice of the port: it raises
-NotImplementedError.
+kernel B or C on the card and their plain versions on the CPU.  With
+`mesh=` the primary and shadow queries are ring orbits over the geometry
+sharded on the mesh's "tris" axis (`parallel.shard.trace_ring`, every
+rank calling with the same arguments), the JAX function's ring mode: the
+ring records no step count ("steps" is -1), and every other field is the
+single-device trace's (ids exactly, floats to the traversal's
+arithmetic).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -27,14 +30,19 @@ from ray_tracer_tpu_torch.ops.traverse import traverse_grid, vertex_table
 from ray_tracer_tpu_torch.ops.traverse_packed import traverse_packed
 
 
+class _RingRecord(NamedTuple):
+    hit: torch.Tensor
+    t: torch.Tensor
+    tri_id: torch.Tensor
+    steps: torch.Tensor
+
+
 def trace_pixel(prep, x: int, y: int, mesh=None, ring_grids=None) -> Dict[str, Any]:
     """Diagnostic trace of pixel (x, y): camera ray, grid entry, traversal
     record, hit geometry, shadow query and shading inputs, with the gates
-    and mints of the renderer's policy (RenderConfig's methods)."""
-    if mesh is not None:
-        raise NotImplementedError("not served by the PyTorch port yet: mesh= traces the "
-                                  "pixel through multi-device ring orbits over sharded "
-                                  "geometry (the ring slice)")
+    and mints of the renderer's policy (RenderConfig's methods); mesh:
+    through ring orbits over its "tris" axis (this rank's ring grid built
+    when ring_grids is not given)."""
     cfg = prep.cfg
     rcfg = cfg.render
     # refuse the configs whose shading this trace would misreport
@@ -54,7 +62,16 @@ def trace_pixel(prep, x: int, y: int, mesh=None, ring_grids=None) -> Dict[str, A
     serial = rcfg.serial_shading
     primary_gate = rcfg.primary_gate()
     tri9 = None
-    if packed:
+    if mesh is not None:
+        from ray_tracer_tpu_torch.parallel.shard import build_ring_shard, trace_ring
+
+        if packed and ring_grids is None:
+            ring_grids = build_ring_shard(prep, mesh)  # once for both orbits
+        b = trace_ring(prep, ray, mesh, t_gate=0.0 if primary_gate is None else primary_gate,
+                       ring_grids=ring_grids)
+        res = _RingRecord(hit=b["hit"], t=b["t"], tri_id=b["tri_id"],
+                          steps=torch.full((1,), -1, dtype=torch.int32))
+    elif packed:
         consts = prep.frame().consts
         res = traverse_packed(ray, prep.packed.arrays, prep.packed.meta,
                               t_gate=0.0 if primary_gate is None else primary_gate,
@@ -99,7 +116,11 @@ def trace_pixel(prep, x: int, y: int, mesh=None, ring_grids=None) -> Dict[str, A
     sdir = sdir / np.linalg.norm(sdir)
     srays = RayBatch.make(torch.from_numpy(poi[None]).to(dev),
                           torch.from_numpy(sdir[None]).to(dev), mint=rcfg.shadow_mint())
-    if packed:
+    if mesh is not None:
+        sb = trace_ring(prep, srays, mesh, t_gate=rcfg.shadow_eps, stop_first=True,
+                        ring_grids=ring_grids)
+        in_shadow = bool(first(sb["hit"]))
+    elif packed:
         sres = traverse_packed(srays, prep.packed.arrays, prep.packed.meta,
                                t_gate=rcfg.shadow_eps, stop_on_first_hit=True, consts=consts)
         in_shadow = bool(first(sres.hit))

@@ -37,8 +37,13 @@ depend on the sampled directions, and statistically elsewhere
 The environment sampler's tables come from a cumsum and a sum whose
 order XLA and PyTorch take differently, and its lookups from `acos` and
 `atan2`, so env NEE is held to the JAX package statistically
-(tests/test_torch_env_nee.py).  The ring `tracer=` is not served
-(`pathtrace_rays` raises NotImplementedError).
+(tests/test_torch_env_nee.py).
+
+`pathtrace_rays(tracer=)` is the ring's interface (the JAX package's): the
+tracer traces each segment (`tracer.trace`, the winner's vertices,
+material and corner payload carried home by a ring orbit) and every
+occlusion query (`tracer.occlude`), and the scene is a geometry-free
+stub of the shading and lighting tables (`parallel.shard`'s ring GI).
 """
 
 from __future__ import annotations
@@ -243,6 +248,14 @@ def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=N
     smooth normals' vertex-normal table in the parallel convention (built
     here when not given).
 
+    tracer: the traversal and geometry provider of the ring (JAX
+    render/pathtrace.py:170-197): tracer.trace(rays, t_gate) -> (hit,
+    tv0, tv1, tv2, mat, payload), tracer.occlude(rays) -> (R,) bool, and
+    tracer.carries, the payload groups it carries ("smooth": corner
+    normals vn0..vn2, "uv": corner uvs uv0..uv2 and the has-uv flag huv).
+    The scene's geometry is then never read (grid and meta are unused),
+    misses get a substitute triangle, and nothing is fused.
+
     Differentiable as the JAX package's is: every trace takes detached
     inputs, and the sampled directions and the branch probabilities are
     constants, while hit distances, normals, albedos, the Fresnel weights
@@ -256,28 +269,35 @@ def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=N
         raise ValueError("pathtrace_rays needs gi_samples > 0")
     if rcfg.faithful:
         raise ValueError("path tracing requires faithful=False")
-    if tracer is not None:
-        raise NotImplementedError("not served by the PyTorch port yet: tracer= (ring GI)")
-    v0, v1, v2 = scene.triangle_soa()
-    tri9 = build_gi_wave_tri9(scene)
-    dt = v0.dtype
-    trav = make_traversal(rcfg, grid, meta, v0.detach(), v1.detach(), v2.detach(), dda=dda,
-                          consts=consts)
-    persistent = rcfg.traversal == "packed" and rcfg.scheduler == "persistent"
+    smooth = rcfg.normal_mode == "smooth"
+    if tracer is None:
+        v0, v1, v2 = scene.triangle_soa()
+        tri9 = build_gi_wave_tri9(scene)
+        dt, dev = v0.dtype, v0.device
+        trav = make_traversal(rcfg, grid, meta, v0.detach(), v1.detach(), v2.detach(),
+                              dda=dda, consts=consts)
+        persistent = rcfg.traversal == "packed" and rcfg.scheduler == "persistent"
+        if smooth and vn is None:
+            vn = vertex_normals(scene.verts, scene.faces, serial=False)
+        # texture silently off without uv data, as in the bounce loop; it
+        # modulates the raw base color, clipped to [0, 1] after
+        textured = rcfg.texture != "none" and scene.uvs is not None
+    else:
+        carries = getattr(tracer, "carries", ())
+        if smooth and "smooth" not in carries:
+            raise NotImplementedError("ring GI: this tracer does not carry the corner-normal "
+                                      "payload smooth normals need")
+        textured = rcfg.texture != "none" and "uv" in carries
+        dt = scene.materials.base_color.dtype
+        dev = scene.materials.base_color.device
+        trav, persistent = None, False
     skw = {"compact": True} if persistent else {}  # shadow batches: live lanes queued
     r = rays.count
     eps = rcfg.shadow_eps
     ddt = _DTYPES[rcfg.det_dtype]
-    dev = v0.device
     background = torch.tensor(rcfg.background, dtype=dt, device=dev)
     albedo_table, km_table = _material_tables(scene)
     n_mats = albedo_table.shape[0]
-    smooth = rcfg.normal_mode == "smooth"
-    if smooth and vn is None:
-        vn = vertex_normals(scene.verts, scene.faces, serial=False)
-    # texture silently off without uv data, as in the bounce loop; it
-    # modulates the raw base color, clipped to [0, 1] after
-    textured = rcfg.texture != "none" and scene.uvs is not None
     bc255_table = vm.div_scalar(scene.materials.base_color, 255.0) if textured else None
     # glass: a delta interface (no NEE, no mirror mix, no albedo), where an
     # exact-Fresnel draw reflects or refracts
@@ -295,8 +315,13 @@ def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=N
     # the one point light's shadow rides the persistent march
     fuse_nee = persistent and rcfg.gi_fuse_nee and len(lights) == 1
     lp0 = scene.light_pos.detach().to(torch.float32)
-    inv_pi = _f32(_INV_PI, v0)
-    tiny = _f32(1e-20, v0)
+    inv_pi = _f32(_INV_PI, background)
+    tiny = _f32(1e-20, background)
+
+    def occluded(srays: RayBatch) -> torch.Tensor:
+        if tracer is not None:
+            return tracer.occlude(srays)
+        return trav(srays, t_gate=eps, stop_on_first_hit=True, **skw).hit
 
     def trace_batch(cur: RayBatch, key: torch.Tensor) -> torch.Tensor:
         rr = cur.count
@@ -311,7 +336,10 @@ def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=N
         for depth in range(rcfg.gi_depth + 1):
             gate = rcfg.primary_gate() if depth == 0 else rcfg.bounce_gate()
             cur_sg = _detached(cur)
-            if fuse_nee:
+            if tracer is not None:
+                res_hit, tv0, tv1, tv2, mat, payload = tracer.trace(
+                    cur_sg, 0.0 if gate is None else gate)
+            elif fuse_nee:
                 res = persistent_trace(
                     cur_sg, grid, meta, lp0, wave=rcfg.wave, pump=rcfg.pump,
                     t_gate=0.0 if gate is None else gate, fuse_shadow=True, shadow_gate=eps,
@@ -321,7 +349,8 @@ def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=N
             else:
                 tkw = {"compact": depth > 0} if persistent else {}
                 res = trav(cur_sg, t_gate=gate, **tkw)
-            res_hit = res.hit
+            if tracer is None:
+                res_hit = res.hit
             hit = res_hit & path_alive
             # escape: the environment by this segment's direction (or the
             # background), then the path ends
@@ -339,10 +368,22 @@ def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=N
                 env = env * w_mis[:, None]
             radiance = radiance + torch.where(escaped[:, None], throughput * env, z3)
 
-            tri = torch.clamp(res.tri_id, min=0).long()
-            tv = vm.take(tri9, tri)
-            tv0, tv1, tv2 = tv[:, 0:3], tv[:, 3:6], tv[:, 6:9]
-            mat = tv[:, 9].detach().to(torch.int32)
+            if tracer is None:
+                tri = torch.clamp(res.tri_id, min=0).long()
+                tv = vm.take(tri9, tri)
+                tv0, tv1, tv2 = tv[:, 0:3], tv[:, 3:6], tv[:, 6:9]
+                mat = tv[:, 9].detach().to(torch.int32)
+            else:
+                # the carried payload; misses get a constant triangle so
+                # that normalize and cross stay NaN-free
+                h3 = res_hit[:, None]
+                ex = torch.zeros_like(tv0)
+                ex[:, 0] = 1.0
+                ey = torch.zeros_like(tv0)
+                ey[:, 1] = 1.0
+                tv0 = torch.where(h3, tv0, torch.zeros_like(tv0)).to(dt)
+                tv1 = torch.where(h3, tv1, ex).to(dt)
+                tv2 = torch.where(h3, tv2, ey).to(dt)
             t_re = cramer_t_safe(cur.orig, cur.dirn, tv0, tv1, tv2, res_hit, det_dtype=ddt)
             t = torch.where(res_hit, t_re.to(dt), torch.zeros_like(t_re).to(dt))
             orig_safe = torch.where(res_hit[:, None], cur.orig, torch.zeros_like(cur.orig))
@@ -351,16 +392,34 @@ def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=N
             if smooth or textured:
                 hb, hg = cramer_bg_safe(orig_safe, cur.dirn, tv0, tv1, tv2, res_hit,
                                         det_dtype=ddt)
-            if smooth:
+            if smooth and tracer is None:
                 n = vm.normalize(interpolate_normal(vn, scene.faces, tri, hb.to(dt),
                                                     hg.to(dt)))
+            elif smooth:
+                # the carried corner normals, Phong-interpolated as the
+                # Whitted ring does
+                f32 = torch.float32
+                alf = (1.0 - hb - hg).to(f32)
+                hbf, hgf = hb.to(f32), hg.to(f32)
+                sn_raw = (alf[:, None] * payload["vn0"] + hbf[:, None] * payload["vn1"]
+                          + hgf[:, None] * payload["vn2"])
+                e_x = torch.zeros_like(sn_raw)
+                e_x[:, 0] = 1.0
+                sn = vm.normalize(torch.where(res_hit[:, None], sn_raw, e_x)).to(dt)
+                n = vm.normalize(sn)
             flip = vm.dot(n, cur.dirn) > 0.0
             n = torch.where(flip[:, None], -n, n)
             mat_c = torch.clamp(mat, 0, n_mats - 1).long()
             diel = hit & trans_table[mat_c] if has_diel else torch.zeros_like(hit)
-            if textured:
+            if textured and tracer is None:
                 uv = scene.interpolate_uv(tri, hb.to(dt), hg.to(dt))
                 has_uv = scene.uv_faces[tri][:, 0] >= 0
+            elif textured:
+                ald = (1.0 - hb - hg).to(dt)
+                uv = (ald[:, None] * payload["uv0"] + hb.to(dt)[:, None] * payload["uv1"]
+                      + hg.to(dt)[:, None] * payload["uv2"])
+                has_uv = payload["huv"]
+            if textured:
                 tex = texture_factor(uv, has_uv, hit, rcfg.texture, rcfg.texture_scale,
                                      scene.texture_image, dt)
                 albedo = torch.clamp(vm.take(bc255_table, mat_c) * tex, 0.0, 1.0)
@@ -394,8 +453,7 @@ def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=N
                 if fuse_nee:
                     occ = res.in_shadow
                 else:
-                    srays = _detached(shadow_rays_for(rcfg, lp, poi, hit))
-                    occ = trav(srays, t_gate=eps, stop_on_first_hit=True, **skw).hit
+                    occ = occluded(_detached(shadow_rays_for(rcfg, lp, poi, hit)))
                 unoccluded = hit & ~spec & ~diel & ~occ
                 direct = albedo * inv_pi * (li * cos_i / torch.maximum(d2, tiny))[:, None]
                 radiance = radiance + torch.where(unoccluded[:, None], throughput * direct, z3)
@@ -414,7 +472,7 @@ def pathtrace_rays(rays: RayBatch, scene, grid, meta, cfg: SceneConfig, tracer=N
                 live_e = hit & ~spec & ~diel & (cos_e > 0.0)
                 erays = _detached(RayBatch.make(torch.where(live_e[:, None], poi, inf3), edir,
                                                 mint=eps))
-                e_occ = trav(erays, t_gate=eps, stop_on_first_hit=True, **skw).hit
+                e_occ = occluded(erays)
                 clear = live_e & ~e_occ
                 l_env = scene.sample_env(edir).to(dt)
                 pc_e = cos_e.detach().to(torch.float32) * inv_pi

@@ -110,21 +110,33 @@ def test_render_ao_serial_no_self_occlusion():
 
 
 def test_multi_device_arguments_raise():
-    """ring=True (geometry sharded by ring orbits) is refused, with a mesh
-    or without; mesh= is served (tests/test_torch_sharding.py holds it on 2
-    and 4 ranks): on a one-rank group the buffers are bitwise one
-    device's."""
+    """The multi-device arguments are served: ring=True without a mesh is
+    the single-device path (as in the JAX package), and on a one-rank group
+    mesh= gives one device's buffers bitwise, and mesh= with ring=True (a
+    one-shard ring over ("rays", "tris") of (1, 1)) their ids and flags
+    exactly and their floats to 1e-5 (tests/test_torch_ring.py holds the
+    ring on 2 and 4 ranks)."""
     from torch_ranks import one_rank_group
 
+    from ray_tracer_tpu_torch.parallel.mesh import make_mesh
+
     prep, _ = _gradcheck_pair()
-    for fn in (aov.render_aovs, aov.render_ao):
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            fn(prep, mesh=object(), ring=True)
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            fn(prep, ring=True)
+    single = aov.render_aovs(prep)
+    ao_single = aov.render_ao(prep, samples=4)
+    for k, v in aov.render_aovs(prep, ring=True).items():
+        assert torch.equal(v, single[k]), k
+    assert torch.equal(aov.render_ao(prep, samples=4, ring=True), ao_single)
     with one_rank_group() as mesh:
         got = aov.render_aovs(prep, mesh=mesh)
         ao = aov.render_ao(prep, samples=4, mesh=mesh)
-    for k, v in aov.render_aovs(prep).items():
+        two = make_mesh(1, ("rays", "tris"), shape=(1, 1), devices="cpu")
+        ring = aov.render_aovs(prep, mesh=two, ring=True)
+        ring_ao = aov.render_ao(prep, samples=4, mesh=two, ring=True)
+    for k, v in single.items():
         assert torch.equal(got[k], v), k
-    assert torch.equal(ao, aov.render_ao(prep, samples=4))
+        if v.dtype.is_floating_point:
+            np.testing.assert_allclose(ring[k].numpy(), v.numpy(), rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(ring[k], v), k
+    assert torch.equal(ao, ao_single)
+    np.testing.assert_allclose(ring_ao.numpy(), ao_single.numpy(), atol=1e-6)

@@ -129,25 +129,36 @@ def test_bench_command_execs_bench_torch(monkeypatch):
 
 
 @pytest.mark.parametrize("cmd", [["debug", "--x", "1", "--y", "1"], ["aov"]])
-@pytest.mark.parametrize("flag", [["--devices", "2"], ["--ring"]])
-def test_multi_device_flags_refused(cmd, flag, tmp_path, capsys):
-    """--ring (the ring slice) is refused; --devices 2 is served: `aov` on
-    two CPU ranks writes the single-device file's arrays, and `debug`
-    traces its pixel on one device, as the JAX command without --ring."""
+@pytest.mark.parametrize("flag", [["--devices", "2"], ["--ring"], ["--devices", "2", "--ring"]])
+def test_multi_device_flags_refused(cmd, flag, tmp_path, capfd):
+    """The multi-device flags are served: `aov --devices 2` on two CPU ranks
+    writes the single-device file's arrays, and `debug --devices 2` traces
+    its pixel on one device, as the JAX command without --ring; --ring
+    alone is the single-device command (the JAX command's rule); with
+    --devices 2 --ring the geometry is sharded over two ranks ((1, 2)
+    ("rays", "tris")), every trace a ring orbit: ids and flags the
+    single-device ones, floats to 1e-5, and debug's steps -1."""
     def run(extra, name):
         out = ["--out", str(tmp_path / name)] if cmd == ["aov"] else []
         cli.main([cmd[0], *SCENE, *cmd[1:], *extra, *out, "--device", "cpu"])
-        return np.load(tmp_path / name) if cmd == ["aov"] else _json_out(capsys)
+        # capfd: rank 0 of the spawned ranks prints through the inherited fd
+        return np.load(tmp_path / name) if cmd == ["aov"] else _json_out(capfd)
 
-    if flag == ["--ring"]:
-        with pytest.raises(SystemExit, match="multi-device"):
-            run(flag, "x.npz")
-        return
     got, want = run(flag, "d2.npz"), run([], "d0.npz")
+    ring = flag == ["--devices", "2", "--ring"]
     if cmd == ["aov"]:
         assert sorted(got.files) == sorted(want.files)
         for k in want.files:
-            np.testing.assert_array_equal(got[k], want[k])
+            if ring and want[k].dtype.kind == "f":
+                np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-5)
+            else:
+                np.testing.assert_array_equal(got[k], want[k])
+    elif ring:
+        assert got["steps"] == -1 and got["tri_id"] == want["tri_id"]
+        for k, v in want.items():
+            if k != "steps":
+                np.testing.assert_allclose(np.asarray(got[k], float), np.asarray(v, float),
+                                           rtol=1e-5, atol=1e-5, err_msg=k)
     else:
         assert got == want
 
@@ -159,9 +170,12 @@ def test_render_devices_writes_the_single_device_ppm(tmp_path):
         cli.main(["render", "--scene", "serial", "--width", "16", "--turbo", *extra,
                   "--out", str(tmp_path / name), "--device", "cpu"])
     assert (tmp_path / "d2.ppm").read_bytes() == (tmp_path / "d0.ppm").read_bytes()
-    with pytest.raises(SystemExit, match="multi-device"):
-        cli.main(["render", "--scene", "serial", "--width", "16", "--devices", "2", "--ring",
-                  "--out", str(tmp_path / "r.ppm"), "--device", "cpu"])
+    # --ring: the geometry sharded over the two ranks (tests/test_torch_ring.py
+    # holds the bytes against render_sharded_geometry); this scene's ring
+    # image rounds to render()'s bytes
+    cli.main(["render", "--scene", "serial", "--width", "16", "--turbo", "--devices", "2",
+              "--ring", "--out", str(tmp_path / "r.ppm"), "--device", "cpu"])
+    assert (tmp_path / "r.ppm").read_bytes() == (tmp_path / "d0.ppm").read_bytes()
     with pytest.raises(SystemExit, match="cuda ranks"):
         cli.main(["render", "--scene", "serial", "--width", "16", "--devices", "2",
                   "--out", str(tmp_path / "c.ppm")])

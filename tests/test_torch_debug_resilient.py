@@ -77,13 +77,26 @@ def test_trace_pixel_equals_jax(name):
 
 
 def test_trace_pixel_refusals():
+    """Smooth normals and an area light are refused, as in the JAX package;
+    mesh= is served: on a one-rank ring ((1, 1) "rays", "tris") the trace
+    is the single-device one with steps -1 (tests/test_torch_ring.py holds
+    it on 2 and 4 ranks)."""
+    from torch_ranks import one_rank_group
+
+    from ray_tracer_tpu_torch.parallel.mesh import make_mesh
+
     prep, _ = _gradcheck_pair()
     for kw in (dict(normal_mode="smooth", faithful=False),
                dict(shadow_samples=4, light_radius=0.5, faithful=False)):
         with pytest.raises(NotImplementedError):
             debug.trace_pixel(prep._replace(cfg=_rep(prep.cfg, **kw)), 8, 8)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        debug.trace_pixel(prep, 8, 8, mesh=object())
+    want = debug.trace_pixel(prep, 8, 8)
+    with one_rank_group():
+        got = debug.trace_pixel(prep, 8, 8, mesh=make_mesh(1, ("rays", "tris"), shape=(1, 1),
+                                                           devices="cpu"))
+    assert got["steps"] == -1 and want["hit"]
+    assert {k: v for k, v in got.items() if k != "steps"} == {
+        k: v for k, v in want.items() if k != "steps"}
 
 
 BANDED = {

@@ -169,11 +169,16 @@ def test_merge_split_roundtrip(prep):
 
 
 def test_train_step_refuses_what_is_not_ported(prep):
-    """Unknown fields and the ring train step are refused; mesh= is served
+    """Unknown fields are refused; mesh= is served
     (tests/test_torch_fit_sharded.py holds it on 2 and 4 ranks): on a
     one-rank group the sharded step's loss and gradients are the
-    unsharded step's bits."""
+    unsharded step's bits; and so is the ring train step
+    (tests/test_torch_ring_fit.py holds it on 2 and 4 ranks): on a
+    one-shard ring its loss is the unsharded step's to rtol 1e-6 and its
+    gradients to rtol 1e-4."""
     from torch_ranks import one_rank_group
+
+    from ray_tracer_tpu_torch.parallel.mesh import make_mesh
 
     with pytest.raises(ValueError, match="unknown trainable"):
         fit.make_train_step(prep.grid.meta, prep.cfg, trainable=("kd", "nope"))
@@ -186,10 +191,17 @@ def test_train_step_refuses_what_is_not_ported(prep):
             params, opt = init(fit.split_scene(prep.scene))
             params, _, loss = step(params, opt, prep.scene, prep.grid.arrays, target)
             out.append((loss, params.kd.grad, params.verts.grad))
+        ring = make_mesh(1, ("tris",), shape=(1,), devices="cpu")
+        step, init, ring_scene = fit.make_ring_train_step(prep, ring, rays_axis=None, lr=1e-3,
+                                                          trainable=("kd", "verts"))
+        params, opt = init(fit.split_scene(prep.scene))
+        params, _, loss = step(params, opt, ring_scene, target)
     for a, b in zip(*out):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="ring"):
-        fit.make_ring_train_step(prep, object())
+    assert float(loss) == pytest.approx(float(out[0][0]), rel=1e-6)
+    for g, want in ((params.kd.grad, out[0][1]), (params.verts.grad, out[0][2])):
+        scale = float(want.abs().max())
+        assert float(((g - want).abs() - 1e-4 * want.abs()).max()) <= 1e-6 * scale
 
 
 def _trained(prep, steps=2):

@@ -14,7 +14,8 @@ rays).  Besides, a perfect self-target under an environment map on 5x5
 pixels gives a zero loss, and the sharded fit() with a grid rebuild every
 step keeps to the single-device fit's losses (rtol 1e-6).  The first
 step's loss is JAX's sharded step's to rtol 1e-6.  The ring train step
-stays refused.
+(tests/test_torch_ring_fit.py) refuses what the JAX one refuses: a
+faithful config.
 """
 
 import numpy as np
@@ -83,5 +84,20 @@ def test_first_step_loss_matches_jax_sharded(ranks, eight_device_mesh, name):
 
 
 def test_ring_train_step_refused():
-    with pytest.raises(NotImplementedError, match="ring"):
-        fit.make_ring_train_step(None, None)
+    """The ring has production semantics only: a faithful config is
+    refused, as the JAX package's _check_ring_cfg refuses it."""
+    import dataclasses
+
+    from torch_ranks import one_rank_group
+
+    from ray_tracer_tpu_torch.parallel.mesh import make_mesh
+
+    prep, target, _ = fit_case("csr")
+    prep = prep._replace(cfg=dataclasses.replace(prep.cfg, render=dataclasses.replace(
+        prep.cfg.render, faithful=True)))
+    with one_rank_group():
+        ring = make_mesh(1, ("tris",), shape=(1,), devices="cpu")
+        step, init, ring_scene = fit.make_ring_train_step(prep, ring, rays_axis=None)
+        params, opt = init(fit.split_scene(prep.scene))
+        with pytest.raises(ValueError, match="production semantics"):
+            step(params, opt, ring_scene, target)

@@ -157,9 +157,17 @@ def test_packed_from_numpy_carries_the_jax_grid(grids):
 
 
 def test_later_slice_options_raise(grids):
+    """as_numpy (the ring's host build) is served: numpy arrays, the device
+    pack's bytes (tests/test_torch_ring_grids.py holds them to JAX's);
+    pad_meta stays refused."""
     verts, faces, _, grid = grids["gradcheck"]
-    with pytest.raises(NotImplementedError):
-        packed.pack_grid(grid, verts, faces, as_numpy=True)
+    host = packed.pack_grid(grid, verts, faces, as_numpy=True)
     meta = packed.pack_grid(grid, verts, faces).meta
+    dev = packed.pack_grid(grid, verts, faces)
+    assert tuple(host.meta) == tuple(meta)
+    for field in host.arrays._fields:
+        a = getattr(host.arrays, field)
+        assert isinstance(a, np.ndarray)
+        assert a.tobytes() == getattr(dev.arrays, field).numpy().tobytes(), field
     with pytest.raises(NotImplementedError):
         packed.pack_grid(grid, verts, faces, pad_meta=meta)

@@ -347,11 +347,19 @@ def test_gi_appearance_options_render(change):
 
 
 def test_ring_tracer_and_faithful_refused():
+    """The ring tracer is served (tests/test_torch_ring_shade.py); it is
+    refused where the JAX package refuses it: smooth normals from a tracer
+    that carries no corner normals.  Faithful path tracing is refused."""
     _, prep = _gradcheck_pair(8, 1, 1, traversal="packed", scheduler="persistent")
     rays = pt.camera_rays(prep.cfg.camera, device="cpu")
     g, m = prep.packed.arrays, prep.packed.meta
+
+    class NoNormals:
+        carries = ("uv",)
+
     with pytest.raises(NotImplementedError, match="tracer"):
-        pt.pathtrace_rays(rays, prep.scene, g, m, prep.cfg, tracer=object())
+        pt.pathtrace_rays(rays, prep.scene, g, m, _replace(prep.cfg, normal_mode="smooth"),
+                          tracer=NoNormals())
     with pytest.raises(ValueError, match="faithful"):
         pt.pathtrace_rays(rays, prep.scene, g, m, _replace(prep.cfg, faithful=True))
     with pytest.raises(ValueError, match="faithful"):

@@ -72,6 +72,16 @@ def run_ranks(fn: str, world: int, tmp_path, timeout: float = 420.0) -> list:
     return results
 
 
+def run_groups(fn: str, worlds, tmp_of, timeout: float = 420.0) -> dict:
+    """run_ranks of fn on a group of each world size, the groups at once
+    (tmp_of(world): each group's directory) -> {world: results}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(worlds)) as pool:
+        futures = {w: pool.submit(run_ranks, fn, w, tmp_of(w), timeout) for w in worlds}
+        return {w: f.result() for w, f in futures.items()}
+
+
 @contextlib.contextmanager
 def one_rank_group():
     """A one-rank gloo group in this process (initialize() without
@@ -389,6 +399,190 @@ def single_process(rank: int, world: int) -> dict:
             "scaling": scaling_report(prep, device_counts=[1], repeats=1)}
 
 
+# ---------------------------------------------------------------------------
+# Geometry sharded by ring orbits (tests/test_torch_ring.py)
+# ---------------------------------------------------------------------------
+
+_RING_PACKED = dict(traversal="packed", det_dtype="float32", fused_shadow=False)
+# name -> (render overrides, scene changes): the JAX ring tests' cases
+# (tests/test_sharding.py:166-291, :451, :547, :575, :626, :655, :701) on
+# the gradcheck scene at 16x16; the test builds the same scenes for JAX
+RING_CASES = {
+    "brute": (dict(traversal="brute"), {}),
+    "packed": (_RING_PACKED, {}),
+    "brute_bounces": (dict(traversal="brute", max_bounces=2), {"reflective": True}),
+    "packed_bounces": (dict(_RING_PACKED, max_bounces=2), {"reflective": True}),
+    "brute_spp2_smooth_env": (dict(traversal="brute", spp=2, normal_mode="smooth"),
+                              {"env": True}),
+    "packed_texture_lights": (dict(_RING_PACKED, texture="checker", texture_scale=4.0,
+                                   max_bounces=1, shadow_samples=4, light_radius=0.3),
+                              {"reflective": True, "extra_light": True, "env": True}),
+    "packed_soft": (dict(_RING_PACKED, soft_visibility=0.05, soft_primary=0.05), {}),
+    "gi_packed": (dict(_RING_PACKED, scheduler="persistent", gi_samples=2, gi_depth=1),
+                  {"env": True}),
+    "gi_brute_smooth": (dict(traversal="brute", gi_samples=2, gi_depth=1, normal_mode="smooth"),
+                        {"env": True}),
+}
+RING_ENV = np.linspace(5.0, 80.0, 4 * 8 * 3, dtype=np.float32).reshape(4, 8, 3)
+RING_EXTRA_LIGHT = ((-4.0, 6.0, -2.0), 1.0)
+
+
+def ring_case(name: str):
+    """The prepared ring case `name` on the CPU."""
+    from ray_tracer_tpu_torch.config import LightConfig
+    from ray_tracer_tpu_torch.render.renderer import prepare
+
+    over, change = RING_CASES[name]
+    scene, cfg = _gradcheck(16, faithful=False, **over)
+    if change.get("reflective"):
+        scene = scene._replace(materials=scene.materials._replace(
+            reflective=torch.tensor([False, True]), km=torch.tensor([0.0, 0.6])))
+    if change.get("env"):
+        scene = scene._replace(env_image=torch.from_numpy(RING_ENV.copy()))
+    if change.get("extra_light"):
+        pos, li = RING_EXTRA_LIGHT
+        cfg = dataclasses.replace(cfg, extra_lights=(LightConfig(pos, li),))
+    return prepare(cfg, scene=scene)
+
+
+def ring_meshes(world: int, devices="cpu"):
+    """(mesh, rays_axis) of the ring renders, and the two-axis mesh of the
+    ring queries: world 2 on one "tris" axis and (1, 2), world 4 as
+    (2, 2) ("rays", "tris") (the JAX tests' shapes)."""
+    from ray_tracer_tpu_torch.parallel.mesh import make_mesh
+
+    two = make_mesh(world, ("rays", "tris"), shape=(world // 2, 2), devices=devices)
+    if world == 2:
+        return make_mesh(2, ("tris",), shape=(2,), devices=devices), None, two
+    return two, "rays", two
+
+
+RING_TRAINABLE = ("verts", "base_color", "km", "light_pos")
+
+
+def ring_renders(rank: int, world: int) -> dict:
+    """Every ring case through render_sharded_geometry, intersect_ring_sharded
+    on the gradcheck scene's camera rays, trace_ring, the ring AOVs and AO,
+    trace_pixel(mesh=) at three pixels, and `cli render --ring` on these
+    ranks (rank 0's results)."""
+    from ray_tracer_tpu_torch.ops.camera import camera_rays
+    from ray_tracer_tpu_torch.parallel.shard import (
+        intersect_ring_sharded,
+        render_sharded_geometry,
+        trace_ring,
+    )
+    from ray_tracer_tpu_torch.render.aov import render_ao, render_aovs
+    from ray_tracer_tpu_torch.render.debug import trace_pixel
+
+    mesh, rays_axis, two = ring_meshes(world)
+    out = {"images": {}}
+    for name in RING_CASES:
+        out["images"][name] = _numpy(render_sharded_geometry(ring_case(name), mesh=mesh,
+                                                             rays_axis=rays_axis))
+    prep = ring_case("brute")
+    rays = camera_rays(prep.cfg.camera, device="cpu")
+    v0, v1, v2 = prep.scene.triangle_soa()
+    res = intersect_ring_sharded(rays, v0, v1, v2, mesh, rays_axis=rays_axis, t_lower=1e-4)
+    out["intersect"] = {k: _numpy(v) for k, v in res._asdict().items()}
+    for name in ("packed", "brute"):
+        prep = ring_case(name)
+        b = trace_ring(prep, camera_rays(prep.cfg.camera, device="cpu"), two,
+                       t_gate=prep.cfg.render.shadow_eps)
+        out[f"trace_{name}"] = {k: _numpy(v) for k, v in b.items()}
+        out[f"aovs_{name}"] = {k: _numpy(v) for k, v in render_aovs(prep, mesh=two,
+                                                                     ring=True).items()}
+        out[f"ao_{name}"] = _numpy(render_ao(prep, samples=6, radius=1.0, mesh=two, ring=True))
+        out[f"pixel_{name}"] = [trace_pixel(prep, x, y, mesh=two)
+                                for x, y in ((8, 8), (3, 12), (0, 0))]
+    from ray_tracer_tpu_torch import cli
+
+    path = os.path.join(OUT_DIR, f"ring{world}.ppm")
+    cli.main(["render", "--scene", "serial", "--width", "16", "--turbo", "--devices",
+              str(world), "--ring", "--out", path, "--device", "cpu"])
+    from ray_tracer_tpu_torch.config import apply_turbo
+    from ray_tracer_tpu_torch.io.ppm import write_ppm
+    from ray_tracer_tpu_torch.models.scenes import serial_scene_config
+    from ray_tracer_tpu_torch.parallel.mesh import make_mesh
+    from ray_tracer_tpu_torch.render.renderer import prepare
+
+    prep = prepare(apply_turbo(serial_scene_config(16, 16), "serial"), device="cpu")
+    img = render_sharded_geometry(prep, mesh=make_mesh(world, ("tris",), shape=(world,),
+                                                       devices="cpu"), rays_axis=None)
+    want = os.path.join(OUT_DIR, f"ring{world}_direct.ppm")
+    if rank == 0:
+        write_ppm(want, _numpy(img))
+    out["cli_ppm"], out["direct_ppm"] = path, want
+    out["own_grid_equal"] = _own_ring_grids_equal(mesh, [ring_case("packed"), prep])
+    return out if rank == 0 else None
+
+
+def _own_ring_grids_equal(mesh, preps) -> list:
+    """Every rank's `build_ring_shard` against its shard of
+    `build_ring_grids` (meta, padded face count and every array's bytes),
+    for each prep -> [[equal on rank 0, rank 1, ...] a prep]."""
+    from ray_tracer_tpu_torch.parallel.collectives import all_gather
+    from ray_tracer_tpu_torch.parallel.mesh import axis_index, axis_size
+    from ray_tracer_tpu_torch.parallel.shard import build_ring_grids, build_ring_shard
+
+    it = axis_index(mesh, "tris")
+    out = []
+    for prep in preps:
+        own = build_ring_shard(prep, mesh)
+        full = build_ring_grids(prep, axis_size(mesh, "tris"))
+        equal = (own.meta == full.meta and own.fp == full.fp and own.first == it
+                 and all(a.numpy().tobytes() == b[it:it + 1].numpy().tobytes()
+                         for a, b in zip(own.arrays, full.arrays)))
+        out.append([bool(x) for x in all_gather(torch.tensor(equal))])
+    return out
+
+
+RING_STEPS = (("packed", 2), ("brute", 2), ("packed_bounces", 1), ("brute_bounces", 1),
+              ("brute_spp2", 1))
+
+
+def ring_steps(rank: int, world: int) -> dict:
+    """Ring train steps (SGD, lr 1e-3, RING_TRAINABLE) on the cases of
+    RING_STEPS, each against the unsharded step from the same parameters
+    (loss, every gradient), and the parameters of every rank after each
+    step."""
+    from ray_tracer_tpu_torch.opt import fit
+    from ray_tracer_tpu_torch.parallel.collectives import all_gather
+
+    mesh, rays_axis, _ = ring_meshes(world)
+    target = torch.full((16, 16, 3), 40.0)
+    out = {}
+    for name, n_steps in RING_STEPS:
+        if name == "brute_spp2":
+            prep = ring_case("brute")
+            prep = prep._replace(cfg=_rep(prep.cfg, spp=2))
+        else:
+            prep = ring_case(name)
+        grid, meta = ((prep.packed.arrays, prep.packed.meta) if prep.packed is not None
+                      else (prep.grid.arrays, prep.grid.meta))
+        s_step, s_init, ring_scene = fit.make_ring_train_step(
+            prep, mesh, rays_axis=rays_axis, optimizer="sgd", lr=1e-3, trainable=RING_TRAINABLE)
+        u_step, u_init = fit.make_train_step(meta, prep.cfg, optimizer="sgd", lr=1e-3,
+                                             trainable=RING_TRAINABLE)
+        params, opt = s_init(fit.split_scene(prep.scene))
+        steps = []
+        for _ in range(n_steps):
+            up, uo = u_init(fit.detached(params))
+            _, _, u_loss = u_step(up, uo, prep.scene, grid, target, dda=prep.dda)
+            params, opt, s_loss = s_step(params, opt, ring_scene, target)
+            steps.append({
+                "loss": float(s_loss), "unsharded_loss": float(u_loss),
+                "grads": {f: _numpy(getattr(params, f).grad) for f in RING_TRAINABLE},
+                "unsharded_grads": {f: _numpy(getattr(up, f).grad) for f in RING_TRAINABLE},
+                "params": {f: _numpy(getattr(params, f)) for f in RING_TRAINABLE},
+                "same_on_every_rank": all(
+                    all(torch.equal(x.view(torch.int32),
+                                    getattr(params, f).detach().view(torch.int32))
+                        for x in all_gather(getattr(params, f).detach()))
+                    for f in RING_TRAINABLE)})
+        out[name] = steps
+    return out
+
+
 def _main(argv) -> int:
     global OUT_DIR
     fn, rank, world, init, out = argv
@@ -414,3 +608,4 @@ def _main(argv) -> int:
 
 if __name__ == "__main__":
     sys.exit(_main(sys.argv[1:]))
+
