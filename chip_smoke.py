@@ -4,6 +4,7 @@
     python3 chip_smoke.py --phases build,C,E # a subset, for a quick check
     python3 chip_smoke.py --phases build,multidevice  # the multi-device layer
     python3 chip_smoke.py --phases build,ring  # geometry sharded by ring orbits
+    python3 chip_smoke.py --phases build,grid_build  # the grid builders G and H
 
 Run from the repository root on a machine with a CUDA device.  Phases,
 each printing one JSON line:
@@ -211,6 +212,23 @@ each printing one JSON line:
      `cli render --ring --devices 2` (two gloo ranks sharing the card) at
      1024^2 writing the PPM bytes of (b)'s two-rank spot_1024 image.
 
+ 18. the grid builders (phase grid_build, before main): nefertiti_1024's
+     turbo prepare with the launch counts set to 0 just before it and read
+     just after (kernels G and H each launched; its seconds printed), and
+     the JAX package's ring build of its four shards in one process
+     (build_ring_grids: G and H four times each; its seconds); on
+     spot_1024's and nefertiti_1024's turbo grids (SAT-exact) and on
+     spot_1024's csr grid (AABB binning, the main path's csr prepare)
+     kernel H (csrc/grid_bin.cu) against its plain version on the same
+     CUDA tensors, cell_start and tri_ids bitwise and equal to the grid
+     build's, and kernel G (csrc/empty_boxes.cu) against its plain version
+     on the grid's occupancy, the packed words and the slab-test count
+     bitwise; each kernel's CUDA-event time (5 calls), its profiled
+     device time, its plain version's time on the card and its bound (G:
+     the slab tests at the INT32 rate; H: the SAT test's float64
+     operations); on spot the card's grid and packed grid byte-equal to
+     the CPU build's.  The nefertiti row's times go to the kernels line.
+
 Then the kernel times at the main path's shapes (each launch held
 bitwise to the plain version; B's, C's and E's barycentric passes, and
 E's camera rays, vertices and reflections, counted for their operation
@@ -320,8 +338,33 @@ OPS_PER_BOUNCE_F = 118
 OPS_PER_ESCAPE_F = 6
 OPS_PER_PIXEL_F = 79
 OPS_PER_SAMPLE_F = 3
-ALL_PHASES = ("build", "A", "B", "C", "E", "F", "main", "card_vs_cpu", "appearance", "lights",
-              "float64", "inspect", "train", "multidevice", "ring", "D", "times")
+# H100 SXM INT32 rate outside the tensor cores: 64 results a clock an SM
+# (Hopper's arithmetic pipes), 132 SMs, at the 1,980 MHz boost clock.
+PEAK_INT32_OPS = 64 * 132 * 1.98e9
+# Integer operations per slab test of kernel G (csrc/empty_boxes.cu), the
+# arithmetic one test needs: the cap-and-failed test (1), the slab's face
+# coordinate (1), six clamps of two operations and three +1 (15), the
+# eight table addresses from four row products and twelve sums (16), the
+# eight-term sum (7), the zero test and the growth or the failure mark
+# (2).  The kernel's test counter is not counted, and neither are the
+# other five box faces, which a held box need not recompute.  The tests
+# are those this run's data needs: a direction is tested while it is
+# below the cap and has not failed (a failed slab only widens, so the
+# numpy lock-step's re-tests of it change no bit; the kernel skips them).
+OPS_PER_TEST_G = 42
+# Float64 operations of kernel H's SAT test (csrc/grid_bin.cu) per
+# candidate that survives it: the box and the vertices against its centre
+# (14 an axis: 42), the edges (9), the plane normal (9), and the 10 axes
+# it tests, the plane axis and the nine edge axes, at 30 each (three
+# 5-operation projections, the radius 8, the fold 4, -r and two
+# comparisons: 300); the three box axes are the AABB expansion's, not the
+# test's.  A rejected candidate needs at least the first 60 and one axis
+# (30), which is all this bound counts for it.
+OPS_PER_SURVIVOR_H = 360
+OPS_PER_REJECT_H = 90
+ALL_PHASES = ("build", "A", "B", "C", "E", "F", "grid_build", "main", "card_vs_cpu",
+              "appearance", "lights", "float64", "inspect", "train", "multidevice", "ring", "D",
+              "times")
 # The kernels' device times on the 1024^2 main path before this version
 # of the sources (B and C as redesigned, before C's march step moved into
 # csrc/packed_step.cuh), NVIDIA H100 80GB HBM3 at 700 W, as recorded in
@@ -362,6 +405,13 @@ def extra_lights(raw):
     from ray_tracer_tpu_torch.config import LightConfig
 
     return tuple(LightConfig(position=e[:3], intensity=e[3]) for e in raw)
+
+
+def bound_of(n_bytes, n_ops, peak_ops):
+    """(bound ms, what bounds it): bytes at the HBM rate, operations at
+    `peak_ops` a second."""
+    tb, to = n_bytes / PEAK_BYTES, n_ops / peak_ops
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
 def emit(obj) -> None:
@@ -507,6 +557,7 @@ class Smoke:
     for the `kernels` line."""
 
     def __init__(self):
+        from ray_tracer_tpu_torch.accel import native as kGH
         from ray_tracer_tpu_torch.ops import brute_intersect as kA
         from ray_tracer_tpu_torch.ops import traverse as kB
         from ray_tracer_tpu_torch.ops import traverse_packed as kC
@@ -520,13 +571,16 @@ class Smoke:
                          "packed_march": kC.march_cuda,
                          "gather_row_test": kD.gather_row_test_cuda,
                          "whitted_wave": kE.whitted_wave_cuda,
-                         "gi_wave": kF.gi_wave_cuda}
+                         "gi_wave": kF.gi_wave_cuda,
+                         "empty_boxes": kGH.empty_boxes_cuda,
+                         "grid_bin": kGH.bin_triangles_cuda}
         self.dev = torch.device("cuda")
         self.root = os.path.dirname(os.path.abspath(__file__))
         self.launches = {}
         self.err = {"brute_intersect": 0.0, "traverse_grid": 0.0, "traverse_grid_f64": 0.0,
                     "packed_march": 0.0,
-                    "gather_row_test": 0.0, "whitted_wave": 0.0, "gi_wave": 0.0}
+                    "gather_row_test": 0.0, "whitted_wave": 0.0, "gi_wave": 0.0,
+                    "empty_boxes": 0.0, "grid_bin": 0.0}  # G and H: integers, held bitwise
         self.times = {}
         self.images = {}
         self.libs = {}
@@ -1212,6 +1266,171 @@ class Smoke:
         if frac >= 0.01:
             raise AssertionError(f"nefertiti turbo vs csr: {frac:.2%} of pixels differ by > 2")
 
+    # ---- the grid builders on the card (kernels G and H) -----------------
+    def grid_build(self):
+        """Kernels G and H on spot_1024's and nefertiti_1024's turbo grids:
+        H's cell_start and tri_ids and G's extents, words and slab-test
+        count bitwise their plain versions' on the same CUDA inputs, the
+        card's grid and packed grid on spot byte-equal to the CPU build;
+        each kernel's time beside its plain version's and its bound; and
+        nefertiti's prepare, the main path of G and H, with the counts set
+        to 0 just before it and read just after."""
+        from ray_tracer_tpu_torch.config import apply_turbo
+        from ray_tracer_tpu_torch.models.scenes import (build_scene, nefertiti_scene,
+                                                         serial_scene_config)
+        from ray_tracer_tpu_torch.parallel.shard import build_ring_grids
+        from ray_tracer_tpu_torch.render.renderer import prepare
+
+        scene, cfg = nefertiti_scene(1024, 1024, device=self.dev)
+        cfg = apply_turbo(cfg, "nefertiti")
+        torch.cuda.synchronize()
+        self.zero_counts()
+        t0 = time.perf_counter()
+        self.nef_prep = prepare(cfg, scene=scene)
+        torch.cuda.synchronize()
+        prepare_s = time.perf_counter() - t0
+        counts = self.counts()
+        for kernel in ("empty_boxes", "grid_bin"):
+            if counts[kernel] <= 0:
+                raise AssertionError(f"nefertiti's prepare launched {kernel} 0 times")
+            self.launches[kernel] = counts[kernel]
+        self.path_launches["prepare_turbo_nefertiti"] = counts
+        # the JAX package's ring build: all four shards' grids in this process
+        self.zero_counts()
+        t0 = time.perf_counter()
+        ring = build_ring_grids(self.nef_prep, 4)
+        ring_s = time.perf_counter() - t0
+        ring_counts = self.counts()
+        if ring_counts["empty_boxes"] != 4 or ring_counts["grid_bin"] != 4:
+            raise AssertionError(f"build_ring_grids at 4 shards launched {ring_counts}: G and "
+                                 "H four times each expected")
+        emit({"phase": "grid_build_prepare", "config": "turbo_nefertiti", "size": 1024,
+              "triangles": self.nef_prep.scene.num_faces, "prepare_s": prepare_s,
+              "launches": counts, "n_voxels": list(self.nef_prep.grid.meta.n_voxels),
+              "nnz": self.nef_prep.grid.meta.nnz, "build_ring_grids_4_s": ring_s,
+              "ring_launches": ring_counts, "ring_blocks": ring.meta.n_blocks})
+
+        csr_cfg = serial_scene_config(1024, 1024)
+        spot_cfg = apply_turbo(csr_cfg, "serial")
+        spot = build_scene(spot_cfg, device=self.dev)
+        csr_spot = build_scene(csr_cfg, device=self.dev)
+        rows = {}
+        # nefertiti last: its row's times go to the kernels line
+        for name, sc, c in (("spot_1024", spot, spot_cfg),
+                            ("spot_1024_csr", csr_spot, csr_cfg),
+                            ("nefertiti_1024", self.nef_prep.scene, cfg)):
+            rows[name] = self.grid_build_row(name, sc, c)
+        emit({"phase": "grid_build", "rows": rows,
+              "tolerance": "bitwise (H: cell_start, tri_ids; G: words, slab tests; "
+                           "spot's packed grid card against CPU)"})
+
+    def grid_build_row(self, name, scene, cfg) -> dict:
+        """One scene's grid at its config's knobs (SAT-exact or AABB): H and
+        G held and timed (the last row's times go to the kernels line); on
+        spot's turbo grid, the card's grid and packed grid against the CPU
+        build's bytes."""
+        from ray_tracer_tpu_torch.accel import native
+        from ray_tracer_tpu_torch.accel.grid import build_grid
+        from ray_tracer_tpu_torch.accel.packed import PackedGridArrays, pack_grid
+        from ray_tracer_tpu_torch.render.renderer import choose_inline_layout
+
+        g = cfg.render.grid
+        verts = scene.verts.to(torch.float32).contiguous()
+        faces = scene.faces.to(torch.int32).contiguous()
+        verts_np, faces_np = verts.cpu().numpy(), faces.cpu().numpy()
+        knobs = dict(resolution_multiplier=g.resolution_multiplier,
+                     max_resolution=g.max_resolution, exact_overlap=g.exact_overlap)
+        t0 = time.perf_counter()
+        grid = build_grid(verts_np, faces_np, device=self.dev, **knobs)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        h, meta = grid.host, grid.meta
+        frame = (h.lower, h.inv_width, h.width, meta.n_voxels, g.exact_overlap)
+
+        def run_h():
+            return native.bin_triangles_cuda(verts, faces, *frame)
+
+        cand = []
+        got = native.bin_triangles_cuda(verts, faces, *frame, candidates_out=cand)
+        plain_ms, want = once_ms(lambda: native.bin_triangles_plain(verts, faces, *frame))
+        for field, a, b in (("cell_start", got[0], want[0]), ("tri_ids", got[1], want[1])):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"kernel H on {name}: {field} differs from the plain "
+                                     "version's")
+        if not (np.array_equal(got[0].cpu().numpy(), h.cell_start)
+                and np.array_equal(got[1].cpu().numpy(), h.tri_ids)):
+            raise AssertionError(f"kernel H on {name}: the grid build's CSR differs")
+        h_ms = cuda_ms(run_h, 5)
+        h_dev, h_by = calls_device_ms(run_h, 5, "grid_")
+        n_cand, nnz, cells = cand[0], meta.nnz, meta.total_voxels
+        h_bytes = verts.numel() * 4 + faces.numel() * 4 + (cells + 1) * 8 + nnz * 4
+        h_ops = (nnz * OPS_PER_SURVIVOR_H + (n_cand - nnz) * OPS_PER_REJECT_H
+                 if g.exact_overlap else 0)
+        h_bound, h_bound_by = bound_of(h_bytes, h_ops, PEAK_FP64_UNFUSED)
+
+        nx, ny, nz = meta.n_voxels
+        cs = grid.arrays.cell_start
+        occ = (cs[1:] > cs[:-1]).reshape(nz, ny, nx)
+
+        def run_g():
+            return native.empty_boxes_cuda(occ)
+
+        tk = torch.zeros(1, dtype=torch.int64, device=self.dev)
+        tp = torch.zeros(1, dtype=torch.int64, device=self.dev)
+        words = native.empty_boxes_cuda(occ, tests_out=tk)
+        g_plain_ms, ext_p = once_ms(lambda: native.empty_boxes_plain(occ, tests_out=tp))
+        if not torch.equal(words, native.pack_extents_words(ext_p)):
+            raise AssertionError(f"kernel G on {name}: words differ from the plain version's")
+        if not torch.equal(tk, tp):
+            raise AssertionError(f"kernel G on {name}: {int(tk)} slab tests, the plain "
+                                 f"version {int(tp)}")
+        g_ms = cuda_ms(run_g, 5)
+        g_dev, _ = calls_device_ms(run_g, 5, "empty_boxes")
+        tests = int(tp)
+        g_bytes = cells * 1 + cells * 4  # the occupancy in, a word out
+        g_bound, g_bound_by = bound_of(g_bytes, tests * OPS_PER_TEST_G, PEAK_INT32_OPS)
+        row = {"triangles": int(faces.shape[0]), "n_voxels": [nx, ny, nz],
+               "occupied": int(occ.sum()), "build_grid_s": build_s,
+               "H": {"ms": h_ms, "device_ms": h_dev, "device_ms_by_kernel": h_by,
+                     "plain_ms": plain_ms, "candidates": n_cand, "nnz": nnz,
+                     "bytes": h_bytes, "ops": h_ops, "bound_ms": h_bound,
+                     "bound_by": h_bound_by, "ptxas": self.ptxas.get("grid_bin"),
+                     "equal_plain": True},
+               "G": {"ms": g_ms, "device_ms": g_dev, "plain_ms": g_plain_ms,
+                     "slab_tests": tests, "bytes": g_bytes, "ops": tests * OPS_PER_TEST_G,
+                     "bound_ms": g_bound, "bound_by": g_bound_by,
+                     "ptxas": self.ptxas.get("empty_boxes"), "equal_plain": True}}
+        self.times["G"] = dict(ms=g_ms, plain_ms=g_plain_ms, bound_ms=g_bound,
+                               bound_by=g_bound_by)
+        self.times["H"] = dict(ms=h_ms, plain_ms=plain_ms, bound_ms=h_bound,
+                               bound_by=h_bound_by)
+        if name == "spot_1024":
+            bt = cfg.render.packed_block_tris
+            inline = choose_inline_layout(grid, bt)
+            t0 = time.perf_counter()
+            card = pack_grid(grid, verts_np, faces_np, block_tris=bt, inline=inline)
+            torch.cuda.synchronize()
+            pack_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            cgrid = build_grid(verts_np, faces_np, device="cpu", **knobs)
+            cpu = pack_grid(cgrid, verts_np, faces_np, block_tris=bt, inline=inline)
+            cpu_s = time.perf_counter() - t0
+            if tuple(card.meta) != tuple(cpu.meta):
+                raise AssertionError("spot_1024: the card's packed meta differs from the CPU's")
+            for field in ("cell_start", "tri_ids"):
+                if not np.array_equal(getattr(h, field), getattr(cgrid.host, field)):
+                    raise AssertionError(f"spot_1024: the card's {field} differs from the "
+                                         "CPU build's")
+            for field in PackedGridArrays._fields:
+                a = getattr(card.arrays, field).cpu().numpy()
+                b = getattr(cpu.arrays, field).numpy()
+                if a.shape != b.shape or a.tobytes() != b.tobytes():
+                    raise AssertionError(f"spot_1024: the card's packed {field} differs from "
+                                         "the CPU build's")
+            row["pack_grid"] = {"card_s": pack_s, "cpu_build_and_pack_s": cpu_s,
+                                "inline": inline, "byte_equal_cpu": True}
+        return row
+
     # ---- 7. the main path at full size -----------------------------------
     def main_path(self):
         from ray_tracer_tpu_torch.config import apply_turbo
@@ -1691,7 +1910,8 @@ class Smoke:
             p._replace(kd=p.kd * 1.5, base_color=p.base_color * 0.6), prep.scene))
         self.forward_under_autograd("nefertiti_1024", demo, trainable)
 
-        # the fit, its steps timed with CUDA events and its rebuild on the host
+        # the fit, its steps timed with CUDA events and its rebuild (kernels H
+        # and G on the card, the rows on the host) on the host's clock
         step_events, rebuild_s = [], []
         make_step, rebuild = fitmod.make_train_step, fitmod._rebuild
 
@@ -3493,6 +3713,10 @@ class Smoke:
              "ray_tracer_tpu/ops/whitted_wave.py:79"),
             ("gi_wave", "F", "ray_tracer_tpu_torch/csrc/gi_wave.cu",
              "ray_tracer_tpu/ops/gi_wave.py:96"),
+            ("empty_boxes", "G", "ray_tracer_tpu_torch/csrc/empty_boxes.cu",
+             "ray_tracer_tpu/accel/native.py:151"),
+            ("grid_bin", "H", "ray_tracer_tpu_torch/csrc/grid_bin.cu",
+             "ray_tracer_tpu/accel/native.py:170"),
         ):
             t = self.times[key]
             rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4054,7 +4278,7 @@ def main(argv=None) -> int:
         steps.append(("A,B", lambda: smoke.kernels_ab(phases)))
     steps += [(name, run) for name, run in (
         ("C", smoke.kernel_c), ("E", smoke.kernel_e), ("F", smoke.kernel_f),
-        ("main", smoke.main_path), ("card_vs_cpu", smoke.card_vs_cpu),
+        ("grid_build", smoke.grid_build), ("main", smoke.main_path), ("card_vs_cpu", smoke.card_vs_cpu),
         ("appearance", smoke.appearance), ("lights", smoke.lights),
         ("float64", smoke.float64), ("inspect", smoke.inspect), ("train", smoke.train),
         ("multidevice", smoke.multidevice), ("ring", smoke.ring), ("D", smoke.kernel_d),

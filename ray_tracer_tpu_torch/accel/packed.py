@@ -19,10 +19,11 @@ With `inline=True` row `lin` IS cell lin's first row and its last two
 lanes carry the header as bitcast int32 (overflow row or extents; row
 count), so a march step reads one row; `cell_info` is a dummy (1,).
 
-`greedy_empty_boxes` is the numpy path only: the port binds nothing of
-`native/`.  The JAX package's tests pin its native builder equal to this
-numpy growth, and `tests/test_torch_packed.py` pins the port's tables
-byte-equal to the JAX package's.
+The empty boxes grow on the grid's device through
+`accel/native.empty_boxes` (kernel G on the card, its plain version on
+the CPU); the rows are assembled in host numpy.
+`tests/test_torch_packed.py` pins the port's tables byte-equal to the
+JAX package's.
 """
 
 from __future__ import annotations
@@ -34,11 +35,12 @@ import numpy as np
 import torch
 
 from ray_tracer_tpu_torch.accel.grid import UniformGrid
+from ray_tracer_tpu_torch.accel.native import (EXT_CAP, empty_boxes, empty_boxes_plain,
+                                               pack_extents_words)
 from ray_tracer_tpu_torch.device import resolve_device
 
 BLOCK_TRIS = 14  # default: 14 triangles * 9 floats = 126 of 128 lanes
 DIST_CAP = 31  # Chebyshev-field cap (leap="cheb" reproduction mode)
-EXT_CAP = 31  # per-direction empty-box extent cap (5 bits each)
 
 _FIRST_BITS = 21
 _NBLK_BITS = 6
@@ -114,61 +116,21 @@ def decode_inline_header(row: torch.Tensor):
 def greedy_empty_boxes(occupied: np.ndarray, cap: int = EXT_CAP) -> np.ndarray:
     """Per-cell maximal empty box of every EMPTY cell, by balanced greedy
     round-robin growth against a 3-D summed-area table (the JAX
-    package's numpy path, ray_tracer_tpu/accel/packed.py:188-232).
+    package's numpy path, ray_tracer_tpu/accel/packed.py:188-232), in
+    numpy through the plain version `accel/native.empty_boxes_plain`.
 
     occupied: (nz, ny, nx) bool -> (6, nz, ny, nx) int32 extents
     [x-, x+, y-, y+, z-, z+]; cells outside the grid count as empty;
     occupied cells get zeros."""
-    nz, ny, nx = occupied.shape
-    S = np.zeros((nz + 1, ny + 1, nx + 1), np.int64)
-    S[1:, 1:, 1:] = occupied.astype(np.int64).cumsum(0).cumsum(1).cumsum(2)
-
-    def box_count(zlo, zhi, ylo, yhi, xlo, xhi):
-        # inclusive cell-coord box, clipped (outside the grid is empty)
-        zlo = np.clip(zlo, 0, nz); zhi = np.clip(zhi + 1, 0, nz)
-        ylo = np.clip(ylo, 0, ny); yhi = np.clip(yhi + 1, 0, ny)
-        xlo = np.clip(xlo, 0, nx); xhi = np.clip(xhi + 1, 0, nx)
-        return (S[zhi, yhi, xhi] - S[zlo, yhi, xhi] - S[zhi, ylo, xhi]
-                - S[zhi, yhi, xlo] + S[zlo, ylo, xhi] + S[zlo, yhi, xlo]
-                + S[zhi, ylo, xlo] - S[zlo, ylo, xlo])
-
-    # active set: empty cells still growing
-    zc, yc, xc = (a.ravel() for a in np.nonzero(~occupied))
-    ext_a = np.zeros((6, len(zc)), np.int32)
-    ext = np.zeros((6, nz, ny, nx), np.int32)
-    for _ in range(cap):
-        grew_any = np.zeros(len(zc), bool)
-        for d in range(6):
-            xlo, xhi = xc - ext_a[0], xc + ext_a[1]
-            ylo, yhi = yc - ext_a[2], yc + ext_a[3]
-            zlo, zhi = zc - ext_a[4], zc + ext_a[5]
-            if d == 0:   slab = (zlo, zhi, ylo, yhi, xlo - 1, xlo - 1)
-            elif d == 1: slab = (zlo, zhi, ylo, yhi, xhi + 1, xhi + 1)
-            elif d == 2: slab = (zlo, zhi, ylo - 1, ylo - 1, xlo, xhi)
-            elif d == 3: slab = (zlo, zhi, yhi + 1, yhi + 1, xlo, xhi)
-            elif d == 4: slab = (zlo - 1, zlo - 1, ylo, yhi, xlo, xhi)
-            else:        slab = (zhi + 1, zhi + 1, ylo, yhi, xlo, xhi)
-            ok = (ext_a[d] < cap) & (box_count(*slab) == 0)
-            ext_a[d][ok] += 1
-            grew_any |= ok
-        if not grew_any.any():
-            break
-        if not grew_any.all():
-            # retire saturated cells
-            ext[:, zc[~grew_any], yc[~grew_any], xc[~grew_any]] = ext_a[:, ~grew_any]
-            zc, yc, xc = zc[grew_any], yc[grew_any], xc[grew_any]
-            ext_a = ext_a[:, grew_any]
-    if len(zc):
-        ext[:, zc, yc, xc] = ext_a
-    return ext
+    occ = torch.from_numpy(np.ascontiguousarray(occupied, dtype=bool))
+    return empty_boxes_plain(occ, cap).numpy()
 
 
 def pack_extents(ext: np.ndarray) -> np.ndarray:
     """(6, ...) int32 extents -> (...,) uint32, 5 bits per direction
-    ([x-@0, x+@5, y-@10, y+@15, z-@20, z+@25])."""
-    e = ext.astype(np.uint32)
-    return (e[0] | (e[1] << 5) | (e[2] << 10) | (e[3] << 15)
-            | (e[4] << 20) | (e[5] << 25))
+    ([x-@0, x+@5, y-@10, y+@15, z-@20, z+@25]; kernel G's words)."""
+    words = pack_extents_words(torch.from_numpy(np.ascontiguousarray(ext, np.int32)))
+    return words.numpy().view(np.uint32)
 
 
 def chebyshev_distance_field(occupied: np.ndarray, cap: int = DIST_CAP) -> np.ndarray:
@@ -241,15 +203,19 @@ def pack_grid(
         )
 
     # occupancy + empty-box field, shaped [z, y, x] like the z-major index
-    occ = (counts > 0).reshape(nz, ny, nx)
     if leap == "box":
-        ext = greedy_empty_boxes(occ)
+        # grown on the grid's device (kernel G on the card); the words
+        # come back once for the rows' assembly
+        cs = grid.arrays.cell_start
+        occ_t = (cs[1:] > cs[:-1]).reshape(nz, ny, nx)
+        extw = empty_boxes(occ_t).reshape(-1).cpu().numpy().view(np.uint32)
     elif leap == "cheb":
+        occ = (counts > 0).reshape(nz, ny, nx)
         d = np.maximum(chebyshev_distance_field(occ) - 1, 0)
         ext = np.broadcast_to(d, (6,) + occ.shape).astype(np.int32)
+        extw = pack_extents(ext).reshape(-1)
     else:
         raise ValueError(f"unknown leap mode {leap!r}")
-    extw = pack_extents(ext).reshape(-1)
 
     if inline:
         # cell c's first row IS row c; rows 2..n live contiguously in the

@@ -632,7 +632,7 @@ class _RingDeal:
 class RingGrids:
     """Ring grids (the JAX package's `build_ring_grids` triple as
     attributes): `arrays`, packed grids stacked on a leading axis (host
-    tensors over the numpy build) of shards first, first + 1, ...; `meta`,
+    tensors over the host build) of shards first, first + 1, ...; `meta`,
     shared by every shard of the ring; `fp`, the padded face count.
     `shard(d, device)` puts shard d's grid on a device once and gives
     kernel C's launch values from the host copies."""
@@ -677,8 +677,9 @@ def _ring_faces(scene, n_shards: int):
 
 def _ring_packs(prep, n_shards: int, shards) -> tuple:
     """The packed grids of the listed face slices in numpy: each slice
-    binned at the replicated build's resolution, in the blocks layout
-    (inline=False) whatever prep's layout -> (packs, fp)."""
+    binned at the replicated build's resolution on the scene's device
+    (kernels H and G on the card), in the blocks layout (inline=False)
+    whatever prep's layout -> (packs, fp)."""
     from ray_tracer_tpu_torch.accel.grid import build_grid
     from ray_tracer_tpu_torch.accel.packed import pack_grid
     from ray_tracer_tpu_torch.models.scenes import host_geometry
@@ -695,7 +696,7 @@ def _ring_packs(prep, n_shards: int, shards) -> tuple:
     packs = []
     for d in shards:
         sl = faces_np[d * st:(d + 1) * st]
-        g = build_grid(verts_np, sl, force_resolution=res, device="cpu",
+        g = build_grid(verts_np, sl, force_resolution=res, device=prep.scene.verts.device,
                        resolution_multiplier=rcfg.grid.resolution_multiplier,
                        max_resolution=rcfg.grid.max_resolution,
                        exact_overlap=rcfg.grid.exact_overlap)
@@ -746,8 +747,9 @@ def _sizes(p) -> tuple:
 
 
 def build_ring_grids(prep, n_shards: int) -> RingGrids:
-    """One packed grid a contiguous face slice, on the host (the JAX
-    package's `build_ring_grids`, every shard's grid in this process):
+    """One packed grid a contiguous face slice, built on the scene's
+    device and kept on the host (the JAX package's `build_ring_grids`,
+    every shard's grid in this process):
     every slice binned at the replicated build's resolution, in the blocks
     layout (inline=False) whatever prep's layout; the meta shared (block
     count padded to the largest, probe_delta the smallest, max_blocks the

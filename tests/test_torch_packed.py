@@ -3,8 +3,9 @@
 One CSR grid per scene (the JAX build, carried into the port with
 `grid_from_numpy`) is packed by both packages; `blocks`, `slot_tri`,
 `cell_info` and the meta are byte-equal.  The JAX side builds its empty
-boxes with the native builder, the port with its numpy copy, so these
-tests also pin the two growths equal.
+boxes with the native builder, the port with kernel G's plain version
+(accel/native.empty_boxes_plain), so these tests also pin the two growths
+equal.
 """
 
 import numpy as np
@@ -88,7 +89,7 @@ def test_pack_grid_byte_equal_other_knobs(grids, scene, leap, block_tris, inline
 
 
 def test_greedy_empty_boxes_equal_jax():
-    """The numpy growth against the JAX package's builder on a random
+    """The plain growth against the JAX package's builder on a random
     occupancy with clusters, at the default cap and at a cap of 3."""
     g = np.random.default_rng(7)
     occ = g.random((13, 17, 21)) < 0.04

@@ -259,13 +259,14 @@ def test_failed_kernel_build_raises(monkeypatch, tmp_path):
 
 
 def test_every_kernel_is_built_by_default():
-    """build() with no names compiles all six sources, each into its own
+    """build() with no names compiles all eight sources, each into its own
     library keyed by its sources and flags (the shared headers included:
     packed_step.cuh serves kernels C, E and F)."""
     from ray_tracer_tpu_torch.kernels import _build
 
     assert _build.KERNELS == ("brute_intersect", "traverse_grid", "packed_march",
-                              "gather_row_test", "whitted_wave", "gi_wave")
+                              "gather_row_test", "whitted_wave", "gi_wave", "empty_boxes",
+                              "grid_bin")
     for name in _build.KERNELS:
         assert os.path.exists(os.path.join(_build.CSRC, name + ".cu"))
     paths = {_build.library_path(n) for n in _build.KERNELS}
@@ -273,7 +274,7 @@ def test_every_kernel_is_built_by_default():
 
 
 @pytest.mark.parametrize("name", ["packed_march", "gather_row_test", "whitted_wave",
-                                  "gi_wave"])
+                                  "gi_wave", "empty_boxes", "grid_bin"])
 def test_failed_build_of_new_kernels_raises(monkeypatch, tmp_path, name):
     from ray_tracer_tpu_torch.kernels import _build
 
