@@ -216,18 +216,29 @@ each printing one JSON line:
      turbo prepare with the launch counts set to 0 just before it and read
      just after (kernels G and H each launched; its seconds printed), and
      the JAX package's ring build of its four shards in one process
-     (build_ring_grids: G and H four times each; its seconds); on
-     spot_1024's and nefertiti_1024's turbo grids (SAT-exact) and on
-     spot_1024's csr grid (AABB binning, the main path's csr prepare)
-     kernel H (csrc/grid_bin.cu) against its plain version on the same
-     CUDA tensors, cell_start and tri_ids bitwise and equal to the grid
-     build's, and kernel G (csrc/empty_boxes.cu) against its plain version
-     on the grid's occupancy, the packed words and the slab-test count
-     bitwise; each kernel's CUDA-event time (5 calls), its profiled
-     device time, its plain version's time on the card and its bound (G:
-     the slab tests at the INT32 rate; H: the SAT test's float64
-     operations); on spot the card's grid and packed grid byte-equal to
-     the CPU build's.  The nefertiti row's times go to the kernels line.
+     (build_ring_grids: G and H four times each; its seconds); that
+     prepare and one rebuild of the config-4 fit split into their parts
+     (utils/timing.split_parts: the scene, build_grid's host frame, H, the
+     CSR's copies to the host, G, its words to the host, pack_grid's numpy
+     rows, the upload, B's, E's and F's tables; host seconds fenced by a
+     device sync, CUDA-event ms inside); on spot_1024's and
+     nefertiti_1024's turbo grids (SAT-exact) and on spot_1024's csr grid
+     (AABB binning, the main path's csr prepare) kernel H
+     (csrc/grid_bin.cu) against its plain version on the same CUDA
+     tensors, cell_start and tri_ids bitwise and equal to the grid
+     build's, its host syncs counted under the sync debug mode (at most
+     2), its parts in CUDA events, and max_per_voxel; on spot at a forced
+     2x2x2 resolution (cells past kBlockSort) H bitwise; kernel G
+     (csrc/empty_boxes.cu) against its plain version on the grid's
+     occupancy, the packed words, the greedy slab-test count and the box
+     counts made (probes, slab tests) bitwise; each kernel's CUDA-event
+     time (5 calls), its profiled device time by kernel, its plain
+     version's time on the card and its bound (G: the box counts made,
+     OPS_PER_PROBE_G and OPS_PER_TEST_G, at the INT32 rate, and beside it
+     the greedy tests' bound; H: the SAT test's float64 operations, or
+     its bytes on an AABB grid), and torch.cumsum's summed-area table
+     beside G's own; on spot the card's grid and packed grid byte-equal
+     to the CPU build's.  The nefertiti row's times go to the kernels line.
 
 Then the kernel times at the main path's shapes (each launch held
 bitwise to the plain version; B's, C's and E's barycentric passes, and
@@ -261,6 +272,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -352,6 +364,15 @@ PEAK_INT32_OPS = 64 * 132 * 1.98e9
 # below the cap and has not failed (a failed slab only widens, so the
 # numpy lock-step's re-tests of it change no bit; the kernel skips them).
 OPS_PER_TEST_G = 42
+# Integer operations per probe of kernel G's jump search (csrc/empty_boxes.cu),
+# counted as a slab test is: the search's midpoint (3), the box's six faces
+# from the cell and the radius (6), six clamps of two operations and three
+# +1 (15), the eight table addresses (16), the eight-term sum (7), and the
+# zero test with the update of the range (3).  The directions that failed
+# (a select each) are not counted.  G's bound counts the probes and slab
+# tests its counters report (queries_out); the greedy loop's tests at
+# OPS_PER_TEST_G give the bound that the cell-a-thread kernel had.
+OPS_PER_PROBE_G = 50
 # Float64 operations of kernel H's SAT test (csrc/grid_bin.cu) per
 # candidate that survives it: the box and the vertices against its centre
 # (14 an axis: 42), the edges (9), the plane normal (9), and the 10 axes
@@ -1309,6 +1330,7 @@ class Smoke:
               "launches": counts, "n_voxels": list(self.nef_prep.grid.meta.n_voxels),
               "nnz": self.nef_prep.grid.meta.nnz, "build_ring_grids_4_s": ring_s,
               "ring_launches": ring_counts, "ring_blocks": ring.meta.n_blocks})
+        self.grid_build_split(cfg, scene)
 
         csr_cfg = serial_scene_config(1024, 1024)
         spot_cfg = apply_turbo(csr_cfg, "serial")
@@ -1320,9 +1342,82 @@ class Smoke:
                             ("spot_1024_csr", csr_spot, csr_cfg),
                             ("nefertiti_1024", self.nef_prep.scene, cfg)):
             rows[name] = self.grid_build_row(name, sc, c)
+        rows["spot_2x2x2"] = self.grid_build_coarse(csr_spot)
         emit({"phase": "grid_build", "rows": rows,
-              "tolerance": "bitwise (H: cell_start, tri_ids; G: words, slab tests; "
-                           "spot's packed grid card against CPU)"})
+              "tolerance": "bitwise (H: cell_start, tri_ids; G: words, greedy slab tests, "
+                           "probes and slab tests made; spot's packed grid card against CPU)"})
+
+    def grid_build_split(self, cfg, scene):
+        """nefertiti's turbo prepare and one rebuild of the config-4 fit
+        split into their parts (utils/timing.part: host seconds of work
+        fenced by a device synchronisation, CUDA-event ms inside), beside
+        their unsplit seconds."""
+        from ray_tracer_tpu_torch.models.scenes import nefertiti_scene
+        from ray_tracer_tpu_torch.opt import fit as fitmod
+        from ray_tracer_tpu_torch.render.renderer import prepare
+        from ray_tracer_tpu_torch.utils.timing import split_parts
+
+        # the parts inside build_grid and pack_grid; what is left of each is
+        # its host frame and its numpy rows
+        nested = {"build_grid": ("H", "csr_to_host", "grid_assemble"),
+                  "pack_grid": ("G", "words_to_host", "upload")}
+
+        def split(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            unsplit_s = time.perf_counter() - t0
+            with split_parts() as parts:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                total_s = time.perf_counter() - t0
+            by = {}
+            for name, host_s, dev_ms in parts:
+                h, d = by.get(name, (0.0, 0.0))
+                by[name] = (h + host_s, d + (dev_ms or 0.0))
+            rests = {"build_grid": "grid_frame", "pack_grid": "rows"}
+            for outer, inner in nested.items():
+                if outer in by:
+                    by[rests[outer]] = tuple(by[outer][k] - sum(by[n][k] for n in inner
+                                                                if n in by) for k in (0, 1))
+            top = [n for n in by if n not in sum(nested.values(), ()) + tuple(rests.values())]
+            return {"unsplit_s": unsplit_s, "split_total_s": total_s,
+                    "outside_parts_s": total_s - sum(by[n][0] for n in top),
+                    "parts": {n: {"host_s": h, "device_ms": d} for n, (h, d) in by.items()}}
+
+        prep = split(lambda: prepare(cfg, scene=scene))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nefertiti_scene(1024, 1024, device=self.dev)  # the scene prepare is given
+        torch.cuda.synchronize()
+        prep["scene_build_s"] = time.perf_counter() - t0
+        params = fitmod.split_scene(self.nef_prep.scene)
+        rebuild = split(lambda: fitmod._rebuild(self.nef_prep, params))
+        emit({"phase": "grid_build_split", "config": "turbo_nefertiti", "size": 1024,
+              "prepare": prep, "rebuild": rebuild})
+
+    def grid_build_coarse(self, scene) -> dict:
+        """Kernel H's rank tier: spot at a forced 2x2x2 resolution (AABB),
+        every cell past kWarpSort triangles, against its plain version."""
+        from ray_tracer_tpu_torch.accel import native
+        from ray_tracer_tpu_torch.accel.grid import build_grid
+
+        verts = scene.verts.to(torch.float32).contiguous()
+        faces = scene.faces.to(torch.int32).contiguous()
+        cgrid = build_grid(verts.cpu().numpy(), faces.cpu().numpy(),
+                           force_resolution=(2, 2, 2), device="cpu")
+        h = cgrid.host
+        frame = (h.lower, h.inv_width, h.width, cgrid.meta.n_voxels, False)
+        got = native.bin_triangles_cuda(verts, faces, *frame)
+        want = native.bin_triangles_plain(verts, faces, *frame)
+        for field, a, b, c in (("cell_start", got[0], want[0], h.cell_start),
+                               ("tri_ids", got[1], want[1], h.tri_ids)):
+            if not torch.equal(a, b) or not np.array_equal(a.cpu().numpy(), c):
+                raise AssertionError(f"kernel H on spot at 2x2x2: {field} differs")
+        return {"n_voxels": [2, 2, 2], "nnz": cgrid.meta.nnz,
+                "max_per_voxel": cgrid.meta.max_per_voxel, "H_equal_plain": True}
 
     def grid_build_row(self, name, scene, cfg) -> dict:
         """One scene's grid at its config's knobs (SAT-exact or AABB): H and
@@ -1351,7 +1446,25 @@ class Smoke:
             return native.bin_triangles_cuda(verts, faces, *frame)
 
         cand = []
-        got = native.bin_triangles_cuda(verts, faces, *frame, candidates_out=cand)
+        torch.cuda.synchronize()
+        # the wrapper's host syncs, counted: each synchronizing CUDA call
+        # warns under the sync debug mode
+        # the wrapper's host syncs, counted: under the sync debug mode each
+        # synchronizing CUDA call warns (the mode is set outside the count:
+        # setting it warns too)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                got = native.bin_triangles_cuda(verts, faces, *frame, candidates_out=cand)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        sync_sites = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+                      if "synchroniz" in str(w.message)]
+        h_syncs = len(sync_sites)
+        if h_syncs > 2:
+            raise AssertionError(f"kernel H on {name}: {h_syncs} host syncs, at most 2: "
+                                 f"{sync_sites}")
         plain_ms, want = once_ms(lambda: native.bin_triangles_plain(verts, faces, *frame))
         for field, a, b in (("cell_start", got[0], want[0]), ("tri_ids", got[1], want[1])):
             if a.dtype != b.dtype or not torch.equal(a, b):
@@ -1361,12 +1474,17 @@ class Smoke:
                 and np.array_equal(got[1].cpu().numpy(), h.tri_ids)):
             raise AssertionError(f"kernel H on {name}: the grid build's CSR differs")
         h_ms = cuda_ms(run_h, 5)
-        h_dev, h_by = calls_device_ms(run_h, 5, "grid_")
+        h_dev, h_by = calls_device_ms(run_h, 5)
+        h_parts = {}
+        native.bin_triangles_cuda(verts, faces, *frame, parts_out=h_parts)
         n_cand, nnz, cells = cand[0], meta.nnz, meta.total_voxels
-        h_bytes = verts.numel() * 4 + faces.numel() * 4 + (cells + 1) * 8 + nnz * 4
+        # the vertices and faces in, the counts written and read, the CSR out
+        h_bytes = (verts.numel() * 4 + faces.numel() * 4 + cells * 4 * 2 + (cells + 1) * 8
+                   + nnz * 4)
         h_ops = (nnz * OPS_PER_SURVIVOR_H + (n_cand - nnz) * OPS_PER_REJECT_H
                  if g.exact_overlap else 0)
         h_bound, h_bound_by = bound_of(h_bytes, h_ops, PEAK_FP64_UNFUSED)
+        counts = np.diff(h.cell_start)
 
         nx, ny, nz = meta.n_voxels
         cs = grid.arrays.cell_start
@@ -1375,30 +1493,43 @@ class Smoke:
         def run_g():
             return native.empty_boxes_cuda(occ)
 
-        tk = torch.zeros(1, dtype=torch.int64, device=self.dev)
-        tp = torch.zeros(1, dtype=torch.int64, device=self.dev)
-        words = native.empty_boxes_cuda(occ, tests_out=tk)
-        g_plain_ms, ext_p = once_ms(lambda: native.empty_boxes_plain(occ, tests_out=tp))
+        i64 = dict(dtype=torch.int64, device=self.dev)
+        tk, tp, qk, qp = (torch.zeros(n, **i64) for n in (1, 1, 2, 2))
+        words = native.empty_boxes_cuda(occ, tests_out=tk, queries_out=qk)
+        g_plain_ms, ext_p = once_ms(lambda: native.empty_boxes_plain(occ, tests_out=tp,
+                                                                     queries_out=qp))
         if not torch.equal(words, native.pack_extents_words(ext_p)):
             raise AssertionError(f"kernel G on {name}: words differ from the plain version's")
-        if not torch.equal(tk, tp):
-            raise AssertionError(f"kernel G on {name}: {int(tk)} slab tests, the plain "
-                                 f"version {int(tp)}")
+        if not torch.equal(tk, tp) or not torch.equal(qk, qp):
+            raise AssertionError(f"kernel G on {name}: {int(tk)} slab tests and queries "
+                                 f"{qk.tolist()}, the plain version {int(tp)} and "
+                                 f"{qp.tolist()}")
         g_ms = cuda_ms(run_g, 5)
-        g_dev, _ = calls_device_ms(run_g, 5, "empty_boxes")
+        g_dev, g_by = calls_device_ms(run_g, 5)
+        table_torch_ms = cuda_ms(lambda: native._summed_area(occ), 5)
         tests = int(tp)
+        probes, made = qp.tolist()
         g_bytes = cells * 1 + cells * 4  # the occupancy in, a word out
-        g_bound, g_bound_by = bound_of(g_bytes, tests * OPS_PER_TEST_G, PEAK_INT32_OPS)
+        g_ops = probes * OPS_PER_PROBE_G + made * OPS_PER_TEST_G
+        g_bound, g_bound_by = bound_of(g_bytes, g_ops, PEAK_INT32_OPS)
+        g_bound_greedy, _ = bound_of(g_bytes, tests * OPS_PER_TEST_G, PEAK_INT32_OPS)
         row = {"triangles": int(faces.shape[0]), "n_voxels": [nx, ny, nz],
                "occupied": int(occ.sum()), "build_grid_s": build_s,
                "H": {"ms": h_ms, "device_ms": h_dev, "device_ms_by_kernel": h_by,
+                     "parts_ms": h_parts, "host_syncs": h_syncs, "sync_sites": sync_sites,
                      "plain_ms": plain_ms, "candidates": n_cand, "nnz": nnz,
+                     "max_per_voxel": int(counts.max()),
+                     "cells_over_32": int((counts > 32).sum()),
+                     "cells_over_1024": int((counts > 1024).sum()),
                      "bytes": h_bytes, "ops": h_ops, "bound_ms": h_bound,
                      "bound_by": h_bound_by, "ptxas": self.ptxas.get("grid_bin"),
                      "equal_plain": True},
-               "G": {"ms": g_ms, "device_ms": g_dev, "plain_ms": g_plain_ms,
-                     "slab_tests": tests, "bytes": g_bytes, "ops": tests * OPS_PER_TEST_G,
-                     "bound_ms": g_bound, "bound_by": g_bound_by,
+               "G": {"ms": g_ms, "device_ms": g_dev, "device_ms_by_kernel": g_by,
+                     "table_torch_cumsum_ms": table_torch_ms, "plain_ms": g_plain_ms,
+                     "greedy_slab_tests": tests, "probes": probes, "slab_tests_made": made,
+                     "bytes": g_bytes, "ops": g_ops, "bound_ms": g_bound,
+                     "bound_by": g_bound_by, "ops_greedy": tests * OPS_PER_TEST_G,
+                     "bound_ms_greedy": g_bound_greedy,
                      "ptxas": self.ptxas.get("empty_boxes"), "equal_plain": True}}
         self.times["G"] = dict(ms=g_ms, plain_ms=g_plain_ms, bound_ms=g_bound,
                                bound_by=g_bound_by)

@@ -29,6 +29,7 @@ import torch
 
 from ray_tracer_tpu_torch.accel.native import bin_triangles
 from ray_tracer_tpu_torch.device import resolve_device
+from ray_tracer_tpu_torch.utils.timing import part
 
 
 class GridMeta(NamedTuple):
@@ -141,16 +142,19 @@ def build_grid(
         inv_width = np.where(
             width == 0.0, np.float32(0.0), np.float32(1.0) / width
         )
+    verts_t, faces_t = torch.from_numpy(verts).to(dev), torch.from_numpy(faces).to(dev)
 
     nx, ny, nz = (int(x) for x in n_voxels)
-    cell_start, tri_ids = bin_triangles(
-        torch.from_numpy(verts).to(dev), torch.from_numpy(faces).to(dev),
-        lower, inv_width, width, (nx, ny, nz), exact_overlap and num_tris > 0)
-    host = GridHost(lower=lower, upper=upper, width=width,
-                    inv_width=inv_width, cell_start=cell_start.cpu().numpy(),
-                    tri_ids=tri_ids.cpu().numpy())
+    with part("H"):
+        cell_start, tri_ids = bin_triangles(verts_t, faces_t, lower, inv_width, width,
+                                            (nx, ny, nz), exact_overlap and num_tris > 0)
+    with part("csr_to_host"):
+        host = GridHost(lower=lower, upper=upper, width=width,
+                        inv_width=inv_width, cell_start=cell_start.cpu().numpy(),
+                        tri_ids=tri_ids.cpu().numpy())
     # the binned tensors stay on the device; the host keeps the copies
-    return _assemble(host, (nx, ny, nz), dev, cell_start.to(torch.int32), tri_ids)
+    with part("grid_assemble"):
+        return _assemble(host, (nx, ny, nz), dev, cell_start.to(torch.int32), tri_ids)
 
 
 def grid_from_numpy(host, n_voxels, device=None) -> UniformGrid:

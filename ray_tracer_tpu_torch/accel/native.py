@@ -11,20 +11,23 @@ numpy arrays).
   * `empty_boxes` (`empty_boxes_native`, native.py:151;
     raytpu_native.cc:395-467): the greedy maximal empty box of every
     empty cell, as the packed words `pack_grid` consumes.  Kernel G,
-    `csrc/empty_boxes.cu`, grows one cell a thread against a summed-area
-    table that `_summed_area` builds with `torch.cumsum`;
+    `csrc/empty_boxes.cu`, builds its own summed-area table and grows a
+    cell a thread with exact jumps (the largest box that the next rounds
+    would all grow into, by binary search), the warp's lanes in step;
     `empty_boxes_plain` is the lock-step round-robin of the JAX package's
-    numpy path on tensors, giving the extents.  A cell's growth reads
-    only the occupancy and its own extents, so the two give the same bits.
+    numpy path on tensors with the same jumps, giving the extents.  A
+    cell's growth reads only the occupancy and its own extents, so the two
+    give the same bits, and the same counts.
   * `bin_triangles` (the binning of `build_grid_native`, native.py:170;
     raytpu_native.cc:176-314): every triangle into the cells its AABB
-    overlaps, with `exact` only those a SAT test in float64 keeps, then a
-    stable order by cell.  Kernel H, `csrc/grid_bin.cu`, is two kernels:
-    one thread a triangle for its voxel span, then one thread a candidate
-    (cell, triangle) pair, tri-major, for the cell and the SAT test; a
-    stable `torch.sort` of the cell keys gives each cell its triangles in
-    ascending order.  `bin_triangles_plain` is `_build_csr_numpy` and
-    `tri_box_overlap` of the JAX package on tensors.
+    overlaps, with `exact` only those a SAT test in float64 keeps, each
+    cell's triangles ascending.  Kernel H, `csrc/grid_bin.cu`, is a
+    counting scatter: a span kernel (a thread a triangle), a count kernel
+    with the SAT test (a thread a candidate pair, tri-major), a scan of
+    the counts, a scatter, and a sort of each cell on the card; two host
+    reads.  `bin_triangles_plain` is `_build_csr_numpy` and
+    `tri_box_overlap` of the JAX package on tensors, ordered by a stable
+    sort of the cell keys.
 
 The OBJ parser (`load_obj_native`) stays on the host: text has no form on
 the card, and `io/obj.py` reads the JAX package's bytes in numpy.
@@ -41,6 +44,19 @@ from ray_tracer_tpu_torch.kernels import _build
 
 EXT_CAP = 31  # per-direction empty-box extent cap (5 bits each)
 _INT_MIN = -(1 << 31)
+_P, _I, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_LAUNCHERS = {}
+
+
+def _launcher(lib: str, name: str, argtypes):
+    """The C launcher `name` of kernel library `lib`, its signature set once."""
+    fn = _LAUNCHERS.get((lib, name))
+    if fn is None:
+        fn = getattr(_build.library(lib), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _LAUNCHERS[(lib, name)] = fn
+    return fn
 
 
 def _check_occupied(occupied: torch.Tensor, cap: int) -> None:
@@ -55,7 +71,8 @@ def _check_occupied(occupied: torch.Tensor, cap: int) -> None:
 
 def _summed_area(occupied: torch.Tensor) -> torch.Tensor:
     """(nz+1, ny+1, nx+1) int32 summed-area table of the occupancy, a zero
-    plane on each low face, by three cumsums (the numpy path's table)."""
+    plane on each low face, by three cumsums (the numpy path's table; the
+    plain version's, kernel G builds its own)."""
     nz, ny, nx = occupied.shape
     s = torch.zeros((nz + 1, ny + 1, nx + 1), dtype=torch.int32, device=occupied.device)
     s[1:, 1:, 1:] = (occupied.to(torch.int32).cumsum(0, dtype=torch.int32)
@@ -71,20 +88,28 @@ def pack_extents_words(ext: torch.Tensor) -> torch.Tensor:
 
 
 def empty_boxes_plain(occupied: torch.Tensor, cap: int = EXT_CAP,
-                      tests_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      tests_out: Optional[torch.Tensor] = None,
+                      queries_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The greedy maximal empty boxes on tensors of any device: the JAX
-    package's numpy growth (ray_tracer_tpu/accel/packed.py:188-232).
+    package's numpy growth (ray_tracer_tpu/accel/packed.py:188-232), with
+    kernel G's exact jumps.
 
     occupied (nz, ny, nx) bool -> (6, nz, ny, nx) int32 extents [x-, x+,
     y-, y+, z-, z+].  Every round each direction of each growing cell
     tries one more cell, in that order, against the extents the earlier
     directions of the round reached; a slab is empty when its clipped box
     count is 0 (outside the grid counts as empty).  Occupied cells get
-    zeros.  tests_out (1,) int64 gets the slab tests a cell-at-a-time
-    loop needs (kernel G's count): each round a cell takes part in tests
-    every direction below the cap that has not failed yet.  A failed
-    direction stays failed (its slab only widens as the others grow), so
-    the lock-step's re-tests of it change no bit and are not counted."""
+    zeros.  Before each round a cell jumps: the largest j in [0, jmax]
+    whose box B_j (each direction that has not failed grown by j, at most
+    to the cap) is empty, by binary search, is the number of rounds that
+    would all succeed, so the extents take those rounds at once.  tests_out
+    (1,) int64 gets the slab tests a cell-at-a-time greedy loop needs
+    (each round a cell tests every direction below the cap that has not
+    failed yet; a jump by j adds them for its j rounds); queries_out (2,)
+    int64 the box counts made, the jumps' probes and the slab tests (kernel
+    G's counters).  A failed direction stays failed (its slab only widens
+    as the others grow), so the lock-step's re-tests of it change no bit
+    and are not counted."""
     _check_occupied(occupied, cap)
     nz, ny, nx = occupied.shape
     dev = occupied.device
@@ -109,9 +134,29 @@ def empty_boxes_plain(occupied: torch.Tensor, cap: int = EXT_CAP,
     failed = torch.zeros((6, zc.shape[0]), dtype=torch.bool, device=dev)
     ext = torch.zeros((6, nz * ny * nx), dtype=torch.int32, device=dev)
     tests = torch.zeros((), dtype=torch.int64, device=dev)
-    for _ in range(cap):
+    probes = torch.zeros((), dtype=torch.int64, device=dev)
+    made = torch.zeros((), dtype=torch.int64, device=dev)
+    while zc.shape[0]:
+        # the jump: binary search of the largest j in [0, jmax] with B_j empty
+        open_dir = ~failed & (ext_a < cap)
+        hi = torch.where(open_dir, cap - ext_a, torch.zeros_like(ext_a)).amax(0)
+        lo = torch.zeros_like(hi)
+        while True:
+            searching = lo < hi
+            if not bool(searching.any()):
+                break
+            probes += searching.sum()
+            mid = (lo + hi + 1) >> 1
+            g = torch.where(failed, ext_a, torch.clamp(ext_a + mid, max=cap))
+            empty = box_count(zc - g[4], zc + g[5], yc - g[2], yc + g[3],
+                              xc - g[0], xc + g[1]) == 0
+            lo = torch.where(searching & empty, mid, lo)
+            hi = torch.where(searching & ~empty, mid - 1, hi)
+        step = torch.where(failed, torch.zeros_like(ext_a), torch.minimum(lo, cap - ext_a))
+        tests += step.sum()
+        ext_a += step
+        # one greedy round
         grew_any = torch.zeros(zc.shape[0], dtype=torch.bool, device=dev)
-        tests += ((ext_a < cap) & ~failed).sum()
         for d in range(6):
             xlo, xhi = xc - ext_a[0], xc + ext_a[1]
             ylo, yhi = yc - ext_a[2], yc + ext_a[3]
@@ -122,55 +167,54 @@ def empty_boxes_plain(occupied: torch.Tensor, cap: int = EXT_CAP,
             elif d == 3: slab = (zlo, zhi, yhi + 1, yhi + 1, xlo, xhi)
             elif d == 4: slab = (zlo - 1, zlo - 1, ylo, yhi, xlo, xhi)
             else:        slab = (zhi + 1, zhi + 1, ylo, yhi, xlo, xhi)
-            below = ext_a[d] < cap
-            ok = below & (box_count(*slab) == 0)
-            failed[d] |= below & ~ok
+            tested = ~failed[d] & (ext_a[d] < cap)
+            made += tested.sum()
+            ok = tested & (box_count(*slab) == 0)
+            failed[d] |= tested & ~ok
             ext_a[d] += ok
             grew_any |= ok
-        if not bool(grew_any.any()):
-            break
-        if not bool(grew_any.all()):
-            # retire saturated cells
-            done = ~grew_any
+        # a cell that did not grow is final: a round after a jump short of
+        # the cap fails somewhere, so each cell retires within seven rounds
+        done = ~grew_any
+        if bool(done.any()):
             ext[:, (zc[done] * ny + yc[done]) * nx + xc[done]] = ext_a[:, done].to(torch.int32)
             zc, yc, xc = zc[grew_any], yc[grew_any], xc[grew_any]
             ext_a, failed = ext_a[:, grew_any], failed[:, grew_any]
-    # after `cap` rounds every direction is at the cap or has failed: a
-    # cell still growing then has nothing left to test
-    if zc.shape[0]:
-        ext[:, (zc * ny + yc) * nx + xc] = ext_a.to(torch.int32)
     if tests_out is not None:
-        tests_out += tests
+        tests_out += tests + made
+    if queries_out is not None:
+        queries_out += torch.stack([probes, made])
     return ext.reshape(6, nz, ny, nx)
 
 
 def empty_boxes_cuda(occupied: torch.Tensor, cap: int = EXT_CAP,
-                     tests_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     tests_out: Optional[torch.Tensor] = None,
+                     queries_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel G on a CUDA occupancy: the plain version's extents as
     (nz, ny, nx) int32 words (`pack_extents_words`), what `pack_grid`
-    consumes.  tests_out (1,) int64 on the card gets the slab tests made,
-    as the plain version counts them."""
+    consumes.  tests_out (1,) and queries_out (2,) int64 on the card get
+    the greedy loop's slab tests and the box counts made (probes, slab
+    tests), as the plain version counts them."""
     _check_occupied(occupied, cap)
     if not occupied.is_cuda:
         raise ValueError("empty_boxes_cuda takes CUDA tensors")
     nz, ny, nx = occupied.shape
     dev = occupied.device
-    if tests_out is not None and (tests_out.dtype != torch.int64 or tests_out.device != dev):
-        raise ValueError("tests_out must be an int64 tensor on the occupancy's device")
+    for name, out, n in (("tests_out", tests_out, 1), ("queries_out", queries_out, 2)):
+        if out is not None and (out.dtype != torch.int64 or out.device != dev
+                                or out.numel() != n):
+            raise ValueError(f"{name} must be a ({n},) int64 tensor on the occupancy's device")
     occ = occupied.contiguous()
-    sat = _summed_area(occ)
     words = torch.empty((nz, ny, nx), dtype=torch.int32, device=dev)
     if words.numel() == 0:
         return words
-    lib = _build.library("empty_boxes")
-    fn = lib.empty_boxes_launch
-    fn.restype = ctypes.c_int
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, i, i, i, p, p, p]
+    sat = torch.empty((nz + 1, ny + 1, nx + 1), dtype=torch.int32, device=dev)
+    fn = _launcher("empty_boxes", "empty_boxes_launch", [_P, _P, _I, _I, _I, _I] + [_P] * 4)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(occ.data_ptr(), sat.data_ptr(), nx, ny, nz, int(cap), words.data_ptr(),
-                 None if tests_out is None else tests_out.data_ptr(), stream)
+                 None if tests_out is None else tests_out.data_ptr(),
+                 None if queries_out is None else queries_out.data_ptr(), stream)
     _build.check(err, "empty_boxes")
     empty_boxes_cuda.launches += 1
     return words
@@ -261,7 +305,8 @@ def bin_triangles_plain(verts: torch.Tensor, faces: torch.Tensor, lower: Sequenc
                         n_voxels: Sequence[int], exact: bool
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The CSR binning on tensors of any device: the JAX package's
-    `_build_csr_numpy` (ray_tracer_tpu/accel/grid.py:146-206).
+    `_build_csr_numpy` (ray_tracer_tpu/accel/grid.py:307-373; `tri_box_overlap`
+    :120).
 
     verts (V, 3) f32, faces (F, 3) int32; lower, inv_width, width the
     grid's float32 frame (3 floats each), n_voxels (nx, ny, nz).  Each
@@ -329,14 +374,19 @@ def bin_triangles_plain(verts: torch.Tensor, faces: torch.Tensor, lower: Sequenc
 def bin_triangles_cuda(verts: torch.Tensor, faces: torch.Tensor, lower: Sequence[float],
                        inv_width: Sequence[float], width: Sequence[float],
                        n_voxels: Sequence[int], exact: bool,
-                       candidates_out: Optional[list] = None
+                       candidates_out: Optional[list] = None,
+                       parts_out: Optional[dict] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel H on CUDA tensors: the plain version's (cell_start int64,
-    tri_ids int32).  The span kernel gives each triangle its voxel span
-    and candidate count, one cumsum places its candidates, the bin kernel
-    writes each candidate's cell key (past every cell where the SAT test
-    rejects it) and triangle, and a stable sort of the keys orders them
-    by cell.  candidates_out, a list, gets the candidate count."""
+    tri_ids int32), by a counting scatter.  The span kernel gives each
+    triangle its voxel span and candidate count (and flags a face index out
+    of range), a cumsum places its candidates, and one host read takes the
+    candidate count with the flag; the count kernel runs each candidate's
+    SAT test and counts the kept pairs a cell, a cumsum of the counts is
+    cell_start, and the place kernels scatter the kept pairs and sort each
+    cell; the second host read is nnz.  candidates_out, a list, gets the
+    candidate count; parts_out, a dict, the CUDA-event ms of each part
+    (span, cumsum_and_read, count, scan, place, read_nnz)."""
     nx, ny, nz = _check_bin_inputs(verts, faces, n_voxels)
     if not verts.is_cuda:
         raise ValueError("bin_triangles_cuda takes CUDA tensors")
@@ -347,44 +397,64 @@ def bin_triangles_cuda(verts: torch.Tensor, faces: torch.Tensor, lower: Sequence
         return (torch.zeros(total + 1, dtype=torch.int64, device=dev),
                 torch.zeros(0, dtype=torch.int32, device=dev))
     verts, faces = verts.contiguous(), faces.contiguous()
-    lo, hi = torch.aminmax(faces)
-    if int(lo) < 0 or int(hi) >= verts.shape[0]:
-        raise IndexError("a face indexes past the vertex table")
-    lib = _build.library("grid_bin")
-    p, i, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    span_fn = lib.grid_span_launch
-    span_fn.restype = ctypes.c_int
-    span_fn.argtypes = [p, p, i] + [f32] * 6 + [i, i, i, p, p, p]
-    bin_fn = lib.grid_bin_launch
-    bin_fn.restype = ctypes.c_int
-    bin_fn.argtypes = [p, p, p, p, i, ctypes.c_longlong] + [f32] * 6 + [i, i, i, i, p, p, p]
+    span_fn = _launcher("grid_bin", "grid_span_launch",
+                        [_P, _I, _P, _I] + [_F32] * 6 + [_I, _I, _I, _P, _P, _P, _P])
+    count_fn = _launcher("grid_bin", "grid_count_launch",
+                         [_P, _P, _P, _P, _I, _I64] + [_F32] * 6 + [_I, _I, _I, _I] + [_P] * 5)
+    place_fn = _launcher("grid_bin", "grid_place_launch", [_P] * 4 + [_I64, _I, _P, _P, _P])
+    marks = [] if parts_out is not None else None
+
+    def mark(name):
+        if marks is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+
     box = torch.empty((num_tris, 6), dtype=torch.int32, device=dev)
-    count = torch.empty((num_tris,), dtype=torch.int64, device=dev)
+    # one zeroed buffer: each triangle's candidate count, scanned in place
+    # into its end, and the face flag after them; then each cell's kept
+    # pairs after a zero, scanned in place into cell_start
+    zeroed = torch.zeros((num_tris + 1 + total + 1,), dtype=torch.int64, device=dev)
+    ends, flag = zeroed[:num_tris], zeroed[num_tris:num_tris + 1]
+    cell_start = zeroed[num_tris + 1:]
     lw = [float(x) for x in lower]
     iw = [float(x) for x in inv_width]
     ww = [float(x) for x in width]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = span_fn(verts.data_ptr(), faces.data_ptr(), num_tris, *lw, *iw, nx, ny, nz,
-                      box.data_ptr(), count.data_ptr(), stream)
+        mark("start")
+        err = span_fn(verts.data_ptr(), verts.shape[0], faces.data_ptr(), num_tris, *lw, *iw,
+                      nx, ny, nz, box.data_ptr(), ends.data_ptr(), flag.data_ptr(), stream)
         _build.check(err, "grid_bin (span)")
-        ends = count.cumsum(0)
-        n_cand = int(ends[-1])
-        keys = torch.empty((n_cand,), dtype=torch.int32, device=dev)
-        tri = torch.empty((n_cand,), dtype=torch.int32, device=dev)
-        err = bin_fn(verts.data_ptr(), faces.data_ptr(), box.data_ptr(), ends.data_ptr(),
-                     num_tris, n_cand, *lw, *ww, nx, ny, nz, int(bool(exact)),
-                     keys.data_ptr(), tri.data_ptr(), stream)
-    _build.check(err, "grid_bin")
+        mark("span")
+        ends.cumsum_(0)
+        n_cand, n_bad = zeroed[num_tris - 1:num_tris + 1].tolist()  # host read 1
+        mark("cumsum_and_read")
+        if n_bad:
+            raise IndexError("a face indexes past the vertex table")
+        key, slot, tri, buf = torch.empty((4, n_cand), dtype=torch.int32, device=dev)
+        out = torch.empty((n_cand,), dtype=torch.int32, device=dev)
+        err = count_fn(verts.data_ptr(), faces.data_ptr(), box.data_ptr(), ends.data_ptr(),
+                       num_tris, n_cand, *lw, *ww, nx, ny, nz, int(bool(exact)),
+                       cell_start[1:].data_ptr(), key.data_ptr(), slot.data_ptr(),
+                       tri.data_ptr(), stream)
+        _build.check(err, "grid_bin (count)")
+        mark("count")
+        cell_start[1:].cumsum_(0)
+        mark("scan")
+        err = place_fn(key.data_ptr(), slot.data_ptr(), tri.data_ptr(), cell_start.data_ptr(),
+                       n_cand, total, buf.data_ptr(), out.data_ptr(), stream)
+        _build.check(err, "grid_bin (place)")
+        mark("place")
+        nnz = int(cell_start[-1])  # host read 2
+        mark("read_nnz")
     bin_triangles_cuda.launches += 1
     if candidates_out is not None:
         candidates_out.append(n_cand)
-    # rejected pairs carry the key `total` and sort past every cell
-    counts = torch.bincount(keys, minlength=total + 1)[:total]
-    cell_start = torch.cat([counts.new_zeros(1), counts.cumsum(0)])
-    order = torch.sort(keys, stable=True).indices
-    nnz = int(cell_start[-1])
-    return cell_start, tri[order[:nnz]]
+    if marks is not None:
+        marks[-1][1].synchronize()
+        parts_out.update({b[0]: a[1].elapsed_time(b[1]) for a, b in zip(marks, marks[1:])})
+    return cell_start, out[:nnz]
 
 
 bin_triangles_cuda.launches = 0

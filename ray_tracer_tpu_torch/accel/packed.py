@@ -38,6 +38,7 @@ from ray_tracer_tpu_torch.accel.grid import UniformGrid
 from ray_tracer_tpu_torch.accel.native import (EXT_CAP, empty_boxes, empty_boxes_plain,
                                                pack_extents_words)
 from ray_tracer_tpu_torch.device import resolve_device
+from ray_tracer_tpu_torch.utils.timing import part
 
 BLOCK_TRIS = 14  # default: 14 triangles * 9 floats = 126 of 128 lanes
 DIST_CAP = 31  # Chebyshev-field cap (leap="cheb" reproduction mode)
@@ -206,9 +207,11 @@ def pack_grid(
     if leap == "box":
         # grown on the grid's device (kernel G on the card); the words
         # come back once for the rows' assembly
-        cs = grid.arrays.cell_start
-        occ_t = (cs[1:] > cs[:-1]).reshape(nz, ny, nx)
-        extw = empty_boxes(occ_t).reshape(-1).cpu().numpy().view(np.uint32)
+        with part("G"):
+            cs = grid.arrays.cell_start
+            words = empty_boxes((cs[1:] > cs[:-1]).reshape(nz, ny, nx))
+        with part("words_to_host"):
+            extw = words.reshape(-1).cpu().numpy().view(np.uint32)
     elif leap == "cheb":
         occ = (counts > 0).reshape(nz, ny, nx)
         d = np.maximum(chebyshev_distance_field(occ) - 1, 0)
@@ -285,13 +288,14 @@ def pack_grid(
             cell_info=info.view(np.int32), blocks=blocks, slot_tri=slot_tri)
         return PackedGrid(arrays=arrays, meta=meta)
     dev = grid.arrays.lower.device
-    arrays = PackedGridArrays(
-        lower=grid.arrays.lower, upper=grid.arrays.upper,
-        width=grid.arrays.width, inv_width=grid.arrays.inv_width,
-        cell_info=torch.from_numpy(info.view(np.int32).copy()).to(dev),
-        blocks=torch.from_numpy(blocks).to(dev),
-        slot_tri=torch.from_numpy(slot_tri).to(dev),
-    )
+    with part("upload"):
+        arrays = PackedGridArrays(
+            lower=grid.arrays.lower, upper=grid.arrays.upper,
+            width=grid.arrays.width, inv_width=grid.arrays.inv_width,
+            cell_info=torch.from_numpy(info.view(np.int32).copy()).to(dev),
+            blocks=torch.from_numpy(blocks).to(dev),
+            slot_tri=torch.from_numpy(slot_tri).to(dev),
+        )
     return PackedGrid(arrays=arrays, meta=meta)
 
 

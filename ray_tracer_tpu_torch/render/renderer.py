@@ -108,6 +108,7 @@ from ray_tracer_tpu_torch.render.pathtrace import (
     render_pt,
     use_gi_wave_spec,
 )
+from ray_tracer_tpu_torch.utils.timing import part
 
 TRAVERSALS = ("csr", "brute", "brute_pallas", "packed")
 _DET_DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -326,45 +327,55 @@ def prepare(cfg: SceneConfig, scene: Scene = None, device=None) -> Prepared:
     cfg.extra_lights are attached to a given scene that has none (a scene
     that carries extra lights keeps its own), as in the JAX package."""
     check_supported(cfg, scene)  # raise before any work
-    if scene is None:
-        dev = resolve_device(device)
-        verts_np, faces_np, fmat_np, uvs_np, uvf_np = scene_numpy_arrays(cfg)
-        scene = scene_from_numpy(verts_np, faces_np, fmat_np, cfg.materials,
-                                 cfg.light, uvs_np, uvf_np, device=dev,
-                                 extra_lights=cfg.extra_lights)
-    else:
-        dev = scene.device
-        if device is not None and resolve_device(device) != dev:
-            raise ValueError(f"scene lies on {dev}, not on {device}")
-        if cfg.extra_lights and scene.extra_light_pos is None:
-            scene = scene._replace(**extra_light_tables(cfg.extra_lights, scene.verts.dtype,
-                                                        dev))
-        verts_np = scene.verts.cpu().numpy()
-        faces_np = scene.faces.cpu().numpy()
-    grid = build_grid(
-        verts_np, faces_np,
-        resolution_multiplier=cfg.render.grid.resolution_multiplier,
-        max_resolution=cfg.render.grid.max_resolution,
-        exact_overlap=cfg.render.grid.exact_overlap,
-        device=dev,
-    )
+    with part("scene"):
+        if scene is None:
+            dev = resolve_device(device)
+            verts_np, faces_np, fmat_np, uvs_np, uvf_np = scene_numpy_arrays(cfg)
+            scene = scene_from_numpy(verts_np, faces_np, fmat_np, cfg.materials,
+                                     cfg.light, uvs_np, uvf_np, device=dev,
+                                     extra_lights=cfg.extra_lights)
+        else:
+            dev = scene.device
+            if device is not None and resolve_device(device) != dev:
+                raise ValueError(f"scene lies on {dev}, not on {device}")
+            if cfg.extra_lights and scene.extra_light_pos is None:
+                scene = scene._replace(**extra_light_tables(cfg.extra_lights,
+                                                            scene.verts.dtype, dev))
+            verts_np = scene.verts.cpu().numpy()
+            faces_np = scene.faces.cpu().numpy()
+    with part("build_grid"):
+        grid = build_grid(
+            verts_np, faces_np,
+            resolution_multiplier=cfg.render.grid.resolution_multiplier,
+            max_resolution=cfg.render.grid.max_resolution,
+            exact_overlap=cfg.render.grid.exact_overlap,
+            device=dev,
+        )
     packed = None
     if cfg.render.traversal == "packed":
-        bt = cfg.render.packed_block_tris
-        if bt == 0:  # auto: the measured density rule
-            bt = choose_block_tris(grid)
-        layout = cfg.render.grid_layout
-        inline = layout == "inline" or (layout == "auto" and choose_inline_layout(grid, bt))
-        packed = pack_grid(grid, verts_np, faces_np, block_tris=bt, inline=inline,
-                           leap=cfg.render.grid.leap)
+        with part("pack_grid"):
+            bt = cfg.render.packed_block_tris
+            if bt == 0:  # auto: the measured density rule
+                bt = choose_block_tris(grid)
+            layout = cfg.render.grid_layout
+            inline = layout == "inline" or (layout == "auto"
+                                            and choose_inline_layout(grid, bt))
+            packed = pack_grid(grid, verts_np, faces_np, block_tris=bt, inline=inline,
+                               leap=cfg.render.grid.leap)
     dda = None
     if cfg.render.traversal == "csr":
-        dda = dda_tables(grid.arrays, vertex_table(*scene.triangle_soa()))
-    setup = frame_setup(cfg, scene, packed)
-    wave = build_wave_tables(scene) if setup.wave else None
+        with part("B_tables"):
+            dda = dda_tables(grid.arrays, vertex_table(*scene.triangle_soa()))
+    with part("frame_setup"):
+        setup = frame_setup(cfg, scene, packed)
+    wave = None
+    if setup.wave:
+        with part("E_tables"):
+            wave = build_wave_tables(scene)
     gi = None
     if setup.gi_wave:
-        gi = build_gi_wave_tables(scene, cfg.render, setup.gi_spec, vn=setup.vn)
+        with part("F_tables"):
+            gi = build_gi_wave_tables(scene, cfg.render, setup.gi_spec, vn=setup.vn)
     return Prepared(scene=scene, grid=grid, cfg=cfg, packed=packed, dda=dda, wave=wave,
                     setup=setup, gi=gi)
 

@@ -94,3 +94,44 @@ def profile_trace(logdir: Optional[str]):
         yield
         hard_sync()
     prof.export_chrome_trace(os.path.join(logdir, f"trace_{os.getpid()}.json"))
+
+
+# ---- the parts of a host call --------------------------------------------
+
+_PARTS: Optional[list] = None  # the split being recorded, if any
+
+
+@contextlib.contextmanager
+def split_parts():
+    """Record the parts (`part`) of the calls made inside the block: yields
+    a list that gets (name, host seconds, device ms) for each part in
+    order.  A part starts and ends with a device synchronisation, so its
+    host seconds hold the card work it queued; its device ms are CUDA
+    events between its start and end (None without a card)."""
+    global _PARTS
+    prev, _PARTS = _PARTS, []
+    try:
+        yield _PARTS
+    finally:
+        _PARTS = prev
+
+
+@contextlib.contextmanager
+def part(name: str):
+    """A named part of a host call (`prepare`, `build_grid`, `pack_grid`):
+    timed when `split_parts` records, else nothing."""
+    parts = _PARTS
+    if parts is None:
+        yield
+        return
+    cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
+    if cuda:
+        hard_sync()
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+    t0 = time.perf_counter()
+    yield
+    if cuda:
+        ev[1].record()
+        hard_sync()
+    parts.append((name, time.perf_counter() - t0, ev[0].elapsed_time(ev[1]) if cuda else None))
