@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,multidevice  # the multi-device layer
     python3 chip_smoke.py --phases build,ring  # geometry sharded by ring orbits
     python3 chip_smoke.py --phases build,grid_build  # the grid builders G and H
+    python3 chip_smoke.py --phases build,parity  # the CLI's flags and the bench's single mode
 
 Run from the repository root on a machine with a CUDA device.  Phases,
 each printing one JSON line:
@@ -239,6 +240,25 @@ each printing one JSON line:
      its bytes on an AABB grid), and torch.cumsum's summed-area table
      beside G's own; on spot the card's grid and packed grid byte-equal
      to the CPU build's.  The nefertiti row's times go to the kernels line.
+ 19. the last parity gaps (phase parity, after inspect), at 1024x1024:
+     through `ray_tracer_tpu_torch.cli.main` in this process, each command's
+     launch counts set to 0 just before it and read just after, (a) `render
+     --scene gradcheck` (kernel B; every launch logged and held bitwise to
+     the plain version, the PPM render()'s bytes), (b) `render --scene
+     parallel --turbo --gi-samples 4 --gi-depth 2 --gi-no-specular
+     --light-intensity PARITY_GI_LIGHT` (the GI wave without its mirror mix:
+     one call of F, held bitwise to the plain version with every counter;
+     the PPM render()'s bytes for gi_specular=False and not the specular
+     render's), (c) `render --scene serial --turbo --profile DIR` (the
+     trace file names packed_march_kernel); then as subprocesses, one after
+     another, `bench_torch.py --size 1024 --scene spot`, `cli bench --width
+     1024`, `bench_torch.py --gi 4 --gi-depth 2` and `bench_torch.py
+     --grad`: one JSON line each with bench.py's keys for the mode
+     (BENCH_PY_KEYS) beside `device` and `card`, a nonzero oracle and
+     vs_baseline its value over the oracle's on the forward lines, and the
+     mode's kernel launched (C, or F for GI; the counts each writes to
+     stderr).  The phase's paths go on a launches_by_path line of their own,
+     and its seconds on a line.
 
 Then the kernel times at the main path's shapes (each launch held
 bitwise to the plain version; B's, C's and E's barycentric passes, and
@@ -384,8 +404,8 @@ OPS_PER_PROBE_G = 50
 OPS_PER_SURVIVOR_H = 360
 OPS_PER_REJECT_H = 90
 ALL_PHASES = ("build", "A", "B", "C", "E", "F", "grid_build", "main", "card_vs_cpu",
-              "appearance", "lights", "float64", "inspect", "train", "multidevice", "ring", "D",
-              "times")
+              "appearance", "lights", "float64", "inspect", "parity", "train", "multidevice",
+              "ring", "D", "times")
 # The kernels' device times on the 1024^2 main path before this version
 # of the sources (B and C as redesigned, before C's march step moved into
 # csrc/packed_step.cuh), NVIDIA H100 80GB HBM3 at 700 W, as recorded in
@@ -414,6 +434,18 @@ LIGHTS_B = ((-6.0, 8.0, 4.0, 0.6),)
 LIGHTS_C = ((0.0, 5.0, 5.0, 96.0),)
 LIGHTS_FIT = ((-4.0, 6.0, -2.0, 1.0),)
 AREA_LIGHT = dict(light_radius=0.5, shadow_samples=16)
+# Phase parity: the primary light's intensity of the path-traced parallel
+# scene (its faithful light, 1, is black in GI's radiometric units), and the
+# keys of bench.py's JSON line in each mode (bench.py:519-533, _bench_gi,
+# _bench_grad), which bench_torch.py's single measurement prints.
+PARITY_GI_LIGHT = 5000.0
+BENCH_PY_KEYS = {
+    "forward": {"metric", "value", "unit", "vs_baseline", "seconds_per_frame", "value_median",
+                "secs_chains", "size", "oracle_mrays_per_s", "device"},
+    "gi": {"metric", "value", "unit", "vs_baseline", "seconds_per_frame", "secs_chains", "size",
+           "gi_samples", "gi_depth", "paths_per_s_m", "paths_per_s_m_median"},
+    "grad": {"metric", "value", "unit", "vs_baseline", "seconds_per_step", "size", "trainable"},
+}
 # Phase ring: the all-pairs ring's image size (its sweep is every ray
 # against every triangle of the serial scene).
 RING_BRUTE_SIZE = 128
@@ -2902,6 +2934,163 @@ class Smoke:
         emit({"phase": "inspect_cli", "size": 256, "seconds_all_four": time.perf_counter() - t0,
               "commands": results})
 
+    # ---- 19. the last parity gaps (phase parity) ---------------------------
+    def parity(self):
+        """The command line's flags that close the gaps to the JAX package's,
+        in this process (its launches counted from 0 and logged), and
+        bench_torch.py's single measurement as subprocesses."""
+        t0 = time.perf_counter()
+        self.parity_cli()
+        self.parity_bench()
+        emit({"phase": "parity_seconds", "seconds": time.perf_counter() - t0})
+        emit({"phase": "launches_by_path", "paths": {
+            k: v for k, v in self.path_launches.items() if k.startswith("parity_")}})
+
+    def cli_render(self, name, args):
+        """`cli render ARGS --out build/chip_smoke_<name>.ppm` in this
+        process, the launch counts set to 0 just before and read just after
+        -> (its PPM, the counts)."""
+        from ray_tracer_tpu_torch import cli
+        from ray_tracer_tpu_torch.io.ppm import read_ppm
+
+        out_ppm = os.path.join(self.root, "build", f"chip_smoke_{name}.ppm")
+        os.makedirs(os.path.dirname(out_ppm), exist_ok=True)
+        self.zero_counts()
+        cli.main(["render", *args, "--out", out_ppm])
+        torch.cuda.synchronize()
+        counts = self.counts()
+        self.path_launches[f"parity_{name}"] = counts
+        return read_ppm(out_ppm), counts
+
+    def parity_cli(self, size=1024):
+        """(a) `render --scene gradcheck`: every launch of B held to the plain
+        version, the PPM render()'s bytes; (b) `render --scene parallel
+        --turbo --gi-samples 4 --gi-depth 2 --gi-no-specular`: the GI wave
+        without its mirror mix, one call of F held bitwise to the plain
+        version, the PPM render()'s bytes for gi_specular=False and not the
+        specular render's; (c) `render --profile DIR`: the trace names
+        kernel C's symbol."""
+        import shutil
+
+        from ray_tracer_tpu_torch.io.ppm import tonemap_u8
+        from ray_tracer_tpu_torch.models.scenes import gradcheck_scene, parallel_scene_config
+        from ray_tracer_tpu_torch.render.renderer import prepare, render
+
+        width = ["--width", str(size)]
+        with self.logging_launches() as log:
+            ppm, counts = self.cli_render("gradcheck", ["--scene", "gradcheck", *width])
+        if counts["traverse_grid"] <= 0:
+            raise AssertionError(f"cli render --scene gradcheck launched {counts}")
+        held = self.hold_logged("cli render --scene gradcheck", log)
+        del log
+        scene, cfg = gradcheck_scene(size, size, device=self.dev)
+        if not (ppm == tonemap_u8(render(prepare(cfg, scene=scene)).cpu().numpy())).all():
+            raise AssertionError("cli render --scene gradcheck differs from render()")
+        emit({"phase": "parity_gradcheck", "size": size, "launches": counts, "held": held,
+              "tolerance": "bitwise (records, rows tested)", "same_bytes_as_render": True})
+
+        # the faithful parallel scene's light (intensity 1) renders black
+        # in GI's radiometric units: the JAX command's --light-intensity
+        gi = ["--scene", "parallel", *width, "--turbo", "--gi-samples", "4", "--gi-depth", "2",
+              "--light-intensity", str(PARITY_GI_LIGHT)]
+        lambert, counts = self.cli_render("gi_no_specular", gi + ["--gi-no-specular"])
+        traces = {k: v for k, v in counts.items() if k not in ("empty_boxes", "grid_bin")}
+        if traces["gi_wave"] != 1 or sum(traces.values()) != 1:
+            raise AssertionError(f"the --gi-no-specular command launched {counts}: F once "
+                                 "and no other trace (G and H build its grid) expected")
+        specular, scounts = self.cli_render("gi_specular", gi)
+        cfg = self.gi_config(parallel_scene_config, size, "parallel", 4, 2, gi_specular=False)
+        cfg = dataclasses.replace(cfg, light=dataclasses.replace(
+            cfg.light, intensity=float(PARITY_GI_LIGHT)))
+        p = prepare(cfg)
+        if not p.setup.gi_wave or p.setup.gi_spec:
+            raise AssertionError("the --gi-no-specular config should take the GI wave "
+                                 "without its mirror mix")
+        if not (lambert == tonemap_u8(render(p).cpu().numpy())).all():
+            raise AssertionError("cli render --gi-no-specular differs from render()")
+        differ = float((lambert != specular).mean())
+        if differ <= 0.0:
+            raise AssertionError("--gi-no-specular renders the specular image")
+        err, events, passes = self.gi_check("kernel F --gi-no-specular", p)
+        self.err["gi_wave"] = max(self.err["gi_wave"], err)
+        emit({"phase": "parity_gi_no_specular", "size": size, "S": 4, "D": 2,
+              "light_intensity": PARITY_GI_LIGHT, "launches": counts,
+              "specular_launches": scounts, "mirror_mix": False,
+              "bytes_differing_from_specular": differ, "same_bytes_as_render": True,
+              "kernel_F": {"events": events, "passes": passes, "max_abs_err": err,
+                           "tolerance": "bitwise (radiance and every counter)"}})
+
+        logdir = os.path.join(self.root, "build", "chip_smoke_profile")
+        shutil.rmtree(logdir, ignore_errors=True)
+        _, counts = self.cli_render("profile", ["--scene", "serial", *width, "--turbo",
+                                                "--profile", logdir])
+        (trace,) = os.listdir(logdir)
+        with open(os.path.join(logdir, trace)) as fh:
+            events = json.load(fh)["traceEvents"]
+        symbol = "packed_march_kernel"
+        named = sum(1 for e in events if symbol in str(e.get("name", "")))
+        if counts["packed_march"] <= 0 or named <= 0:
+            raise AssertionError(f"--profile: {named} events of {symbol}, launches {counts}")
+        emit({"phase": "parity_profile", "size": size, "trace": trace,
+              "trace_mb": os.path.getsize(os.path.join(logdir, trace)) / 1e6,
+              "events": len(events), "events_of_" + symbol: named, "launches": counts})
+
+    def parity_bench(self):
+        """bench_torch.py's single measurement (spot 1024^2: the forward
+        frame, GI S 4 D 2, the train step) and `cli bench --width 1024`, one
+        subprocess after another: each prints one JSON line with bench.py's
+        keys for its mode beside `device` and `card`, the forward lines a
+        vs_baseline of their value over the oracle's Mrays/s, and each
+        frame launched its kernel (the counts it writes to stderr)."""
+        from ray_tracer_tpu_torch.tools.profiling import card_line
+
+        card = card_line()
+        runs = {
+            "bench_single_spot_1024": ("forward", ["bench_torch.py", "--size", "1024",
+                                                   "--scene", "spot"]),
+            "cli_bench_width_1024": ("forward", ["-m", "ray_tracer_tpu_torch.cli", "bench",
+                                                 "--width", "1024"]),
+            "bench_single_gi_spot_1024_s4d2": ("gi", ["bench_torch.py", "--gi", "4",
+                                                      "--gi-depth", "2"]),
+            "bench_single_train_spot_1024": ("grad", ["bench_torch.py", "--grad"]),
+        }
+        kernel = {"forward": "packed_march", "gi": "gi_wave", "grad": "packed_march"}
+        lines = {}
+        for name, (mode, argv) in runs.items():
+            t0 = time.perf_counter()
+            run = subprocess.run([sys.executable, *argv], cwd=self.root, capture_output=True,
+                                 text=True, timeout=600)
+            secs = time.perf_counter() - t0
+            if run.returncode != 0:
+                raise AssertionError(f"{name} failed:\n{run.stderr[-3000:]}")
+            out = run.stdout.strip().splitlines()
+            if len(out) != 1:
+                raise AssertionError(f"{name}: {len(out)} lines on stdout, one expected")
+            line = json.loads(out[0])
+            want = BENCH_PY_KEYS[mode] | {"device", "card"}
+            if set(line) != want:
+                raise AssertionError(f"{name}: keys {sorted(line)} are not {sorted(want)}")
+            if line["device"] != torch.cuda.get_device_name(0) or line["card"] != card:
+                raise AssertionError(f"{name}: device {line['device']!r}, card {line['card']!r}")
+            if not line["value"] > 0 or line["size"] != 1024:
+                raise AssertionError(f"{name}: {line}")
+            if mode == "forward":
+                oracle = line["oracle_mrays_per_s"]
+                if not oracle > 0:
+                    raise AssertionError(f"{name}: no oracle baseline ({line})")
+                if abs(line["vs_baseline"] - line["value"] / oracle) > 1e-4 * max(
+                        1.0, line["vs_baseline"]):
+                    raise AssertionError(f"{name}: vs_baseline is not value / oracle ({line})")
+            elif line["vs_baseline"] != 0.0:
+                raise AssertionError(f"{name}: vs_baseline {line['vs_baseline']}, 0 expected")
+            logged = [x for x in run.stderr.splitlines() if x.startswith("launches: ")]
+            launches = json.loads(logged[-1][len("launches: "):])
+            if launches[kernel[mode]] <= 0:
+                raise AssertionError(f"{name} launched {kernel[mode]} 0 times ({launches})")
+            self.path_launches[f"parity_{name}"] = launches
+            lines[name] = {"line": line, "seconds": secs, "launches": launches}
+        emit({"phase": "parity_bench", "runs": lines})
+
     # ---- 16. multi-device (phase multidevice) ------------------------------
     def multidevice(self):
         """(a) the sharded queues of E and F in one process; (b) to (e) the
@@ -4411,7 +4600,8 @@ def main(argv=None) -> int:
         ("C", smoke.kernel_c), ("E", smoke.kernel_e), ("F", smoke.kernel_f),
         ("grid_build", smoke.grid_build), ("main", smoke.main_path), ("card_vs_cpu", smoke.card_vs_cpu),
         ("appearance", smoke.appearance), ("lights", smoke.lights),
-        ("float64", smoke.float64), ("inspect", smoke.inspect), ("train", smoke.train),
+        ("float64", smoke.float64), ("inspect", smoke.inspect), ("parity", smoke.parity),
+        ("train", smoke.train),
         ("multidevice", smoke.multidevice), ("ring", smoke.ring), ("D", smoke.kernel_d),
         ("times", smoke.kernel_times)) if name in phases]
     seconds = {}

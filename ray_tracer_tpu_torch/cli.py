@@ -12,9 +12,13 @@
     python -m ray_tracer_tpu_torch.cli render --scene parallel --width 256 \\
         --turbo --spp 2 --aperture 0.25 --focus-distance 20 --out dof.ppm
     python -m ray_tracer_tpu_torch.cli render --scene serial --width 1024 \\
-        --turbo --gi 4 --gi-depth 2 --out gi.ppm   # the GI wave (kernel F)
+        --turbo --gi-samples 4 --gi-depth 2 --out gi.ppm   # the GI wave (kernel F)
     python -m ray_tracer_tpu_torch.cli render --scene serial --width 256 \\
-        --gi 2 --gi-depth 1 --out gi_csr.ppm      # the segment integrator on kernel B
+        --gi-samples 2 --gi-depth 1 --out gi_csr.ppm   # the segment integrator on kernel B
+    python -m ray_tracer_tpu_torch.cli render --scene parallel --width 1024 --turbo \\
+        --gi-samples 4 --gi-no-specular --light-intensity 5000 --out lambert.ppm
+    python -m ray_tracer_tpu_torch.cli render --scene gradcheck --width 1024 \\
+        --profile trace_dir --out g.ppm     # a torch.profiler trace of the render
     python -m ray_tracer_tpu_torch.cli render --scene nefertiti --width 1024 \\
         --turbo --out nef.ppm
     python -m ray_tracer_tpu_torch.cli render --scene serial --width 1024 \\
@@ -32,6 +36,7 @@
         --out aovs.npz
     python -m ray_tracer_tpu_torch.cli info
     python -m ray_tracer_tpu_torch.cli bench --rows spot_1024
+    python -m ray_tracer_tpu_torch.cli bench --width 1024   # bench_torch.py --size 1024
     python -m ray_tracer_tpu_torch.cli render --scene serial --width 1024 --turbo \
         --devices 4 --out x.ppm      # rays sharded over four cards (NCCL)
     torchrun --nproc-per-node 4 -m ray_tracer_tpu_torch.cli render --devices 4 ...
@@ -110,17 +115,18 @@ def _build_cfg(args):
         # (gi_pump), as in the JAX package's command line.
         from ray_tracer_tpu_torch.config import apply_turbo
 
-        if args.gi > 0:
-            cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render,
-                                                                      gi_samples=args.gi))
+        if args.gi_samples > 0:
+            cfg = dataclasses.replace(cfg, render=dataclasses.replace(
+                cfg.render, gi_samples=args.gi_samples))
         family = {"serial": "serial", "parallel": "parallel", "nefertiti": "nefertiti",
                   "nefertiti_spot": "nefertiti"}.get(getattr(args, "scene", None))
         cfg = apply_turbo(cfg, family)
     if getattr(args, "spp", 1) > 1:
         cfg = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, spp=args.spp))
-    if getattr(args, "gi", 0) > 0:
+    if getattr(args, "gi_samples", 0) > 0:
         cfg = dataclasses.replace(cfg, render=dataclasses.replace(
-            cfg.render, faithful=False, gi_samples=args.gi, gi_depth=args.gi_depth))
+            cfg.render, faithful=False, gi_samples=args.gi_samples, gi_depth=args.gi_depth,
+            gi_specular=not args.gi_no_specular))
     li = getattr(args, "light_intensity", None)
     if li is not None:
         if cfg.render.faithful:
@@ -298,7 +304,9 @@ def cmd_render(args) -> None:
 
     from ray_tracer_tpu_torch.io.png import write_png
     from ray_tracer_tpu_torch.io.ppm import write_ppm
+    from ray_tracer_tpu_torch.parallel.multihost import is_host0
     from ray_tracer_tpu_torch.render.renderer import prepare, render
+    from ray_tracer_tpu_torch.utils.timing import profile_trace
 
     if _on_ranks(args):
         return
@@ -306,23 +314,28 @@ def cmd_render(args) -> None:
     prep = prepare(cfg, scene=scene, device=args.device)
     ring = getattr(args, "ring", False)
     mesh = _mesh(args, ("tris",) if ring else ("rays",))
+    logdir = args.profile
     t0 = time.perf_counter()
-    if mesh is None:
-        img = render(prep)
-    else:
-        from ray_tracer_tpu_torch.parallel.multihost import is_host0
-        from ray_tracer_tpu_torch.parallel.shard import render_sharded, render_sharded_geometry
-
-        if ring:
-            # every rank on the triangle axis: each holds 1/N of the geometry
-            img = render_sharded_geometry(prep, mesh=mesh, rays_axis=None)
+    with profile_trace(logdir):  # each rank writes its own trace file
+        if mesh is None:
+            img = render(prep)
         else:
-            img = render_sharded(prep, mesh=mesh)
-        if not is_host0():
-            return
+            from ray_tracer_tpu_torch.parallel.shard import (
+                render_sharded, render_sharded_geometry,
+            )
+
+            if ring:
+                # every rank on the triangle axis: each holds 1/N of the geometry
+                img = render_sharded_geometry(prep, mesh=mesh, rays_axis=None)
+            else:
+                img = render_sharded(prep, mesh=mesh)
+    if mesh is not None and not is_host0():
+        return
     if prep.device.type == "cuda":
         torch.cuda.synchronize(prep.device)
     dt = time.perf_counter() - t0
+    if logdir:
+        print(f"profiler trace written to {logdir}", file=sys.stderr)
     (write_png if args.out.lower().endswith(".png") else write_ppm)(args.out,
                                                                      img.cpu().numpy())
     pixels = cfg.camera.width * cfg.camera.height
@@ -348,7 +361,10 @@ def cmd_render(args) -> None:
 def cmd_fit(args) -> None:
     """Fit the scene's parameters to a target PPM, or (no --target) the
     self-demo: render the scene, perturb kd by 1.5 and base_color by 0.6,
-    and recover them.  Prints {"first_loss", "last_loss"}."""
+    and recover them.  With --resume the newest checkpoint in --out-dir
+    (the port's, or the JAX package's, orbax or npz) gives the params and
+    the step to go on from.  Prints {"first_loss", "last_loss"} (null when
+    no step was left)."""
     import json
 
     import numpy as np
@@ -372,18 +388,21 @@ def cmd_fit(args) -> None:
     trainable = (tuple(f.strip() for f in args.trainable.split(",") if f.strip())
                  if args.trainable else None)
     _, losses = fit(prep, target, steps=args.steps, lr=args.lr, trainable=trainable,
-                    checkpoint_dir=args.out_dir, log_every=max(1, args.steps // 10))
-    print(json.dumps({"first_loss": losses[0], "last_loss": losses[-1]}))
+                    checkpoint_dir=args.out_dir, resume=args.resume,
+                    log_every=max(1, args.steps // 10))
+    print(json.dumps({"first_loss": losses[0] if losses else None,
+                      "last_loss": losses[-1] if losses else None}))
 
 
 def cmd_bench(args) -> None:
     """Exec the port's bench (bench_torch.py at the repository root), as the
-    JAX package's command execs bench.py."""
+    JAX package's command execs bench.py: --width N is its --size N, one
+    measurement of the spot scene at N x N."""
     import os
 
     script = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                           "bench_torch.py")
-    extra = []
+    extra = ["--size", str(args.width)] if args.width else []
     for flag in ("rows", "repeat", "rounds"):
         if getattr(args, flag):
             extra += [f"--{flag}", str(getattr(args, flag))]
@@ -484,7 +503,7 @@ def _inspect_parser(sub, name, help_, width):
     p.add_argument("--turbo", action="store_true",
                    help="the tuned production pipeline (packed grid, persistent wave)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    p.set_defaults(gi=0)
+    p.set_defaults(gi_samples=0)
     return p
 
 
@@ -498,7 +517,7 @@ def main(argv=None) -> None:
     sub = ap.add_subparsers(dest="cmd", required=True)
     r = sub.add_parser("render", help="render a scene to PPM (or PNG: --out x.png)")
     r.add_argument("--scene", default="serial",
-                   choices=["serial", "parallel", "nefertiti", "nefertiti_spot"])
+                   choices=["serial", "parallel", "gradcheck", "nefertiti", "nefertiti_spot"])
     r.add_argument("--config", help="scene config JSON (in place of --scene and the size)")
     r.add_argument("--width", type=int, default=256)
     r.add_argument("--height", type=int, default=0, help="0 = width")
@@ -520,10 +539,13 @@ def main(argv=None) -> None:
                    help="thin-lens radius for depth of field (needs --spp>1)")
     r.add_argument("--focus-distance", type=float, default=0.0,
                    help="focal-plane distance (default: distance to target)")
-    r.add_argument("--gi", type=int, default=0, metavar="SAMPLES",
+    r.add_argument("--gi-samples", "--gi", type=int, default=0, metavar="SAMPLES",
                    help="path-traced GI with this many samples a pixel (0: Whitted)")
     r.add_argument("--gi-depth", type=int, default=2,
                    help="GI bounces after the primary vertex")
+    r.add_argument("--gi-no-specular", action="store_true",
+                   help="path-traced GI: no mirror branch on reflective materials "
+                        "(every material Lambertian)")
     r.add_argument("--smooth-normals", action="store_true",
                    help="Phong-interpolated vertex normals (implies --fast)")
     r.add_argument("--texture", default=None, choices=["none", "checker", "image"],
@@ -544,6 +566,9 @@ def main(argv=None) -> None:
                         "(implies --fast)")
     r.add_argument("--shadow-samples", type=int, default=0,
                    help="shadow rays a light for --light-radius (default 16)")
+    r.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the render (the CPU and the "
+                        "card) into this directory")
     r.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     _rank_options(r, "shard the rays over this many ranks, one a device",
                   "with --devices: shard the geometry over the ranks and ring-pass the rays")
@@ -571,10 +596,15 @@ def main(argv=None) -> None:
     f.add_argument("--trainable", default="base_color,kd,ks,ka,light_pos",
                    help="comma-separated SceneParams fields")
     f.add_argument("--out-dir", default=None, help="checkpoint directory")
+    f.add_argument("--resume", action="store_true",
+                   help="go on from the newest checkpoint in --out-dir (one the JAX "
+                        "package wrote too), to --steps in all")
     f.add_argument("--fast", action="store_true", help="production semantics")
     f.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     f.set_defaults(fn=cmd_fit)
     b = sub.add_parser("bench", help="run the port's benchmark (bench_torch.py)")
+    b.add_argument("--width", type=int, default=0,
+                   help="one measurement at this size (bench_torch.py --size)")
     b.add_argument("--rows", default=None, help="comma list of bench_torch.py rows")
     b.add_argument("--repeat", type=int, default=0, help="frames a timed chain")
     b.add_argument("--rounds", type=int, default=0, help="timed chains a row")

@@ -43,3 +43,8 @@ class RayBatch(NamedTuple):
             return fn(self)
         return torch.cat([fn(self.slice(lo, min(lo + tile, r))) for lo in range(0, r, tile)])
 
+
+def concatenate(batches) -> RayBatch:
+    """The batches' rays one after another: each field concatenated along
+    axis 0."""
+    return RayBatch(*(torch.cat(fields, dim=0) for fields in zip(*batches)))

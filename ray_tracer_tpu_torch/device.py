@@ -22,3 +22,17 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def same_device(have: torch.device, want: torch.device) -> bool:
+    """Does a tensor on `have` lie where `want` asks?  A cuda device
+    without an index is the current card, as torch places it there."""
+    if have.type != want.type:
+        return False
+    if have.type == "cpu":
+        return True
+
+    def index(d: torch.device) -> int:
+        return torch.cuda.current_device() if d.index is None else d.index
+
+    return index(have) == index(want)

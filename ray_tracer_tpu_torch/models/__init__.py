@@ -6,7 +6,9 @@ from ray_tracer_tpu_torch.models.scenes import (  # noqa: F401
     gradcheck_scene,
     nefertiti_scene,
     nefertiti_scene_config,
+    parallel_scene,
     parallel_scene_config,
     scene_from_numpy,
+    serial_scene,
     serial_scene_config,
 )

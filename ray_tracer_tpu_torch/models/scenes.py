@@ -401,6 +401,11 @@ def serial_scene(width: int = 512, height: int = 512, dtype=torch.float32, devic
     return build_scene(cfg, dtype=dtype, device=device), cfg
 
 
+def parallel_scene(width: int = 64, height: int = 64, dtype=torch.float32, device=None):
+    cfg = parallel_scene_config(width, height)
+    return build_scene(cfg, dtype=dtype, device=device), cfg
+
+
 def flagship_scene(width: int = 1024, height: int = 1024, dtype=torch.float32, device=None):
     """The primary benchmark's scene: the serial scene at 1024x1024."""
     return serial_scene(width, height, dtype=dtype, device=device)

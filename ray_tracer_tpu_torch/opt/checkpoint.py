@@ -9,8 +9,13 @@ after meta.json lands, so an interrupted save never leaves a directory
 that `latest_step` selects and `restore_checkpoint` cannot open.
 
 The params cross between the packages: this module reads the params of a
-checkpoint that the JAX package saved with its npz backend (and the JAX
-package reads this module's).  The optimizer state does not: the JAX
+checkpoint that the JAX package saved, with its npz backend or with orbax
+(its default wherever orbax imports), and the JAX package reads this
+module's.  An orbax checkpoint (`<step>/orbax/`, OCDBT) is read through
+`tensorstore`, imported only then, without orbax or jax; a host without
+tensorstore cannot read one (the card's machine has none, so that branch
+runs on the CPU hosts that wrote the JAX checkpoints).  The optimizer
+state does not cross: the JAX
 package's is optax's pytree, the port's a `torch.optim` optimizer's
 state (its `o_i` arrays are each parameter's state entries, parameter by
 parameter in its state's key order, listed in meta.json's `optimizer`),
@@ -58,6 +63,17 @@ def _unflatten(like, values):
         return type(t)(*items) if hasattr(t, "_fields") else type(t)(items)
 
     return rebuild(like)
+
+
+def _fields_as(like, fields: dict):
+    """`like` (a SceneParams) with each of its non-None fields replaced by
+    fields[name] placed as like's tensor (device and dtype)."""
+    missing = [k for k, x in like._asdict().items() if x is not None and k not in fields]
+    if missing:
+        raise ValueError(f"the checkpoint holds no params for {missing}")
+    return like._replace(**{
+        k: torch.as_tensor(fields[k]).to(device=x.device, dtype=x.dtype)
+        for k, x in like._asdict().items() if x is not None})
 
 
 def _numpy(x) -> np.ndarray:
@@ -122,22 +138,52 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def _orbax_params(path: str) -> dict:
+    """{field: numpy array} of the SceneParams fields an orbax checkpoint
+    at `path` (its `orbax/` directory) holds: those that its _METADATA's
+    tree_metadata lists under "params" with a value (orbax records a None
+    field there and writes no array for it), each read from the OCDBT
+    store's `params.<field>` with tensorstore."""
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError("reading the JAX package's orbax checkpoint needs the "
+                          "'tensorstore' package, which is not installed") from e
+    root = os.path.abspath(os.path.join(path, "orbax"))
+    with open(os.path.join(root, "_METADATA")) as fh:
+        meta = json.load(fh)
+    array_format = "zarr3" if meta.get("use_zarr3") else "zarr"
+    fields = {}
+    for entry in meta["tree_metadata"].values():
+        keys = [k["key"] for k in entry["key_metadata"]]
+        if (len(keys) == 2 and keys[0] == "params"
+                and not entry["value_metadata"].get("skip_deserialize", False)):
+            store = ts.open({"driver": array_format, "kvstore": {
+                "driver": "ocdbt", "base": "file://" + root, "path": "params." + keys[1]}},
+                open=True).result()
+            fields[keys[1]] = np.asarray(store.read().result())
+    return fields
+
+
 def restore_checkpoint(directory: str, like: Any,
                        step_num: Optional[int] = None) -> Tuple[Any, Optional[Any]]:
     """Restore (params, opt_state) with `like` = {"params": ...,
     "opt_state": ...} (opt_state may be None or absent): the params as
     `like`'s tensors (on their device and dtype), and a torch optimizer
     given as `like["opt_state"]` loaded in place from a checkpoint that
-    the port saved with one (None otherwise).  With no step_num, the
-    'latest' tag if present, else the highest step_N directory."""
+    the port saved with one (None otherwise; a JAX package's orbax
+    checkpoint gives its params only).  With no step_num, the 'latest' tag
+    if present, else the highest step_N directory."""
     if step_num is None and not _complete(directory, "latest"):
         step_num = latest_step(directory)
     path = _paths(directory, step_num)
     with open(os.path.join(path, "meta.json")) as fh:
         meta = json.load(fh)
+    if meta.get("backend") == "orbax":  # the JAX package's: params only
+        return _fields_as(like["params"], _orbax_params(path)), None
     if meta.get("backend") != "npz":
         raise NotImplementedError(f"checkpoint backend {meta.get('backend')!r} is not read "
-                                  "by the PyTorch port (npz only)")
+                                  "by the PyTorch port (npz or orbax)")
     data = np.load(os.path.join(path, "state.npz"))
     p_like = _leaves(like["params"])
     values = []

@@ -62,7 +62,7 @@ from ray_tracer_tpu_torch.accel.packed import PackedGrid, pack_grid
 from ray_tracer_tpu_torch.config import RenderConfig, SceneConfig
 from ray_tracer_tpu_torch.core import vecmath as vm
 from ray_tracer_tpu_torch.core.rays import RayBatch
-from ray_tracer_tpu_torch.device import resolve_device
+from ray_tracer_tpu_torch.device import resolve_device, same_device
 from ray_tracer_tpu_torch.models.scenes import (
     Scene,
     extra_light_tables,
@@ -336,7 +336,7 @@ def prepare(cfg: SceneConfig, scene: Scene = None, device=None) -> Prepared:
                                      extra_lights=cfg.extra_lights)
         else:
             dev = scene.device
-            if device is not None and resolve_device(device) != dev:
+            if device is not None and not same_device(dev, resolve_device(device)):
                 raise ValueError(f"scene lies on {dev}, not on {device}")
             if cfg.extra_lights and scene.extra_light_pos is None:
                 scene = scene._replace(**extra_light_tables(cfg.extra_lights,
