@@ -8,17 +8,24 @@ one NVIDIA card, or bench.py's single measurement.
     python3 bench_torch.py --gi 4 --gi-depth 2        # path-traced GI
     python3 bench_torch.py --grad                     # one train step
     python3 bench_torch.py --size 16 --device cpu     # the same on the CPU
+    python3 bench_torch.py --size 1024 --layout blocks --fused off  # knobs pinned
 
 Run from the repository root on a machine with a CUDA device; without one
 it exits 2 before any measurement, unless `--device cpu` asks for the
 single measurement on the CPU (the tests do; the rows run on the card
-only).  `--suite auto` (the default) runs the rows when the script is
-called with none of --scene, --size, --gi and --grad, else the single
+only).  On the card a child process first starts CUDA under
+--probe-timeout seconds (bench.py's probe: a card that is present but
+hangs or fails at start-up prints bench.py's error line and exits 1).
+`--suite auto` (the default) runs the rows when the script is called
+with none of --scene, --size, --gi and --grad, else the single
 measurement, as bench.py:234-239 chooses.
 
 The single measurement follows bench.py's contract: the scene (spot,
 nefertiti or parallel) at --size squared with the knobs the rows take
-(`scene_config`, and the probes of `probed`), a warm-up frame, then the
+(`scene_config`, and the probes of `probed`) unless bench.py's knob flags
+pin them (--scheduler, --wave, --pump, --block-tris, --layout, --rm,
+--max-res, --probe-chain, --order, --exact, --fused, --whitted-wave,
+--gi-wave; resolved as bench.py:373-406 does), a warm-up frame, then the
 best of --rounds chains of --repeat frames (or train steps), each chain
 ending with a device sync; one JSON line with bench.py's keys for the
 mode (the forward render bench.py:519-533, GI `_bench_gi`, the train step
@@ -31,16 +38,20 @@ by default); GI and the train step have no counterpart in the oracle
 (vs_baseline 0).  As in bench.py the oracle is given the spot scene's
 arguments for every scene but parallel, so nefertiti's vs_baseline is
 against the spot oracle.  The frame's kernel launches go to stderr
-(`launches: {...}`), and on the card the kernel of the mode (ROW_KERNEL,
-kernel F for GI) must have launched.
+(`launches: {...}`), and on the card the kernel of the resolved frame
+must have launched: E for the Whitted wave, F for the GI wave, else C
+(and F not at all under the segment integrator).
 
-Each row is the JAX package's bench.py
-row (`SUITE`, bench.py:173-190) with the knobs bench.py derives from
-TUNED_KNOBS (bench.py:373-447): the packed grid at the family's row width,
-grid resolution and SAT-exact insertion, the persistent wave at its wave
-and pump, the Whitted wave's own knee on the parallel scene and gi_pump on
-the GI row.  `fused_shadow` and `camera_refill` come from the measured
-probes after prepare, as bench.py:459-473 takes them
+Each row runs in its own subprocess under --suite-timeout seconds, as
+bench.py's do: a row that fails or hangs becomes an error row and the
+others still print.  Each row is the JAX package's bench.py row (`SUITE`,
+bench.py:173-190), which takes no knob flag, with the knobs bench.py
+derives from TUNED_KNOBS (bench.py:373-447): the packed grid at the
+family's row width, grid resolution and SAT-exact insertion, the
+persistent wave at its wave and pump, the Whitted wave's own knee on the
+parallel scene and gi_pump on the GI row.  `fused_shadow` and
+`camera_refill` come from the measured probes after prepare, as
+bench.py:459-473 takes them
 (`render/metrics.choose_fused_shadow`: on under the persistent scheduler,
 else by the coverage probe; `choose_camera_refill`: "on" where at least
 45% of the camera rays miss the grid's box, else "off"); each row prints
@@ -116,36 +127,66 @@ def row_config(workload: str, size: int = None):
     return scene_config(name, full if size is None else size, gi, gi_depth)
 
 
-def scene_config(name: str, size: int, gi: int = 0, gi_depth: int = 2, grad: bool = False):
+# bench.py's knob overrides (bench.py:263-308) as parse_args leaves them
+# when none is given: None takes the TUNED_KNOBS value
+KNOB_DEFAULTS = {"scheduler": "persistent", "wave": None, "pump": None, "block_tris": None,
+                 "layout": "auto", "rm": None, "max_res": None, "probe_chain": None,
+                 "order": None, "exact": None, "whitted_wave": None, "gi_wave": "auto"}
+
+
+def knobs_of(args) -> dict:
+    """The knob overrides of parsed options (KNOB_DEFAULTS' names)."""
+    return {name: getattr(args, name) for name in KNOB_DEFAULTS}
+
+
+def scene_config(name: str, size: int, gi: int = 0, gi_depth: int = 2, grad: bool = False,
+                 knobs: dict = None):
     """Scene `name` (spot, nefertiti or parallel) at size x size with
-    bench.py's knobs from TUNED_KNOBS (bench.py:373-447): a train step
-    (`grad`) keeps the forward knobs without the Whitted wave's knee."""
+    bench.py's knobs: each of `knobs` (KNOB_DEFAULTS' names, bench.py's
+    overrides) that is given, else its TUNED_KNOBS value, resolved as
+    bench.py:373-406 resolves them.  The Whitted wave's own wave and pump
+    knee applies to a forward render of a wave scene whose whitted_wave is
+    not "off", and GI's pump knee to a GI render, each only where --wave /
+    --pump were not given; a train step (`grad`) keeps the forward knobs
+    without the Whitted wave's knee.  fused_shadow and camera_refill are
+    the probes' (`probed`)."""
     from ray_tracer_tpu_torch.config import TUNED_KNOBS, GridConfig
     from ray_tracer_tpu_torch.models import scenes
 
     k = TUNED_KNOBS[{"spot": "serial"}.get(name, name)]
+    o = dict(KNOB_DEFAULTS, **(knobs or {}))
+
+    def pick(knob, tuned):
+        return tuned if o[knob] is None else o[knob]
+
     if name == "nefertiti":
         cfg = scenes.nefertiti_scene_config(size, size)
     elif name == "parallel":
         cfg = scenes.parallel_scene_config(size, size)
     else:
         cfg = scenes.serial_scene_config(size, size)
-    wave, pump = k["wave"], k["pump"]
-    whitted = "auto" if k.get("wwave") else "off"
-    if k.get("wwave") and gi == 0 and not grad:  # the Whitted wave's own knee
-        wave, pump = k.get("wwave_wave", wave), k.get("wwave_pump", pump)
+    wave, pump = pick("wave", k["wave"]), pick("pump", k["pump"])
+    whitted = pick("whitted_wave", "auto" if k.get("wwave") else "off")
+    if whitted != "off" and k.get("wwave") and gi == 0 and not grad:
+        # the Whitted wave's own knee
+        wave = pick("wave", k.get("wwave_wave", wave))
+        pump = pick("pump", k.get("wwave_pump", pump))
     if gi > 0:  # the GI wave's own pump knee
-        pump = k.get("gi_pump", pump)
+        pump = pick("pump", k.get("gi_pump", pump))
+    exact = k["exact"] if o["exact"] is None else o["exact"] == "on"
     render = dataclasses.replace(
         cfg.render, faithful=False, det_dtype="float32", traversal="packed", ray_tile=768,
-        packed_block_tris=k["block_tris"], fused_shadow=True, scheduler="persistent",
-        wave=wave, pump=pump, queue_order=k.get("order", "fifo"),
-        probe_chain=k.get("chain", 1), grid_layout="auto", whitted_wave=whitted,
-        grid=GridConfig(resolution_multiplier=k["rm"], max_resolution=k["max_res"],
-                        exact_overlap=k["exact"]),
+        packed_block_tris=pick("block_tris", k["block_tris"]), fused_shadow=True,
+        scheduler=o["scheduler"], wave=wave, pump=pump,
+        queue_order=pick("order", k.get("order", "fifo")),
+        probe_chain=pick("probe_chain", k.get("chain", 1)), grid_layout=o["layout"],
+        whitted_wave=whitted,
+        grid=GridConfig(resolution_multiplier=pick("rm", k["rm"]),
+                        max_resolution=pick("max_res", k["max_res"]), exact_overlap=exact),
     )
     if gi > 0:
-        render = dataclasses.replace(render, gi_samples=gi, gi_depth=gi_depth, gi_wave="auto")
+        render = dataclasses.replace(render, gi_samples=gi, gi_depth=gi_depth,
+                                     gi_wave=o["gi_wave"])
     return dataclasses.replace(cfg, render=render)
 
 
@@ -201,15 +242,16 @@ def timed_chains(call, n: int, rounds: int, device: torch.device, start=None) ->
     return chains
 
 
-def probed(prep):
+def probed(prep, fused: str = "auto"):
     """(prep with bench.py's probed knobs, the probes' record):
-    fused_shadow from choose_fused_shadow, camera_refill "on" or "off" from
-    choose_camera_refill, and the frame facts settled again."""
+    fused_shadow from choose_fused_shadow under fused="auto" ("on" and
+    "off" force it, as bench.py's --fused), camera_refill "on" or "off"
+    from choose_camera_refill, and the frame facts settled again."""
     from ray_tracer_tpu_torch.render.metrics import choose_camera_refill, choose_fused_shadow
     from ray_tracer_tpu_torch.render.renderer import frame_setup
 
     t0 = time.perf_counter()
-    fused = choose_fused_shadow(prep)
+    fused = choose_fused_shadow(prep) if fused == "auto" else fused == "on"
     refill = "on" if choose_camera_refill(prep) else "off"
     sync(prep.device)
     secs = time.perf_counter() - t0
@@ -447,7 +489,8 @@ def single(args) -> dict:
     card = card_line() if cuda else None
     if card:
         log(f"card: {card}")
-    cfg = scene_config(args.scene, args.size, args.gi, args.gi_depth, grad=args.grad)
+    cfg = scene_config(args.scene, args.size, args.gi, args.gi_depth, grad=args.grad,
+                       knobs=knobs_of(args))
     t0 = time.perf_counter()
     scene = (nefertiti_scene(args.size, args.size, device=dev)[0]
              if args.scene == "nefertiti" else None)
@@ -455,21 +498,31 @@ def single(args) -> dict:
     sync(dev)
     log(f"prepare: {time.perf_counter() - t0:.2f}s; scene: {args.scene} "
         f"{prep.scene.num_faces} tris @ {args.size}x{args.size}")
-    prep, probes = probed(prep)
+    prep, probes = probed(prep, args.fused)
     log(f"probes: {probes}")
+    if not args.grad and args.gi == 0:
+        log(f"whitted_wave: {cfg.render.whitted_wave} -> "
+            f"{'wave' if prep.setup.wave else 'bounce loop'}")
     counters = _kernel_counters()
     for fn in counters.values():
         fn.launches = 0
+    # the kernel of the resolved frame: the Whitted wave (E), the GI wave
+    # (F), else the march (C: the bounce loop, the segment integrator, the
+    # train step)
     if args.grad:
         line, kernel = single_grad(prep, args), "packed_march"
     elif args.gi > 0:
-        line, kernel = single_gi(prep, args), "gi_wave"
+        line = single_gi(prep, args)
+        kernel = "gi_wave" if prep.setup.gi_wave else "packed_march"
     else:
-        line, kernel = single_forward(prep, args), ROW_KERNEL[args.scene]
+        line = single_forward(prep, args)
+        kernel = "whitted_wave" if prep.setup.wave else "packed_march"
     launches = {k: fn.launches for k, fn in counters.items()}
     log(f"launches: {json.dumps(launches)}")
     if cuda and launches[kernel] <= 0:
         raise AssertionError(f"the measurement launched {kernel} 0 times ({launches})")
+    if cuda and args.gi > 0 and not prep.setup.gi_wave and launches["gi_wave"]:
+        raise AssertionError(f"the segment integrator launched gi_wave ({launches})")
     line.update(device=torch.cuda.get_device_name(dev) if cuda else "cpu", card=card)
     return line
 
@@ -498,6 +551,43 @@ def parse_args(argv=None):
                     help="the oracle baseline's size (default --size)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default) or cpu (the single measurement only)")
+    ap.add_argument("--suite-timeout", type=float, default=1500.0,
+                    help="seconds a row's subprocess may take; a row that fails or "
+                         "outlives it becomes an error row")
+    ap.add_argument("--probe-timeout", type=float,
+                    default=float(os.environ.get("BENCH_PROBE_TIMEOUT", 600)),
+                    help="seconds to wait for the card to start in a subprocess probe "
+                         "before failing fast (0 = skip; no probe with --device cpu)")
+    # bench.py's knob overrides; none given: TUNED_KNOBS' value (the rows take no
+    # override); the card's kernels size their own launches, so --wave and
+    # --pump reach RenderConfig as in the JAX package and shape no launch
+    ap.add_argument("--gi-wave", default="auto", choices=["auto", "on", "off"],
+                    help="the GI wave (kernel F); 'off' = the segment integrator "
+                         "(kernel C a segment) for A/B")
+    ap.add_argument("--whitted-wave", default=None, choices=["auto", "on", "off"],
+                    help="the cross-depth Whitted wave (kernel E); default: the "
+                         "scene's tuned policy ('auto' on the mirror scene, else 'off')")
+    ap.add_argument("--scheduler", default="persistent", choices=["tiled", "persistent"])
+    ap.add_argument("--wave", type=int, default=None,
+                    help="persistent-scheduler lane count (RenderConfig.wave)")
+    ap.add_argument("--pump", type=int, default=None,
+                    help="persistent march steps a refill round (RenderConfig.pump)")
+    ap.add_argument("--block-tris", type=int, default=None,
+                    help="triangles a packed block row")
+    ap.add_argument("--fused", default="auto", choices=["auto", "on", "off"],
+                    help="fuse the shadow pass into the primary march ('auto': the probe)")
+    ap.add_argument("--layout", default="auto", choices=["auto", "inline", "blocks"],
+                    help="packed-grid memory layout")
+    ap.add_argument("--rm", type=float, default=None,
+                    help="grid resolution multiplier (cells ~ rm * 3*cbrt(N))")
+    ap.add_argument("--max-res", type=int, default=None,
+                    help="per-axis grid resolution clamp")
+    ap.add_argument("--probe-chain", type=int, default=None,
+                    help="cell probes a march step for leap-only lanes (blocks layout)")
+    ap.add_argument("--order", default=None, choices=["fifo", "chord"],
+                    help="persistent work-queue pop order (default: the scene's tuned)")
+    ap.add_argument("--exact", default=None, choices=["on", "off"],
+                    help="SAT-exact triangle-box grid insertion (default: the scene's tuned)")
     args = ap.parse_args(argv)
     args.suite = args.suite == "on" or (
         args.suite == "auto" and args.scene is None and args.size is None and args.gi == 0
@@ -513,48 +603,105 @@ def parse_args(argv=None):
     return args
 
 
+# the start-up probe's child: the card's context and one kernel
+PROBE_SRC = ("import torch\n"
+             "torch.zeros(1, device='cuda').add_(1)\n"
+             "torch.cuda.synchronize()\n")
+
+
+def probe_card(timeout: float):
+    """Start CUDA in a child process under `timeout` seconds (bench.py:
+    325-359 does so for the JAX backend) -> None, or the failure's name."""
+    try:
+        subprocess.run([sys.executable, "-c", PROBE_SRC], check=True, timeout=timeout,
+                       stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    except (subprocess.TimeoutExpired, subprocess.CalledProcessError) as e:
+        return type(e).__name__
+    return None
+
+
+def bench_one_row(workload: str, repeat: int, rounds: int) -> dict:
+    """One row measured in this process (prepared, probed, then
+    `bench_row` or `bench_train`)."""
+    from ray_tracer_tpu_torch.models.scenes import nefertiti_scene
+    from ray_tracer_tpu_torch.render.renderer import prepare
+    from ray_tracer_tpu_torch.tools.profiling import card_line
+
+    card = card_line()
+    log(f"card: {card}")
+    t0 = time.perf_counter()
+    scene = nefertiti_scene()[0] if SUITE[workload][0] == "nefertiti" else None
+    prep = prepare(row_config(workload), scene=scene)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    prep, probes = probed(prep)
+    log(f"{workload}: probes {probes}")
+    if workload == "train_nefertiti_1024":
+        row = bench_train(workload, prep, max(rounds, 1))
+    else:
+        row = bench_row(workload, prep, max(repeat, 2), max(rounds, 1))
+    row.update(prepare_s=prep_s, probes=probes, card=card, device=torch.cuda.get_device_name(0))
+    return row
+
+
+# a row's subprocess: python -c ROW_CHILD WORKLOAD REPEAT ROUNDS prints its line
+ROW_CHILD = "import sys, bench_torch; sys.exit(bench_torch.row_child(sys.argv[1:]))"
+
+
+def row_child(argv) -> int:
+    workload, repeat, rounds = argv
+    print(json.dumps(bench_one_row(workload, int(repeat), int(rounds))), flush=True)
+    return 0
+
+
+def run_suite(args) -> None:
+    """Each row in its own subprocess under --suite-timeout (bench.py:
+    190-217): a row that fails or hangs becomes an error row and the
+    others still print; then the line that holds them all."""
+    from ray_tracer_tpu_torch.tools.profiling import card_line
+
+    rows = []
+    for workload in args.rows:
+        log(f"suite: {workload} ...")
+        try:
+            out = subprocess.run(
+                [sys.executable, "-c", ROW_CHILD, workload, str(args.repeat), str(args.rounds)],
+                cwd=REPO, capture_output=True, text=True, timeout=args.suite_timeout)
+            sys.stderr.write(out.stderr)
+            row = json.loads((out.stdout or "").strip().splitlines()[-1])
+            if out.returncode != 0 and "error" not in row:
+                row["error"] = f"rc={out.returncode}"
+        except (OSError, subprocess.SubprocessError, ValueError, IndexError) as e:
+            row = {"error": f"{type(e).__name__}: {e}"}
+        row["workload"] = workload
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        log(f"suite: {workload} -> {row.get('value', row.get('error'))}")
+    print(json.dumps({"rows": rows, "card": card_line(), "device": torch.cuda.get_device_name(0),
+                      "count": torch.cuda.device_count(), "torch": torch.__version__,
+                      "cuda": torch.version.cuda}), flush=True)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         log("bench_torch: no CUDA device")
         return 2
+    if args.device == "cuda" and args.probe_timeout > 0:
+        failed = probe_card(args.probe_timeout)
+        if failed:
+            log(f"device backend probe failed: {failed}")
+            print(json.dumps({"metric": "mrays_per_s", "value": 0.0,
+                              "unit": "Mrays/s (primary+shadow)", "vs_baseline": 0.0,
+                              "error": "device backend unavailable (init probe "
+                                       f"{failed} after {args.probe_timeout:.0f}s)"}),
+                  flush=True)
+            return 1
     sys.path.insert(0, REPO)
     if not args.suite:
         print(json.dumps(single(args)), flush=True)
         return 0
-    from ray_tracer_tpu_torch.models.scenes import nefertiti_scene
-    from ray_tracer_tpu_torch.render.renderer import frame_setup, prepare
-    from ray_tracer_tpu_torch.tools.profiling import card_line
-
-    card = card_line()
-    log(f"card: {card}")
-    out = []
-    nef = None  # the nefertiti rows share one scene and grid; only the camera differs
-    for workload in args.rows:
-        cfg = row_config(workload)
-        t0 = time.perf_counter()
-        if SUITE[workload][0] != "nefertiti":
-            prep = prepare(cfg)
-        elif nef is None:
-            scene, _ = nefertiti_scene()
-            prep = nef = prepare(cfg, scene=scene)
-        else:
-            prep = nef._replace(cfg=cfg, setup=frame_setup(cfg, nef.scene, nef.packed))
-        torch.cuda.synchronize()
-        prep_s = time.perf_counter() - t0
-        prep, probes = probed(prep)
-        log(f"{workload}: probes {probes}")
-        if workload == "train_nefertiti_1024":
-            row = bench_train(workload, prep, max(args.rounds, 1))
-        else:
-            row = bench_row(workload, prep, max(args.repeat, 2), max(args.rounds, 1))
-        row.update(prepare_s=prep_s, probes=probes, card=card,
-                   device=torch.cuda.get_device_name(0))
-        print(json.dumps(row), flush=True)
-        out.append(row)
-    print(json.dumps({"rows": out, "card": card, "device": torch.cuda.get_device_name(0),
-                      "count": torch.cuda.device_count(), "torch": torch.__version__,
-                      "cuda": torch.version.cuda}), flush=True)
+    run_suite(args)
     return 0
 
 

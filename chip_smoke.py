@@ -253,12 +253,21 @@ each printing one JSON line:
      trace file names packed_march_kernel); then as subprocesses, one after
      another, `bench_torch.py --size 1024 --scene spot`, `cli bench --width
      1024`, `bench_torch.py --gi 4 --gi-depth 2` and `bench_torch.py
-     --grad`: one JSON line each with bench.py's keys for the mode
-     (BENCH_PY_KEYS) beside `device` and `card`, a nonzero oracle and
-     vs_baseline its value over the oracle's on the forward lines, and the
-     mode's kernel launched (C, or F for GI; the counts each writes to
-     stderr).  The phase's paths go on a launches_by_path line of their own,
-     and its seconds on a line.
+     --grad` (the first with bench_torch's start-up probe, the others
+     without it: BENCH_PROBE_TIMEOUT=0): one JSON line each with
+     bench.py's keys for the mode (BENCH_PY_KEYS) beside `device` and
+     `card`, a nonzero oracle and vs_baseline its value over the oracle's
+     on the forward lines, and the mode's kernel launched (C, or F for GI;
+     the counts each writes to stderr); then (d) bench.py's knob overrides (KNOB_RUNS: spot --layout
+     inline / blocks, --fused on / off, --scheduler persistent / tiled,
+     --exact on / off; parallel --whitted-wave on / off; GI S 4 D 2
+     --gi-wave on / off) through bench_torch.single in this process, each
+     run's first frame's launches of B, C, E and F counted from 0, logged
+     and held bitwise to the plain version (records or colors, and every
+     counter), a line a run with the knobs taken, the best and median
+     value, busy and idle over a ten-frame profile and the probes' picks.
+     The phase's paths go on a launches_by_path line of their own, and its
+     seconds on a line.
 
 Then the kernel times at the main path's shapes (each launch held
 bitwise to the plain version; B's, C's and E's barycentric passes, and
@@ -446,6 +455,24 @@ BENCH_PY_KEYS = {
            "gi_samples", "gi_depth", "paths_per_s_m", "paths_per_s_m_median"},
     "grad": {"metric", "value", "unit", "vs_baseline", "seconds_per_step", "size", "trainable"},
 }
+# Phase parity's knob runs: bench.py's overrides through bench_torch.single
+# at 1024^2, each pair one TPU-tuned choice and its other side, run one after
+# the other
+KNOB_RUNS = (
+    ("spot_layout_inline", ["--scene", "spot", "--layout", "inline"]),
+    ("spot_layout_blocks", ["--scene", "spot", "--layout", "blocks"]),
+    ("spot_fused_on", ["--scene", "spot", "--fused", "on"]),
+    ("spot_fused_off", ["--scene", "spot", "--fused", "off"]),
+    ("spot_scheduler_persistent", ["--scene", "spot", "--scheduler", "persistent"]),
+    ("spot_scheduler_tiled", ["--scene", "spot", "--scheduler", "tiled"]),
+    ("spot_exact_on", ["--scene", "spot", "--exact", "on"]),
+    ("spot_exact_off", ["--scene", "spot", "--exact", "off"]),
+    ("parallel_whitted_wave_on", ["--scene", "parallel", "--whitted-wave", "on"]),
+    ("parallel_whitted_wave_off", ["--scene", "parallel", "--whitted-wave", "off"]),
+    ("gi_s4d2_gi_wave_on", ["--gi", "4", "--gi-depth", "2", "--gi-wave", "on"]),
+    ("gi_s4d2_gi_wave_off", ["--gi", "4", "--gi-depth", "2", "--gi-wave", "off"]),
+)
+KNOB_ROUNDS = 5  # timed chains of bench_torch's 8 frames a knob run
 # Phase ring: the all-pairs ring's image size (its sweep is every ray
 # against every triangle of the serial scene).
 RING_BRUTE_SIZE = 128
@@ -605,6 +632,16 @@ class Logged:
         return out
 
 
+class LoggedWave(Logged):
+    """Logged for kernel E's or F's wrapper, which takes a camera: each
+    call's camera, tables, knobs and colors (cloned) go to `log`."""
+
+    def __call__(self, camera, *args, **kw):
+        out = self.fn(camera, *args, **kw)
+        self.log.append((self.kernel, camera, args, dict(kw), out.clone()))
+        return out
+
+
 class Smoke:
     """The phases share the card, the imports and what each phase measured
     for the `kernels` line."""
@@ -670,6 +707,77 @@ class Smoke:
         finally:
             for module, name, fn in saved:
                 setattr(module, name, fn)
+
+    @contextlib.contextmanager
+    def logging_waves(self):
+        """Log every launch of kernels E and F that the port makes inside
+        the block (through whitted_wave.whitted_wave_trace and
+        gi_wave.gi_wave_trace)."""
+        from ray_tracer_tpu_torch.ops import gi_wave, whitted_wave
+
+        log = []
+        sites = ((whitted_wave, "whitted_wave_cuda", "whitted_wave"),
+                 (gi_wave, "gi_wave_cuda", "gi_wave"))
+        saved = [(module, name, getattr(module, name)) for module, name, _ in sites]
+        try:
+            for (module, name, kernel), (_, _, fn) in zip(sites, saved):
+                setattr(module, name, LoggedWave(fn, kernel, log))
+            yield log
+        finally:
+            for module, name, fn in saved:
+                setattr(module, name, fn)
+
+    def hold_waves(self, label, log) -> dict:
+        """Each logged launch of E or F again with its counters, and its
+        plain version on the CPU camera batch (on the card): the new launch
+        gives the logged colors' bits, the plain version's bitwise, and
+        every counter the plain version keeps equal.  Returns, by kernel,
+        the launches and positions held."""
+        from ray_tracer_tpu_torch.core.rays import RayBatch
+        from ray_tracer_tpu_torch.ops.camera import camera_rays
+
+        launch_only = ("spp", "cam", "consts", "pix_offset", "pix_stride", "queue_len")
+        held = {}
+        for i, (kernel, camera, args, kw, logged) in enumerate(log):
+            where = f"{label}: launch {i} of {kernel}"
+            spp = kw.get("spp", 1)
+            whole = camera.width * camera.height * spp * spp
+            if kw.get("pix_offset", 0) != 0 or kw.get("pix_stride", 1) != 1 or kw.get(
+                    "queue_len", whole) != whole:
+                raise AssertionError(f"{where}: a shard's queue, not the whole frame")
+            rays = RayBatch(*(x.to(self.dev) for x in camera_rays(camera, spp=spp,
+                                                                    device="cpu")))
+            plain_kw = {k: v for k, v in kw.items() if k not in launch_only}
+            if kernel == "whitted_wave":
+                grid, meta = args[4], args[5]
+
+                def z(*shape):
+                    return torch.zeros(shape, dtype=torch.int32, device=self.dev)
+
+                ck, cp = (dict(capped_out=z(1), passes_out=z(1), tested_out=z(rays.count),
+                               touched_out=z(meta.n_blocks),
+                               slots_out=z(grid.slot_tri.shape[0]),
+                               events_out=z(len(self.kE.EVENTS))) for _ in range(2))
+                got = self.kE.whitted_wave_cuda(camera, *args, **kw, **ck)
+                want = self.kE.whitted_wave_plain(rays, *args, **plain_kw, **cp)
+            else:
+                ck, cp = self.gi_counters(), self.gi_counters()
+                got = self.kF.gi_wave_cuda(camera, *args, **kw, **ck)
+                want = self.kF.gi_wave_plain(rays, *args, **plain_kw, **cp)
+            torch.cuda.synchronize()
+            compare(f"{where} again", (got.reshape(-1),), (logged.reshape(-1),))
+            self.err[kernel] = max(self.err[kernel], compare(
+                f"{where} vs plain", (got.reshape(-1),), (want.reshape(-1),)))
+            for name in ck:
+                if not torch.equal(ck[name], cp[name]):
+                    raise AssertionError(f"{where}: counter {name} differs from the plain "
+                                         "version's")
+            if int(ck["capped_out"].item()):
+                raise AssertionError(f"{where}: {int(ck['capped_out'])} lanes capped")
+            row = held.setdefault(kernel, {"launches": 0, "positions": 0})
+            row["launches"] += 1
+            row["positions"] += rays.count
+        return held
 
     def hold_logged(self, label, log) -> dict:
         """Each logged launch of B or C again, with its counters, and its
@@ -2942,6 +3050,7 @@ class Smoke:
         t0 = time.perf_counter()
         self.parity_cli()
         self.parity_bench()
+        self.parity_knobs()
         emit({"phase": "parity_seconds", "seconds": time.perf_counter() - t0})
         emit({"phase": "launches_by_path", "paths": {
             k: v for k, v in self.path_launches.items() if k.startswith("parity_")}})
@@ -3056,10 +3165,13 @@ class Smoke:
         }
         kernel = {"forward": "packed_march", "gi": "gi_wave", "grad": "packed_march"}
         lines = {}
-        for name, (mode, argv) in runs.items():
+        for i, (name, (mode, argv)) in enumerate(runs.items()):
+            # the first run starts CUDA in bench_torch's probe child, as a
+            # user's call does; the others skip it (the card is up)
+            env = dict(os.environ, **({"BENCH_PROBE_TIMEOUT": "0"} if i else {}))
             t0 = time.perf_counter()
             run = subprocess.run([sys.executable, *argv], cwd=self.root, capture_output=True,
-                                 text=True, timeout=600)
+                                 text=True, timeout=600, env=env)
             secs = time.perf_counter() - t0
             if run.returncode != 0:
                 raise AssertionError(f"{name} failed:\n{run.stderr[-3000:]}")
@@ -3090,6 +3202,103 @@ class Smoke:
             self.path_launches[f"parity_{name}"] = launches
             lines[name] = {"line": line, "seconds": secs, "launches": launches}
         emit({"phase": "parity_bench", "runs": lines})
+
+    def parity_knobs(self):
+        """bench.py's knob overrides on the card: each of KNOB_RUNS through
+        bench_torch.single in this process (1024^2, 8 frames a chain,
+        KNOB_ROUNDS chains).  Its first frame's launches of B, C, E and F
+        are counted from 0 and logged, and each is held to its plain
+        version; one line a run: the knobs the frame took, the best and
+        median value and seconds a frame, the device's busy time and idle
+        share over a ten-frame profile, the first frame's launches and the
+        probes' picks.  The oracle is not run (the runs compare the port
+        with itself; phase parity_bench's lines carry its baseline)."""
+        import bench_torch
+        from ray_tracer_tpu_torch.render import renderer
+        from ray_tracer_tpu_torch.tools.profiling import card_line, profile_render
+
+        card = card_line()
+        real = {"render": renderer.render, "probed": bench_torch.probed,
+                "timed_chains": bench_torch.timed_chains, "oracle": bench_torch.oracle_mrays}
+        lines = {}
+        t_all = time.perf_counter()
+        for name, argv in KNOB_RUNS:
+            seen = {}
+
+            def first_logged(prep):
+                """The first frame with its launches counted from 0 and logged;
+                the later frames as they are."""
+                if "img" in seen:
+                    return real["render"](prep)
+                self.zero_counts()
+                with self.logging_launches() as log, self.logging_waves() as wlog:
+                    img = real["render"](prep)
+                    torch.cuda.synchronize()
+                seen.update(counts=self.counts(), log=log, wlog=wlog, img=img)
+                return img
+
+            def probed(prep, fused="auto"):
+                seen["prep"], seen["probes"] = real["probed"](prep, fused)
+                return seen["prep"], seen["probes"]
+
+            def timed_chains(*a, **kw):
+                seen["chains"] = real["timed_chains"](*a, **kw)
+                return seen["chains"]
+
+            args = bench_torch.parse_args(["--size", "1024", *argv, "--rounds", str(KNOB_ROUNDS),
+                                           "--probe-timeout", "0"])
+            t0 = time.perf_counter()
+            try:
+                renderer.render = first_logged
+                bench_torch.probed = probed
+                bench_torch.timed_chains = timed_chains
+                bench_torch.oracle_mrays = lambda size, scene="spot": 0.0
+                line = bench_torch.single(args)
+            finally:
+                renderer.render = real["render"]
+                bench_torch.probed = real["probed"]
+                bench_torch.timed_chains = real["timed_chains"]
+                bench_torch.oracle_mrays = real["oracle"]
+            secs = time.perf_counter() - t0
+            prep, counts = seen["prep"], seen["counts"]
+            self.path_launches[f"parity_knobs_{name}"] = counts
+            rc = prep.cfg.render
+            if "whitted_wave_off" in name and counts["whitted_wave"]:
+                raise AssertionError(f"{name}: the bounce loop launched E ({counts})")
+            label = f"parity knobs {name}"
+            held = self.hold_logged(label, seen["log"])
+            held.update(self.hold_waves(label, seen["wlog"]))
+            want = {k for k in ("traverse_grid", "packed_march", "whitted_wave", "gi_wave")
+                    if counts[k]}
+            if set(held) != want:
+                raise AssertionError(f"{name}: held {sorted(held)}, launched {counts}")
+            del seen["log"], seen["wlog"], seen["img"]
+            chains = seen["chains"]
+            best, med = min(chains), sorted(chains)[len(chains) // 2]
+            prof = profile_render(prep, med, f"parity_knobs_{name}")
+            # bench.py's count a frame: 2 rays a pixel, or GI's path and NEE
+            # segments, 2 (depth + 1) a path
+            rays = args.size ** 2 * 2 * (args.gi * (args.gi_depth + 1) if args.gi else 1)
+            lines[name] = {
+                "argv": argv, "metric": line["metric"], "unit": line["unit"],
+                "value": rays / best / 1e6, "value_median": rays / med / 1e6,
+                "seconds_per_frame": best, "seconds_per_frame_median": med,
+                "secs_chains": chains,
+                "knobs": {"inline": prep.packed.meta.inline, "fused_shadow": rc.fused_shadow,
+                          "scheduler": rc.scheduler, "exact": rc.grid.exact_overlap,
+                          "whitted_wave": rc.whitted_wave, "takes_whitted_wave": prep.setup.wave,
+                          "gi_wave": rc.gi_wave, "takes_gi_wave": prep.setup.gi_wave,
+                          "wave": rc.wave, "pump": rc.pump,
+                          "block_tris": prep.packed.meta.block_tris,
+                          "grid": list(prep.packed.meta.n_voxels)},
+                "probes": seen["probes"], "first_frame_launches": counts, "held": held,
+                "device_busy_ms": prof["device_busy_ms"],
+                "device_idle_share": prof["device_idle_share"],
+                "top_device_ms": prof["top_device_ms"], "seconds": secs}
+            emit({"phase": "parity_knobs_run", "run": name, **lines[name]})
+        emit({"phase": "parity_knobs", "card": card, "seconds": time.perf_counter() - t_all,
+              "tolerance": "bitwise (B and C: records, counters; E and F: colors, counters)",
+              "best_ms": {k: v["seconds_per_frame"] * 1e3 for k, v in lines.items()}})
 
     # ---- 16. multi-device (phase multidevice) ------------------------------
     def multidevice(self):

@@ -362,8 +362,8 @@ def cmd_fit(args) -> None:
     """Fit the scene's parameters to a target PPM, or (no --target) the
     self-demo: render the scene, perturb kd by 1.5 and base_color by 0.6,
     and recover them.  With --resume the newest checkpoint in --out-dir
-    (the port's, or the JAX package's, orbax or npz) gives the params and
-    the step to go on from.  Prints {"first_loss", "last_loss"} (null when
+    (the port's, or the JAX package's, orbax or npz) gives the params,
+    Adam's moments and the step to go on from.  Prints {"first_loss", "last_loss"} (null when
     no step was left)."""
     import json
 

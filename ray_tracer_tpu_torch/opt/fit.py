@@ -422,10 +422,12 @@ def fit(prep, target: torch.Tensor, steps: int = 100, lr: float = 1e-2,
     k runs steps k..steps-1.  With rebuild_grid_every=k > 0 the grids are
     rebuilt on the host every k steps from the current vertices (not
     after the last step, which no step reads).  checkpoint_dir and
-    checkpoint_every save `opt/checkpoint.py` checkpoints; resume=True
-    restores the newest complete one first (a checkpoint the JAX package
-    saved with its npz backend gives its params; the optimizer then
-    starts afresh).  The losses are read back once, at the end.
+    checkpoint_every save `opt/checkpoint.py` checkpoints (the optimizer's
+    state in optax's layout, which the JAX package's fit resumes from);
+    resume=True restores the newest complete one first, the params and
+    Adam's moments and step count, from the port's checkpoints or the JAX
+    package's (npz or orbax), so the steps go on as the uninterrupted run's
+    would.  The losses are read back once, at the end.
 
     With `mesh` every rank runs the loop with the same arguments: the
     steps are data-parallel over its `axis` (`make_train_step`), every

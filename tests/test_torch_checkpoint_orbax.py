@@ -4,8 +4,9 @@
 * The params of a JAX `save_checkpoint` (with and without its optax
   state) restore bitwise into the port's SceneParams, on the template's
   dtype; the fields the JAX params left None stay None, a field the JAX
-  params held (a texture image) comes back; the optax state is not
-  carried over (None).
+  params held (a texture image) comes back; optax's Adam state loads
+  into the port's Adam (None where the checkpoint holds no optimizer
+  state, as in the JAX package).
 * `cli fit --resume --out-dir` on the port goes on from the JAX fit's
   newest step: its first loss is the JAX fit's loss at that step.
 * With tensorstore unimportable the restore raises an ImportError that
@@ -62,7 +63,10 @@ def test_jax_orbax_params_restore_bitwise(tiny_prep, tmp_path, with_opt):
     like = _port_template()
     opt = torch.optim.Adam([like.kd.requires_grad_()])
     got, o = checkpoint.restore_checkpoint(d, {"params": like, "opt_state": opt})
-    assert o is None
+    assert o is (opt if with_opt else None)
+    if with_opt:
+        st = opt.state[like.kd]
+        assert float(st["step"]) == 0.0 and st["exp_avg"].shape == like.kd.shape
     for f in fit.SceneParams._fields:
         a, b = getattr(got, f), getattr(jp, f)
         assert (a is None) == (b is None), f
@@ -156,6 +160,6 @@ def test_orbax_fields_come_from_the_metadata(tiny_prep, tmp_path):
     """The fields come from orbax's _METADATA (tree_metadata under
     "params"): the None fields are recorded there and skipped."""
     d = _save(tiny_prep, tmp_path)
-    fields = checkpoint._orbax_params(os.path.join(d, "step_2"))
+    leaves, tops = checkpoint._orbax_leaves(os.path.join(d, "step_2"))
     want = {k for k, v in _jax_params(tiny_prep)._asdict().items() if v is not None}
-    assert set(fields) == want
+    assert {k[1] for k in leaves if k[0] == "params"} == want and tops == {"params"}

@@ -27,8 +27,20 @@ WORLDS = (2, 4)
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory):
-    return {w: run_ranks("collectives", w, tmp_path_factory.mktemp(f"c{w}")) for w in WORLDS}
+def ranks_2(tmp_path_factory):
+    return run_ranks("collectives", 2, tmp_path_factory.mktemp("c2"))
+
+
+@pytest.fixture(scope="module")
+def ranks_4(tmp_path_factory):
+    return run_ranks("collectives", 4, tmp_path_factory.mktemp("c4"))
+
+
+@pytest.fixture
+def ranks(request, world):
+    """{world: each rank's results}: a group a world, each run once, so that
+    a group that fails fails its own five cases only."""
+    return {world: request.getfixturevalue(f"ranks_{world}")}
 
 
 def _jax(body, x, world, out_spec=P("rays")):

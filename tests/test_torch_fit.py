@@ -12,7 +12,8 @@ tests/test_fit_geometry.py for everything without a device mesh).
 * Checkpoints: the round trip (params and Adam's state), the latest
   step, atomic saves, incomplete directories skipped, resume keeping to
   the total step budget, a checkpoint the JAX package saved with its npz
-  backend restored into the port (params) and the port's read by JAX.
+  backend restored into the port (params and optax's Adam state) and the
+  port's read by JAX.
 * `cli fit` on the gradcheck scene prints the first and last loss.
 """
 
@@ -286,9 +287,9 @@ def test_fit_resume_respects_total_step_budget(prep, tmp_path):
 
 def test_jax_npz_checkpoint_params_restore(prep, tiny_prep, tmp_path, monkeypatch):
     """A checkpoint the JAX package saved with its npz backend (orbax made
-    unimportable) gives the port its params, in SceneParams field order;
-    its optax state is not carried over.  The JAX package reads the
-    port's params back."""
+    unimportable) gives the port its params, in SceneParams field order,
+    and its optax state (Adam's, fresh: step 0, zero moments) loads into
+    the port's Adam.  The JAX package reads the port's params back."""
     real_import = builtins.__import__
 
     def no_orbax(name, *a, **k):
@@ -308,7 +309,11 @@ def test_jax_npz_checkpoint_params_restore(prep, tiny_prep, tmp_path, monkeypatc
     step, init_t = fit.make_train_step(prep.grid.meta, prep.cfg, trainable=("kd", "verts"))
     params, opt = init_t(fit.split_scene(prep.scene))
     p2, o2 = checkpoint.restore_checkpoint(d, {"params": params, "opt_state": opt})
-    assert o2 is None
+    assert o2 is opt
+    for p in (params.kd, params.verts):
+        st = opt.state[p]
+        assert float(st["step"]) == 0.0 and st["exp_avg"].shape == p.shape
+        assert not st["exp_avg"].any() and not st["exp_avg_sq"].any()
     for f in fit.SceneParams._fields:
         a, b = getattr(p2, f), getattr(jp, f)
         assert (a is None) == (b is None), f

@@ -36,35 +36,53 @@ OUT_DIR = None  # a rank's output directory (the test's tmp_path)
 
 def run_ranks(fn: str, world: int, tmp_path, timeout: float = 420.0) -> list:
     """The return values of fn(rank, world) on each of `world` gloo ranks,
-    in rank order."""
+    in rank order.  A failure names the rank that failed first (the others
+    are then stopped), the world, the seconds since the start and the tail
+    of that rank's log; a group past `timeout` names every rank still
+    running with its log's tail."""
     tmp = str(tmp_path)
     init = f"file://{tmp}/rendezvous"
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, HERE]), OMP_NUM_THREADS="1")
     outs = [os.path.join(tmp, f"rank{i}.pkl") for i in range(world)]
     logs = [os.path.join(tmp, f"rank{i}.log") for i in range(world)]
     procs = []
+    t0 = time.monotonic()
     for i in range(world):
         with open(logs[i], "w") as log:
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), fn, str(i), str(world), init,
                  outs[i]], cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + timeout
+
+    def tail(i: int) -> str:
+        with open(logs[i]) as fh:
+            return fh.read()[-4000:]
+
+    first = None  # (rank, returncode, seconds) of the first rank that failed
     try:
         while any(p.poll() is None for p in procs):
-            if time.monotonic() > deadline:
-                raise AssertionError(f"{fn} on {world} ranks did not finish in {timeout} s")
-            if any(p.poll() not in (None, 0) for p in procs):
-                break  # a rank failed: the others would wait on it
+            if time.monotonic() - t0 > timeout:
+                running = [i for i, p in enumerate(procs) if p.poll() is None]
+                raise AssertionError(
+                    f"{fn} on {world} ranks did not finish in {timeout} s; ranks {running} "
+                    "still running:\n" + "\n".join(f"--- rank {i}:\n{tail(i)}" for i in running))
+            failed = [i for i, p in enumerate(procs) if p.poll() not in (None, 0)]
+            if failed:
+                first = (failed[0], procs[failed[0]].returncode, time.monotonic() - t0)
+                break  # the others would wait on it
             time.sleep(0.1)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
             p.wait()
-    for i, p in enumerate(procs):
-        if p.returncode != 0:
-            with open(logs[i]) as fh:
-                raise AssertionError(f"rank {i} of {fn} failed:\n{fh.read()[-4000:]}")
+    if first is None:
+        bad = [i for i, p in enumerate(procs) if p.returncode != 0]
+        if bad:
+            first = (bad[0], procs[bad[0]].returncode, time.monotonic() - t0)
+    if first is not None:
+        i, rc, secs = first
+        raise AssertionError(f"rank {i} of {fn} on {world} ranks failed (exit code {rc}, "
+                             f"{secs:.1f} s after the start):\n{tail(i)}")
     results = []
     for out in outs:
         with open(out, "rb") as fh:
