@@ -3439,8 +3439,6 @@ class Smoke:
         images, steps and buffers; rank 0's numbers are printed."""
         import tempfile
 
-        import torch.distributed as dist
-
         from ray_tracer_tpu_torch.parallel import multihost
 
         os.makedirs(os.path.join(self.root, "build"), exist_ok=True)
@@ -3461,8 +3459,7 @@ class Smoke:
             res = RANK_WORK[work](self, 0)
             ok = True
         finally:
-            if dist.is_initialized():
-                dist.destroy_process_group()
+            multihost.shutdown()
             for proc in procs:
                 try:
                     proc.wait(timeout=600 if ok else 5)
@@ -4767,8 +4764,6 @@ def rank_job(argv) -> int:
     """`chip_smoke.py --rank-job INIT WORLD BACKEND RANK OUT WORK`: rank RANK
     (> 0) of phase multidevice's or ring's (WORK) group on this card;
     writes its results to OUT."""
-    import torch.distributed as dist
-
     init, world, backend, rank, out, work = argv
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ray_tracer_tpu_torch.parallel import multihost
@@ -4778,7 +4773,7 @@ def rank_job(argv) -> int:
     try:
         res = RANK_WORK[work](Smoke(), int(rank))
     finally:
-        dist.destroy_process_group()
+        multihost.shutdown()
     with open(out, "w") as fh:
         json.dump(res, fh)
     return 0

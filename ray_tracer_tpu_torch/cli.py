@@ -208,13 +208,12 @@ def _backend(args, local_ranks: int) -> str:
 
 def _as_rank(args) -> None:
     """Run the command as a rank of the formed group, then leave it."""
-    import torch.distributed as dist
+    from ray_tracer_tpu_torch.parallel import multihost
 
     try:
         args.fn(args)
-        dist.barrier()  # no rank tears the group down under another
     finally:
-        dist.destroy_process_group()
+        multihost.shutdown()
 
 
 def _rank_main(index: int, n: int, init: str, args) -> None:

@@ -32,8 +32,23 @@ _MESHES = {}  # (n, axes, shape, device) -> DeviceMesh of the current group
 
 def forget_meshes() -> None:
     """Drop the kept meshes (their groups belong to a destroyed process
-    group; `multihost.initialize` calls this before forming a new one)."""
+    group; `multihost.shutdown` calls this after destroying it, and
+    `multihost.initialize` before forming a new one)."""
     _MESHES.clear()
+
+
+def mesh_groups() -> list:
+    """The process groups the kept meshes made other than the default
+    group, each once."""
+    if not _MESHES:
+        return []
+    world = dist.group.WORLD.group_name
+    groups = {}
+    for mesh in _MESHES.values():
+        for group in mesh.get_all_groups():
+            if group.group_name != world:
+                groups.setdefault(group.group_name, group)
+    return list(groups.values())
 
 
 def _rank_device(devices) -> torch.device:
@@ -111,4 +126,5 @@ def factor_mesh(n: int) -> Tuple[int, int]:
     return n // best, best
 
 
-__all__ = ["axis_index", "axis_size", "factor_mesh", "forget_meshes", "in_mesh", "make_mesh"]
+__all__ = ["axis_index", "axis_size", "factor_mesh", "forget_meshes", "in_mesh", "make_mesh",
+           "mesh_groups"]

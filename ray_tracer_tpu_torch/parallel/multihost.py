@@ -9,7 +9,8 @@ riding NCCL between cards or gloo between CPU ranks.
 
 One process without a group formed elsewhere is the degenerate case:
 `initialize()` then forms a one-rank group on a local store, and every
-helper works there.
+helper works there.  `shutdown()` leaves the group, as
+`jax.distributed.shutdown` does at exit.
 """
 
 from __future__ import annotations
@@ -65,6 +66,31 @@ def initialize(coordinator_address: Optional[str] = None, num_processes: Optiona
         dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1,
                                 timeout=limit)
         get_logger(__name__).info("single-process mode (%s)", backend)
+
+
+def shutdown() -> None:
+    """Leave the process group (a no-op without one), the counterpart of
+    `jax.distributed.shutdown`: a barrier, bounded by the group's timeout,
+    so that no rank tears the group down under another (a rank whose work
+    failed waits there too, so the others leave cleanly and the failure is
+    its own); then the sub-groups the kept meshes made, and the group
+    itself, destroyed, and the meshes dropped.  A DeviceMesh holds its
+    process groups, so until the meshes go each gloo group keeps its worker
+    and transport threads running past `destroy_process_group`, to be torn
+    down at interpreter exit; dropped here, the groups' threads are joined
+    before this returns."""
+    if not dist.is_initialized():
+        return
+    from ray_tracer_tpu_torch.parallel.mesh import forget_meshes, mesh_groups
+
+    try:
+        if dist.get_world_size() > 1:
+            dist.barrier()
+    finally:
+        for group in mesh_groups():
+            dist.destroy_process_group(group)
+        dist.destroy_process_group()
+        forget_meshes()
 
 
 def process_count() -> int:
@@ -154,5 +180,5 @@ def write_ppm_host0(path: str, img) -> bool:
 __all__ = [
     "broadcast_scene_host0", "gather_image_host0", "global_mesh",
     "host_tile_bounds", "initialize", "is_host0", "process_count", "process_index",
-    "write_ppm_host0",
+    "shutdown", "write_ppm_host0",
 ]

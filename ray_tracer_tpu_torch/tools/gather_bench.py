@@ -55,6 +55,45 @@ def make_inputs(w: int = W, nb: int = NB, tl: int = TL, device=None, seed: int =
     return tuple(torch.from_numpy(a).to(dev) for a in (blocks, o, d, idx0))
 
 
+def aimed_inputs(w: int = W, nb: int = NB, device=None, seed: int = 1):
+    """make_inputs with each ray aimed at the centroid of one triangle lane
+    of its row, so that most lanes hit (the CPU tests' aimed rays)."""
+    blocks, o, _, idx = make_inputs(w, nb, device="cpu", seed=seed)
+    lane = torch.from_numpy(np.random.default_rng(seed).integers(0, TL, w))
+    row = blocks[idx.long(), :, lane]  # (W, 9)
+    centroid = (row[:, 0:3] + row[:, 3:6] + row[:, 6:9]) / 3
+    d = centroid - o
+    d = d / d.norm(dim=1, keepdim=True)
+    dev = resolve_device(device)
+    return tuple(x.contiguous().to(dev) for x in (blocks, o, d, idx))
+
+
+def degenerate_inputs(w: int = W, nb: int = NB, device=None, seed: int = 2):
+    """aimed_inputs with degenerate triangles: in every row, b = a on every
+    4th triangle lane, c = a on every 4th from 1, all three vertices equal on
+    every 4th from 2 (A = 0: NaN and inf in t, beta and gamma), and a vertex
+    at +inf on every 16th from 3."""
+    blocks, o, d, idx = aimed_inputs(w, nb, device="cpu", seed=seed)
+    blocks = blocks.clone()
+    blocks[:, 3:6, 0::4] = blocks[:, 0:3, 0::4]
+    blocks[:, 6:9, 1::4] = blocks[:, 0:3, 1::4]
+    blocks[:, 3:6, 2::4] = blocks[:, 0:3, 2::4]
+    blocks[:, 6:9, 2::4] = blocks[:, 0:3, 2::4]
+    blocks[:, 6, 3::16] = float("inf")
+    dev = resolve_device(device)
+    return tuple(x.to(dev) for x in (blocks, o, d, idx))
+
+
+def input_cases(w: int = W, nb: int = NB, device=None) -> Dict[str, tuple]:
+    """The inputs kernel D is held to its plain version on: the tool's own,
+    aimed rays, every lane on one row, and degenerate triangles."""
+    blocks, o, d, idx = make_inputs(w, nb, device=device)
+    return {"tool": (blocks, o, d, idx),
+            "aimed": aimed_inputs(w, nb, device=device),
+            "one_row": (blocks, o, d, torch.full_like(idx, min(7, nb - 1))),
+            "degenerate": degenerate_inputs(w, nb, device=device)}
+
+
 def _det3(u, v, w):
     """The JAX tool's own expansion (pallas_gather_bench.py:45-48)."""
     return (u[0] * (v[1] * w[2] - v[2] * w[1])
@@ -84,26 +123,93 @@ def gather_row_test_plain(blocks, o, d, idx) -> torch.Tensor:
     return torch.where(ok, t, torch.full_like(t, float("inf"))).amin(dim=-1)
 
 
-def gather_row_test_cuda(blocks, o, d, idx) -> torch.Tensor:
-    """Kernel D on CUDA tensors; the plain version's output."""
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = {
+    "gather_row_test_launch": [_P, _P, _P, _P, _I, _I, _P, _P],
+    "gather_row_vec_launch": [_P, _P, _P, _P, _I, _I, _P, _P],
+    "gather_row_bucket_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "gather_row_coop_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    "gather_row_range_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
+}
+_BOUND: Dict[str, object] = {}  # the C launchers, bound once at first use
+BUCKET = 32  # lanes a row's bucket holds in design b (csrc kBucket)
+_SCRATCH: Dict[tuple, torch.Tensor] = {}  # design b: (device, stream, nb) -> scratch
+DESIGN = "a"
+
+
+def _launcher(name: str):
+    """The C launcher `name` of csrc/gather_row_test.cu with its argtypes
+    set, and the function that gives a device's current raw stream; both
+    looked up once."""
+    fn = _BOUND.get(name)
+    if fn is None:
+        fn = getattr(_build.library("gather_row_test"), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES[name]
+        _BOUND[name] = fn
+    return fn
+
+
+def _raw_stream(dev: torch.device) -> int:
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if get is not None:
+        return get(dev.index)
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _checked(blocks, o, d, idx):
+    """The wrapper's checks: raise on what kernel D does not take."""
     if not blocks.is_cuda:
         raise ValueError("gather_row_test_cuda takes CUDA tensors")
     if blocks.dtype != torch.float32 or blocks.ndim != 3 or blocks.shape[1] != CH:
         raise ValueError("blocks must be (NB, 9, TL) float32")
+    if blocks.shape[2] % 4 or not blocks.is_contiguous() or blocks.data_ptr() % 16:
+        raise ValueError("kernel D takes a contiguous, 16-byte aligned table whose TL is a "
+                         "multiple of 4")
     w = idx.shape[0]
-    if o.shape != (w, 3) or d.shape != (w, 3) or idx.dtype != torch.int32:
+    if (o.shape != (w, 3) or d.shape != (w, 3) or idx.dtype != torch.int32
+            or o.dtype != torch.float32 or d.dtype != torch.float32):
         raise ValueError("o, d must be (W, 3) float32 and idx (W,) int32")
-    blocks, o, d, idx = (x.contiguous() for x in (blocks, o, d, idx))
-    out = torch.empty((w,), dtype=torch.float32, device=blocks.device)
-    lib = _build.library("gather_row_test")
-    fn = lib.gather_row_test_launch
-    fn.restype = ctypes.c_int
-    p = ctypes.c_void_p
-    fn.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, p, p]
-    with torch.cuda.device(blocks.device):
-        stream = torch.cuda.current_stream(blocks.device).cuda_stream
-        err = fn(blocks.data_ptr(), o.data_ptr(), d.data_ptr(), idx.data_ptr(), w,
-                 blocks.shape[2], out.data_ptr(), stream)
+    dev = blocks.device
+    if o.device != dev or d.device != dev or idx.device != dev:
+        raise ValueError("blocks, o, d and idx must be on one device")
+    return o.contiguous(), d.contiguous(), idx.contiguous()
+
+
+def gather_row_test_cuda(blocks, o, d, idx, design=None) -> torch.Tensor:
+    """Kernel D on CUDA tensors; the plain version's output."""
+    o, d, idx = _checked(blocks, o, d, idx)
+    design = design or DESIGN
+    nb, _, tl = blocks.shape
+    w = idx.shape[0]
+    dev = blocks.device
+    out = torch.empty((w,), dtype=torch.float32, device=dev)
+    ptrs = (blocks.data_ptr(), o.data_ptr(), d.data_ptr(), idx.data_ptr())
+
+    def launch():
+        stream = _raw_stream(dev)
+        if design in ("b", "c"):
+            if 9 * tl * 4 > 48 * 1024:
+                raise ValueError("design b takes rows of at most 48 KB")
+            key = (dev.index, stream, nb)
+            scratch = _SCRATCH.get(key)
+            if scratch is None:
+                scratch = _SCRATCH[key] = torch.zeros((nb * (1 + BUCKET),),
+                                                      dtype=torch.int32, device=dev)
+            name = "gather_row_bucket_launch" if design == "b" else "gather_row_coop_launch"
+            return _launcher(name)(
+                *ptrs, w, nb, tl, scratch.data_ptr(), out.data_ptr(), stream)
+        if design == "e":
+            return _launcher("gather_row_range_launch")(*ptrs, w, nb, tl, out.data_ptr(), stream)
+        name = "gather_row_vec_launch" if design == "a" else "gather_row_test_launch"
+        return _launcher(name)(*ptrs, w, tl, out.data_ptr(), stream)
+
+    if dev.index == torch.cuda.current_device():
+        err = launch()
+    else:
+        with torch.cuda.device(dev):
+            err = launch()
     _build.check(err, "gather_row_test")
     gather_row_test_cuda.launches += 1
     return out
@@ -136,18 +242,25 @@ def step_loop(n: int, blocks, o, d, idx0, test=gather_row_test) -> torch.Tensor:
 
 
 def check(w: int = W, nb: int = NB, device=None) -> Dict:
-    """Kernel D (on the card) against its plain version on the tool's
-    inputs: bitwise.  On the CPU both sides are the plain version."""
-    blocks, o, d, idx0 = make_inputs(w, nb, device=device)
-    got = gather_row_test(blocks, o, d, idx0)
-    want = gather_row_test_plain(blocks, o, d, idx0)
-    bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
-    fin = torch.isfinite(want)
-    err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
-    if bad:
-        raise AssertionError(f"kernel D differs from its plain version in {bad} of {w} lanes")
-    return {"lanes": w, "rows": nb, "finite": int(fin.sum()), "max_abs_err": err,
-            "tolerance": "bitwise", "equal": True, "device": str(blocks.device)}
+    """Kernel D (on the card) against its plain version on each of
+    `input_cases`: bitwise.  On the CPU both sides are the plain version."""
+    out = {"lanes": w, "rows": nb, "tolerance": "bitwise", "cases": {}}
+    err = 0.0
+    for name, (blocks, o, d, idx) in input_cases(w, nb, device=device).items():
+        got = gather_row_test(blocks, o, d, idx)
+        want = gather_row_test_plain(blocks, o, d, idx)
+        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        if bad:
+            raise AssertionError(f"kernel D differs from its plain version in {bad} of {w} "
+                                 f"lanes on the {name} inputs")
+        fin = torch.isfinite(want)
+        if bool(fin.any()):
+            err = max(err, float((got[fin] - want[fin]).abs().max()))
+        out["cases"][name] = {"finite": int(fin.sum()),
+                              "distinct_rows": int(torch.unique(idx).numel())}
+        out["device"] = str(blocks.device)
+    return dict(out, max_abs_err=err, equal=True,
+                finite=out["cases"]["tool"]["finite"])
 
 
 def _loop_ms(fn, n: int) -> float:

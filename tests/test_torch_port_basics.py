@@ -82,7 +82,7 @@ assert root_render_sharded is render_sharded
 mesh = make_mesh(devices="cpu")  # a one-rank gloo group, the multi-device layer at world 1
 wprep = prepare(apply_turbo(parallel_scene_config(8, 8), "parallel"), device="cpu")
 assert torch.equal(render_sharded(wprep, mesh=mesh), render(wprep))
-dist.destroy_process_group()
+multihost.shutdown()
 loaded = [k for k, v in sys.modules.items()
           if v is not None and (k.split(".")[0] in ("jax", "jaxlib", "ray_tracer_tpu"))]
 assert not loaded, loaded

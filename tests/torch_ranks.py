@@ -103,8 +103,9 @@ def run_groups(fn: str, worlds, tmp_of, timeout: float = 420.0) -> dict:
 @contextlib.contextmanager
 def one_rank_group():
     """A one-rank gloo group in this process (initialize() without
-    arguments), yielding a CPU mesh over it; the group is destroyed on the
-    way out, so that the test process holds none afterwards."""
+    arguments), yielding a CPU mesh over it; the group is left
+    (multihost.shutdown) on the way out, so that the test process holds
+    none afterwards."""
     import torch.distributed as dist
 
     from ray_tracer_tpu_torch.parallel import multihost
@@ -115,7 +116,7 @@ def one_rank_group():
     try:
         yield make_mesh(devices="cpu")
     finally:
-        dist.destroy_process_group()
+        multihost.shutdown()
 
 
 # ---------------------------------------------------------------------------
@@ -246,6 +247,53 @@ def sharded_renders(rank: int, world: int) -> dict:
         res = intersect_brute_sharded(RayBatch(*rays), v0, v1, v2, grid2, t_lower=1e-4)
         out["brute"] = {k: _numpy(v) for k, v in res._asdict().items()}
     return out if rank == 0 else None
+
+
+def gloo_threads(since=()) -> dict:
+    """{thread id: name} of this process's threads that gloo named
+    (pt_gloo_runloop, gloo_tcp_loop, ...), other than the ids in `since`
+    (Linux: /proc/self/task)."""
+    out = {}
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{tid}/comm") as fh:
+                name = fh.read().strip()
+        except OSError:  # the thread ended while listed
+            continue
+        if "gloo" in name and tid not in since:
+            out[tid] = name
+    return out
+
+
+def teardown(rank: int, world: int) -> dict:
+    """A 1-D mesh and a 2-D ("rays", "tris") mesh (whose "rays" axis of 1
+    makes a sub-group a rank), a sum over each, then multihost.shutdown()
+    inside the work: the sums, the gloo threads running before it, and
+    whether a group or a gloo thread is left after it."""
+    import torch.distributed as dist
+
+    from ray_tracer_tpu_torch.parallel import collectives as coll
+    from ray_tracer_tpu_torch.parallel import multihost
+    from ray_tracer_tpu_torch.parallel.mesh import make_mesh, mesh_groups
+
+    mesh = make_mesh(devices="cpu")
+    mesh2 = make_mesh(world, ("rays", "tris"), shape=(1, world), devices="cpu")
+    one = torch.ones((1,))
+    sums = [float(coll.allreduce_gradients({"g": one * (rank + 1)}, m, axis)["g"])
+            for m, axis in ((mesh, "rays"), (mesh2, "tris"), (mesh2, "rays"))]
+    subgroups = len(mesh_groups())
+    del mesh, mesh2  # a mesh held here would hold its groups past the shutdown
+    before = gloo_threads()
+    multihost.shutdown()
+    return {"sums": sums, "subgroups": subgroups, "threads_before": before,
+            "initialized_after": dist.is_initialized(), "threads_after": gloo_threads()}
+
+
+def fail_on_rank1(rank: int, world: int) -> dict:
+    """Rank 1 raises inside the work; the others return."""
+    if rank == 1:
+        raise RuntimeError("rank 1 fails on purpose")
+    return {"rank": rank}
 
 
 def collectives(rank: int, world: int) -> dict:
@@ -607,8 +655,6 @@ def _main(argv) -> int:
     OUT_DIR = os.path.dirname(out)
     sys.path[:0] = [REPO, HERE]
     torch.set_num_threads(1)
-    import torch.distributed as dist
-
     from ray_tracer_tpu_torch.parallel import multihost
 
     if fn != "single_process":  # that one forms its own group
@@ -616,9 +662,8 @@ def _main(argv) -> int:
                              timeout=GROUP_TIMEOUT)
     try:
         result = globals()[fn](int(rank), int(world))
-        dist.barrier()  # no rank tears the group down under another
     finally:
-        dist.destroy_process_group()
+        multihost.shutdown()
     with open(out, "wb") as fh:
         pickle.dump(result, fh)
     return 0
