@@ -58,7 +58,9 @@ each printing one JSON line:
      both devices (the plain wave on the card with pow on the CPU gives
      the CPU's colors);
   9. kernel D (csrc/gather_row_test.cu) against its plain version through
-     the port's gather tool, and the tool's step-loop time;
+     the port's gather tool, bitwise on the tool's inputs, aimed rays,
+     every lane on one row and degenerate triangles, and the tool's
+     step-loop time;
  10. kernel F (csrc/gi_wave.cu, the cross-depth GI wave: stage P, the
      persistent stage S and the fold) against its plain version on the
      card: the turbo serial scene at 128x128 with S = 4, D = 2, the turbo
@@ -419,7 +421,10 @@ ALL_PHASES = ("build", "A", "B", "C", "E", "F", "grid_build", "main", "card_vs_c
 # of the sources (B and C as redesigned, before C's march step moved into
 # csrc/packed_step.cuh), NVIDIA H100 80GB HBM3 at 700 W, as recorded in
 # PERF.md; C's must stay within 5%.
-PREVIOUS_MS = {"B": {"device_ms": 0.4504}, "C": {"device_ms": 0.4288}}
+PREVIOUS_MS = {"B": {"device_ms": 0.4504}, "C": {"device_ms": 0.4288},
+               # kernel D and its wrapper before the wrapper bound its launcher
+               # once: four turns at the gather tool's shapes, the range
+               "D": {"device_ms": [0.006624, 0.006709], "ms": [0.02309, 0.03962]}}
 # Kernel E on the turbo parallel 1024^2 frame before its redesign as a
 # persistent wave (one thread a queue position, the camera batch in
 # memory), on the same card as recorded in PERF.md: device time and lane
@@ -3947,6 +3952,7 @@ class Smoke:
                     "bound_ops_ms": c_ops / PEAK_FP32_UNFUSED * 1e3,
                     "bound_bytes_ms": c_bytes / PEAK_BYTES * 1e3},
               "D": {"ms": d_ms, "device_ms": d_dev_ms, "plain_ms": d_plain_ms,
+                    "previous_ms": PREVIOUS_MS["D"], "ptxas": self.ptxas.get("gather_row_test"),
                     "lanes": w, "distinct_rows": d_rows, "bytes": d_bytes, "ops": d_ops,
                     "bound_ms": d_bound, "bound_ops_fma_peak_ms": d_ops / PEAK_FP32_OPS * 1e3,
                     "bound_bytes_ms": d_bytes / PEAK_BYTES * 1e3}})

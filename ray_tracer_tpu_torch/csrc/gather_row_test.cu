@@ -11,35 +11,34 @@
 // beta + gamma < 1, t > 0, and +inf on a lane with no hit.  It measures the
 // row gather that the packed march makes.
 //
-// Three designs, measured against each other on the card:
-//   p  one warp a lane, thread j on triangle lanes j, j+32, ...: scalar
-//      loads, one round of nine a 32 triangle lanes;
-//   a  one warp a lane, thread j on the 4 consecutive triangle lanes
-//      4j..4j+3 of every channel: nine 128-bit read-only loads, all in
-//      flight before any arithmetic;
-//   b  a counting pass appends each lane to its row's bucket, then a block
-//      a row copies the row into shared memory with one bulk copy
-//      (cp.async.bulk on an mbarrier) and its warps test the row's lanes:
-//      each distinct row crosses from L2 once.
-// The minimum of non-NaN floats (accepted t are finite and > 0) does not
-// depend on the order, so every design is bitwise the plain version's; the
-// build's -fmad=false keeps every product and sum rounding alone, and 1/A
-// is an IEEE division.
+// Layout: one warp per lane.  Thread j of the warp takes triangle lanes j,
+// j+32, j+64, ... so that each channel load is one coalesced 128-byte
+// read per 32 lanes; a warp-shuffle min folds the 32 partial minima.  The
+// minimum of non-NaN floats (accepted t are finite and > 0) does not
+// depend on the order, so the result is bitwise the plain version's; the
+// build's -fmad=false keeps every product and sum rounding alone.
 //
-// Bound on the H100: device-memory bytes.  The table's distinct rows count
-// once (about 2,200 of 2,270 rows of 4,608 bytes at W = 8192), plus 28
-// bytes of ray and index and 4 of output a lane; about 63 FP32 operations
-// a triangle lane.
-#include <cooperative_groups.h>
+// Bound on the H100: device-memory bytes.  Each lane reads one 9*TL*4 =
+// 4,608-byte row (the table's distinct rows count once for the bound) and
+// its 28 bytes of ray and index, and writes 4 bytes; the arithmetic is
+// about 63 FP32 operations per triangle lane.  The design reads each row
+// with full 128-byte transactions and keeps no intermediate in memory;
+// with W = 8192 lanes it fills 8,192 warps, about 62 per SM (32 registers,
+// 97% achieved occupancy).  The table stays in the 50 MB L2 across calls,
+// so what bounds a call in practice is the L2-to-SM traffic: every lane
+// reads its whole row (37.7 MB at W = 8192, 3.6 lanes a row), about 5.6
+// TB/s at 6.7 us.  Four redesigns were timed against this one in turns on
+// the card and lost (PERF.md section 6): 128-bit loads of four triangle
+// lanes a thread (56 registers, half the occupancy, the same bytes); a
+// counting pass into per-row buckets and a block a row fed by one bulk
+// copy (each row read once, but the pass and each block's load-then-test
+// chain cost more than the bytes saved), as two launches or one
+// cooperative kernel; and a block a range of rows that scans idx itself.
 #include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kWarpsPerBlock = 4;
-constexpr int kBucket = 32;  // lanes a row's bucket holds; a fuller row scans idx
 
 __device__ __forceinline__ float det3(const float u[3], const float v[3],
                                       const float w[3]) {
@@ -47,64 +46,6 @@ __device__ __forceinline__ float det3(const float u[3], const float v[3],
          w[0] * (u[1] * v[2] - u[2] * v[1]);
 }
 
-// The tool's cramer_min on one triangle lane: a (the first vertex), b, c.
-__device__ __forceinline__ float lane_t(const float a[3], const float b[3], const float c[3],
-                                        const float o[3], const float d[3], float best) {
-  float e1[3], e2[3], s[3];
-  for (int k = 0; k < 3; ++k) {
-    e1[k] = a[k] - b[k];
-    e2[k] = a[k] - c[k];
-    s[k] = a[k] - o[k];
-  }
-  const float A = det3(e1, e2, d);
-  const float tn = det3(e1, e2, s);
-  const float bn = det3(s, e2, d);
-  const float gn = det3(e1, s, d);
-  const float inv = 1.0f / A;
-  const float t = tn * inv;
-  const float beta = bn * inv;
-  const float gamma = gn * inv;
-  const bool ok = beta > 0.0f && gamma > 0.0f && beta + gamma < 1.0f && t > 0.0f;
-  return ok && t < best ? t : best;
-}
-
-__device__ __forceinline__ float comp(const float4& v, int m) {
-  return m == 0 ? v.x : m == 1 ? v.y : m == 2 ? v.z : v.w;
-}
-
-// Four consecutive triangle lanes, one float4 of each of the nine channels.
-__device__ __forceinline__ float four_t(const float4 c[9], const float o[3], const float d[3],
-                                        float best) {
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    float a[3], b[3], cc[3];
-    for (int k = 0; k < 3; ++k) {
-      a[k] = comp(c[k], m);
-      b[k] = comp(c[3 + k], m);
-      cc[k] = comp(c[6 + k], m);
-    }
-    best = lane_t(a, b, cc, o, d, best);
-  }
-  return best;
-}
-
-__device__ __forceinline__ float warp_min(float best) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float other = __shfl_down_sync(0xffffffffu, best, off);
-    best = other < best ? other : best;
-  }
-  return best;
-}
-
-__device__ __forceinline__ void load_ray(const float* orig, const float* dirn, int lane,
-                                         float o[3], float d[3]) {
-  for (int k = 0; k < 3; ++k) {
-    o[k] = __ldg(orig + 3 * lane + k);
-    d[k] = __ldg(dirn + 3 * lane + k);
-  }
-}
-
-// ---- design p ----------------------------------------------------------
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 gather_row_test_kernel(const float* __restrict__ blocks, const float* __restrict__ orig,
                        const float* __restrict__ dirn, const int* __restrict__ idx,
@@ -120,273 +61,38 @@ gather_row_test_kernel(const float* __restrict__ blocks, const float* __restrict
   }
   float best = INFINITY;
   for (int j = j0; j < tl; j += 32) {
-    float a[3], b[3], c[3];
+    float e1[3], e2[3], s[3];
     for (int k = 0; k < 3; ++k) {
-      a[k] = row[k * tl + j];
-      b[k] = row[(3 + k) * tl + j];
-      c[k] = row[(6 + k) * tl + j];
+      const float a = row[k * tl + j];
+      const float b = row[(3 + k) * tl + j];
+      const float c = row[(6 + k) * tl + j];
+      e1[k] = a - b;
+      e2[k] = a - c;
+      s[k] = a - o[k];
     }
-    best = lane_t(a, b, c, o, d, best);
+    const float A = det3(e1, e2, d);
+    const float tn = det3(e1, e2, s);
+    const float bn = det3(s, e2, d);
+    const float gn = det3(e1, s, d);
+    const float inv = 1.0f / A;
+    const float t = tn * inv;
+    const float beta = bn * inv;
+    const float gamma = gn * inv;
+    const bool ok = beta > 0.0f && gamma > 0.0f && beta + gamma < 1.0f && t > 0.0f;
+    if (ok && t < best) best = t;
   }
-  best = warp_min(best);
+  for (int off = 16; off > 0; off >>= 1) {
+    const float other = __shfl_down_sync(0xffffffffu, best, off);
+    best = other < best ? other : best;
+  }
   if (j0 == 0) out[lane] = best;
-}
-
-// ---- design a ----------------------------------------------------------
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-gather_row_vec_kernel(const float4* __restrict__ blocks, const float* __restrict__ orig,
-                      const float* __restrict__ dirn, const int* __restrict__ idx,
-                      int w, int q, float* __restrict__ out) {
-  const int lane = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
-  const int j0 = threadIdx.x % 32;
-  if (lane >= w) return;
-  const float4* row = blocks + (size_t)__ldg(idx + lane) * 9 * q;
-  float o[3], d[3];
-  load_ray(orig, dirn, lane, o, d);
-  float best = INFINITY;
-  for (int j = j0; j < q; j += 32) {
-    float4 c[9];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) c[k] = __ldg(row + k * q + j);
-    best = four_t(c, o, d, best);
-  }
-  best = warp_min(best);
-  if (j0 == 0) out[lane] = best;
-}
-
-// ---- designs b and c ---------------------------------------------------
-// Scratch: count[nb] (zero between calls: each row's block puts its count
-// back to zero) and slot[nb * kBucket].  b launches the counting pass and
-// the row kernel; c is one cooperative kernel, the two passes on either
-// side of a grid-wide barrier.
-constexpr int kRowWarps = 2;
-
-__device__ __forceinline__ void bucket_lane(const int* __restrict__ idx, int i, int* count,
-                                            int* slot) {
-  const int r = __ldg(idx + i);
-  const int p = atomicAdd(count + r, 1);
-  if (p < kBucket) slot[(size_t)r * kBucket + p] = i;
-}
-
-__global__ void gather_bucket_kernel(const int* __restrict__ idx, int w,
-                                     int* __restrict__ count, int* __restrict__ slot) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < w) bucket_lane(idx, i, count, slot);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  }
-}
-
-// One lane against the row in shared memory: thread j on triangle lanes j,
-// j+32, ... (scalar shared loads, no bank conflict).
-__device__ __forceinline__ void test_lane(const float* row, int tl, const float o[3],
-                                          const float d[3], int lane, float* out) {
-  const int j0 = threadIdx.x % 32;
-  float best = INFINITY;
-  for (int j = j0; j < tl; j += 32) {
-    float a[3], b[3], c[3];
-    for (int k = 0; k < 3; ++k) {
-      a[k] = row[k * tl + j];
-      b[k] = row[(3 + k) * tl + j];
-      c[k] = row[(6 + k) * tl + j];
-    }
-    best = lane_t(a, b, c, o, d, best);
-  }
-  best = warp_min(best);
-  if (j0 == 0) out[lane] = best;
-}
-
-// Row r's lanes: the row copied into shared memory by one bulk copy on the
-// mbarrier `bar` (its phase `parity`), while each warp reads the count, its
-// first lane's slot and that lane's ray.  Leaves count[r] at zero; returns
-// whether the row had a lane (and so turned the barrier's phase).
-__device__ __forceinline__ bool bucket_row(int r, const float* __restrict__ blocks,
-                                           const float* __restrict__ orig,
-                                           const float* __restrict__ dirn,
-                                           const int* __restrict__ idx, int w, int tl,
-                                           int* count, const int* slot, float* row,
-                                           uint64_t* bar, uint32_t parity,
-                                           float* __restrict__ out) {
-  const int warp = threadIdx.x / 32;
-  const uint32_t bytes = 9u * (uint32_t)tl * 4u;
-  const int n = __ldcg(count + r);
-  const int* bucket = slot + (size_t)r * kBucket;
-  const int first = warp < kBucket ? __ldcg(bucket + warp) : 0;  // used if warp < n
-  if (threadIdx.x == 0 && n > 0) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n"
-        :: "r"(smem_addr(row)), "l"(blocks + (size_t)r * 9 * tl), "r"(bytes),
-           "r"(smem_addr(bar))
-        : "memory");
-  }
-  float o[3], d[3];
-  if (warp < n && n <= kBucket) load_ray(orig, dirn, first, o, d);
-  __syncthreads();  // every thread has read count[r]
-  if (threadIdx.x == 0) count[r] = 0;
-  if (n == 0) return false;
-  mbar_wait(smem_addr(bar), parity);
-  if (n <= kBucket) {
-    for (int k = warp; k < n; k += kRowWarps) {
-      const int lane = k == warp ? first : __ldcg(bucket + k);
-      if (k != warp) load_ray(orig, dirn, lane, o, d);
-      test_lane(row, tl, o, d, lane, out);
-    }
-  } else {  // a full bucket: this row's lanes found by a scan of idx
-    for (int base = warp * 32; base < w; base += 32 * kRowWarps) {
-      const int i = base + threadIdx.x % 32;
-      unsigned hits = __ballot_sync(0xffffffffu, i < w && __ldg(idx + i) == r);
-      while (hits) {
-        const int lane = base + __ffs(hits) - 1;
-        hits &= hits - 1;
-        load_ray(orig, dirn, lane, o, d);
-        test_lane(row, tl, o, d, lane, out);
-      }
-    }
-  }
-  __syncthreads();  // the row is read before the next copy overwrites it
-  return true;
-}
-
-__device__ __forceinline__ void init_bar(uint64_t* bar) {
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_addr(bar)) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(32 * kRowWarps, 32)
-gather_row_bucket_kernel(const float* __restrict__ blocks, const float* __restrict__ orig,
-                         const float* __restrict__ dirn, const int* __restrict__ idx,
-                         int w, int tl, int* __restrict__ count,
-                         const int* __restrict__ slot, float* __restrict__ out) {
-  extern __shared__ __align__(128) float row[];
-  __shared__ __align__(8) uint64_t bar;
-  init_bar(&bar);
-  bucket_row(blockIdx.x, blocks, orig, dirn, idx, w, tl, count, slot, row, &bar, 0, out);
-}
-
-__global__ void __launch_bounds__(32 * kRowWarps, 32)
-gather_coop_kernel(const float* __restrict__ blocks, const float* __restrict__ orig,
-                   const float* __restrict__ dirn, const int* __restrict__ idx, int w,
-                   int nb, int tl, int* __restrict__ count, int* __restrict__ slot,
-                   float* __restrict__ out) {
-  extern __shared__ __align__(128) float row[];
-  __shared__ __align__(8) uint64_t bar;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < w; i += gridDim.x * blockDim.x)
-    bucket_lane(idx, i, count, slot);
-  init_bar(&bar);
-  cg::this_grid().sync();
-  uint32_t parity = 0;
-  for (int r = blockIdx.x; r < nb; r += gridDim.x) {
-    if (bucket_row(r, blocks, orig, dirn, idx, w, tl, count, slot, row, &bar, parity, out))
-      parity ^= 1u;
-  }
-}
-
-// ---- design e ----------------------------------------------------------
-// A block a range of rows, about one block an SM: the block copies its rows
-// into shared memory with one bulk copy each (a single mbarrier), finds its
-// rows' lanes by a scan of idx into a shared list (a shared-memory counting
-// pass, no global scratch), then its warps test the listed lanes, each
-// prefetching its next lane's ray.  Each row crosses from L2 once.
-constexpr int kRangeThreads = 1024;
-constexpr int kScanPerThread = 8;
-constexpr int kWindow = kRangeThreads * kScanPerThread;  // lanes scanned a round
-constexpr int kMaxRangeRows = 64;                        // a list entry: lane * 64 + row
-
-__global__ void __launch_bounds__(kRangeThreads, 1)
-gather_row_range_kernel(const float* __restrict__ blocks, const float* __restrict__ orig,
-                        const float* __restrict__ dirn, const int* __restrict__ idx, int w,
-                        int nb, int tl, int range, float* __restrict__ out) {
-  extern __shared__ __align__(128) float rows[];  // range * 9 * tl, then the list
-  int* list = reinterpret_cast<int*>(rows + (size_t)range * 9 * tl);
-  __shared__ __align__(8) uint64_t bar;
-  __shared__ int s_n;
-  const int r0 = blockIdx.x * range;
-  const int nr = min(range, nb - r0);
-  const int warp = threadIdx.x / 32;
-  const int warps = blockDim.x / 32;
-  if (threadIdx.x == 0) {
-    const uint32_t row_bytes = 9u * (uint32_t)tl * 4u;
-    const uint32_t b = smem_addr(&bar);
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(b) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(b), "r"(row_bytes * (uint32_t)nr) : "memory");
-    for (int k = 0; k < nr; ++k) {
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-          "[%0], [%1], %2, [%3];\n"
-          :: "r"(smem_addr(rows + (size_t)k * 9 * tl)),
-             "l"(blocks + (size_t)(r0 + k) * 9 * tl), "r"(row_bytes), "r"(b)
-          : "memory");
-    }
-    s_n = 0;
-  }
-  __syncthreads();
-  bool rows_in = false;
-  for (int base = 0; base < w; base += kWindow) {
-    int r[kScanPerThread];
-#pragma unroll
-    for (int k = 0; k < kScanPerThread; ++k) {
-      const int i = base + k * kRangeThreads + threadIdx.x;
-      r[k] = i < w ? __ldg(idx + i) - r0 : -1;
-    }
-#pragma unroll
-    for (int k = 0; k < kScanPerThread; ++k) {
-      if ((unsigned)r[k] < (unsigned)nr)
-        list[atomicAdd(&s_n, 1)] = (base + k * kRangeThreads + (int)threadIdx.x) * kMaxRangeRows + r[k];
-    }
-    __syncthreads();
-    const int n = s_n;
-    if (!rows_in) {
-      mbar_wait(smem_addr(&bar), 0);
-      rows_in = true;
-    }
-    int e = warp;
-    int v = e < n ? list[e] : 0;
-    float o[3], d[3];
-    if (e < n) load_ray(orig, dirn, v / kMaxRangeRows, o, d);
-    while (e < n) {
-      const int e2 = e + warps;
-      const int v2 = e2 < n ? list[e2] : 0;
-      float o2[3], d2[3];
-      if (e2 < n) load_ray(orig, dirn, v2 / kMaxRangeRows, o2, d2);
-      test_lane(rows + (size_t)(v % kMaxRangeRows) * 9 * tl, tl, o, d, v / kMaxRangeRows, out);
-      e = e2;
-      v = v2;
-      for (int k = 0; k < 3; ++k) {
-        o[k] = o2[k];
-        d[k] = d2[k];
-      }
-    }
-    __syncthreads();  // the list is read before the next round refills it
-    if (threadIdx.x == 0) s_n = 0;
-    __syncthreads();
-  }
-  if (!rows_in) mbar_wait(smem_addr(&bar), 0);  // no copy outlives the block
 }
 
 }  // namespace
 
 // blocks (nb, 9, tl) f32 channel-major rows, orig/dirn (w, 3) f32, idx (w,)
-// i32 row indices in [0, nb); writes out (w,) f32.  Each returns
-// cudaGetLastError() after its launches.
+// i32 row indices in [0, nb); writes out (w,) f32.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int gather_row_test_launch(const float* blocks, const float* orig,
                                       const float* dirn, const int* idx, int w, int tl,
                                       float* out, void* stream) {
@@ -394,89 +100,6 @@ extern "C" int gather_row_test_launch(const float* blocks, const float* orig,
     const int grid = (w + kWarpsPerBlock - 1) / kWarpsPerBlock;
     gather_row_test_kernel<<<grid, 32 * kWarpsPerBlock, 0, (cudaStream_t)stream>>>(
         blocks, orig, dirn, idx, w, tl, out);
-  }
-  return (int)cudaGetLastError();
-}
-
-// Design a: tl a multiple of 4, blocks 16-byte aligned.
-extern "C" int gather_row_vec_launch(const float* blocks, const float* orig,
-                                     const float* dirn, const int* idx, int w, int tl,
-                                     float* out, void* stream) {
-  if (w > 0) {
-    const int grid = (w + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    gather_row_vec_kernel<<<grid, 32 * kWarpsPerBlock, 0, (cudaStream_t)stream>>>(
-        reinterpret_cast<const float4*>(blocks), orig, dirn, idx, w, tl / 4, out);
-  }
-  return (int)cudaGetLastError();
-}
-
-// Designs b and c: tl a multiple of 4, blocks 16-byte aligned, 9 * tl * 4
-// bytes of shared memory at most 48 KB; scratch holds nb + nb * 32 int32,
-// its first nb zero (and left zero).
-extern "C" int gather_row_bucket_launch(const float* blocks, const float* orig,
-                                        const float* dirn, const int* idx, int w, int nb,
-                                        int tl, int* scratch, float* out, void* stream) {
-  if (w > 0) {
-    cudaStream_t s = (cudaStream_t)stream;
-    int* count = scratch;
-    int* slot = scratch + nb;
-    gather_bucket_kernel<<<(w + 63) / 64, 64, 0, s>>>(idx, w, count, slot);
-    gather_row_bucket_kernel<<<nb, 32 * kRowWarps, 9 * tl * 4, s>>>(
-        blocks, orig, dirn, idx, w, tl, count, slot, out);
-  }
-  return (int)cudaGetLastError();
-}
-
-extern "C" int gather_row_coop_launch(const float* blocks, const float* orig,
-                                      const float* dirn, const int* idx, int w, int nb,
-                                      int tl, int* scratch, float* out, void* stream) {
-  static int resident = 0;  // co-resident blocks of gather_coop_kernel on this card
-  if (w <= 0) return (int)cudaGetLastError();
-  const int smem = 9 * tl * 4;
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gather_coop_kernel, 32 * kRowWarps,
-                                                  smem);
-    resident = sms * per_sm;
-  }
-  int* count = scratch;
-  int* slot = scratch + nb;
-  int grid = nb < resident ? nb : resident;
-  void* args[] = {(void*)&blocks, (void*)&orig, (void*)&dirn, (void*)&idx, (void*)&w,
-                  (void*)&nb, (void*)&tl, (void*)&count, (void*)&slot, (void*)&out};
-  cudaLaunchCooperativeKernel((const void*)gather_coop_kernel, dim3(grid), dim3(32 * kRowWarps),
-                              args, smem, (cudaStream_t)stream);
-  return (int)cudaGetLastError();
-}
-
-// Design e: tl a multiple of 4, blocks 16-byte aligned, w < 2^25, and
-// 9 * tl * 4 bytes a row within the launcher's shared-memory budget.
-extern "C" int gather_row_range_launch(const float* blocks, const float* orig,
-                                       const float* dirn, const int* idx, int w, int nb,
-                                       int tl, float* out, void* stream) {
-  static int sms = 0;  // this card's SMs
-  constexpr int kSmemMax = 227 * 1024;
-  const int row_bytes = 9 * tl * 4;
-  const int list_bytes = kWindow * 4;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaFuncSetAttribute(gather_row_range_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         kSmemMax - 1024);
-  }
-  if (w > 0 && nb > 0) {
-    int range = (nb + sms - 1) / sms;
-    const int fit = (kSmemMax - 1024 - list_bytes) / row_bytes;
-    if (range > fit) range = fit;
-    if (range > kMaxRangeRows) range = kMaxRangeRows;
-    if (range < 1) return (int)cudaErrorInvalidValue;
-    const int grid = (nb + range - 1) / range;
-    gather_row_range_kernel<<<grid, kRangeThreads, range * row_bytes + list_bytes,
-                              (cudaStream_t)stream>>>(blocks, orig, dirn, idx, w, nb, tl, range,
-                                                      out);
   }
   return (int)cudaGetLastError();
 }

@@ -39,12 +39,14 @@ def forget_meshes() -> None:
 
 def mesh_groups() -> list:
     """The process groups the kept meshes made other than the default
-    group, each once."""
+    group, each once (a mesh this rank is not in holds none of its)."""
     if not _MESHES:
         return []
     world = dist.group.WORLD.group_name
     groups = {}
     for mesh in _MESHES.values():
+        if not in_mesh(mesh):
+            continue
         for group in mesh.get_all_groups():
             if group.group_name != world:
                 groups.setdefault(group.group_name, group)

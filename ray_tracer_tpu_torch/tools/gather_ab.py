@@ -1,20 +1,24 @@
-"""Kernel D's designs timed in turns on one card, each turn in a process of
-its own, at the gather tool's shapes (W = 8192 lanes, NB = 2270 rows,
-TL = 128):
+"""Kernel D of a parent tree and of this tree timed in turns on one card,
+each turn in a process of its own, at the gather tool's shapes (W = 8192
+lanes, NB = 2270 rows, TL = 128):
 
+    git archive PARENT | tar -x -C build/parent   # build/ is not committed
     python -m ray_tracer_tpu_torch.tools.gather_ab --parent build/parent \\
-        --turns P,p,a,b,c,c,b,a,p,P
+        --turns P,new,new,P
 
 A turn named P runs the tree unpacked at --parent (its own wrapper and
-kernel, built there); p, a, b and c run this tree's wrapper on that
-design of csrc/gather_row_test.cu.  Each turn holds the kernel bitwise against
-the plain version (the parent on the tool's inputs, this tree on every
-case of `gather_bench.input_cases`), then reports CUDA events over 200
+kernel, built there); a turn named new runs this tree's.  Each turn holds
+the kernel bitwise against the plain version (on every case of
+`gather_bench.input_cases` where the tree has it, else on the tool's
+inputs), then reports CUDA events over 200
 back-to-back calls (three windows), the profiler's device time of a call
 over 50 calls (every kernel of the call summed), the kernels' launch
 statistics from the profiler's trace (registers, blocks and warps an SM,
-estimated achieved occupancy) and ptxas's registers and spills.  One JSON
-line a turn, then the card line.
+estimated achieved occupancy), ptxas's registers and spills, and, for a
+tree whose wrapper has them, the host microseconds of a call and of its
+parts (the bare launch, the output's torch.empty, the checks, the stream
+and current-device lookups; 400 calls each, below the launch queue's
+depth).  One JSON line a turn, then the card line.
 """
 
 from __future__ import annotations
@@ -32,12 +36,11 @@ import torch
 from ray_tracer_tpu_torch.tools import gather_bench as kD
 from ray_tracer_tpu_torch.kernels import _build
 
-design, trace_dir = sys.argv[1], sys.argv[2]
-kw = {"design": design} if design != "P" else {}
+turn, trace_dir = sys.argv[1], sys.argv[2]
 dev = torch.device("cuda")
 
 def call(blocks, o, d, idx):
-    return kD.gather_row_test_cuda(blocks, o, d, idx, **kw)
+    return kD.gather_row_test_cuda(blocks, o, d, idx)
 
 cases = (kD.input_cases(device=dev) if hasattr(kD, "input_cases")
          else {"tool": kD.make_inputs(device=dev)})
@@ -46,7 +49,7 @@ for name, (blocks, o, d, idx) in cases.items():
     got, want = call(blocks, o, d, idx), kD.gather_row_test_plain(blocks, o, d, idx)
     bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
     if bad:
-        raise SystemExit(f"design {design}: {bad} lanes differ on {name}")
+        raise SystemExit(f"turn {turn}: {bad} lanes differ on {name}")
     held[name] = "bitwise"
 blocks, o, d, idx = kD.make_inputs(device=dev)
 for _ in range(20):
@@ -73,7 +76,7 @@ by = {}
 for e in kern:
     by.setdefault(e.name, []).append(e.time_range.end - e.time_range.start)
 per_call = {k: -(-len(v) // n) * sum(v) / len(v) / 1e3 for k, v in by.items()}
-path = os.path.join(trace_dir, f"trace_{design}_{os.getpid()}.json")
+path = os.path.join(trace_dir, f"trace_{turn}_{os.getpid()}.json")
 prof.export_chrome_trace(path)
 with open(path) as fh:
     trace = json.load(fh)
@@ -98,18 +101,8 @@ if hasattr(kD, "_checked"):
     out0 = torch.empty((idx.shape[0],), dtype=torch.float32, device=dev)
     stream = kD._raw_stream(blocks.device)
     ptrs = (blocks.data_ptr(), o.data_ptr(), d.data_ptr(), idx.data_ptr())
-    w, nb, tl = idx.shape[0], blocks.shape[0], blocks.shape[2]
-    if design in ("b", "c"):
-        call(blocks, o, d, idx)
-        scratch = next(iter(kD._SCRATCH.values())).data_ptr()
-        name = "gather_row_bucket_launch" if design == "b" else "gather_row_coop_launch"
-        raw = lambda: kD._launcher(name)(*ptrs, w, nb, tl, scratch, out0.data_ptr(), stream)
-    elif design == "e":
-        raw = lambda: kD._launcher("gather_row_range_launch")(*ptrs, w, nb, tl, out0.data_ptr(),
-                                                               stream)
-    else:
-        name = "gather_row_vec_launch" if design == "a" else "gather_row_test_launch"
-        raw = lambda: kD._launcher(name)(*ptrs, w, tl, out0.data_ptr(), stream)
+    w, tl = idx.shape[0], blocks.shape[2]
+    raw = lambda: kD._launcher()(*ptrs, w, tl, out0.data_ptr(), stream)
     host = {"call_us": per_call_us(lambda: call(blocks, o, d, idx)),
             "launch_only_us": per_call_us(raw),
             "empty_us": per_call_us(lambda: torch.empty((w,), dtype=torch.float32, device=dev)),
@@ -128,31 +121,31 @@ for line in open(log).read().splitlines():
     m = re.search(r"Used (\d+) registers", line)
     if m and name:
         ptxas.setdefault(name, {})["registers"] = int(m.group(1))
-print(json.dumps({"design": design, "events_ms": events, "device_ms": sum(per_call.values()),
+print(json.dumps({"turn": turn, "events_ms": events, "device_ms": sum(per_call.values()),
                   "device_by_kernel_ms": per_call, "held": held, "host": host, "trace": stats,
                   "ptxas": ptxas, "card": torch.cuda.get_device_name(0)}), flush=True)
 """
 
 
-def run_turn(design: str, tree: str, trace_dir: str) -> dict:
+def run_turn(turn: str, tree: str, trace_dir: str) -> dict:
     env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
-    out = subprocess.run([sys.executable, "-c", CHILD, design, trace_dir], cwd=tree, env=env,
+    out = subprocess.run([sys.executable, "-c", CHILD, turn, trace_dir], cwd=tree, env=env,
                          capture_output=True, text=True, timeout=600)
     if out.returncode != 0:
-        raise RuntimeError(f"turn {design} failed:\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+        raise RuntimeError(f"turn {turn} failed:\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", default=None, help="the parent tree (turns named P)")
-    ap.add_argument("--turns", default="P,p,a,b,c,c,b,a,p,P")
+    ap.add_argument("--turns", default="P,new,new,P")
     args = ap.parse_args(argv)
     here = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     with tempfile.TemporaryDirectory() as trace_dir:
-        for design in args.turns.split(","):
-            tree = args.parent if design == "P" else here
-            print(json.dumps(run_turn(design, tree, trace_dir)), flush=True)
+        for turn in args.turns.split(","):
+            tree = args.parent if turn == "P" else here
+            print(json.dumps(run_turn(turn, tree, trace_dir)), flush=True)
     from ray_tracer_tpu_torch.tools.profiling import card_line
 
     print(card_line(), flush=True)

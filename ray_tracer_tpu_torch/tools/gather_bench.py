@@ -15,6 +15,9 @@ accepted Cramer t over its TL triangle lanes (`cramer_min`).  Here:
     PyTorch, one elementwise op at a time;
   * `gather_row_test` takes the kernel for CUDA tensors and the plain
     version for CPU tensors;
+  * `check` holds the kernel to the plain version bitwise on each of
+    `input_cases`: the tool's inputs, aimed rays, every lane on one row,
+    and degenerate triangles;
   * `step_loop` is the tool's dependent loop: each step tests the lanes'
     rows and moves each index by 1 + (hit), so the next fetch depends on
     this step's result.  `bench` reports the JAX tool's metric, us per
@@ -71,8 +74,10 @@ def aimed_inputs(w: int = W, nb: int = NB, device=None, seed: int = 1):
 def degenerate_inputs(w: int = W, nb: int = NB, device=None, seed: int = 2):
     """aimed_inputs with degenerate triangles: in every row, b = a on every
     4th triangle lane, c = a on every 4th from 1, all three vertices equal on
-    every 4th from 2 (A = 0: NaN and inf in t, beta and gamma), and a vertex
-    at +inf on every 16th from 3."""
+    every 4th from 2 (A = 0 and tn = 0: t NaN), a vertex at +inf on every
+    16th from 3, and on every 8th from 7 a = 0 and b = the ray direction of
+    the row's first lane, whose ray then lies in that triangle's plane (A = 0
+    exactly with tn and bn nonzero: t and beta infinite, gamma NaN)."""
     blocks, o, d, idx = aimed_inputs(w, nb, device="cpu", seed=seed)
     blocks = blocks.clone()
     blocks[:, 3:6, 0::4] = blocks[:, 0:3, 0::4]
@@ -80,6 +85,13 @@ def degenerate_inputs(w: int = W, nb: int = NB, device=None, seed: int = 2):
     blocks[:, 3:6, 2::4] = blocks[:, 0:3, 2::4]
     blocks[:, 6:9, 2::4] = blocks[:, 0:3, 2::4]
     blocks[:, 6, 3::16] = float("inf")
+    first = torch.full((nb,), w, dtype=torch.int64).scatter_reduce(
+        0, idx.long(), torch.arange(w), "amin")
+    in_plane = torch.tensor([1.0, 0.0, 0.0]).repeat(nb, 1)  # rows no lane takes
+    taken = first < w
+    in_plane[taken] = d[first[taken]]
+    blocks[:, 0:3, 7::8] = 0.0
+    blocks[:, 3:6, 7::8] = in_plane[:, :, None]
     dev = resolve_device(device)
     return tuple(x.to(dev) for x in (blocks, o, d, idx))
 
@@ -123,35 +135,25 @@ def gather_row_test_plain(blocks, o, d, idx) -> torch.Tensor:
     return torch.where(ok, t, torch.full_like(t, float("inf"))).amin(dim=-1)
 
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_ARGTYPES = {
-    "gather_row_test_launch": [_P, _P, _P, _P, _I, _I, _P, _P],
-    "gather_row_vec_launch": [_P, _P, _P, _P, _I, _I, _P, _P],
-    "gather_row_bucket_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "gather_row_coop_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
-    "gather_row_range_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
-}
-_BOUND: Dict[str, object] = {}  # the C launchers, bound once at first use
-BUCKET = 32  # lanes a row's bucket holds in design b (csrc kBucket)
-_SCRATCH: Dict[tuple, torch.Tensor] = {}  # design b: (device, stream, nb) -> scratch
-DESIGN = "a"
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+_BOUND: Dict[str, object] = {}  # the C launcher, bound once at first use
 
 
-def _launcher(name: str):
-    """The C launcher `name` of csrc/gather_row_test.cu with its argtypes
-    set, and the function that gives a device's current raw stream; both
-    looked up once."""
-    fn = _BOUND.get(name)
+def _launcher():
+    """gather_row_test_launch of csrc/gather_row_test.cu with its argtypes
+    set, looked up once (the build, the library and the binding)."""
+    fn = _BOUND.get("gather_row_test_launch")
     if fn is None:
-        fn = getattr(_build.library("gather_row_test"), name)
+        fn = _build.library("gather_row_test").gather_row_test_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = _ARGTYPES[name]
-        _BOUND[name] = fn
+        fn.argtypes = _ARGTYPES
+        _BOUND["gather_row_test_launch"] = fn
     return fn
 
 
 def _raw_stream(dev: torch.device) -> int:
+    """The current CUDA stream of `dev` (a tensor's device, so indexed) as an
+    integer handle, without making a torch.cuda.Stream object."""
     get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
     if get is not None:
         return get(dev.index)
@@ -159,57 +161,36 @@ def _raw_stream(dev: torch.device) -> int:
 
 
 def _checked(blocks, o, d, idx):
-    """The wrapper's checks: raise on what kernel D does not take."""
-    if not blocks.is_cuda:
-        raise ValueError("gather_row_test_cuda takes CUDA tensors")
+    """The wrapper's checks: raise on what kernel D does not take; the four
+    tensors made contiguous."""
     if blocks.dtype != torch.float32 or blocks.ndim != 3 or blocks.shape[1] != CH:
         raise ValueError("blocks must be (NB, 9, TL) float32")
-    if blocks.shape[2] % 4 or not blocks.is_contiguous() or blocks.data_ptr() % 16:
-        raise ValueError("kernel D takes a contiguous, 16-byte aligned table whose TL is a "
-                         "multiple of 4")
     w = idx.shape[0]
     if (o.shape != (w, 3) or d.shape != (w, 3) or idx.dtype != torch.int32
             or o.dtype != torch.float32 or d.dtype != torch.float32):
         raise ValueError("o, d must be (W, 3) float32 and idx (W,) int32")
+    if not blocks.is_cuda:
+        raise ValueError("gather_row_test_cuda takes CUDA tensors")
     dev = blocks.device
     if o.device != dev or d.device != dev or idx.device != dev:
         raise ValueError("blocks, o, d and idx must be on one device")
-    return o.contiguous(), d.contiguous(), idx.contiguous()
+    return blocks.contiguous(), o.contiguous(), d.contiguous(), idx.contiguous()
 
 
-def gather_row_test_cuda(blocks, o, d, idx, design=None) -> torch.Tensor:
-    """Kernel D on CUDA tensors; the plain version's output."""
-    o, d, idx = _checked(blocks, o, d, idx)
-    design = design or DESIGN
-    nb, _, tl = blocks.shape
+def gather_row_test_cuda(blocks, o, d, idx) -> torch.Tensor:
+    """Kernel D on CUDA tensors; the plain version's output.  The launch
+    enters the tensors' device only when it is not the current one."""
+    blocks, o, d, idx = _checked(blocks, o, d, idx)
     w = idx.shape[0]
     dev = blocks.device
     out = torch.empty((w,), dtype=torch.float32, device=dev)
-    ptrs = (blocks.data_ptr(), o.data_ptr(), d.data_ptr(), idx.data_ptr())
-
-    def launch():
-        stream = _raw_stream(dev)
-        if design in ("b", "c"):
-            if 9 * tl * 4 > 48 * 1024:
-                raise ValueError("design b takes rows of at most 48 KB")
-            key = (dev.index, stream, nb)
-            scratch = _SCRATCH.get(key)
-            if scratch is None:
-                scratch = _SCRATCH[key] = torch.zeros((nb * (1 + BUCKET),),
-                                                      dtype=torch.int32, device=dev)
-            name = "gather_row_bucket_launch" if design == "b" else "gather_row_coop_launch"
-            return _launcher(name)(
-                *ptrs, w, nb, tl, scratch.data_ptr(), out.data_ptr(), stream)
-        if design == "e":
-            return _launcher("gather_row_range_launch")(*ptrs, w, nb, tl, out.data_ptr(), stream)
-        name = "gather_row_vec_launch" if design == "a" else "gather_row_test_launch"
-        return _launcher(name)(*ptrs, w, tl, out.data_ptr(), stream)
-
+    args = (blocks.data_ptr(), o.data_ptr(), d.data_ptr(), idx.data_ptr(), w,
+            blocks.shape[2], out.data_ptr())
     if dev.index == torch.cuda.current_device():
-        err = launch()
+        err = _launcher()(*args, _raw_stream(dev))
     else:
         with torch.cuda.device(dev):
-            err = launch()
+            err = _launcher()(*args, _raw_stream(dev))
     _build.check(err, "gather_row_test")
     gather_row_test_cuda.launches += 1
     return out

@@ -83,6 +83,7 @@ mesh = make_mesh(devices="cpu")  # a one-rank gloo group, the multi-device layer
 wprep = prepare(apply_turbo(parallel_scene_config(8, 8), "parallel"), device="cpu")
 assert torch.equal(render_sharded(wprep, mesh=mesh), render(wprep))
 multihost.shutdown()
+assert not dist.is_initialized()
 loaded = [k for k, v in sys.modules.items()
           if v is not None and (k.split(".")[0] in ("jax", "jaxlib", "ray_tracer_tpu"))]
 assert not loaded, loaded

@@ -12,7 +12,7 @@ The configurations (`case_prep`, `case_names`) are shared by the ranks
 and by the tests, which render the same configurations on one device.
 Nothing here imports JAX.
 
-    python tests/torch_ranks.py FN RANK WORLD INIT OUT   # one rank
+    python tests/torch_ranks.py FN RANK WORLD INIT OUT THREADS   # one rank
 """
 
 from __future__ import annotations
@@ -34,15 +34,18 @@ GROUP_TIMEOUT = 180.0  # seconds: the join and every collective
 OUT_DIR = None  # a rank's output directory (the test's tmp_path)
 
 
-def run_ranks(fn: str, world: int, tmp_path, timeout: float = 420.0) -> list:
+def run_ranks(fn: str, world: int, tmp_path, timeout: float = 420.0, threads: int = 1) -> list:
     """The return values of fn(rank, world) on each of `world` gloo ranks,
     in rank order.  A failure names the rank that failed first (the others
     are then stopped), the world, the seconds since the start and the tail
     of that rank's log; a group past `timeout` names every rank still
-    running with its log's tail."""
+    running with its log's tail.  threads: each rank's torch threads (0:
+    torch's default; the teardown's stress driver varies it)."""
     tmp = str(tmp_path)
     init = f"file://{tmp}/rendezvous"
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, HERE]), OMP_NUM_THREADS="1")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, HERE]))
+    if threads:
+        env["OMP_NUM_THREADS"] = str(threads)
     outs = [os.path.join(tmp, f"rank{i}.pkl") for i in range(world)]
     logs = [os.path.join(tmp, f"rank{i}.log") for i in range(world)]
     procs = []
@@ -51,7 +54,8 @@ def run_ranks(fn: str, world: int, tmp_path, timeout: float = 420.0) -> list:
         with open(logs[i], "w") as log:
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), fn, str(i), str(world), init,
-                 outs[i]], cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT))
+                 outs[i], str(threads)], cwd=REPO, env=env, stdout=log,
+                stderr=subprocess.STDOUT))
 
     def tail(i: int) -> str:
         with open(logs[i]) as fh:
@@ -651,10 +655,11 @@ def ring_steps(rank: int, world: int) -> dict:
 
 def _main(argv) -> int:
     global OUT_DIR
-    fn, rank, world, init, out = argv
+    fn, rank, world, init, out, threads = argv
     OUT_DIR = os.path.dirname(out)
     sys.path[:0] = [REPO, HERE]
-    torch.set_num_threads(1)
+    if int(threads):
+        torch.set_num_threads(int(threads))
     from ray_tracer_tpu_torch.parallel import multihost
 
     if fn != "single_process":  # that one forms its own group
