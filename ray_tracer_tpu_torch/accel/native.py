@@ -45,18 +45,6 @@ from ray_tracer_tpu_torch.kernels import _build
 EXT_CAP = 31  # per-direction empty-box extent cap (5 bits each)
 _INT_MIN = -(1 << 31)
 _P, _I, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-_LAUNCHERS = {}
-
-
-def _launcher(lib: str, name: str, argtypes):
-    """The C launcher `name` of kernel library `lib`, its signature set once."""
-    fn = _LAUNCHERS.get((lib, name))
-    if fn is None:
-        fn = getattr(_build.library(lib), name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-        _LAUNCHERS[(lib, name)] = fn
-    return fn
 
 
 def _check_occupied(occupied: torch.Tensor, cap: int) -> None:
@@ -209,7 +197,7 @@ def empty_boxes_cuda(occupied: torch.Tensor, cap: int = EXT_CAP,
     if words.numel() == 0:
         return words
     sat = torch.empty((nz + 1, ny + 1, nx + 1), dtype=torch.int32, device=dev)
-    fn = _launcher("empty_boxes", "empty_boxes_launch", [_P, _P, _I, _I, _I, _I] + [_P] * 4)
+    fn = _build.launcher("empty_boxes", "empty_boxes_launch", [_P, _P, _I, _I, _I, _I] + [_P] * 4)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(occ.data_ptr(), sat.data_ptr(), nx, ny, nz, int(cap), words.data_ptr(),
@@ -397,11 +385,11 @@ def bin_triangles_cuda(verts: torch.Tensor, faces: torch.Tensor, lower: Sequence
         return (torch.zeros(total + 1, dtype=torch.int64, device=dev),
                 torch.zeros(0, dtype=torch.int32, device=dev))
     verts, faces = verts.contiguous(), faces.contiguous()
-    span_fn = _launcher("grid_bin", "grid_span_launch",
+    span_fn = _build.launcher("grid_bin", "grid_span_launch",
                         [_P, _I, _P, _I] + [_F32] * 6 + [_I, _I, _I, _P, _P, _P, _P])
-    count_fn = _launcher("grid_bin", "grid_count_launch",
+    count_fn = _build.launcher("grid_bin", "grid_count_launch",
                          [_P, _P, _P, _P, _I, _I64] + [_F32] * 6 + [_I, _I, _I, _I] + [_P] * 5)
-    place_fn = _launcher("grid_bin", "grid_place_launch", [_P] * 4 + [_I64, _I, _P, _P, _P])
+    place_fn = _build.launcher("grid_bin", "grid_place_launch", [_P] * 4 + [_I64, _I, _P, _P, _P])
     marks = [] if parts_out is not None else None
 
     def mark(name):

@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_LAUNCHERS: Dict[tuple, object] = {}  # (library, launcher) -> bound C function
 
 
 def nvcc_path() -> str:
@@ -97,6 +98,18 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(path)
         _LOADED[name] = lib
     return lib
+
+
+def launcher(lib: str, name: str, argtypes):
+    """The C launcher `name` of kernel library `lib`, bound with its
+    signature once, at first use."""
+    fn = _LAUNCHERS.get((lib, name))
+    if fn is None:
+        fn = getattr(library(lib), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _LAUNCHERS[(lib, name)] = fn
+    return fn
 
 
 def check(err: int, name: str) -> None:

@@ -37,22 +37,6 @@ def forget_meshes() -> None:
     _MESHES.clear()
 
 
-def mesh_groups() -> list:
-    """The process groups the kept meshes made other than the default
-    group, each once (a mesh this rank is not in holds none of its)."""
-    if not _MESHES:
-        return []
-    world = dist.group.WORLD.group_name
-    groups = {}
-    for mesh in _MESHES.values():
-        if not in_mesh(mesh):
-            continue
-        for group in mesh.get_all_groups():
-            if group.group_name != world:
-                groups.setdefault(group.group_name, group)
-    return list(groups.values())
-
-
 def _rank_device(devices) -> torch.device:
     """This rank's device: devices as given (one device, or a sequence
     with an entry a rank), else cuda:{LOCAL_RANK}."""
@@ -128,5 +112,4 @@ def factor_mesh(n: int) -> Tuple[int, int]:
     return n // best, best
 
 
-__all__ = ["axis_index", "axis_size", "factor_mesh", "forget_meshes", "in_mesh", "make_mesh",
-           "mesh_groups"]
+__all__ = ["axis_index", "axis_size", "factor_mesh", "forget_meshes", "in_mesh", "make_mesh"]

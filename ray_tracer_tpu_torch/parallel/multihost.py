@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import sys
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -71,24 +72,24 @@ def initialize(coordinator_address: Optional[str] = None, num_processes: Optiona
 def shutdown() -> None:
     """Leave the process group (a no-op without one), the counterpart of
     `jax.distributed.shutdown`: a barrier, bounded by the group's timeout,
-    so that no rank tears the group down under another (a rank whose work
-    failed waits there too, so the others leave cleanly and the failure is
-    its own); then the sub-groups the kept meshes made, and the group
-    itself, destroyed, and the meshes dropped.  A DeviceMesh holds its
-    process groups, so until the meshes go each gloo group keeps its worker
-    and transport threads running past `destroy_process_group`, to be torn
-    down at interpreter exit; dropped here, the groups' threads are joined
-    before this returns."""
+    so that no rank tears the group down under another; then the group
+    destroyed, its sub-groups with it, and the kept meshes dropped.  A
+    DeviceMesh holds its process groups, so until the meshes go each gloo
+    group keeps its worker and transport threads running past
+    `destroy_process_group`, to be torn down at interpreter exit; dropped
+    here, the groups' threads are joined before this returns.
+
+    Called from a `finally` while the rank's work raises, it skips the
+    barrier and leaves at once: its peers may be waiting in a collective
+    it will never join, and the failure is to show as this rank's."""
     if not dist.is_initialized():
         return
-    from ray_tracer_tpu_torch.parallel.mesh import forget_meshes, mesh_groups
+    from ray_tracer_tpu_torch.parallel.mesh import forget_meshes
 
     try:
-        if dist.get_world_size() > 1:
+        if dist.get_world_size() > 1 and sys.exc_info()[1] is None:
             dist.barrier()
     finally:
-        for group in mesh_groups():
-            dist.destroy_process_group(group)
         dist.destroy_process_group()
         forget_meshes()
 

@@ -136,33 +136,11 @@ def gather_row_test_plain(blocks, o, d, idx) -> torch.Tensor:
 
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
-_BOUND: Dict[str, object] = {}  # the C launcher, bound once at first use
 
 
-def _launcher():
-    """gather_row_test_launch of csrc/gather_row_test.cu with its argtypes
-    set, looked up once (the build, the library and the binding)."""
-    fn = _BOUND.get("gather_row_test_launch")
-    if fn is None:
-        fn = _build.library("gather_row_test").gather_row_test_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = _ARGTYPES
-        _BOUND["gather_row_test_launch"] = fn
-    return fn
-
-
-def _raw_stream(dev: torch.device) -> int:
-    """The current CUDA stream of `dev` (a tensor's device, so indexed) as an
-    integer handle, without making a torch.cuda.Stream object."""
-    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if get is not None:
-        return get(dev.index)
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _checked(blocks, o, d, idx):
-    """The wrapper's checks: raise on what kernel D does not take; the four
-    tensors made contiguous."""
+def gather_row_test_cuda(blocks, o, d, idx) -> torch.Tensor:
+    """Kernel D on CUDA tensors; the plain version's output.  The launch
+    enters the tensors' device only when it is not the current one."""
     if blocks.dtype != torch.float32 or blocks.ndim != 3 or blocks.shape[1] != CH:
         raise ValueError("blocks must be (NB, 9, TL) float32")
     w = idx.shape[0]
@@ -174,23 +152,16 @@ def _checked(blocks, o, d, idx):
     dev = blocks.device
     if o.device != dev or d.device != dev or idx.device != dev:
         raise ValueError("blocks, o, d and idx must be on one device")
-    return blocks.contiguous(), o.contiguous(), d.contiguous(), idx.contiguous()
-
-
-def gather_row_test_cuda(blocks, o, d, idx) -> torch.Tensor:
-    """Kernel D on CUDA tensors; the plain version's output.  The launch
-    enters the tensors' device only when it is not the current one."""
-    blocks, o, d, idx = _checked(blocks, o, d, idx)
-    w = idx.shape[0]
-    dev = blocks.device
+    blocks, o, d, idx = (x.contiguous() for x in (blocks, o, d, idx))
     out = torch.empty((w,), dtype=torch.float32, device=dev)
     args = (blocks.data_ptr(), o.data_ptr(), d.data_ptr(), idx.data_ptr(), w,
-            blocks.shape[2], out.data_ptr())
+            blocks.shape[2], out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    fn = _build.launcher("gather_row_test", "gather_row_test_launch", _ARGTYPES)
     if dev.index == torch.cuda.current_device():
-        err = _launcher()(*args, _raw_stream(dev))
+        err = fn(*args)
     else:
         with torch.cuda.device(dev):
-            err = _launcher()(*args, _raw_stream(dev))
+            err = fn(*args)
     _build.check(err, "gather_row_test")
     gather_row_test_cuda.launches += 1
     return out

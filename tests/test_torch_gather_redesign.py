@@ -172,9 +172,11 @@ def test_launcher_is_bound_once(monkeypatch):
         calls.append(name)
         return Lib()
 
-    monkeypatch.setattr(gb, "_BOUND", {})
+    monkeypatch.setattr(gb._build, "_LAUNCHERS", {})
     monkeypatch.setattr(gb._build, "library", library)
-    first = gb._launcher()
-    assert gb._launcher() is first and gb._launcher() is first
+    bind = lambda: gb._build.launcher("gather_row_test", "gather_row_test_launch",  # noqa: E731
+                                      gb._ARGTYPES)
+    first = bind()
+    assert bind() is first and bind() is first
     assert calls == ["gather_row_test"]
     assert len(first.argtypes) == 8

@@ -9,10 +9,14 @@ jax.distributed.shutdown.
 * A 2-rank group through run_ranks: each rank sums over its meshes'
   groups, leaves through shutdown() with no gloo thread left, and exits 0.
 * A rank that raises inside the work still fails run_ranks, which names it:
-  nothing in the teardown masks a failure.
+  nothing in the teardown masks a failure.  It leaves at once, also while
+  its peer waits in a collective it will never join (shutdown() skips its
+  barrier on the way out of a failure), so the group fails well inside
+  its timeout.
 """
 
 import os
+import re
 import threading
 import time
 
@@ -22,12 +26,12 @@ import torch.distributed as dist
 
 torch.set_num_threads(1)
 
-from torch_ranks import gloo_threads, run_ranks  # noqa: E402
+from torch_ranks import GROUP_TIMEOUT, gloo_threads, run_ranks  # noqa: E402
 
 
 def test_shutdown_joins_a_one_rank_groups_threads():
     from ray_tracer_tpu_torch.parallel import multihost
-    from ray_tracer_tpu_torch.parallel.mesh import make_mesh, mesh_groups
+    from ray_tracer_tpu_torch.parallel.mesh import make_mesh
 
     assert not dist.is_initialized()
     tids = set(os.listdir("/proc/self/task"))
@@ -45,7 +49,6 @@ def test_shutdown_joins_a_one_rank_groups_threads():
     assert started, "the group started no gloo thread"
     multihost.shutdown()
     assert not dist.is_initialized()
-    assert not mesh_groups()
     alive = set(os.listdir("/proc/self/task"))
     assert not alive & set(started), (started, gloo_threads(since=tids))
     assert [t for t in threading.enumerate()
@@ -68,3 +71,12 @@ def test_a_failing_rank_still_fails_the_group(tmp_path):
                                              r"\(exit code 1,") as err:
         run_ranks("fail_on_rank1", 2, tmp_path)
     assert "rank 1 fails on purpose" in str(err.value)
+
+
+def test_a_rank_failing_under_a_waiting_peer_leaves_at_once(tmp_path):
+    with pytest.raises(AssertionError, match=r"rank 1 of fail_in_allreduce on 2 ranks failed "
+                                             r"\(exit code 1, ([0-9.]+) s after") as err:
+        run_ranks("fail_in_allreduce", 2, tmp_path)
+    assert "rank 1 fails on purpose" in str(err.value)
+    secs = float(re.search(r"exit code 1, ([0-9.]+) s after", str(err.value)).group(1))
+    assert secs < GROUP_TIMEOUT / 4, secs  # not held in a barrier to the timeout

@@ -272,20 +272,22 @@ def gloo_threads(since=()) -> dict:
 def teardown(rank: int, world: int) -> dict:
     """A 1-D mesh and a 2-D ("rays", "tris") mesh (whose "rays" axis of 1
     makes a sub-group a rank), a sum over each, then multihost.shutdown()
-    inside the work: the sums, the gloo threads running before it, and
-    whether a group or a gloo thread is left after it."""
+    inside the work: the sums, the sub-groups the meshes made, the gloo
+    threads running before it, and whether a group or a gloo thread is left
+    after it."""
     import torch.distributed as dist
 
     from ray_tracer_tpu_torch.parallel import collectives as coll
     from ray_tracer_tpu_torch.parallel import multihost
-    from ray_tracer_tpu_torch.parallel.mesh import make_mesh, mesh_groups
+    from ray_tracer_tpu_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh(devices="cpu")
     mesh2 = make_mesh(world, ("rays", "tris"), shape=(1, world), devices="cpu")
     one = torch.ones((1,))
     sums = [float(coll.allreduce_gradients({"g": one * (rank + 1)}, m, axis)["g"])
             for m, axis in ((mesh, "rays"), (mesh2, "tris"), (mesh2, "rays"))]
-    subgroups = len(mesh_groups())
+    subgroups = len({g.group_name for m in (mesh, mesh2) for g in m.get_all_groups()}
+                    - {dist.group.WORLD.group_name})
     del mesh, mesh2  # a mesh held here would hold its groups past the shutdown
     before = gloo_threads()
     multihost.shutdown()
@@ -293,10 +295,33 @@ def teardown(rank: int, world: int) -> dict:
             "initialized_after": dist.is_initialized(), "threads_after": gloo_threads()}
 
 
+# run_ranks names the rank whose exit it sees first, and a rank that leaves
+# its group makes its peers' next collective fail at once: the peers below
+# linger before they fail or leave, so that the first to fail is rank 1.
+LINGER = 10.0  # seconds
+
+
 def fail_on_rank1(rank: int, world: int) -> dict:
     """Rank 1 raises inside the work; the others return."""
     if rank == 1:
         raise RuntimeError("rank 1 fails on purpose")
+    time.sleep(LINGER)
+    return {"rank": rank}
+
+
+def fail_in_allreduce(rank: int, world: int) -> dict:
+    """Rank 1 raises while the others wait in an all_reduce it never joins
+    (they learn of it when rank 1 leaves the group)."""
+    import torch.distributed as dist
+
+    if rank == 1:
+        time.sleep(1.0)  # the others are in the all_reduce by now
+        raise RuntimeError("rank 1 fails on purpose")
+    try:
+        dist.all_reduce(torch.ones((1,)))
+    except RuntimeError:
+        time.sleep(LINGER)
+        raise
     return {"rank": rank}
 
 
