@@ -1504,8 +1504,10 @@ class Smoke:
 
         # the parts inside build_grid and pack_grid; what is left of each is
         # its host frame and its numpy rows
-        nested = {"build_grid": ("H", "csr_to_host", "grid_assemble"),
-                  "pack_grid": ("G", "words_to_host", "upload")}
+        nested = {"rt.prepare.build_grid": ("rt.grid.H", "rt.grid.csr_to_host",
+                                            "rt.grid.assemble"),
+                  "rt.prepare.pack_grid": ("rt.pack.G", "rt.pack.words_to_host",
+                                           "rt.pack.upload")}
 
         def split(fn):
             torch.cuda.synchronize()
@@ -1522,7 +1524,7 @@ class Smoke:
             for name, host_s, dev_ms in parts:
                 h, d = by.get(name, (0.0, 0.0))
                 by[name] = (h + host_s, d + (dev_ms or 0.0))
-            rests = {"build_grid": "grid_frame", "pack_grid": "rows"}
+            rests = {"rt.prepare.build_grid": "grid_frame", "rt.prepare.pack_grid": "rows"}
             for outer, inner in nested.items():
                 if outer in by:
                     by[rests[outer]] = tuple(by[outer][k] - sum(by[n][k] for n in inner

@@ -145,15 +145,15 @@ def build_grid(
     verts_t, faces_t = torch.from_numpy(verts).to(dev), torch.from_numpy(faces).to(dev)
 
     nx, ny, nz = (int(x) for x in n_voxels)
-    with part("H"):
+    with part("rt.grid.H"):
         cell_start, tri_ids = bin_triangles(verts_t, faces_t, lower, inv_width, width,
                                             (nx, ny, nz), exact_overlap and num_tris > 0)
-    with part("csr_to_host"):
+    with part("rt.grid.csr_to_host"):
         host = GridHost(lower=lower, upper=upper, width=width,
                         inv_width=inv_width, cell_start=cell_start.cpu().numpy(),
                         tri_ids=tri_ids.cpu().numpy())
     # the binned tensors stay on the device; the host keeps the copies
-    with part("grid_assemble"):
+    with part("rt.grid.assemble"):
         return _assemble(host, (nx, ny, nz), dev, cell_start.to(torch.int32), tri_ids)
 
 

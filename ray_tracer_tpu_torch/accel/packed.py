@@ -207,10 +207,10 @@ def pack_grid(
     if leap == "box":
         # grown on the grid's device (kernel G on the card); the words
         # come back once for the rows' assembly
-        with part("G"):
+        with part("rt.pack.G"):
             cs = grid.arrays.cell_start
             words = empty_boxes((cs[1:] > cs[:-1]).reshape(nz, ny, nx))
-        with part("words_to_host"):
+        with part("rt.pack.words_to_host"):
             extw = words.reshape(-1).cpu().numpy().view(np.uint32)
     elif leap == "cheb":
         occ = (counts > 0).reshape(nz, ny, nx)
@@ -288,7 +288,7 @@ def pack_grid(
             cell_info=info.view(np.int32), blocks=blocks, slot_tri=slot_tri)
         return PackedGrid(arrays=arrays, meta=meta)
     dev = grid.arrays.lower.device
-    with part("upload"):
+    with part("rt.pack.upload"):
         arrays = PackedGridArrays(
             lower=grid.arrays.lower, upper=grid.arrays.upper,
             width=grid.arrays.width, inv_width=grid.arrays.inv_width,

@@ -7,6 +7,8 @@ from typing import NamedTuple
 
 import torch
 
+from ray_tracer_tpu_torch.utils.timing import count
+
 
 class RayBatch(NamedTuple):
     """A batch of rays: orig/dirn are (R,3); mint/maxt are (R,)."""
@@ -27,6 +29,10 @@ class RayBatch(NamedTuple):
     @staticmethod
     def make(orig, dirn, mint=0.0, maxt=float("inf")) -> "RayBatch":
         r = orig.shape[0]
+        if orig.is_cuda:  # a pageable copy of each bound held on the host
+            count("rt.sync.ray_bounds", sum(
+                not (isinstance(b, torch.Tensor) and b.device == orig.device)
+                for b in (mint, maxt)))
         mint = torch.as_tensor(mint, dtype=orig.dtype, device=orig.device)
         maxt = torch.as_tensor(maxt, dtype=orig.dtype, device=orig.device)
         return RayBatch(orig, dirn, mint.expand(r).contiguous(),

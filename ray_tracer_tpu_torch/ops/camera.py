@@ -42,6 +42,7 @@ from ray_tracer_tpu_torch.config import CameraConfig
 from ray_tracer_tpu_torch.core import vecmath as vm
 from ray_tracer_tpu_torch.core.rays import RayBatch
 from ray_tracer_tpu_torch.device import resolve_device
+from ray_tracer_tpu_torch.utils.timing import count
 
 
 def camera_basis(cfg: CameraConfig, dtype=torch.float32, device=None):
@@ -49,6 +50,8 @@ def camera_basis(cfg: CameraConfig, dtype=torch.float32, device=None):
     pos = torch.tensor(cfg.position, dtype=dtype, device=dev)
     target = torch.tensor(cfg.target, dtype=dtype, device=dev)
     up = vm.normalize(torch.tensor(cfg.up, dtype=dtype, device=dev))
+    if pos.is_cuda:  # three pageable copies of host values
+        count("rt.sync.camera_basis", 3)
     w = vm.normalize(-(target - pos))
     u = vm.normalize(vm.cross(up, w))
     v = vm.normalize(vm.cross(w, u))

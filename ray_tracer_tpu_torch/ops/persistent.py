@@ -47,6 +47,7 @@ from ray_tracer_tpu_torch.ops.traverse_packed import (
     march_cuda,
     march_plain,
 )
+from ray_tracer_tpu_torch.utils.timing import count, part
 
 _INF = float("inf")
 
@@ -88,10 +89,14 @@ def work_queue(rays: RayBatch, grid: PackedGridArrays, *, compact: bool,
         work_ids = torch.zeros((r,), dtype=torch.int32, device=dev)
         work_ids[ranks] = ar
         n_work = int(finite.sum()) if compact else r
+        if dev.type == "cuda" and r:  # the class sizes and the live count read back
+            count("rt.sync.work_queue", m + 1 + int(compact))
     else:
         pos = torch.cumsum(live.to(torch.int64), 0) - 1
         n_work = int(pos[-1]) + 1 if r else 0
-        work_ids = ar[live]
+        work_ids = ar[live]  # a boolean index: its size is read back
+        if dev.type == "cuda" and r:
+            count("rt.sync.work_queue", 2)
     return work_ids, n_work
 
 
@@ -147,7 +152,8 @@ def persistent_trace(
 
         if rays.count != camera.width * camera.height * spp * spp:
             raise ValueError("rays must hold one ray per camera subsample")
-        rays = camera_rays(camera, spp=spp, device=grid.lower.device)
+        with part("rt.render.camera"):
+            rays = camera_rays(camera, spp=spp, device=grid.lower.device)
     if grid.slot_tri.shape[0] >= (1 << 30):
         raise ValueError("slot index must fit in 30 bits")
     r = rays.count

@@ -54,6 +54,7 @@ from ray_tracer_tpu_torch.parallel.mesh import axis_index, axis_size
 from ray_tracer_tpu_torch.parallel.multihost import is_host0
 from ray_tracer_tpu_torch.parallel.shard import _pad_to, pad_rays
 from ray_tracer_tpu_torch.render.renderer import prepare, render_rays
+from ray_tracer_tpu_torch.utils.timing import count, part
 
 log = logging.getLogger("ray_tracer_tpu_torch.fit")
 
@@ -118,8 +119,9 @@ def _colors(params, scene, grid, meta, cfg, dda, consts) -> torch.Tensor:
     makes its rays from the pixel index (the camera refill)."""
     rcfg = cfg.render
     spp = rcfg.spp
-    rays = camera_rays(cfg.camera, dtype=_DTYPES[rcfg.dtype], spp=spp,
-                       device=params.verts.device)
+    with part("rt.render.camera"):
+        rays = camera_rays(cfg.camera, dtype=_DTYPES[rcfg.dtype], spp=spp,
+                           device=params.verts.device)
     persistent = rcfg.traversal == "packed" and rcfg.scheduler == "persistent"
     colors = render_rays(rays, merge_scene(params, scene), grid, meta, rcfg,
                          camera_cfg=cfg.camera if persistent and spp == 1 else None,
@@ -195,6 +197,7 @@ def _launch_tables(cfg: SceneConfig, params: SceneParams, scene: Scene, grid, fi
             consts = consts._replace(
                 light=tuple(float(x) for x in params.light_pos.detach().cpu()),
                 intensity=float(params.light_intensity.detach()))
+            count("rt.sync.launch_light", 2)  # the light's position and intensity read back
     return dda, consts
 
 
@@ -236,14 +239,19 @@ def make_train_step(meta, cfg: SceneConfig, optimizer: str = "adam", lr: float =
 
     def step(params: SceneParams, opt_state, scene: Scene, grid, target, dda=None,
              consts=None):
-        fields = _trainable_fields(params, trainable)
-        dda, consts = _launch_tables(cfg, params, scene, grid, fields, dda, consts)
-        opt_state.zero_grad(set_to_none=True)
-        d = _residual(_colors(params, scene, grid, meta, cfg, dda, consts), target)
-        loss = vm.div_scalar(torch.sum(d * d), float(3 * r))
-        loss.backward()
-        opt_state.step()
-        return params, opt_state, loss.detach()
+        with part("rt.fit.step"):
+            fields = _trainable_fields(params, trainable)
+            with part("rt.fit.tables"):
+                dda, consts = _launch_tables(cfg, params, scene, grid, fields, dda, consts)
+            opt_state.zero_grad(set_to_none=True)
+            with part("rt.fit.forward"):
+                d = _residual(_colors(params, scene, grid, meta, cfg, dda, consts), target)
+                loss = vm.div_scalar(torch.sum(d * d), float(3 * r))
+            with part("rt.fit.backward"):
+                loss.backward()
+            with part("rt.fit.adam"):
+                opt_state.step()
+            return params, opt_state, loss.detach()
 
     if mesh is None:
         return step, init

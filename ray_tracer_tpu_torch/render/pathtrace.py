@@ -60,6 +60,7 @@ from ray_tracer_tpu_torch.models.scenes import texture_factor
 from ray_tracer_tpu_torch.ops.camera import camera_rays
 from ray_tracer_tpu_torch.ops.intersect import cramer_bg_safe, cramer_t_safe
 from ray_tracer_tpu_torch.ops.shade import interpolate_normal, vertex_normals
+from ray_tracer_tpu_torch.utils.timing import part
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 _INV_PI = 0.3183098861837907
@@ -660,17 +661,18 @@ def gi_wave_colors(prep, setup, **queue) -> torch.Tensor:
     else:
         tab = build_gi_wave_tables(scene, rcfg, setup.gi_spec, vn=setup.vn)
     pg = rcfg.primary_gate()
-    rad = gi_wave_trace(
-        scene.light_pos, scene.light_intensity, tab.albedo, tab.tri9,
-        prep.packed.arrays, prep.packed.meta, scene.env_image, tab.fvn9, tab.km, tab.fuv7,
-        tab.tex_image, tab.bc255, tex_scale=float(rcfg.texture_scale),
-        camera=cfg.camera, S=rcfg.gi_samples, D=rcfg.gi_depth,
-        wave=rcfg.wave, pump=rcfg.pump,
-        gate0=0.0 if pg is None else pg, gate_b=rcfg.bounce_gate(),
-        eps=rcfg.shadow_eps, smint=rcfg.shadow_mint(),
-        quirk=rcfg.shadow_dir_away_from_light(), bg=tuple(rcfg.background),
-        tile=max(1, rcfg.ray_tile), cam=setup.cam, consts=setup.consts, **queue,
-    )
+    with part("rt.render.wave"):
+        rad = gi_wave_trace(
+            scene.light_pos, scene.light_intensity, tab.albedo, tab.tri9,
+            prep.packed.arrays, prep.packed.meta, scene.env_image, tab.fvn9, tab.km,
+            tab.fuv7, tab.tex_image, tab.bc255, tex_scale=float(rcfg.texture_scale),
+            camera=cfg.camera, S=rcfg.gi_samples, D=rcfg.gi_depth,
+            wave=rcfg.wave, pump=rcfg.pump,
+            gate0=0.0 if pg is None else pg, gate_b=rcfg.bounce_gate(),
+            eps=rcfg.shadow_eps, smint=rcfg.shadow_mint(),
+            quirk=rcfg.shadow_dir_away_from_light(), bg=tuple(rcfg.background),
+            tile=max(1, rcfg.ray_tile), cam=setup.cam, consts=setup.consts, **queue,
+        )
     return vm.div_scalar(rad, float(rcfg.gi_samples))
 
 

@@ -108,7 +108,7 @@ from ray_tracer_tpu_torch.render.pathtrace import (
     render_pt,
     use_gi_wave_spec,
 )
-from ray_tracer_tpu_torch.utils.timing import part
+from ray_tracer_tpu_torch.utils.timing import count, part
 
 TRAVERSALS = ("csr", "brute", "brute_pallas", "packed")
 _DET_DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -327,7 +327,7 @@ def prepare(cfg: SceneConfig, scene: Scene = None, device=None) -> Prepared:
     cfg.extra_lights are attached to a given scene that has none (a scene
     that carries extra lights keeps its own), as in the JAX package."""
     check_supported(cfg, scene)  # raise before any work
-    with part("scene"):
+    with part("rt.prepare.scene"):
         if scene is None:
             dev = resolve_device(device)
             verts_np, faces_np, fmat_np, uvs_np, uvf_np = scene_numpy_arrays(cfg)
@@ -343,7 +343,7 @@ def prepare(cfg: SceneConfig, scene: Scene = None, device=None) -> Prepared:
                                                             scene.verts.dtype, dev))
             verts_np = scene.verts.cpu().numpy()
             faces_np = scene.faces.cpu().numpy()
-    with part("build_grid"):
+    with part("rt.prepare.build_grid"):
         grid = build_grid(
             verts_np, faces_np,
             resolution_multiplier=cfg.render.grid.resolution_multiplier,
@@ -353,7 +353,7 @@ def prepare(cfg: SceneConfig, scene: Scene = None, device=None) -> Prepared:
         )
     packed = None
     if cfg.render.traversal == "packed":
-        with part("pack_grid"):
+        with part("rt.prepare.pack_grid"):
             bt = cfg.render.packed_block_tris
             if bt == 0:  # auto: the measured density rule
                 bt = choose_block_tris(grid)
@@ -364,17 +364,17 @@ def prepare(cfg: SceneConfig, scene: Scene = None, device=None) -> Prepared:
                                leap=cfg.render.grid.leap)
     dda = None
     if cfg.render.traversal == "csr":
-        with part("B_tables"):
+        with part("rt.prepare.B_tables"):
             dda = dda_tables(grid.arrays, vertex_table(*scene.triangle_soa()))
-    with part("frame_setup"):
+    with part("rt.prepare.frame_setup"):
         setup = frame_setup(cfg, scene, packed)
     wave = None
     if setup.wave:
-        with part("E_tables"):
+        with part("rt.prepare.E_tables"):
             wave = build_wave_tables(scene)
     gi = None
     if setup.gi_wave:
-        with part("F_tables"):
+        with part("rt.prepare.F_tables"):
             gi = build_gi_wave_tables(scene, cfg.render, setup.gi_spec, vn=setup.vn)
     return Prepared(scene=scene, grid=grid, cfg=cfg, packed=packed, dda=dda, wave=wave,
                     setup=setup, gi=gi)
@@ -495,6 +495,8 @@ def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
     # one (F,10) row per triangle: vertices and the material index
     tri10 = torch.cat([v0, v1, v2, scene.face_material.to(v0.dtype)[:, None]], dim=1)
     background = torch.tensor(rcfg.background, dtype=v0.dtype, device=v0.device)
+    if v0.is_cuda:  # a pageable copy of host values
+        count("rt.sync.background")
     ddt = _DET_DTYPES[rcfg.det_dtype]
     primary_gate = rcfg.primary_gate()
     early = not rcfg.faithful
@@ -520,189 +522,193 @@ def render_rays(rays: RayBatch, scene: Scene, grid, meta, rcfg: RenderConfig,
     for depth in range(rcfg.max_bounces + 1):
         # bounce depths gate t >= eps (RenderConfig.bounce_gate)
         gate_d = primary_gate if depth == 0 else rcfg.bounce_gate()
-        cur_sg = _detached(cur)
-        # difficulty-ordered queue for the depth-0 batch
-        okeys = None
-        if depth == 0 and rcfg.queue_order == "chord" and persistent:
-            okeys = chord_keys(cur_sg, grid)
-        fres = None
-        if fused and (depth == 0 or persistent):
-            # the lane rearms as its own shadow ray when its primary
-            # retires: at every depth in the persistent wave, at depth 0
-            # only in the tiled march
-            fkw = dict(shadow_gate=eps, shadow_mint=rcfg.shadow_mint(),
-                       serial_quirk=rcfg.shadow_dir_away_from_light())
-            if persistent:
-                fres = persistent_trace(
-                    cur_sg, grid, meta, light_sg, wave=rcfg.wave, pump=rcfg.pump,
-                    fuse_shadow=True, probe_chain=1 if meta.inline else rcfg.probe_chain,
-                    need_t=False,  # t is recomputed from tri_id below
-                    # zero-direct hits skip their shadow ray: the serial
-                    # variant adds ambient after the shadow scale, so the
-                    # image is unchanged (renderer.py:392-405 of JAX)
-                    shadow_skip_dead=(serial and rcfg.soft_visibility <= 0.0
-                                      and rcfg.normal_mode == "face"),
-                    shade_serial=serial,
-                    t_gate=0.0 if gate_d is None else gate_d,
-                    need_shadow_tri=rcfg.soft_visibility > 0.0,
-                    camera=(camera_cfg if depth == 0 and rcfg.camera_refill != "off"
-                            else None),
-                    compact=depth > 0, order_keys=okeys,
-                    refill_retries=rcfg.refill_retries, consts=consts, **fkw,
-                )
-            else:
-                fres = traverse_packed_fused_shadow(
-                    cur_sg, grid, meta, light_sg,
-                    primary_gate=0.0 if primary_gate is None else primary_gate,
-                    consts=consts, **fkw,
-                )
-            res = _persistent_as_packed(fres)
-        else:
-            tkw = {}
-            if persistent:
-                if depth == 0 and camera_cfg is not None and rcfg.camera_refill != "off":
-                    tkw["camera"] = camera_cfg
-                tkw["compact"] = depth > 0  # bounce batches are mostly dead
-                if okeys is not None:
-                    tkw["order_keys"] = okeys
-            res = trav(cur_sg, t_gate=gate_d, **tkw)
-        hit = rcfg.accepted_hit(res)
-        tri = torch.clamp(res.tri_id, min=0).long()
-
-        tv = vm.take(tri10, tri)
-        tv0, tv1, tv2 = tv[:, 0:3], tv[:, 3:6], tv[:, 6:9]
-        # recompute t from the hit topology (bit-identical to the
-        # traversal's own t), guarded on missed lanes
-        t_re = cramer_t_safe(cur.orig, cur.dirn, tv0, tv1, tv2, res.hit, det_dtype=ddt)
-        t = torch.where(res.hit, t_re.to(res.t.dtype), torch.zeros_like(res.t))
-        mat = scene.materials.gather(tv[:, 9].long())
-
-        # the hit barycentrics, shared by the texture and smooth normals
-        hb = hg = None
-        if smooth or textured:
-            hb, hg = cramer_bg_safe(cur.orig, cur.dirn, tv0, tv1, tv2, res.hit,
-                                    det_dtype=ddt)
-        if textured:
-            # the barycentric uv's texture factor modulates base_color
-            uv = scene.interpolate_uv(tri, hb.to(v0.dtype), hg.to(v0.dtype))
-            has_uv = scene.uv_faces[tri][:, 0] >= 0
-            tex = texture_factor(uv, has_uv, hit, rcfg.texture, rcfg.texture_scale,
-                                 scene.texture_image, mat.base_color.dtype)
-            mat = mat._replace(base_color=mat.base_color * tex.to(mat.base_color.dtype))
-
-        # retired bounce lanes carry inf origins: zero them first
-        orig_safe = torch.where(res.hit[:, None], cur.orig, torch.zeros_like(cur.orig))
-        if serial:
-            geom = hit_geometry_serial(orig_safe, cur.dirn, t, tv0, tv1, tv2)
-        else:
-            geom = hit_geometry_parallel(orig_safe, cur.dirn, t, tv0, tv1, tv2)
-        geom = geom._replace(
-            poi=torch.where(hit[:, None], geom.poi, torch.zeros_like(geom.poi))
-        )
-        if smooth:
-            # the interpolated direction at the facet normal's length:
-            # shading and the mirror bounce follow it
-            unit = interpolate_normal(vn, scene.faces, tri, hb.to(v0.dtype), hg.to(v0.dtype))
-            geom = geom._replace(normal=unit * vm.length(geom.normal)[:, None])
-
-        # shadow batches past depth 0 are mostly dead (only reflecting
-        # lanes have finite origins), and so are an area light's sample
-        # batches at every depth: the persistent wave queues live rays only
-        skw = {"compact": depth > 0 or area} if persistent else {}
-
-        def occlusion_toward(lp):
-            """Occlusion toward light position lp, for the primary light's
-            standalone path and every extra light alike: one shadow ray's
-            (bool, or soft visibility's float), or with an area light the
-            mean over the sample set as a float factor.  Up to
-            shadow_sample_batch samples' rays ride one trace; each
-            sample's occlusion is added in sample order, so the image does
-            not depend on the batch size."""
-            if not area:
-                srays = _detached(shadow_rays_for(rcfg, lp, geom.poi, hit))
-                sres = trav(srays, t_gate=eps, stop_on_first_hit=early, **skw)
-                return _soften(srays, rcfg.accepted_hit(sres) & hit, tri10, sres.tri_id,
-                               sres.hit, ddt, rcfg.soft_visibility)
-            n_s = rcfg.shadow_samples
-            step = max(1, min(rcfg.shadow_sample_batch, n_s))
-            occ = torch.zeros((r,), dtype=torch.float32, device=v0.device)
-            for s0 in range(0, n_s, step):
-                batches = [_detached(shadow_rays_for(rcfg, lp + off, geom.poi, hit))
-                           for off in offsets[s0:s0 + step]]
-                srays_all = (batches[0] if len(batches) == 1
-                             else RayBatch(*(torch.cat(xs) for xs in zip(*batches))))
-                sres = trav(srays_all, t_gate=eps, stop_on_first_hit=early, **skw)
-                for j, srays in enumerate(batches):
-                    sres_j = type(sres)(*(x[j * r:(j + 1) * r] for x in sres))
-                    occ = occ + _soften(srays, rcfg.accepted_hit(sres_j) & hit, tri10,
-                                        sres_j.tri_id, sres_j.hit, ddt,
-                                        rcfg.soft_visibility).to(torch.float32)
-            return vm.div_scalar(occ, float(n_s))
-
-        if fres is not None:
-            srays = None
-            if rcfg.soft_visibility > 0.0:
-                srays = _detached(shadow_rays_for(rcfg, scene.light_pos, geom.poi, hit))
-            in_shadow = _soften(srays, fres.in_shadow & hit, tri10, fres.shadow_tri_id,
-                                fres.in_shadow, ddt, rcfg.soft_visibility)
-        else:
-            in_shadow = occlusion_toward(scene.light_pos)
-
-        if serial:
-            color = shade_serial(geom, mat, scene.light_pos, scene.light_intensity,
-                                 in_shadow, rcfg.shadow_scale)
-        else:
-            color = shade_parallel(geom, mat, scene.light_pos, in_shadow,
-                                   rcfg.shadow_scale)
-        if scene.extra_light_pos is not None:
-            # each extra light adds its shadow-tested direct term (ambient
-            # rode the primary term above, once), each through its own
-            # standalone shadow trace
-            for i in range(scene.extra_light_pos.shape[0]):
-                lp = scene.extra_light_pos[i]
-                li = scene.extra_light_intensity[i]
-                occ_i = occlusion_toward(lp)
-                if serial:
-                    direct = shade_direct_serial(geom, mat, lp, li)
+        with part("rt.render.trace"):
+            cur_sg = _detached(cur)
+            # difficulty-ordered queue for the depth-0 batch
+            okeys = None
+            if depth == 0 and rcfg.queue_order == "chord" and persistent:
+                okeys = chord_keys(cur_sg, grid)
+            fres = None
+            if fused and (depth == 0 or persistent):
+                # the lane rearms as its own shadow ray when its primary
+                # retires: at every depth in the persistent wave, at depth 0
+                # only in the tiled march
+                fkw = dict(shadow_gate=eps, shadow_mint=rcfg.shadow_mint(),
+                           serial_quirk=rcfg.shadow_dir_away_from_light())
+                if persistent:
+                    fres = persistent_trace(
+                        cur_sg, grid, meta, light_sg, wave=rcfg.wave, pump=rcfg.pump,
+                        fuse_shadow=True, probe_chain=1 if meta.inline else rcfg.probe_chain,
+                        need_t=False,  # t is recomputed from tri_id below
+                        # zero-direct hits skip their shadow ray: the serial
+                        # variant adds ambient after the shadow scale, so the
+                        # image is unchanged (renderer.py:392-405 of JAX)
+                        shadow_skip_dead=(serial and rcfg.soft_visibility <= 0.0
+                                          and rcfg.normal_mode == "face"),
+                        shade_serial=serial,
+                        t_gate=0.0 if gate_d is None else gate_d,
+                        need_shadow_tri=rcfg.soft_visibility > 0.0,
+                        camera=(camera_cfg if depth == 0 and rcfg.camera_refill != "off"
+                                else None),
+                        compact=depth > 0, order_keys=okeys,
+                        refill_retries=rcfg.refill_retries, consts=consts, **fkw,
+                    )
                 else:
-                    direct = shade_direct_parallel(geom, mat, lp) * li
-                color = color + apply_shadow(direct, occ_i, rcfg.shadow_scale)
+                    fres = traverse_packed_fused_shadow(
+                        cur_sg, grid, meta, light_sg,
+                        primary_gate=0.0 if primary_gate is None else primary_gate,
+                        consts=consts, **fkw,
+                    )
+                res = _persistent_as_packed(fres)
+            else:
+                tkw = {}
+                if persistent:
+                    if depth == 0 and camera_cfg is not None and rcfg.camera_refill != "off":
+                        tkw["camera"] = camera_cfg
+                    tkw["compact"] = depth > 0  # bounce batches are mostly dead
+                    if okeys is not None:
+                        tkw["order_keys"] = okeys
+                res = trav(cur_sg, t_gate=gate_d, **tkw)
+        with part("rt.render.shade"):
+            hit = rcfg.accepted_hit(res)
+            tri = torch.clamp(res.tri_id, min=0).long()
 
-        if scene.env_image is not None:
-            # misses see the environment by this depth's ray direction
-            bg = scene.sample_env(vm.normalize(cur.dirn)).to(color.dtype)
-        else:
-            bg = background
+            tv = vm.take(tri10, tri)
+            tv0, tv1, tv2 = tv[:, 0:3], tv[:, 3:6], tv[:, 6:9]
+            # recompute t from the hit topology (bit-identical to the
+            # traversal's own t), guarded on missed lanes
+            t_re = cramer_t_safe(cur.orig, cur.dirn, tv0, tv1, tv2, res.hit, det_dtype=ddt)
+            t = torch.where(res.hit, t_re.to(res.t.dtype), torch.zeros_like(res.t))
+            mat = scene.materials.gather(tv[:, 9].long())
 
-        if rcfg.soft_primary > 0.0:
-            # fade the surface into the background by tanh(margin / s),
-            # 0 exactly at the silhouette (JAX renderer.py:655-677), so a
-            # pixel crossing it changes continuously
-            if hb is None:
-                hb, hg = cramer_bg_safe(orig_safe, cur.dirn, tv0, tv1, tv2, res.hit,
+            # the hit barycentrics, shared by the texture and smooth normals
+            hb = hg = None
+            if smooth or textured:
+                hb, hg = cramer_bg_safe(cur.orig, cur.dirn, tv0, tv1, tv2, res.hit,
                                         det_dtype=ddt)
-            hm = torch.minimum(torch.minimum(hb, hg), 1.0 - hb - hg)
-            hmargin = torch.maximum(hm, torch.zeros_like(hm)).to(color.dtype)
-            fh = vm.tanh(vm.div_scalar(hmargin, rcfg.soft_primary))[:, None]
-            color = fh * color + (1.0 - fh) * bg
-        reflecting = hit & mat.reflective & (depth < rcfg.max_bounces)
-        # reflective surfaces blend local*base*(1-km) + bounced*km
-        # (raytracer.cu:519-520)
-        local = torch.where(
-            reflecting[:, None],
-            color * mat.base_color * (1.0 - mat.km)[:, None],
-            torch.where(hit[:, None], color, bg),
-        )
-        locals_.append((local, torch.where(reflecting, mat.km,
-                                           torch.zeros_like(mat.km))[:, None]))
-        if depth == rcfg.max_bounces:
-            break
+            if textured:
+                # the barycentric uv's texture factor modulates base_color
+                uv = scene.interpolate_uv(tri, hb.to(v0.dtype), hg.to(v0.dtype))
+                has_uv = scene.uv_faces[tri][:, 0] >= 0
+                tex = texture_factor(uv, has_uv, hit, rcfg.texture, rcfg.texture_scale,
+                                     scene.texture_image, mat.base_color.dtype)
+                mat = mat._replace(base_color=mat.base_color * tex.to(mat.base_color.dtype))
 
-        rdir = vm.normalize(
-            vm.reflect(vm.normalize(cur.dirn), vm.normalize(geom.normal))
-        )
-        rorig = torch.where(reflecting[:, None], geom.poi, inf3)
-        cur = RayBatch.make(rorig, rdir, mint=eps)
+            # retired bounce lanes carry inf origins: zero them first
+            orig_safe = torch.where(res.hit[:, None], cur.orig, torch.zeros_like(cur.orig))
+            if serial:
+                geom = hit_geometry_serial(orig_safe, cur.dirn, t, tv0, tv1, tv2)
+            else:
+                geom = hit_geometry_parallel(orig_safe, cur.dirn, t, tv0, tv1, tv2)
+            geom = geom._replace(
+                poi=torch.where(hit[:, None], geom.poi, torch.zeros_like(geom.poi))
+            )
+            if smooth:
+                # the interpolated direction at the facet normal's length:
+                # shading and the mirror bounce follow it
+                unit = interpolate_normal(vn, scene.faces, tri, hb.to(v0.dtype), hg.to(v0.dtype))
+                geom = geom._replace(normal=unit * vm.length(geom.normal)[:, None])
+
+            # shadow batches past depth 0 are mostly dead (only reflecting
+            # lanes have finite origins), and so are an area light's sample
+            # batches at every depth: the persistent wave queues live rays only
+            skw = {"compact": depth > 0 or area} if persistent else {}
+
+            def occlusion_toward(lp):
+                """Occlusion toward light position lp, for the primary light's
+                standalone path and every extra light alike: one shadow ray's
+                (bool, or soft visibility's float), or with an area light the
+                mean over the sample set as a float factor.  Up to
+                shadow_sample_batch samples' rays ride one trace; each
+                sample's occlusion is added in sample order, so the image does
+                not depend on the batch size."""
+                if not area:
+                    srays = _detached(shadow_rays_for(rcfg, lp, geom.poi, hit))
+                    with part("rt.render.trace"):
+                        sres = trav(srays, t_gate=eps, stop_on_first_hit=early, **skw)
+                    return _soften(srays, rcfg.accepted_hit(sres) & hit, tri10, sres.tri_id,
+                                   sres.hit, ddt, rcfg.soft_visibility)
+                n_s = rcfg.shadow_samples
+                step = max(1, min(rcfg.shadow_sample_batch, n_s))
+                occ = torch.zeros((r,), dtype=torch.float32, device=v0.device)
+                for s0 in range(0, n_s, step):
+                    batches = [_detached(shadow_rays_for(rcfg, lp + off, geom.poi, hit))
+                               for off in offsets[s0:s0 + step]]
+                    srays_all = (batches[0] if len(batches) == 1
+                                 else RayBatch(*(torch.cat(xs) for xs in zip(*batches))))
+                    with part("rt.render.trace"):
+                        sres = trav(srays_all, t_gate=eps, stop_on_first_hit=early, **skw)
+                    for j, srays in enumerate(batches):
+                        sres_j = type(sres)(*(x[j * r:(j + 1) * r] for x in sres))
+                        occ = occ + _soften(srays, rcfg.accepted_hit(sres_j) & hit, tri10,
+                                            sres_j.tri_id, sres_j.hit, ddt,
+                                            rcfg.soft_visibility).to(torch.float32)
+                return vm.div_scalar(occ, float(n_s))
+
+            if fres is not None:
+                srays = None
+                if rcfg.soft_visibility > 0.0:
+                    srays = _detached(shadow_rays_for(rcfg, scene.light_pos, geom.poi, hit))
+                in_shadow = _soften(srays, fres.in_shadow & hit, tri10, fres.shadow_tri_id,
+                                    fres.in_shadow, ddt, rcfg.soft_visibility)
+            else:
+                in_shadow = occlusion_toward(scene.light_pos)
+
+            if serial:
+                color = shade_serial(geom, mat, scene.light_pos, scene.light_intensity,
+                                     in_shadow, rcfg.shadow_scale)
+            else:
+                color = shade_parallel(geom, mat, scene.light_pos, in_shadow,
+                                       rcfg.shadow_scale)
+            if scene.extra_light_pos is not None:
+                # each extra light adds its shadow-tested direct term (ambient
+                # rode the primary term above, once), each through its own
+                # standalone shadow trace
+                for i in range(scene.extra_light_pos.shape[0]):
+                    lp = scene.extra_light_pos[i]
+                    li = scene.extra_light_intensity[i]
+                    occ_i = occlusion_toward(lp)
+                    if serial:
+                        direct = shade_direct_serial(geom, mat, lp, li)
+                    else:
+                        direct = shade_direct_parallel(geom, mat, lp) * li
+                    color = color + apply_shadow(direct, occ_i, rcfg.shadow_scale)
+
+            if scene.env_image is not None:
+                # misses see the environment by this depth's ray direction
+                bg = scene.sample_env(vm.normalize(cur.dirn)).to(color.dtype)
+            else:
+                bg = background
+
+            if rcfg.soft_primary > 0.0:
+                # fade the surface into the background by tanh(margin / s),
+                # 0 exactly at the silhouette (JAX renderer.py:655-677), so a
+                # pixel crossing it changes continuously
+                if hb is None:
+                    hb, hg = cramer_bg_safe(orig_safe, cur.dirn, tv0, tv1, tv2, res.hit,
+                                            det_dtype=ddt)
+                hm = torch.minimum(torch.minimum(hb, hg), 1.0 - hb - hg)
+                hmargin = torch.maximum(hm, torch.zeros_like(hm)).to(color.dtype)
+                fh = vm.tanh(vm.div_scalar(hmargin, rcfg.soft_primary))[:, None]
+                color = fh * color + (1.0 - fh) * bg
+            reflecting = hit & mat.reflective & (depth < rcfg.max_bounces)
+            # reflective surfaces blend local*base*(1-km) + bounced*km
+            # (raytracer.cu:519-520)
+            local = torch.where(
+                reflecting[:, None],
+                color * mat.base_color * (1.0 - mat.km)[:, None],
+                torch.where(hit[:, None], color, bg),
+            )
+            locals_.append((local, torch.where(reflecting, mat.km,
+                                               torch.zeros_like(mat.km))[:, None]))
+            if depth == rcfg.max_bounces:
+                break
+
+            rdir = vm.normalize(
+                vm.reflect(vm.normalize(cur.dirn), vm.normalize(geom.normal))
+            )
+            rorig = torch.where(reflecting[:, None], geom.poi, inf3)
+            cur = RayBatch.make(rorig, rdir, mint=eps)
 
     # fold deepest-first: color_d = local_d + km_d * color_{d+1}
     result = locals_[-1][0]
@@ -718,10 +724,16 @@ def accumulate_spp(one, camera_cfg, spp: int, dtype, device) -> torch.Tensor:
     traces a batch; camera_ok is True only for the spp-1 pixel-center
     batch (the persistent wave's camera refill)."""
     if spp == 1:
-        return one(camera_rays(camera_cfg, dtype=dtype, device=device), True)
-    return fold_subsamples(
-        one(camera_rays_subsample(camera_cfg, s, spp, dtype=dtype, device=device), False)
-        for s in range(spp * spp))
+        with part("rt.render.camera"):
+            rays = camera_rays(camera_cfg, dtype=dtype, device=device)
+        return one(rays, True)
+
+    def subsample(s):
+        with part("rt.render.camera"):
+            rays = camera_rays_subsample(camera_cfg, s, spp, dtype=dtype, device=device)
+        return one(rays, False)
+
+    return fold_subsamples(subsample(s) for s in range(spp * spp))
 
 
 def whitted_wave_colors(prep: Prepared, setup: FrameSetup, **queue) -> torch.Tensor:
@@ -737,20 +749,20 @@ def whitted_wave_colors(prep: Prepared, setup: FrameSetup, **queue) -> torch.Ten
     scene = prep.scene
     mat9, tri9 = prep.wave if prep.wave is not None else build_wave_tables(scene)
     pg = rcfg.primary_gate()
-    return whitted_wave_trace(
-        scene.light_pos, scene.light_intensity, mat9, tri9,
-        prep.packed.arrays, prep.packed.meta,
-        camera=cfg.camera, max_bounces=rcfg.max_bounces,
-        serial=rcfg.serial_shading, spp=rcfg.spp,
-        gate0=0.0 if pg is None else pg, gate_b=rcfg.bounce_gate(),
-        eps=rcfg.shadow_eps, smint=rcfg.shadow_mint(),
-        quirk=rcfg.shadow_dir_away_from_light(),
-        shadow_scale=rcfg.shadow_scale, bg=tuple(rcfg.background),
-        tile=max(1, rcfg.ray_tile), cam=setup.cam, consts=setup.consts, **queue,
-    )
+    with part("rt.render.wave"):
+        return whitted_wave_trace(
+            scene.light_pos, scene.light_intensity, mat9, tri9,
+            prep.packed.arrays, prep.packed.meta,
+            camera=cfg.camera, max_bounces=rcfg.max_bounces,
+            serial=rcfg.serial_shading, spp=rcfg.spp,
+            gate0=0.0 if pg is None else pg, gate_b=rcfg.bounce_gate(),
+            eps=rcfg.shadow_eps, smint=rcfg.shadow_mint(),
+            quirk=rcfg.shadow_dir_away_from_light(),
+            shadow_scale=rcfg.shadow_scale, bg=tuple(rcfg.background),
+            tile=max(1, rcfg.ray_tile), cam=setup.cam, consts=setup.consts, **queue,
+        )
 
 
-@torch.no_grad()
 def render(prep: Prepared) -> torch.Tensor:
     """Render the prepared scene -> (H, W, 3) float32 linear color on the
     scene's device.  gi_samples > 0 renders path-traced
@@ -758,7 +770,13 @@ def render(prep: Prepared) -> torch.Tensor:
     integrator).  Otherwise configs that `whitted_wave_eligible` admits
     take the cross-depth Whitted wave, as in the JAX package's render; the
     others the bounce loop, spp subsamples accumulated in turn.  Forward
-    only: it runs under torch.no_grad()."""
+    only: it runs under torch.no_grad().  One `rt.render` span a call."""
+    with part("rt.render"):
+        return _render(prep)
+
+
+@torch.no_grad()
+def _render(prep: Prepared) -> torch.Tensor:
     cfg = prep.cfg
     setup = prep.frame()
     if cfg.render.gi_samples > 0:

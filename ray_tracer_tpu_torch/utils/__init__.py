@@ -1,4 +1,4 @@
 from ray_tracer_tpu_torch.utils.log import get_logger
-from ray_tracer_tpu_torch.utils.timing import Timer, measure_mrays
+from ray_tracer_tpu_torch.utils.timing import measure_mrays
 
-__all__ = ["Timer", "measure_mrays", "get_logger"]
+__all__ = ["measure_mrays", "get_logger"]
