@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,ring  # geometry sharded by ring orbits
     python3 chip_smoke.py --phases build,grid_build  # the grid builders G and H
     python3 chip_smoke.py --phases build,parity  # the CLI's flags and the bench's single mode
+    python3 chip_smoke.py --phases build,take_grad  # take's backward at the fit's shapes
 
 Run from the repository root on a machine with a CUDA device.  Phases,
 each printing one JSON line:
@@ -270,6 +271,14 @@ each printing one JSON line:
      value, busy and idle over a ten-frame profile and the probes' picks.
      The phase's paths go on a launches_by_path line of their own, and its
      seconds on a line.
+ 20. take's backward (phase take_grad, csrc/take_grad.cu): one step of the
+     benchmark's serial_fit_2048 cell, built as raybench's harness builds
+     it, with each of its eight take_grad launches' inputs logged; at each,
+     the runs of the index against its rows, the kernel against a float64
+     sum (rtol 1e-4, atol 1e-6 max|sum|), its CUDA-event and device times
+     beside its bytes bound, the plain version once and index_add_ into
+     zeros (library_ms, the call the port made before); then the same at
+     the tri10 scatter's shape with random indices.
 
 Then the kernel times at the main path's shapes (each launch held
 bitwise to the plain version; B's, C's and E's barycentric passes, and
@@ -416,7 +425,7 @@ OPS_PER_SURVIVOR_H = 360
 OPS_PER_REJECT_H = 90
 ALL_PHASES = ("build", "A", "B", "C", "E", "F", "grid_build", "main", "card_vs_cpu",
               "appearance", "lights", "float64", "inspect", "parity", "train", "multidevice",
-              "ring", "D", "times")
+              "ring", "D", "take_grad", "times")
 # The kernels' device times on the 1024^2 main path before this version
 # of the sources (B and C as redesigned, before C's march step moved into
 # csrc/packed_step.cuh), NVIDIA H100 80GB HBM3 at 700 W, as recorded in
@@ -658,6 +667,7 @@ class Smoke:
         from ray_tracer_tpu_torch.ops import traverse_packed as kC
         from ray_tracer_tpu_torch.ops import gi_wave as kF
         from ray_tracer_tpu_torch.ops import whitted_wave as kE
+        from ray_tracer_tpu_torch.core import vecmath as vm
         from ray_tracer_tpu_torch.tools import gather_bench as kD
 
         self.kA, self.kB, self.kC, self.kD, self.kE, self.kF = kA, kB, kC, kD, kE, kF
@@ -668,14 +678,16 @@ class Smoke:
                          "whitted_wave": kE.whitted_wave_cuda,
                          "gi_wave": kF.gi_wave_cuda,
                          "empty_boxes": kGH.empty_boxes_cuda,
-                         "grid_bin": kGH.bin_triangles_cuda}
+                         "grid_bin": kGH.bin_triangles_cuda,
+                         "take_grad": vm.take_grad_cuda}
         self.dev = torch.device("cuda")
         self.root = os.path.dirname(os.path.abspath(__file__))
         self.launches = {}
         self.err = {"brute_intersect": 0.0, "traverse_grid": 0.0, "traverse_grid_f64": 0.0,
                     "packed_march": 0.0,
                     "gather_row_test": 0.0, "whitted_wave": 0.0, "gi_wave": 0.0,
-                    "empty_boxes": 0.0, "grid_bin": 0.0}  # G and H: integers, held bitwise
+                    "empty_boxes": 0.0, "grid_bin": 0.0,  # G and H: integers, held bitwise
+                    "take_grad": 0.0}  # relative to its tolerance: 1 at the limit
         self.times = {}
         self.images = {}
         self.libs = {}
@@ -3747,6 +3759,97 @@ class Smoke:
         self.times["D_bench"] = bench
         emit(dict(bench, phase="gather_bench", launches=counts["gather_row_test"]))
 
+    # ---- take's backward at the fit's shapes ------------------------------
+    def take_grad(self, workload: str = "serial_fit_2048", seed: int = 2718281829,
+                  calls: int = 20):
+        """take_grad_kernel at the eight scatters of one step of the
+        benchmark's fit (`raybench`'s cell, built as its harness builds it):
+        each launch's (g, index, n) logged in that step, outside the timed
+        calls; the runs of each index against its rows; each held to a
+        float64 sum (rtol 1e-4, atol 1e-6 max|sum|), then timed with CUDA
+        events over `calls` launches and the profiler's device time, beside
+        its bytes bound (g and index read once, the zeroed output written
+        once), the plain version once, and index_add_ into zeros over
+        `calls` (`library_ms`, the call the port made before; its distance
+        from the float64 sum beside the kernel's, in the same tolerance).  Then the
+        same at the tri10 scatter's shape with random indices (no runs)."""
+        from raybench.harness import cells
+        from raybench.harness.port import Fit
+        from ray_tracer_tpu_torch.core import vecmath as vm
+
+        cell = cells.load_cell(workload)
+        driver = Fit(cell.config, cell.traffic, int(cell.traffic["size"]), "cuda", {}, seed)
+        log = []
+        kernel = vm.take_grad_cuda
+
+        def logged(g, index, n):
+            log.append((g.clone(), index.clone(), n))
+            return kernel(g, index, n)
+
+        logged.launches = 0  # the kernel counts its launches on the name it is bound to
+        vm.take_grad_cuda = logged
+        try:
+            driver.call()
+        finally:
+            vm.take_grad_cuda = kernel
+        launches = logged.launches
+        driver.free()
+        del driver
+        torch.cuda.empty_cache()
+        if len(log) != 8 or launches != 8:
+            raise AssertionError(f"one fit step made {len(log)} take backwards and "
+                                 f"{launches} launches: 8 expected")
+        rng = torch.Generator(device="cuda").manual_seed(seed)
+        g10, _, n10 = max(log, key=lambda e: e[0].numel())
+        log.append((g10, torch.randint(0, n10, (g10.shape[0],), generator=rng, device="cuda"),
+                    n10))
+        rows, worst = [], 0.0
+        for i, (g, index, n) in enumerate(log):
+            cols = g[0].numel()
+            runs = 1 + int((index[1:] != index[:-1]).sum())
+            got = vm.take_grad(g, index, n)
+            want = torch.zeros((n, *g.shape[1:]), dtype=torch.float64,
+                               device="cuda").index_add_(0, index, g.double())
+            tol = 1e-4 * want.abs() + 1e-6 * float(want.abs().max())
+            rel = float(((got.double() - want).abs() / tol.clamp_min(1e-300)).max())
+            worst = max(worst, rel)
+            if rel > 1.0:
+                raise AssertionError(f"take_grad scatter {i}: off its float64 sum by "
+                                     f"{rel} of the tolerance")
+            ms = cuda_ms(lambda: vm.take_grad(g, index, n), calls)
+            dev_ms, by_kernel = calls_device_ms(lambda: vm.take_grad(g, index, n), calls)
+            kernel_ms = sum(v for k, v in by_kernel.items() if "take_grad_kernel" in k)
+            plain_ms = once_ms(lambda: vm.take_grad_plain(g, index, n))[0]
+            def library():
+                return torch.zeros((n, *g.shape[1:]), dtype=g.dtype,
+                                   device="cuda").index_add_(0, index, g)
+
+            library_rel = float(((library().double() - want).abs() / tol.clamp_min(1e-300)).max())
+            library_ms = cuda_ms(library, calls)
+            library_dev_ms = calls_device_ms(library, calls)[0]
+            n_bytes = (g.numel() * g.element_size() + index.numel() * index.element_size()
+                       + n * cols * g.element_size())
+            bound_ms, bound_by = bound_of(n_bytes, g.numel(), PEAK_FP32_OPS)
+            rows.append({"scatter": i if i < 8 else "random_tri10", "rows": g.shape[0],
+                         "cols": cols, "n": n, "dtype": str(g.dtype).split(".")[-1],
+                         "runs": runs, "rows_per_run": g.shape[0] / runs, "ms": ms,
+                         "device_ms": dev_ms, "kernel_device_ms": kernel_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by, "plain_ms": plain_ms,
+                         "library_ms": library_ms, "library_device_ms": library_dev_ms,
+                         "tolerance_used": rel,
+                         "library_tolerance_used": library_rel})
+            emit(dict(rows[-1], phase="take_grad_scatter"))
+        step = rows[:8]
+        total = {key: sum(r[key] or 0.0 for r in step)
+                 for key in ("ms", "device_ms", "kernel_device_ms", "bound_ms", "plain_ms",
+                             "library_ms", "library_device_ms")}
+        self.err["take_grad"] = worst
+        self.launches["take_grad"] = launches
+        self.times["take_grad"] = dict(total, bound_by="bytes")
+        emit(dict(total, phase="take_grad", workload=workload, seed=seed, launches=launches,
+                  calls=calls, tolerance_used=worst,
+                  tolerance="float64 sum: rtol 1e-4, atol 1e-6 max|sum|"))
+
     # ---- kernel times at the main path's shapes --------------------------
     def kernel_times(self):
         from ray_tracer_tpu_torch.config import apply_turbo
@@ -4251,12 +4354,13 @@ class Smoke:
              "ray_tracer_tpu/accel/native.py:151"),
             ("grid_bin", "H", "ray_tracer_tpu_torch/csrc/grid_bin.cu",
              "ray_tracer_tpu/accel/native.py:170"),
+            ("take_grad", "take_grad", "ray_tracer_tpu_torch/csrc/take_grad.cu", None),
         ):
             t = self.times[key]
             rows.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                          "launches": self.launches[name], "max_abs_err": self.err[name],
                          "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                         "bound_by": t["bound_by"], "library_ms": None})
+                         "bound_by": t["bound_by"], "library_ms": t.get("library_ms")})
         emit({"kernels": rows})
 
 
@@ -4815,7 +4919,7 @@ def main(argv=None) -> int:
         ("float64", smoke.float64), ("inspect", smoke.inspect), ("parity", smoke.parity),
         ("train", smoke.train),
         ("multidevice", smoke.multidevice), ("ring", smoke.ring), ("D", smoke.kernel_d),
-        ("times", smoke.kernel_times)) if name in phases]
+        ("take_grad", smoke.take_grad), ("times", smoke.kernel_times)) if name in phases]
     seconds = {}
     for name, run in steps:
         t0 = time.perf_counter()

@@ -13,17 +13,94 @@ byte-exact image depends on every rounding step standing alone.
 
 from __future__ import annotations
 
+import ctypes
+import math
+
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
+
+from ray_tracer_tpu_torch.kernels import _build
+from ray_tracer_tpu_torch.utils.timing import count
 
 
 def take(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    """x's rows at a 1-D index (x[index]) as an index_select: the same
-    values, and under autograd a backward that is an index_add_ (atomic
-    on the card) instead of advanced indexing's sorted accumulate, which
-    walks each run of one repeated index serially (every missed lane
-    gathers row 0)."""
+    """x's rows at a 1-D index (x[index]) as an index_select.  Under
+    autograd (x requiring grad, grad enabled) it is `_Take`, the same
+    index_select whose backward is `take_grad`: on the card a kernel that
+    sums each run of equal consecutive indices before its atomics (every
+    missed lane gathers row 0, every lane of a one-material scene the
+    material table's row 0), on the CPU index_add_.  Otherwise it is the
+    plain index_select."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Take.apply(x, index)
     return x.index_select(0, index)
+
+
+class _Take(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, index):
+        ctx.save_for_backward(index)
+        ctx.rows = x.shape[0]
+        return x.index_select(0, index)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (index,) = ctx.saved_tensors
+        count("rt.grad.take")
+        return take_grad(g.contiguous(), index.contiguous(), ctx.rows), None
+
+
+def take_grad(g: torch.Tensor, index: torch.Tensor, n: int) -> torch.Tensor:
+    """The (n, *g.shape[1:]) sum of g's rows at `index` (take's backward):
+    the kernel for CUDA tensors, the plain version for CPU tensors."""
+    if g.is_cuda:
+        return take_grad_cuda(g, index, n)
+    if g.device.type != "cpu":
+        raise ValueError(f"unsupported device {g.device}")
+    return take_grad_plain(g, index, n)
+
+
+def take_grad_plain(g: torch.Tensor, index: torch.Tensor, n: int) -> torch.Tensor:
+    """take_grad's plain version: zeros with index_add_."""
+    return torch.zeros((n, *g.shape[1:]), dtype=g.dtype, device=g.device).index_add_(0, index, g)
+
+
+def take_grad_cuda(g: torch.Tensor, index: torch.Tensor, n: int) -> torch.Tensor:
+    """take_grad on the card (`csrc/take_grad.cu`): zeros, then one launch
+    that adds each run of equal consecutive indices once a column.  g
+    contiguous float32 or float64 with index's rows; index (R,) int64 on
+    g's device, each in [0, n) (as the forward's index_select checked
+    it)."""
+    if not g.is_cuda:
+        raise ValueError("take_grad_cuda takes CUDA tensors")
+    if g.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"g must be float32 or float64, not {g.dtype}")
+    if index.dtype != torch.int64 or index.ndim != 1:
+        raise ValueError("index must be a 1-D int64 tensor")
+    if g.ndim < 1 or g.shape[0] != index.shape[0]:
+        raise ValueError(f"g's rows {tuple(g.shape)[:1]} are not index's {tuple(index.shape)}")
+    if index.device != g.device:
+        raise ValueError("g and index must be on one device")
+    if not (g.is_contiguous() and index.is_contiguous()):
+        raise ValueError("g and index must be contiguous")
+    if n < 0:
+        raise ValueError(f"n must be >= 0, not {n}")
+    out = torch.zeros((n, *g.shape[1:]), dtype=g.dtype, device=g.device)
+    fn = _build.launcher("take_grad", "take_grad_launch", _TAKE_GRAD_ARGTYPES)
+    with torch.cuda.device(g.device):
+        err = fn(g.data_ptr(), index.data_ptr(), g.shape[0], math.prod(g.shape[1:]),
+                 g.element_size(), out.data_ptr(),
+                 torch.cuda.current_stream(g.device).cuda_stream)
+    _build.check(err, "take_grad")
+    take_grad_cuda.launches += 1
+    return out
+
+
+take_grad_cuda.launches = 0
+_TAKE_GRAD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def div_scalar(x: torch.Tensor, s: float) -> torch.Tensor:

@@ -25,7 +25,7 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "torch_kernels")
 KERNELS = ("brute_intersect", "traverse_grid", "packed_march", "gather_row_test",
-           "whitted_wave", "gi_wave", "empty_boxes", "grid_bin")
+           "whitted_wave", "gi_wave", "empty_boxes", "grid_bin", "take_grad")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -110,7 +110,7 @@ def test_info_command(capsys):
     assert ours["devices"] and isinstance(ours["native_library"], bool)
     assert set(ours["kernels_built"]) == {"brute_intersect", "traverse_grid", "packed_march",
                                           "gather_row_test", "whitted_wave", "gi_wave",
-                                          "empty_boxes", "grid_bin"}
+                                          "empty_boxes", "grid_bin", "take_grad"}
 
 
 def test_bench_command_execs_bench_torch(monkeypatch):
